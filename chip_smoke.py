@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive paddle_tpu_torch's serving path on one NVIDIA GPU and check it.
+"""Drive paddle_tpu_torch's serving and training paths on one NVIDIA GPU
+and check them.
 
     python3 chip_smoke.py
 
@@ -10,15 +11,28 @@ Phases (any failure exits non-zero before the final line):
 1. build: every CUDA kernel of the path from ``paddle_tpu_torch/csrc``
    with ``nvcc`` for ``sm_90a``, all sources at once.
 2. kernels: each kernel against its plain PyTorch version on the card, at
-   the shapes the serving path gives it, with times for the kernel, the
-   plain version, one PyTorch library call as a yardstick, and the
-   least time the card could take.
+   the shapes the serving and training paths give it, with times for the
+   kernel, the plain version, one PyTorch library call as a yardstick,
+   and the least time the card could take.
 3. the slice: ``TransformerLM`` at the ``transformer_decode`` width
    (vocab 32000, dim 512, 6 layers, 8 heads, ffn 2048, max_len 1024,
    flash prefill) with seeded random weights, served by ``DecodeEngine``
    (8 slots, block 16, paged attention) and ``ContinuousBatchingScheduler``
    over 16 requests; launch counts, pool accounting and first tokens
-   against the plain-attention forward are checked.
+   against the plain-attention forward are checked, then 8 decode ticks
+   are profiled.
+4. training: ``TransformerLM`` at the ``prep_transformer`` width (vocab
+   32000, dim 512, 6 layers, 4 heads, ffn 2048, T 2048, flash attention)
+   with seeded random weights, trained by ``Trainer`` with ``adam(1e-4)``
+   for 8 steps on the benchmark's conflicting-pairs batch (8 x 2048).
+   Step-0 gradients of every parameter are held against the
+   plain-attention model first; then the launch counts (6 forward, 6 dq
+   and 6 dk/dv launches per step), finite and falling losses are checked,
+   and 2 more steps are profiled.
+
+Each of the two paths runs with the launch counts set to 0 just before it
+and read just after; a kernel's ``launches`` in the final list is the sum
+over both paths.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 ``nvidia-smi``'s name and power limit, and before that one JSON object
@@ -26,6 +40,7 @@ listing every kernel with its launches in phase 3, error and times.
 """
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -34,8 +49,14 @@ import time
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
 TOL = 1e-4          # f32, kernel vs plain: summation order differs
+# step-0 gradients, flash path vs plain-attention path, relative to each
+# parameter's largest gradient: both f32, the plain path masks with -1e9
+# and normalises with torch.softmax, the kernels sum in another order
+GRAD_RTOL = 1e-3
 REPLACES = {"flash_fwd": "paddle_tpu/nn/pallas_attention.py:108",
-            "paged_decode": "paddle_tpu/nn/pallas_attention.py:585"}
+            "paged_decode": "paddle_tpu/nn/pallas_attention.py:585",
+            "flash_bwd_dq": "paddle_tpu/nn/pallas_attention.py:162",
+            "flash_bwd_dkv": "paddle_tpu/nn/pallas_attention.py:207"}
 
 
 def log(*args):
@@ -77,19 +98,39 @@ def bound(nbytes, flops):
     return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
 
 
-def check_close(name, got, want):
+def check_close(name, got, want, rel=False):
+    """Max |got - want|, which must be <= TOL; with ``rel`` the limit is
+    TOL * max(1, max |want|) (for tensors whose entries pass 1)."""
     err = (got.float() - want.float()).abs().max().item()
-    if not err <= TOL:          # also catches NaN
-        raise RuntimeError(f"{name}: max |kernel - plain| = {err} > {TOL}")
+    lim = TOL * max(1.0, want.abs().max().item()) if rel else TOL
+    if not err <= lim:          # also catches NaN
+        raise RuntimeError(f"{name}: max |kernel - plain| = {err} > {lim}")
     return err
+
+
+def visible_pairs(torch, B, T, causal, seg):
+    """``[B, T, T]`` visibility and the count of visible pairs (per
+    head)."""
+    vis = torch.ones(T, T, dtype=torch.bool, device="cuda")
+    if causal:
+        vis = torch.tril(vis)
+    vis = vis.expand(B, T, T)
+    if seg is not None:
+        vis = vis & (seg[:, :, None] == seg[:, None, :]) \
+            & (seg[:, :, None] > 0)
+    return vis, int(vis.sum().item())
+
+
+SEG_ROWS = [[1] * 200 + [2] * 150 + [3] * 100 + [0] * 62,
+            [1] * 300 + [2] * 180 + [0] * 32]
 
 
 def phase_flash(torch, F, ca, gen):
     results = []
     cases = [("slice [1,8,1024,64] causal", (1, 8, 1024, 64), True, None),
-             ("[2,8,512,128] segments", (2, 8, 512, 128), False,
-              [[1] * 200 + [2] * 150 + [3] * 100 + [0] * 62,
-               [1] * 300 + [2] * 180 + [0] * 32])]
+             ("[2,8,512,128] segments", (2, 8, 512, 128), False, SEG_ROWS),
+             ("training [8,4,2048,128] causal", (8, 4, 2048, 128), True,
+              None)]
     for label, shape, causal, seg_rows in cases:
         B, H, T, D = shape
         q, k, v = (torch.randn(shape, generator=gen, device="cuda")
@@ -101,14 +142,7 @@ def phase_flash(torch, F, ca, gen):
         torch.cuda.synchronize()
         err = max(check_close(f"flash {label} O", o, o_ref),
                   check_close(f"flash {label} LSE", lse, lse_ref))
-        vis = torch.ones(T, T, dtype=torch.bool, device="cuda")
-        if causal:
-            vis = torch.tril(vis)
-        vis = vis.expand(B, T, T)
-        if seg is not None:
-            vis = vis & (seg[:, :, None] == seg[:, None, :]) \
-                & (seg[:, :, None] > 0)
-        pairs = int(vis.sum().item())
+        vis, pairs = visible_pairs(torch, B, T, causal, seg)
         nbytes = 4 * (4 * B * H * T * D + B * H * T) \
             + (0 if seg is None else 4 * B * T)
         flops = 4 * D * H * pairs
@@ -126,6 +160,92 @@ def phase_flash(torch, F, ca, gen):
                "flops": flops}
         log("flash_fwd", json.dumps(row))
         results.append(row)
+    return results
+
+
+def phase_flash_bwd(torch, F, ca, gen):
+    """flash_bwd_dq and flash_bwd_dkv against their plain versions at the
+    training shape and at a segments shape with padding tails (dO zero on
+    padding rows, as label -1 makes it in the model). Errors are held to
+    TOL relative to max(1, max |plain|): dv and dk of the first keys under
+    causal masking sum over up to 2048 rows and pass 1. Bounds count the
+    least work for each kernel's own function (dq: q.k^T, dO.v^T, ds.k —
+    6*D operations per visible pair; dk/dv: those two and p^T.dO, ds^T.q
+    — 8*D), and for the whole backward five products, 10*D. The library
+    yardstick is the backward of F.scaled_dot_product_attention on the
+    same f32 inputs (autograd of one SDPA forward; the forward itself is
+    not timed)."""
+    results = []
+    cases = [("training [8,4,2048,128] causal", (8, 4, 2048, 128), True,
+              None),
+             ("[2,8,512,128] segments", (2, 8, 512, 128), False, SEG_ROWS)]
+    for label, shape, causal, seg_rows in cases:
+        B, H, T, D = shape
+        q, k, v, do = (torch.randn(shape, generator=gen, device="cuda")
+                       for _ in range(4))
+        seg = None if seg_rows is None else torch.tensor(
+            seg_rows, dtype=torch.int32, device="cuda")
+        if seg is not None:
+            do = do * (seg > 0)[:, None, :, None]
+        o, lse = ca.flash_attention_fwd(q, k, v, seg, causal)
+        delta = (do * o).sum(-1)
+        args = (q, k, v, seg, do, lse, delta, causal)
+        dq = ca.flash_bwd_dq(*args)
+        dk, dv = ca.flash_bwd_dkv(*args)
+        dq_ref = ca.flash_bwd_dq_plain(*args)
+        dk_ref, dv_ref = ca.flash_bwd_dkv_plain(*args)
+        torch.cuda.synchronize()
+        err_dq = check_close(f"flash_bwd {label} dq", dq, dq_ref, rel=True)
+        err_dkv = max(check_close(f"flash_bwd {label} dk", dk, dk_ref,
+                                  rel=True),
+                      check_close(f"flash_bwd {label} dv", dv, dv_ref,
+                                  rel=True))
+        again = ca.flash_attention_bwd(q, k, v, seg, o, lse, do, causal)
+        if not all(torch.equal(a, b) for a, b in zip(again, (dq, dk, dv))):
+            raise RuntimeError(f"flash_bwd {label}: two runs differ")
+        vis, pairs = visible_pairs(torch, B, T, causal, seg)
+        td = B * H * T * D
+        rowb = 4 * B * H * T
+        segb = 0 if seg is None else 4 * B * T
+        b_dq = bound(4 * 5 * td + 2 * rowb + segb, 6 * D * H * pairs)
+        b_dkv = bound(4 * 6 * td + 2 * rowb + segb, 8 * D * H * pairs)
+        # whole backward: q, k, v, O, dO, LSE in; dq, dk, dv out
+        b_all = bound(4 * 8 * td + rowb + segb, 10 * D * H * pairs)
+        mask = None if seg is None else vis[:, None]
+        qs, ks, vs = (t.clone().requires_grad_() for t in (q, k, v))
+        sdpa_out = F.scaled_dot_product_attention(
+            qs, ks, vs, attn_mask=mask, is_causal=causal and mask is None)
+        lib_ms = time_ms(torch, lambda: torch.autograd.grad(
+            sdpa_out, (qs, ks, vs), do, retain_graph=True))
+        del sdpa_out, qs, ks, vs
+        rows = {
+            "flash_bwd_dq": {
+                "kernel_ms": time_ms(torch, lambda: ca.flash_bwd_dq(*args)),
+                "plain_ms": time_ms(torch,
+                                    lambda: ca.flash_bwd_dq_plain(*args)),
+                "bound_ms": b_dq[0], "bound_by": b_dq[1],
+                "max_abs_err": err_dq},
+            "flash_bwd_dkv": {
+                "kernel_ms": time_ms(torch, lambda: ca.flash_bwd_dkv(*args)),
+                "plain_ms": time_ms(torch,
+                                    lambda: ca.flash_bwd_dkv_plain(*args)),
+                "bound_ms": b_dkv[0], "bound_by": b_dkv[1],
+                "max_abs_err": err_dkv},
+            "flash_attention_bwd": {
+                "kernel_ms": time_ms(torch, lambda: ca.flash_attention_bwd(
+                    q, k, v, seg, o, lse, do, causal)),
+                "plain_ms": time_ms(
+                    torch, lambda: ca.flash_attention_bwd_plain(
+                        q, k, v, seg, o, lse, do, causal)),
+                "bound_ms": b_all[0], "bound_by": b_all[1],
+                "note": "delta (one PyTorch reduction) + both kernels"},
+        }
+        for name, row in rows.items():
+            row.update({"case": label, "library_ms": lib_ms,
+                        "library_note": "SDPA backward: dq, dk and dv",
+                        "pairs_per_head": pairs})
+            log(name, json.dumps(row))
+        results.append(rows)
     return results
 
 
@@ -303,6 +423,13 @@ def phase_profile(torch, np, pt, eng):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     sched.run()
+    log("profile", json.dumps(device_profile(
+        prof, wall_ms, "8 decode ticks, 8 active slots")))
+
+
+def device_profile(prof, wall_ms, window):
+    """Device busy time, idle share and the top device rows of a
+    profiler window."""
     # device-side rows only (kernels, copies): the CPU ops that launched
     # them carry the same time again
     rows = [(e.key, e.count, e.self_device_time_total / 1e3)
@@ -310,12 +437,139 @@ def phase_profile(torch, np, pt, eng):
             if str(e.device_type).endswith("CUDA")]
     busy_ms = sum(r[2] for r in rows)
     top = sorted(rows, key=lambda r: -r[2])[:8]
-    log("profile", json.dumps({
-        "window": "8 decode ticks, 8 active slots", "wall_ms": wall_ms,
-        "device_busy_ms": busy_ms,
-        "device_idle_share": (1 - busy_ms / wall_ms) if busy_ms else None,
-        "top": [{"name": n[:80], "calls": c, "device_ms": t}
-                for n, c, t in top]}))
+    return {"window": window, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
+            "device_idle_share": (1 - busy_ms / wall_ms) if busy_ms
+            else None,
+            "top": [{"name": n[:80], "calls": c, "device_ms": t}
+                    for n, c, t in top]}
+
+
+def conflicting_pairs(np, batch_size, seq_len, vocab):
+    """The ``prep_transformer`` batch (``bench.py``): input rows in
+    identical pairs, independent random targets, so a causal model must
+    split probability between two targets wherever they differ — a loss
+    floor of ln 2 times the share of differing targets."""
+    rng = np.random.RandomState(0)
+    half = batch_size // 2
+    inp_u = rng.randint(0, vocab, (half, seq_len))
+    inp = np.concatenate([inp_u, inp_u], axis=0).astype(np.int32)
+    tgt = rng.randint(0, vocab, (batch_size, seq_len)).astype(np.int32)
+    conflict = float(np.mean(tgt[:half] != tgt[half:]))
+    return inp, tgt, round(conflict * math.log(2.0), 4)
+
+
+def check_step0_grads(torch, pt, model, cfg, loss_fn, batch):
+    """Every parameter's gradient on ``batch`` through the kernels against
+    the plain-attention model on the same weights, within GRAD_RTOL of the
+    parameter's largest gradient."""
+    ref = pt.TransformerLM(**cfg, use_flash=False, device="cuda")
+    ref.load_state_dict(model.state_dict())
+    grads = {}
+    for name, m in (("kernel", model), ("plain", ref)):
+        m.zero_grad(set_to_none=True)
+        out = m(batch["x"], train=True)
+        loss_fn(out, batch).mean().backward()
+        grads[name] = {n: p.grad.detach().clone()
+                       for n, p in m.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    worst = ("", 0.0)
+    for n, want in grads["plain"].items():
+        got = grads["kernel"][n]
+        rel = ((got - want).abs().max()
+               / want.abs().max().clamp_min(1e-30)).item()
+        if not rel <= GRAD_RTOL:
+            raise RuntimeError(f"step-0 gradient of {n}: kernel vs plain "
+                               f"attention differ by {rel} of its max")
+        if rel > worst[1]:
+            worst = (n, rel)
+    wq = grads["kernel"]["blocks.0.attn.wq"].abs().max().item()
+    if not wq > 0:
+        raise RuntimeError("blocks.0.attn.wq got no gradient through the "
+                           "flash backward")
+    return {"params": len(grads["plain"]), "worst_param": worst[0],
+            "worst_rel_err": worst[1], "wq_grad_max": wq}
+
+
+def phase_train(torch, np, pt):
+    """The prep_transformer configuration trained for 8 steps through the
+    flash forward and backward kernels."""
+    from paddle_tpu_torch.nn import cuda_attention as ca
+    V, L, B, T, steps = 32000, 6, 8, 2048, 8
+    cfg = dict(vocab=V, dim=512, num_layers=L, num_heads=4, ffn_hidden=2048,
+               max_len=T)
+    gen = torch.Generator(device="cuda").manual_seed(4321)
+    model = pt.TransformerLM(**cfg, use_flash=True, device="cuda",
+                             generator=gen)
+    inp, tgt, loss_floor = conflicting_pairs(np, B, T, V)
+
+    def loss_fn(out, b):
+        return pt.softmax_cross_entropy(out.reshape(-1, V),
+                                        b["y"].reshape(-1))
+
+    small = {"x": torch.as_tensor(inp[:2], device="cuda"),
+             "y": torch.as_tensor(tgt[:2], device="cuda")}
+    grad_check = check_step0_grads(torch, pt, model, cfg, loss_fn, small)
+    log("train step-0 gradients", json.dumps(grad_check))
+
+    trainer = pt.Trainer(model, loss_fn, pt.adam(1e-4), device="cuda")
+    trainer.init()
+    batch = {"x": inp, "y": tgt}
+    marks, losses = [], []
+
+    def handler(e):
+        if isinstance(e, pt.train.BeginIteration):
+            marks.append(time.perf_counter())
+        elif isinstance(e, pt.train.EndIteration):
+            marks.append(time.perf_counter())
+            losses.append(e.cost)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ca.reset_launch_counts()
+    trainer.train(lambda: iter([batch] * steps), event_handler=handler,
+                  log_period=0)
+    torch.cuda.synchronize()
+    counts = ca.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+
+    want = {"flash_fwd": L * steps, "flash_bwd_dq": L * steps,
+            "flash_bwd_dkv": L * steps}
+    for name, n in want.items():
+        if counts[name] != n:
+            raise RuntimeError(f"train: {name} launched {counts[name]} "
+                               f"times, expected {n} ({L} layers x {steps} "
+                               f"steps)")
+    if not all(math.isfinite(x) for x in losses) or len(losses) != steps:
+        raise RuntimeError(f"train: losses {losses}")
+    if not losses[-1] < losses[0]:
+        raise RuntimeError(f"train: loss did not fall: {losses}")
+    # each step ends in float(loss), a device sync: Begin -> EndIteration
+    step_ms = [1e3 * (marks[2 * i + 1] - marks[2 * i]) for i in range(steps)]
+    steady = step_ms[1:]
+    ms = sum(steady) / len(steady)
+    stats = {"config": "prep_transformer: vocab 32000, dim 512, 6 layers, "
+                       "4 heads, ffn 2048, batch 8 x 2048, adam(1e-4), f32",
+             "steps": steps, "ms_per_step": ms, "step_ms": step_ms,
+             "tokens_per_s": B * T / (ms / 1e3), "losses": losses,
+             "loss_floor": loss_floor, "launches": counts,
+             "peak_mem_gib": peak / 2 ** 30}
+    log("train", json.dumps(stats))
+    phase_train_profile(torch, trainer, batch)
+    return counts
+
+
+def phase_train_profile(torch, trainer, batch):
+    """Device busy share and time by kernel over 2 training steps."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.train(lambda: iter([batch] * 2), log_period=0)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    log("train profile", json.dumps(device_profile(prof, wall_ms,
+                                                   "2 training steps")))
 
 
 def main():
@@ -349,8 +603,13 @@ def main():
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     flash = phase_flash(torch, F, ca, gen)
+    bwd = phase_flash_bwd(torch, F, ca, gen)
     paged = phase_paged(torch, F, ca, gen)
-    counts = phase_slice(torch, np, pt)
+    serve_counts = phase_slice(torch, np, pt)
+    train_counts = phase_train(torch, np, pt)
+    counts = {n: serve_counts[n] + train_counts[n] for n in ca.KERNELS}
+    log("launches", json.dumps({"serving": serve_counts,
+                                "training": train_counts}))
 
     def entry(name, row, err):
         return {"name": name, "route": "cuda",
@@ -364,6 +623,10 @@ def main():
     kernels = [entry("flash_fwd", flash[0],
                      max(r["max_abs_err"] for r in flash)),
                entry("paged_decode", paged, paged["max_abs_err"])]
+    # the backward kernels at the training shape, errors over both shapes
+    kernels += [entry(name, bwd[0][name],
+                      max(r[name]["max_abs_err"] for r in bwd))
+                for name in ("flash_bwd_dq", "flash_bwd_dkv")]
     for k in kernels:
         if k["launches"] < 1:
             raise RuntimeError(f"{k['name']} never launched on the path")

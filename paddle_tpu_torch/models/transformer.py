@@ -1,7 +1,9 @@
 """Decoder-only transformer LM — the port of ``TransformerBlock`` (dense
-FFN) and ``TransformerLM`` from ``paddle_tpu/models/transformer.py``:
-``embed``, ``head``, ``forward``, and the serving entry points
-``prefill`` and ``decode_step``.
+FFN, optional dropout) and ``TransformerLM`` from
+``paddle_tpu/models/transformer.py``: ``embed``, ``head``, the training
+``forward``, and the serving entry points ``prefill`` and
+``decode_step``. MoE, ``remat`` and ``residual_sharding`` are not ported
+yet.
 
 The JAX model runs its block stack as one ``lax.scan`` over stacked
 per-layer parameters; here it is a Python loop over an ``nn.ModuleList``.
@@ -16,17 +18,20 @@ from torch import nn
 
 from ..core.device import resolve_device
 from ..nn.attention import MultiHeadAttention
-from ..nn.layers import Embedding, LayerNorm, Linear
+from ..nn.layers import Dropout, Embedding, LayerNorm, Linear
 
 __all__ = ["TransformerBlock", "TransformerLM"]
 
 
 class TransformerBlock(nn.Module):
     """Pre-LN block: ``x + MHA(LN(x))`` then ``x + FFN(LN(x))`` with a
-    dense two-layer gelu MLP."""
+    dense two-layer gelu MLP; with ``dropout > 0`` both sublayer outputs
+    pass through :class:`Dropout` in training, drawing from
+    ``dropout_generator``."""
 
     def __init__(self, dim: int, num_heads: int, ffn_hidden: int,
-                 use_flash: bool = False, device=None, generator=None):
+                 use_flash: bool = False, dropout: float = 0.0, device=None,
+                 generator=None, dropout_generator=None):
         super().__init__()
         self.ln1 = LayerNorm(dim, device=device)
         self.attn = MultiHeadAttention(dim, num_heads, use_flash=use_flash,
@@ -36,14 +41,21 @@ class TransformerBlock(nn.Module):
                            generator=generator)
         self.ffn2 = Linear(ffn_hidden, dim, device=device,
                            generator=generator)
+        self.dropout = Dropout(dropout, dropout_generator) if dropout \
+            else None
 
-    def forward(self, x, segments=None, return_kv: bool = False):
+    def _maybe_drop(self, x, train: bool):
+        return self.dropout(x, train=True) \
+            if self.dropout is not None and train else x
+
+    def forward(self, x, train: bool = False, segments=None,
+                return_kv: bool = False):
         a = self.attn(self.ln1(x), causal=True, segments=segments,
                       return_kv=return_kv)
         if return_kv:
             a, kv = a
-        h = x + a
-        out = h + self.ffn2(self.ffn1(self.ln2(h)))
+        h = x + self._maybe_drop(a, train)
+        out = h + self._maybe_drop(self.ffn2(self.ffn1(self.ln2(h))), train)
         return (out, kv) if return_kv else out
 
     def decode_step(self, x, pages_k, pages_v, tables, positions, active,
@@ -62,23 +74,29 @@ class TransformerLM(nn.Module):
     """``ids [B, T] -> logits [B, T, vocab]`` with tied input/output
     embeddings. Built on ``device`` (default ``"cuda"``; without a card
     pass ``device="cpu"``), with weights drawn from ``generator`` (default:
-    a generator on ``device`` seeded with 0)."""
+    a generator on ``device`` seeded with 0). With ``dropout > 0`` every
+    block's dropout draws from ``dropout_generator`` (default: one on
+    ``device`` seeded with 0, shared by the blocks)."""
 
     def __init__(self, vocab: int, dim: int = 128, num_layers: int = 2,
                  num_heads: int = 4, ffn_hidden: int = 256,
                  max_len: int = 512, use_flash: bool = False,
-                 device="cuda", generator=None):
+                 dropout: float = 0.0, device="cuda", generator=None,
+                 dropout_generator=None):
         super().__init__()
         device = resolve_device(device)
         if generator is None:
             generator = torch.Generator(device=device).manual_seed(0)
+        if dropout and dropout_generator is None:
+            dropout_generator = torch.Generator(device=device).manual_seed(0)
         self.max_len = max_len
         self.emb = Embedding(vocab, dim, device=device, generator=generator)
         self.pos = Embedding(max_len, dim, std=0.02, device=device,
                              generator=generator)
         self.blocks = nn.ModuleList(
-            TransformerBlock(dim, num_heads, ffn_hidden, use_flash,
-                             device=device, generator=generator)
+            TransformerBlock(dim, num_heads, ffn_hidden, use_flash, dropout,
+                             device=device, generator=generator,
+                             dropout_generator=dropout_generator)
             for _ in range(num_layers))
         self.ln_f = LayerNorm(dim, device=device)
 
@@ -92,16 +110,23 @@ class TransformerLM(nn.Module):
         """Final LN and tied readout."""
         return self.emb.attend(self.ln_f(x))
 
-    def forward(self, ids, segments=None, positions=None):
-        """``segments``/``positions``: packed-sequence metadata; attention
+    def forward(self, ids, train: bool = False, return_aux: bool = False,
+                segments=None, positions=None):
+        """``train`` turns dropout on; ``return_aux`` also returns the
+        summed auxiliary loss, zero for the dense FFN.
+        ``segments``/``positions``: packed-sequence metadata; attention
         stays within each packed sub-sequence."""
         if ids.shape[1] > self.max_len:
             raise ValueError(f"T={ids.shape[1]} exceeds "
                              f"max_len={self.max_len}")
         x = self.embed(ids, positions)
         for blk in self.blocks:
-            x = blk(x, segments=segments)
-        return self.head(x)
+            x = blk(x, train=train, segments=segments)
+        logits = self.head(x)
+        if return_aux:
+            return logits, torch.zeros((), dtype=torch.float32,
+                                       device=logits.device)
+        return logits
 
     @torch.no_grad()
     def prefill(self, ids, positions=None):

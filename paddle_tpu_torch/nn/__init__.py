@@ -2,8 +2,10 @@ from .attention import MultiHeadAttention
 from .cuda_attention import (flash_attention, flash_attention_fwd,
                              launch_counts, paged_decode_attention,
                              reset_launch_counts)
-from .layers import Embedding, LayerNorm, Linear
+from .costs import reduce, softmax_cross_entropy
+from .layers import Dropout, Embedding, LayerNorm, Linear
 
-__all__ = ["Embedding", "LayerNorm", "Linear", "MultiHeadAttention",
-           "flash_attention", "flash_attention_fwd", "launch_counts",
-           "paged_decode_attention", "reset_launch_counts"]
+__all__ = ["Dropout", "Embedding", "LayerNorm", "Linear",
+           "MultiHeadAttention", "flash_attention", "flash_attention_fwd", "launch_counts",
+           "paged_decode_attention", "reduce", "reset_launch_counts",
+           "softmax_cross_entropy"]

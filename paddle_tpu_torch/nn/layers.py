@@ -1,5 +1,5 @@
-"""Main-path layers — the port of ``Linear``, ``Embedding`` and
-``LayerNorm`` from ``paddle_tpu/nn/layers.py``.
+"""Main-path layers — the port of ``Linear``, ``Embedding``,
+``LayerNorm`` and ``Dropout`` from ``paddle_tpu/nn/layers.py``.
 
 Parameters keep the JAX package's names and layouts (``Linear.w`` is
 ``[in, out]`` and applied as ``x @ w``), so weights cross from a JAX
@@ -20,7 +20,7 @@ from torch import nn
 from ..core.dtypes import current_policy
 from . import activations
 
-__all__ = ["Linear", "Embedding", "LayerNorm", "fan_in_uniform_",
+__all__ = ["Linear", "Embedding", "LayerNorm", "Dropout", "fan_in_uniform_",
            "xavier_uniform_", "normal_"]
 
 
@@ -104,3 +104,26 @@ class LayerNorm(nn.Module):
         var = x32.var(-1, unbiased=False, keepdim=True)
         y = (x32 - mean) * torch.rsqrt(var + self.eps)
         return (y * self.scale + self.bias).to(x.dtype)
+
+
+class Dropout(nn.Module):
+    """Inverted dropout: in training each element is kept with
+    probability ``1 - rate`` and scaled by ``1 / (1 - rate)``; the
+    identity when ``train`` is false or the rate is 0. The mask is drawn
+    from ``generator`` (default: one on the input's device seeded with 0,
+    made at first use), so it differs from JAX's for the same seed."""
+
+    def __init__(self, rate: float, generator=None):
+        super().__init__()
+        self.rate = rate
+        self.generator = generator
+
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        if not train or self.rate <= 0.0:
+            return x
+        if self.generator is None:
+            self.generator = torch.Generator(device=x.device).manual_seed(0)
+        keep = 1.0 - self.rate
+        mask = torch.rand(x.shape, generator=self.generator,
+                          device=x.device) < keep
+        return torch.where(mask, x / keep, torch.zeros_like(x))

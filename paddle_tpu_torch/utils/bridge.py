@@ -1,5 +1,10 @@
-"""Weights across from the JAX package: fill a port model's parameters
-from JAX variables held as numpy arrays.
+"""Weights and optimizer state across from and back to the JAX package,
+as numpy arrays: :func:`load_jax_params` fills a port model's parameters
+from JAX variables and :func:`export_jax_params` writes them back by JAX
+path; :func:`load_jax_opt_state` fills the port's optimizer state (Adam's
+``St(m, v)``, momentum's velocity, ``chain``'s tuples) and step from a
+JAX run's, so the run continues in the port, and
+:func:`export_jax_opt_state` gives the JAX form back.
 
 Two forms are taken:
 
@@ -10,8 +15,8 @@ Two forms are taken:
 
 Paths map to parameter names mechanically: ``block{i}/...`` is
 ``blocks.{i}...`` and the rest of the path is kept, so ``block0/attn/wq``
-fills ``blocks.0.attn.wq``. Layouts already agree (``Linear.w`` is
-``[in, out]`` on both sides), so nothing is transposed.
+fills ``blocks.0.attn.wq``, and back. Layouts already agree
+(``Linear.w`` is ``[in, out]`` on both sides), so nothing is transposed.
 """
 
 from __future__ import annotations
@@ -22,10 +27,12 @@ from typing import Any, Dict, Mapping, Tuple
 import numpy as np
 import torch
 
-__all__ = ["load_jax_params"]
+__all__ = ["export_jax_opt_state", "export_jax_params",
+           "load_jax_opt_state", "load_jax_params"]
 
 _SEP = "::"     # the npz key separator of save_variables_npz
 _BLOCK = re.compile(r"^block(\d+)$")
+_ROOT = "transformer_lm"    # the JAX TransformerLM's default name
 
 
 def _flatten(variables: Mapping[str, Any]
@@ -54,6 +61,46 @@ def _torch_name(path: Tuple[str, ...]) -> str:
         m = _BLOCK.match(p)
         parts.extend(["blocks", m.group(1)] if m else [p])
     return ".".join(parts)
+
+
+def _jax_path(name: str) -> Tuple[str, ...]:
+    """The inverse of :func:`_torch_name`: ``blocks.0.attn.wq`` is
+    ``("block0", "attn", "wq")``."""
+    parts, out = name.split("."), []
+    i = 0
+    while i < len(parts):
+        if parts[i] == "blocks" and i + 1 < len(parts) \
+                and parts[i + 1].isdigit():
+            out.append(f"block{parts[i + 1]}")
+            i += 2
+        else:
+            out.append(parts[i])
+            i += 1
+    return tuple(out)
+
+
+def _by_name(tree: Mapping[str, Any], what: str) -> Dict[str, np.ndarray]:
+    """A params-shaped JAX tree ``{root: {...}}`` as ``{torch name:
+    array}``."""
+    flat = _flatten(tree)
+    roots = {p[0] for p in flat}
+    if len(roots) != 1:
+        raise ValueError(f"{what}: expected one model root, got "
+                         f"{sorted(roots)}")
+    return {_torch_name(p[1:]): a for p, a in flat.items()}
+
+
+def _nest(named: Mapping[str, torch.Tensor], root: str) -> Dict[str, Any]:
+    """``{torch name: tensor}`` as the JAX tree ``{root: {...}}`` of
+    numpy arrays."""
+    tree: Dict[str, Any] = {}
+    for name, t in named.items():
+        node = tree.setdefault(root, {})
+        *head, leaf = _jax_path(name)
+        for part in head:
+            node = node.setdefault(part, {})
+        node[leaf] = t.detach().cpu().numpy().copy()
+    return tree
 
 
 def load_jax_params(model: torch.nn.Module,
@@ -85,3 +132,67 @@ def load_jax_params(model: torch.nn.Module,
         for name, p in params.items():
             p.copy_(torch.from_numpy(np.array(incoming[name])))
     return model
+
+
+def export_jax_params(model: torch.nn.Module,
+                      root: str = _ROOT) -> Dict[str, np.ndarray]:
+    """``model``'s parameters as the flat ``"::"``-joined dict that
+    ``save_variables_npz`` writes (``"params::transformer_lm::block0::
+    attn::wq"``), numpy arrays copied off the device."""
+    return {_SEP.join(("params", root) + _jax_path(n)):
+            p.detach().cpu().numpy().copy()
+            for n, p in model.named_parameters()}
+
+
+def _load_state(port: Any, jax_state: Any, where: str) -> None:
+    if isinstance(port, dict):
+        if not isinstance(jax_state, Mapping):
+            raise ValueError(f"{where}: expected a params-shaped tree, got "
+                             f"{type(jax_state).__name__}")
+        incoming = _by_name(jax_state, where)
+        if set(incoming) != set(port):
+            raise ValueError(f"{where}: missing "
+                             f"{sorted(set(port) - set(incoming))}, extra "
+                             f"{sorted(set(incoming) - set(port))}")
+        for name, t in port.items():
+            a = incoming[name]
+            if tuple(a.shape) != tuple(t.shape):
+                raise ValueError(f"{where}/{name}: JAX shape "
+                                 f"{tuple(a.shape)} != {tuple(t.shape)}")
+            t.copy_(torch.from_numpy(np.array(a)))
+    elif isinstance(port, tuple):
+        if not isinstance(jax_state, tuple) or len(jax_state) != len(port):
+            raise ValueError(f"{where}: structure differs from the port's "
+                             f"{type(port).__name__} of {len(port)}")
+        for i, (p, j) in enumerate(zip(port, jax_state)):
+            _load_state(p, j, f"{where}[{i}]")
+    else:
+        raise TypeError(f"{where}: unknown optimizer state leaf "
+                        f"{type(port).__name__}")
+
+
+@torch.no_grad()
+def load_jax_opt_state(train_state, opt_state: Any, step: Any):
+    """Copy a JAX optimizer state (the JAX ``TrainState.opt_state``: a
+    NamedTuple such as Adam's ``St(m, v)``, tuples from ``chain``,
+    params-shaped trees as leaves) into ``train_state.opt_state`` of the
+    port's :class:`~paddle_tpu_torch.train.TrainState` in place, by
+    structure and parameter path, and set its step. Raises where the
+    structures, names or shapes differ. Returns ``train_state``."""
+    _load_state(train_state.opt_state, opt_state, "opt_state")
+    train_state.step = int(np.asarray(step))
+    return train_state
+
+
+def export_jax_opt_state(opt_state: Any, root: str = _ROOT) -> Any:
+    """The port's optimizer state in the JAX form: the same tuples and
+    NamedTuples, each params-shaped dict as ``{root: {...}}`` of numpy
+    arrays."""
+    if isinstance(opt_state, dict):
+        return _nest(opt_state, root)
+    if isinstance(opt_state, tuple):
+        parts = [export_jax_opt_state(s, root) for s in opt_state]
+        return type(opt_state)(*parts) if hasattr(opt_state, "_fields") \
+            else tuple(parts)
+    raise TypeError(f"unknown optimizer state leaf "
+                    f"{type(opt_state).__name__}")

@@ -58,13 +58,14 @@ def build(names: Iterable[str]) -> Dict[str, Dict[str, object]]:
     ``nvcc`` processes at once. Returns per source ``{"seconds", "log"}``
     (the log holds ``ptxas``'s register and spill report; a source that
     was already built reports 0 seconds and an empty log). Raises with
-    the compiler's output if any build fails."""
+    the compiler's output if any build fails. A name given twice builds
+    once."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     procs = {}
     report: Dict[str, Dict[str, object]] = {}
     t0 = time.perf_counter()
-    for name in names:
+    for name in dict.fromkeys(names):
         out = _target(name)
         if out.exists():
             report[name] = {"seconds": 0.0, "log": ""}

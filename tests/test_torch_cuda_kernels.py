@@ -1,7 +1,10 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card,
-at edge shapes the serving smoke run does not reach: ragged T, one-token
-T, D = 128, causal with segments, a given scale, block sizes 8/16/32,
-empty and full slots, and the wrappers' input checks. Every test needs an
+at edge shapes the smoke run does not reach: ragged T, one-token T, D =
+128, causal with segments, a given scale, block sizes 8/16/32, empty and
+full slots, and the wrappers' input checks; for the flash backward also
+the autograd seam (no backward launch under ``torch.no_grad()``, and
+gradients through ``FlashAttentionFunction`` against autograd of the
+plain forward). Every test needs an
 NVIDIA GPU (marker ``cuda``) and skips without one; run them on the card
 with ``python -m pytest --noconftest -q tests/test_torch_cuda_kernels.py``
 (the JAX harness in ``tests/conftest.py`` is not needed there).
@@ -121,3 +124,84 @@ def test_engine_tokens_paged_equal_xla_on_card(gen):
     ids = torch.tensor([prompts[2]], device="cuda")
     with torch.no_grad():
         assert (model(ids) - ref(ids)).abs().max().item() <= 1e-3
+
+
+@pytest.mark.parametrize("B,H,T,D,causal,segs", [
+    (1, 2, 1, 64, True, False),               # one token
+    (2, 2, 63, 64, True, False),              # T one short of a tile
+    (2, 3, 65, 128, False, False),            # T one past a tile
+    (2, 2, 200, 128, True, True),             # causal with segments
+    (1, 2, 130, 64, False, True),
+])
+def test_flash_bwd_kernels_match_plain(gen, B, H, T, D, causal, segs):
+    q, k, v, do = (torch.randn(B, H, T, D, generator=gen, device="cuda")
+                   for _ in range(4))
+    seg = _segments(B, T) if segs else None
+    if seg is not None:
+        do = do * (seg > 0)[:, None, :, None]
+    o, lse = ca.flash_attention_fwd(q, k, v, seg, causal)
+    before = ca.launch_counts()
+    got = ca.flash_attention_bwd(q, k, v, seg, o, lse, do, causal)
+    after = ca.launch_counts()
+    assert after["flash_bwd_dq"] == before["flash_bwd_dq"] + 1
+    assert after["flash_bwd_dkv"] == before["flash_bwd_dkv"] + 1
+    want = ca.flash_attention_bwd_plain(q, k, v, seg, o, lse, do, causal)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert (g - w).abs().max().item() <= ATOL
+    again = ca.flash_attention_bwd(q, k, v, seg, o, lse, do, causal)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))  # no atomics
+
+
+def test_flash_bwd_wrappers_refuse_what_the_kernels_do_not_take(gen):
+    q = torch.randn(1, 2, 64, 64, generator=gen, device="cuda")
+    o, lse = ca.flash_attention_fwd(q, q, q)
+    with pytest.raises(ValueError, match="dtype"):
+        h = q.half()
+        ca.flash_attention_bwd(h, h, h, None, h, lse, h)
+    with pytest.raises(ValueError, match="head dim"):
+        w = torch.randn(1, 2, 64, 96, generator=gen, device="cuda")
+        ca.flash_attention_bwd(w, w, w, None, w, lse, w)
+    with pytest.raises(ValueError, match="contiguous"):
+        t = q.transpose(2, 3)
+        ca.flash_attention_bwd(q, q, q, None, o, lse, t)
+    with pytest.raises(ValueError, match="contiguous"):
+        ca.flash_bwd_dq(q, q, q, None, q, lse, lse[..., ::2].repeat(
+            1, 1, 2).transpose(1, 2).contiguous().transpose(1, 2))
+    with pytest.raises(ValueError, match="lse"):
+        ca.flash_bwd_dkv(q, q, q, None, q, lse[:, :1].contiguous(), lse)
+
+
+def test_no_grad_flash_launches_no_backward(gen):
+    q = torch.randn(1, 2, 64, 64, generator=gen, device="cuda",
+                    requires_grad=True)
+    ca.reset_launch_counts()
+    with torch.no_grad():
+        out = ca.flash_attention(q, q, q, None, True)
+    assert out.grad_fn is None
+    assert ca.launch_counts() == {**{n: 0 for n in ca.KERNELS},
+                                  "flash_fwd": 1}
+
+
+@pytest.mark.parametrize("causal,segs", [(True, False), (True, True),
+                                         (False, True)])
+def test_function_gradients_match_autograd_of_plain(gen, causal, segs):
+    B, H, T, D = 2, 2, 96, 64
+    base = [torch.randn(B, H, T, D, generator=gen, device="cuda")
+            for _ in range(4)]
+    seg = _segments(B, T) if segs else None
+    do = base[3] if seg is None else base[3] * (seg > 0)[:, None, :, None]
+    grads = {}
+    for impl in ("kernel", "plain"):
+        q, k, v = (t.clone().requires_grad_() for t in base[:3])
+        if impl == "kernel":
+            out = ca.flash_attention(q, k, v, seg, causal)
+            assert type(out.grad_fn).__name__ == \
+                "FlashAttentionFunctionBackward"
+        else:
+            out = ca.flash_attention_plain(q, k, v, seg, causal)[0]
+        out.backward(do)
+        grads[impl] = [t.grad for t in (q, k, v)]
+    torch.cuda.synchronize()
+    for g, w in zip(grads["kernel"], grads["plain"]):
+        assert (g - w).abs().max().item() <= ATOL
