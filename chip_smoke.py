@@ -21,7 +21,24 @@ Phases (any failure exits non-zero before the final line):
    over 16 requests; launch counts, pool accounting and first tokens
    against the plain-attention forward are checked, then 8 decode ticks
    are profiled.
-4. training: ``TransformerLM`` at the ``prep_transformer`` width (vocab
+4. span kernels (run right after phase 2): ``paged_span`` against its
+   plain version at the speculative shape ``[8, 5, 8, 64]`` and the chunk
+   shape ``[1, 128, 8, 64]`` over contexts of 64-1024 positions;
+   ``paged_span`` at ``Q = 1`` and each row at ``Q = 5`` bit-equal to
+   ``paged_decode`` at ``start + j + 1``; ``paged_decode_int8`` and
+   ``paged_span_int8`` against the dequantizing plain versions; times,
+   bounds and the SDPA yardstick.
+5. span serving at the ``transformer_decode`` width, on phase 3's model:
+   (a) ``speculative=4, prefill_chunk=128`` over phase 3's 16 requests
+   (launch counts, pool accounting, tokens against phase 3's); (b) the
+   ``transformer_decode_spec`` leg, 8 slots of periodic 128-token prompts,
+   ``speculative`` 0 against 4, token-identical, with accepted tokens/s,
+   ms per tick and accept rate; (c) ``kv_dtype="int8"`` with
+   ``prefill_chunk=128``, ``attention="paged"`` against ``"xla"`` over the
+   16 requests, with tokens/s, bytes per token and int8/f32 agreement.
+   A chunked prefill, speculative and plain ticks and int8 ticks are
+   profiled.
+6. training: ``TransformerLM`` at the ``prep_transformer`` width (vocab
    32000, dim 512, 6 layers, 4 heads, ffn 2048, T 2048, flash attention)
    with seeded random weights, trained by ``Trainer`` with ``adam(1e-4)``
    for 8 steps on the benchmark's conflicting-pairs batch (8 x 2048).
@@ -30,9 +47,9 @@ Phases (any failure exits non-zero before the final line):
    and 6 dk/dv launches per step), finite and falling losses are checked,
    and 2 more steps are profiled.
 
-Each of the two paths runs with the launch counts set to 0 just before it
-and read just after; a kernel's ``launches`` in the final list is the sum
-over both paths.
+Each serving and training path runs with the launch counts set to 0 just
+before it and read just after; a kernel's ``launches`` in the final list
+is the sum over those paths.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 ``nvidia-smi``'s name and power limit, and before that one JSON object
@@ -56,7 +73,13 @@ GRAD_RTOL = 1e-3
 REPLACES = {"flash_fwd": "paddle_tpu/nn/pallas_attention.py:108",
             "paged_decode": "paddle_tpu/nn/pallas_attention.py:585",
             "flash_bwd_dq": "paddle_tpu/nn/pallas_attention.py:162",
-            "flash_bwd_dkv": "paddle_tpu/nn/pallas_attention.py:207"}
+            "flash_bwd_dkv": "paddle_tpu/nn/pallas_attention.py:207",
+            "paged_span": "paddle_tpu/nn/pallas_attention.py:711",
+            "paged_span_int8": "paddle_tpu/nn/pallas_attention.py:711",
+            "paged_decode_int8": "paddle_tpu/nn/pallas_attention.py:585"}
+# top-2 logit gap under which a token that differs between two f32 paths
+# that sum in other orders is a near-tie, not a fault
+GAP_TOL = 1e-3
 
 
 def log(*args):
@@ -310,7 +333,6 @@ def phase_slice(torch, np, pt):
                              generator=gen)
     eng = pt.DecodeEngine(model, max_slots=8, block_size=16,
                           attention="paged")
-    sched = pt.ContinuousBatchingScheduler(eng)
     rng = np.random.RandomState(0)
     lens = rng.randint(16, 513, size=16)
     prompts = [[int(t) for t in rng.randint(0, V, n)] for n in lens]
@@ -320,31 +342,10 @@ def phase_slice(torch, np, pt):
     log(f"slice: model+engine built in {time.perf_counter() - t0:.2f} s; "
         f"prompt lengths {[len(p) for p in prompts]}")
 
-    tick_s = []
-    tick = eng.decode_tick
-
-    def timed_tick():
-        t = time.perf_counter()
-        out = tick()                   # ends in a device-to-host copy
-        tick_s.append(time.perf_counter() - t)
-        return out
-
-    eng.decode_tick = timed_tick
     start_free = eng.cache.free_blocks
-    torch.cuda.synchronize()
-    ca.reset_launch_counts()
-    t0 = time.perf_counter()
-    reqs = [sched.submit(p, 32) for p in prompts]
-    sched.run()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    counts = ca.launch_counts()
-
-    for r in reqs:
-        if r.finish_reason != "length" or len(r.tokens) != 32 \
-                or not all(0 <= t < V for t in r.tokens):
-            raise RuntimeError(f"request {r.rid}: {r.finish_reason}, "
-                               f"{len(r.tokens)} tokens")
+    reqs, counts, tick_s, wall = run_requests(torch, pt, ca, eng, prompts,
+                                              32)
+    check_requests("slice", reqs, 32, V)
     if counts["flash_fwd"] != eng.prefills * L or eng.prefills != 16:
         raise RuntimeError(f"flash launches {counts['flash_fwd']} != "
                            f"prefills {eng.prefills} x {L}")
@@ -402,29 +403,438 @@ def phase_slice(torch, np, pt):
              "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
     log("slice", json.dumps(stats))
     phase_profile(torch, np, pt, eng)
+    return counts, model, ref, prompts, [r.tokens for r in reqs]
+
+
+def paged_tables(torch, gen, spans, bs, MB, N):
+    """``[S, MB]`` int32 tables giving each slot a disjoint random run of
+    pool blocks covering ``spans[s]`` positions (block 0 stays the null
+    block)."""
+    perm = (torch.randperm(N - 1, generator=gen, device="cuda") + 1).cpu()
+    tables = torch.zeros(len(spans), MB, dtype=torch.int32)
+    nxt = 0
+    for s, L in enumerate(spans):
+        nb = -(-L // bs)
+        tables[s, :nb] = perm[nxt:nxt + nb]
+        nxt += nb
+    return tables.cuda()
+
+
+def covered_rows(tables, spans, bs):
+    """Distinct (block, offset) pool rows that positions ``< spans[s]``
+    occupy."""
+    return {(int(tables[s, p // bs]), p % bs)
+            for s, L in enumerate(spans) for p in range(L)}
+
+
+def span_vis(torch, start, n, Q, W):
+    """``[S, Q, W]`` visibility of the span rows: row j of slot s sees
+    positions ``<= start[s] + j`` when ``n[s] > 0``; and the visible pairs
+    of the live rows (``j < n[s]``), the work the kernel must do."""
+    pos = start.long()[:, None] + torch.arange(Q, device="cuda")[None]
+    vis = (torch.arange(W, device="cuda")[None, None] <= pos[..., None]) \
+        & (n > 0)[:, None, None]
+    live = torch.arange(Q, device="cuda")[None] < n[:, None]
+    return vis, int((vis & live[..., None]).sum().item())
+
+
+def phase_span_kernels(torch, F, ca, kvc, gen, card):
+    """The span kernel at the speculative and chunk shapes, its Q = 1 and
+    per-row bit-equality with paged_decode, and the int8 branches of both
+    kernels, each against its plain version."""
+    H, D, bs, MB, N = 8, 64, 16, 64, 513
+    W = MB * bs
+    pk = torch.randn(N, bs, H, D, generator=gen, device="cuda")
+    pv = torch.randn(N, bs, H, D, generator=gen, device="cuda")
+    qk, qv = kvc.quantize_rows(pk), kvc.quantize_rows(pv)
+    cases = {
+        "spec [8,5,8,64]": (5, [59, 123, 300, 511, 700, 1019, 250, 0],
+                            [5, 5, 5, 5, 5, 5, 3, 0]),
+        "chunk [1,128,8,64]": (128, [384], [128]),
+    }
+    rows = {}
+    for label, (Q, start_l, n_l) in cases.items():
+        spans = [st + n for st, n in zip(start_l, n_l)]
+        tables = paged_tables(torch, gen, spans, bs, MB, N)
+        start = torch.tensor(start_l, dtype=torch.int32, device="cuda")
+        n = torch.tensor(n_l, dtype=torch.int32, device="cuda")
+        S = len(start_l)
+        q = torch.randn(S, Q, H, D, generator=gen, device="cuda")
+        vis, pairs = span_vis(torch, start, n, Q, W)
+        nrows = len(covered_rows(tables, spans, bs))
+        mask = vis[:, None]
+        for quant in (False, True):
+            name = "paged_span_int8" if quant else "paged_span"
+            kp, vp = (qk, qv) if quant else (pk, pv)
+            out = ca.paged_span_attention(q, kp, vp, tables, start, n)
+            ref = ca.paged_span_plain(q, kp, vp, tables, start, n)
+            torch.cuda.synchronize()
+            live = torch.arange(Q, device="cuda")[None] < n[:, None]
+            err = check_close(f"{name} {label}", out[live], ref[live])
+            if (n == 0).any() and out[n == 0].abs().max().item() != 0.0:
+                raise RuntimeError(f"{name} {label}: n == 0 must give zeros")
+            row_bytes = H * (D + 4) if quant else 4 * H * D
+            nbytes = 2 * nrows * row_bytes + 4 * (2 * S * Q * H * D
+                                                  + S * MB + 2 * S)
+            b_ms, b_by = bound(nbytes, 4 * D * H * pairs)
+            kg = kvc.gather_pages(kp, tables).permute(0, 2, 1, 3).contiguous()
+            vg = kvc.gather_pages(vp, tables).permute(0, 2, 1, 3).contiguous()
+            qt = q.transpose(1, 2).contiguous()
+            rows[name, label] = {
+                "case": f"{label} start={start_l} n={n_l}",
+                "max_abs_err": err,
+                "kernel_ms": time_ms(torch, lambda: ca.paged_span_attention(
+                    q, kp, vp, tables, start, n)),
+                "plain_ms": time_ms(torch, lambda: ca.paged_span_plain(
+                    q, kp, vp, tables, start, n)),
+                "library_ms": time_ms(
+                    torch, lambda: F.scaled_dot_product_attention(
+                        qt, kg, vg, attn_mask=mask)),
+                "library_note": "SDPA with an explicit mask on the "
+                "pre-gathered" + (", pre-dequantized" if quant else "")
+                + " context, gather not timed",
+                "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
+                "flops": 4 * D * H * pairs, "card": card}
+            log(name, json.dumps(rows[name, label]))
+        if Q == 5:
+            # row j is paged_decode at start + j + 1, bit for bit; Q = 1
+            # is the span kernel's own one-row launch
+            out = ca.paged_span_attention(q, pk, pv, tables, start, n)
+            one = ca.paged_span_attention(q[:, :1].contiguous(), pk, pv,
+                                          tables, start, n.clamp(max=1))
+            worst = 0.0
+            for j in range(Q):
+                lengths = torch.where(n > j, start + j + 1, 0).to(
+                    torch.int32)
+                dec = ca.paged_decode_attention(q[:, j].contiguous(), pk, pv,
+                                                tables, lengths)
+                live = n > j
+                worst = max(worst, (out[live, j] - dec[live]).abs().max()
+                            .item())
+                if j == 0:
+                    q1 = (one[:, 0] - dec).abs().max().item()
+            torch.cuda.synchronize()
+            if worst != 0.0 or q1 != 0.0:
+                raise RuntimeError(f"paged_span vs paged_decode: Q=1 max "
+                                   f"|diff| {q1}, per row at Q=5 {worst}; "
+                                   f"must be 0.0")
+            log("paged_span bit-equality", json.dumps(
+                {"q1_max_abs_diff_vs_paged_decode": q1,
+                 "q5_rows_max_abs_diff_vs_paged_decode": worst}))
+
+    # int8 decode at phase 2's lengths
+    S, lengths_l = 8, [0, 1, 16, 17, 1024, 300, 511, 64]
+    tables = paged_tables(torch, gen, lengths_l, bs, MB, N)
+    lengths = torch.tensor(lengths_l, dtype=torch.int32, device="cuda")
+    q = torch.randn(S, H, D, generator=gen, device="cuda")
+    out = ca.paged_decode_attention(q, qk, qv, tables, lengths)
+    ref = ca.paged_decode_plain(q, qk, qv, tables, lengths)
+    torch.cuda.synchronize()
+    err = check_close("paged_decode_int8", out, ref)
+    if out[0].abs().max().item() != 0.0:
+        raise RuntimeError("paged_decode_int8: length 0 must give zeros")
+    nrows = len(covered_rows(tables, lengths_l, bs))
+    nbytes = 2 * nrows * H * (D + 4) + 4 * (2 * S * H * D + S * MB + S)
+    b_ms, b_by = bound(nbytes, 4 * D * H * sum(lengths_l))
+    kg = kvc.gather_pages(qk, tables).permute(0, 2, 1, 3).contiguous()
+    vg = kvc.gather_pages(qv, tables).permute(0, 2, 1, 3).contiguous()
+    mask = (torch.arange(W, device="cuda")[None] < lengths[:, None])[
+        :, None, None, :]
+    rows["paged_decode_int8"] = {
+        "case": f"S={S} H={H} D={D} bs={bs} MB={MB} N={N} "
+                f"lengths={lengths_l}", "max_abs_err": err,
+        "kernel_ms": time_ms(torch, lambda: ca.paged_decode_attention(
+            q, qk, qv, tables, lengths)),
+        "plain_ms": time_ms(torch, lambda: ca.paged_decode_plain(
+            q, qk, qv, tables, lengths)),
+        "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(
+            q[:, :, None], kg, vg, attn_mask=mask)),
+        "library_note": "SDPA on the pre-gathered, pre-dequantized context, "
+        "gather not timed", "bound_ms": b_ms, "bound_by": b_by,
+        "bytes": nbytes, "flops": 4 * D * H * sum(lengths_l), "card": card}
+    log("paged_decode_int8", json.dumps(rows["paged_decode_int8"]))
+    return rows
+
+
+def first_diff(a, b):
+    """Index of the first position where token lists differ, or None."""
+    for i, (x, y) in enumerate(zip(a, b)):
+        if x != y:
+            return i
+    return None if len(a) == len(b) else min(len(a), len(b))
+
+
+def top2_gap(torch, logits):
+    top = torch.topk(logits.float(), 2).values
+    return (top[0] - top[1]).item()
+
+
+def ref_gap(torch, ref, prompt, toks, i):
+    """Top-2 gap of the plain-attention forward's logits for token ``i``
+    of a request (after its prompt and tokens ``< i``)."""
+    ids = torch.tensor([prompt + toks[:i]], device="cuda")
+    with torch.no_grad():
+        return top2_gap(torch, ref(ids)[0, -1])
+
+
+def run_requests(torch, pt, ca, eng, prompts, new):
+    """Serve ``prompts`` through a scheduler with the launch counts set to
+    0 just before and read just after; returns (requests, counts, summed
+    tick seconds, wall seconds)."""
+    sched = pt.ContinuousBatchingScheduler(eng)
+    tick_s = []
+    tick = eng.decode_tick
+
+    def timed_tick():
+        t = time.perf_counter()
+        out = tick()                   # ends in a device-to-host copy
+        tick_s.append(time.perf_counter() - t)
+        return out
+
+    eng.decode_tick = timed_tick
+    torch.cuda.synchronize()
+    ca.reset_launch_counts()
+    t0 = time.perf_counter()
+    reqs = [sched.submit(p, new) for p in prompts]
+    sched.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ca.launch_counts()
+    del eng.decode_tick
+    return reqs, counts, tick_s, wall
+
+
+def check_requests(label, reqs, new, V):
+    for r in reqs:
+        if r.finish_reason != "length" or len(r.tokens) != new \
+                or not all(0 <= t < V for t in r.tokens):
+            raise RuntimeError(f"{label} request {r.rid}: "
+                               f"{r.finish_reason}, {len(r.tokens)} tokens")
+
+
+def compare_tokens(label, torch, want, got, gap_fn):
+    """Requests whose token lists differ, each with its first differing
+    position and the top-2 gap there; raises when a gap is not under
+    GAP_TOL."""
+    diffs = []
+    for rid, (a, b) in enumerate(zip(want, got)):
+        i = first_diff(a, b)
+        if i is None:
+            continue
+        gap = gap_fn(rid, i)
+        diffs.append({"rid": rid, "position": i, "top2_gap": gap})
+        if not gap < GAP_TOL:
+            raise RuntimeError(f"{label}: request {rid} differs at token {i} "
+                               f"with a top-2 gap of {gap}")
+    return diffs
+
+
+def phase_span_serving(torch, np, pt, ca, model, ref, prompts, tokens, card):
+    """(a) speculation + chunked prefill over phase 3's requests, (b) the
+    speculative leg, (c) int8 pools, paged against xla."""
+    V, L, new = 32000, 6, 32
+    counts = {}
+
+    def add(c):
+        for k, v in c.items():
+            counts[k] = counts.get(k, 0) + v
+
+    # (a)
+    eng = pt.DecodeEngine(model, max_slots=8, block_size=16,
+                          attention="paged", speculative=4,
+                          prefill_chunk=128)
+    start_free = eng.cache.free_blocks
+    f32_bytes = eng.cache.kv_bytes_per_token
+    reqs, c, tick_s, wall = run_requests(torch, pt, ca, eng, prompts, new)
+    add(c)
+    check_requests("span (a)", reqs, new, V)
+    if c["paged_span"] != (eng.prefill_chunks + eng.ticks) * L:
+        raise RuntimeError(f"paged_span launches {c['paged_span']} != "
+                           f"(chunks {eng.prefill_chunks} + ticks "
+                           f"{eng.ticks}) x {L}")
+    if c["paged_decode"] or c["flash_fwd"]:
+        raise RuntimeError(f"span engine launched other kernels: {c}")
+    if eng.cache.free_blocks != start_free or eng.cache.allocator._rc:
+        raise RuntimeError("span (a): pool leak")
+    got = [r.tokens for r in reqs]
+    diffs = compare_tokens("span (a) vs phase 3", torch, tokens, got,
+                           lambda rid, i: ref_gap(torch, ref, prompts[rid],
+                                                  tokens[rid], i))
+    log("span serving (a)", json.dumps({
+        "engine": "speculative=4, prefill_chunk=128, paged, f32",
+        "requests": len(reqs), "prefill_chunks": eng.prefill_chunks,
+        "ticks": eng.ticks, "decode_tokens": eng.tokens_generated,
+        "draft_accept_rate": eng.draft_accepted / max(1, eng.draft_proposed),
+        "wall_s": wall, "ms_per_tick": 1e3 * sum(tick_s) / len(tick_s),
+        "decode_tokens_per_s": eng.tokens_generated / sum(tick_s),
+        "tokens_equal_phase3": sum(a == b for a, b in zip(tokens, got)),
+        "differing": diffs, "launches": c, "card": card}))
+
+    def chunked_prefill():
+        while eng.prefill_step(0) is None:
+            pass
+
+    eng.begin_prefill(0, [int(t) for t in np.random.RandomState(2).randint(
+        0, V, 512)], reserve_len=512 + new)
+    log("span profile", json.dumps(profile_window(
+        torch, chunked_prefill, "chunked prefill of a 512-token prompt: 4 "
+        "chunks of 128 (f32), no other slot busy")))
+    eng.evict(0)
+
+    # (b) the transformer_decode_spec leg at full width
+    rng = np.random.RandomState(0)
+    period = rng.randint(1, V, 4)
+    prompt = [int(t) for t in np.tile(period, 33)[:128]]
+    legs, streams = {}, {}
+    for k in (0, 4):
+        eng = pt.DecodeEngine(model, max_slots=8, block_size=16,
+                              attention="paged", speculative=k)
+        torch.cuda.synchronize()
+        ca.reset_launch_counts()
+        for slot in range(8):
+            eng.admit(slot, list(prompt), reserve_len=eng.context_width)
+        for _ in range(4):
+            eng.decode_tick()
+        tok0, prop0, acc0 = (eng.tokens_generated, eng.draft_proposed,
+                             eng.draft_accepted)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(24):
+            eng.decode_tick()
+        wall = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        add(ca.launch_counts())
+        toks = eng.tokens_generated - tok0
+        prop = eng.draft_proposed - prop0
+        legs[k] = {"tokens": toks, "wall_s": wall,
+                   "accepted_tokens_per_s": toks / wall,
+                   "ms_per_tick": wall / 24 * 1e3,
+                   "accept_rate": (eng.draft_accepted - acc0) / prop
+                   if prop else None}
+        streams[k] = [list(eng.history[s][128:]) for s in range(8)]
+        log("span profile", json.dumps(profile_window(
+            torch, lambda: [eng.decode_tick() for _ in range(4)],
+            f"4 decode ticks, speculative={k}, 8 active slots")))
+    for s in range(8):
+        base = streams[0][s]
+        if streams[4][s][:len(base)] != base:
+            raise RuntimeError(f"spec leg: slot {s} speculative=4 tokens "
+                               f"differ from speculative=0")
+    log("span serving (b)", json.dumps({
+        "leg": "transformer_decode_spec shape: 8 slots, periodic prompts "
+               "(period 4, 128 tokens), 4 warm-up + 24 timed ticks",
+        "speculative_0": legs[0], "speculative_4": legs[4],
+        "speedup": legs[4]["accepted_tokens_per_s"]
+        / legs[0]["accepted_tokens_per_s"],
+        "tokens_identical": True,
+        "compared_tokens_per_slot": len(streams[0][0]), "card": card}))
+
+    # (c) int8 pools, paged against xla, over the 16 requests
+    out, engines = {}, {}
+    for impl in ("paged", "xla"):
+        eng = pt.DecodeEngine(model, max_slots=8, block_size=16,
+                              attention=impl, kv_dtype="int8",
+                              prefill_chunk=128)
+        start_free = eng.cache.free_blocks
+        reqs, c, tick_s, wall = run_requests(torch, pt, ca, eng, prompts,
+                                             new)
+        add(c)
+        check_requests(f"int8 {impl}", reqs, new, V)
+        if eng.cache.free_blocks != start_free or eng.cache.allocator._rc:
+            raise RuntimeError(f"int8 {impl}: pool leak")
+        out[impl] = ([r.tokens for r in reqs], tick_s, wall, c)
+        engines[impl] = eng
+    paged = out["paged"][0]
+    c = out["paged"][3]
+    if c["paged_span_int8"] != engines["paged"].prefill_chunks * L \
+            or c["paged_decode_int8"] != engines["paged"].ticks * L:
+        raise RuntimeError(f"int8 launches {c} vs chunks "
+                           f"{engines['paged'].prefill_chunks} and ticks "
+                           f"{engines['paged'].ticks} x {L}")
+
+    eng = engines["paged"]
+    rng = np.random.RandomState(3)
+    for slot in range(8):
+        eng.admit(slot, [int(t) for t in rng.randint(0, V, 128)],
+                  reserve_len=128 + 12)
+    eng.decode_tick()
+    log("span profile", json.dumps(profile_window(
+        torch, lambda: [eng.decode_tick() for _ in range(8)],
+        "8 decode ticks, kv_dtype=int8, 8 active slots")))
+    for slot in range(8):
+        eng.evict(slot)
+
+    def int8_gap(rid, i):
+        # replay the request alone on the int8 paged engine and read the
+        # logits its token i came from
+        eng = pt.DecodeEngine(model, max_slots=1, block_size=16,
+                              attention="paged", kv_dtype="int8",
+                              prefill_chunk=128)
+        seen = []
+        for name in ("decode_step", "decode_span"):
+            fn = getattr(model, name)
+            setattr(model, name, lambda *a, _fn=fn, **k: seen.append(
+                _fn(*a, **k)) or seen[-1])
+        try:
+            eng.admit(0, list(prompts[rid]),
+                      reserve_len=len(prompts[rid]) + new)
+            n_last = (len(prompts[rid]) - 1) % 128 + 1
+            logits = seen[-1][0][0, n_last - 1]
+            for _ in range(i):
+                eng.decode_tick()
+                logits = seen[-1][0][0]
+        finally:
+            del model.decode_step, model.decode_span
+        return top2_gap(torch, logits)
+
+    diffs = compare_tokens("int8 paged vs xla", torch, out["xla"][0], paged,
+                           int8_gap)
+    same = sum(a == b for x, y in zip(tokens, paged) for a, b in zip(x, y))
+    tick_s = out["paged"][1]
+    log("span serving (c)", json.dumps({
+        "engine": "kv_dtype=int8, prefill_chunk=128",
+        "paged_vs_xla_requests_equal": sum(
+            a == b for a, b in zip(out["xla"][0], paged)),
+        "paged_vs_xla_differing": diffs,
+        "decode_tokens_per_s_paged": engines["paged"].tokens_generated
+        / sum(tick_s),
+        "ms_per_tick_paged": 1e3 * sum(tick_s) / len(tick_s),
+        "ms_per_tick_xla": 1e3 * sum(out["xla"][1]) / len(out["xla"][1]),
+        "kv_bytes_per_token_int8": engines["paged"].cache.kv_bytes_per_token,
+        "kv_bytes_per_token_f32": f32_bytes,
+        "int8_vs_f32_token_agreement": same / sum(len(t) for t in tokens),
+        "int8_vs_f32_requests_equal": sum(a == b for a, b in zip(tokens,
+                                                                paged)),
+        "launches_paged": out["paged"][3], "launches_xla": out["xla"][3],
+        "card": card}))
     return counts
 
 
 def phase_profile(torch, np, pt, eng):
     """Device busy share and time by kernel over 8 steady decode ticks of
     8 active slots (prompts of 128), from torch.profiler."""
-    from torch.profiler import ProfilerActivity, profile
     sched = pt.ContinuousBatchingScheduler(eng)
     rng = np.random.RandomState(1)
     for _ in range(8):
         sched.submit([int(t) for t in rng.randint(0, 32000, 128)], 12)
     sched.step()                       # 8 prefills and the first tick
+    log("profile", json.dumps(profile_window(
+        torch, lambda: [sched.step() for _ in range(8)],
+        "8 decode ticks, 8 active slots")))
+    sched.run()
+
+
+def profile_window(torch, fn, window):
+    """``fn`` run once under torch.profiler, ending in a synchronize."""
+    from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(8):
-            sched.step()
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    sched.run()
-    log("profile", json.dumps(device_profile(
-        prof, wall_ms, "8 decode ticks, 8 active slots")))
+    return device_profile(prof, wall_ms, window)
 
 
 def device_profile(prof, wall_ms, window):
@@ -560,16 +970,9 @@ def phase_train(torch, np, pt):
 
 def phase_train_profile(torch, trainer, batch):
     """Device busy share and time by kernel over 2 training steps."""
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        trainer.train(lambda: iter([batch] * 2), log_period=0)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    log("train profile", json.dumps(device_profile(prof, wall_ms,
-                                                   "2 training steps")))
+    log("train profile", json.dumps(profile_window(
+        torch, lambda: trainer.train(lambda: iter([batch] * 2),
+                                     log_period=0), "2 training steps")))
 
 
 def main():
@@ -582,6 +985,7 @@ def main():
 
     import paddle_tpu_torch as pt
     from paddle_tpu_torch.nn import cuda_attention as ca
+    from paddle_tpu_torch.serve import kv_cache as kvc
     from paddle_tpu_torch.utils import cuda_build
 
     card = gpu_line()
@@ -605,10 +1009,16 @@ def main():
     flash = phase_flash(torch, F, ca, gen)
     bwd = phase_flash_bwd(torch, F, ca, gen)
     paged = phase_paged(torch, F, ca, gen)
-    serve_counts = phase_slice(torch, np, pt)
+    span = phase_span_kernels(torch, F, ca, kvc, gen, card)
+    serve_counts, model, ref, prompts, tokens = phase_slice(torch, np, pt)
+    span_counts = phase_span_serving(torch, np, pt, ca, model, ref, prompts,
+                                     tokens, card)
+    del model, ref
     train_counts = phase_train(torch, np, pt)
-    counts = {n: serve_counts[n] + train_counts[n] for n in ca.KERNELS}
+    counts = {n: serve_counts[n] + span_counts[n] + train_counts[n]
+              for n in ca.KERNELS}
     log("launches", json.dumps({"serving": serve_counts,
+                                "span serving": span_counts,
                                 "training": train_counts}))
 
     def entry(name, row, err):
@@ -627,6 +1037,13 @@ def main():
     kernels += [entry(name, bwd[0][name],
                       max(r[name]["max_abs_err"] for r in bwd))
                 for name in ("flash_bwd_dq", "flash_bwd_dkv")]
+    # the span kernels at the speculative shape, errors over both shapes
+    kernels += [entry(name, span[name, "spec [8,5,8,64]"],
+                      max(span[name, c]["max_abs_err"]
+                          for c in ("spec [8,5,8,64]", "chunk [1,128,8,64]")))
+                for name in ("paged_span", "paged_span_int8")]
+    kernels.append(entry("paged_decode_int8", span["paged_decode_int8"],
+                         span["paged_decode_int8"]["max_abs_err"]))
     for k in kernels:
         if k["launches"] < 1:
             raise RuntimeError(f"{k['name']} never launched on the path")

@@ -1,146 +1,20 @@
 // Paged decode attention (one query token per slot), float32, for sm_90a.
 //
 // Replaces paddle_tpu/nn/pallas_attention.py:_paged_decode_kernel
-// (launched by paged_decode_attention), plain pools only: for each
+// (launched by paged_decode_attention), plain and int8 pools: for each
 // (slot, head) the single new-token query attends the pool blocks that the
 // slot's row of the block table names, with an online softmax over the
 // slot's ragged length; positions at or past the length are masked and a
-// length-0 slot writes zeros. The int8 pools of the TPU kernel are not
-// handled here.
+// length-0 slot writes zeros. An int8 pool's rows are dequantized with
+// their f32 scales in shared memory, never in HBM. A table entry outside
+// [0, N) is clamped, as XLA's gather clamps.
 //
-// What bounds it on the H100: bytes. Each key and value row is read once
-// and used for 2 * D flops, far below the card's operations-per-byte
-// balance, so the floor is the K/V bytes the lengths cover over 3.35 TB/s.
-//
-// Design: one thread block per (slot, head) rather than one per slot,
-// because at the serving shape (8 slots x 8 heads) that puts 64 blocks on
-// the card's 132 SMs instead of 8; a head's row of D floats is contiguous
-// in the [N, bs, H, D] pool, so each row is read with coalesced 16-byte
-// loads either way. 128 threads: a thread owns one float4 column chunk of
-// D and a group of keys. The block reads its own table row and length (the
-// TPU kernel's scalar prefetch), stops after ceil(length / bs) pool blocks,
-// and for each block stages the [bs, D] K and V tiles in shared memory with
-// all loads in flight at once, reduces each key's dot product across the
-// chunk's lanes with warp shuffles, updates the running max and sum in
-// float32 (start -1e30, l clamped at 1e-30, as in the TPU kernel), and adds
-// p * V into per-thread partial accumulators that are summed across key
-// groups at the end. A table entry outside [0, N) is clamped, as XLA's
-// gather clamps.
-//
-// Left for later work: split-K over the context (flash-decoding) to fill
-// more SMs at 64 (slot, head) pairs, double-buffered block loads, int8.
+// The body is paged_attention.cuh's rows kernel with one row per block
+// (R = 1): decode at length L is the span row at start L - 1, so
+// paged_span.cu's rows are bit-equal to this kernel at start + j + 1. The
+// header's notes give the design and what bounds it (bytes).
 
-#include <cuda_runtime.h>
-#include <cmath>
-
-namespace {
-
-constexpr int NT = 128;
-constexpr float NEG = -1e30f;
-
-template <int D>
-__global__ void __launch_bounds__(NT)
-paged_decode_kernel(const float* __restrict__ q, const float* __restrict__ pk,
-                    const float* __restrict__ pv,
-                    const int* __restrict__ tables,
-                    const int* __restrict__ lengths, float* __restrict__ out,
-                    int N, int bs, int H, int MB, float scale) {
-  constexpr int C = D / 4;      // float4 chunks per row: 16 or 32 lanes
-  constexpr int G = NT / C;     // key groups
-  extern __shared__ float4 sm4[];
-  float4* Ks = sm4;                               // [bs][C]
-  float4* Vs = Ks + bs * C;                       // [bs][C]
-  float* s_sm = reinterpret_cast<float*>(Vs + bs * C);   // [bs]
-  float4* red = reinterpret_cast<float4*>(s_sm + ((bs + 3) & ~3));  // [G][C]
-
-  const int h = blockIdx.x, s = blockIdx.y;
-  const int c = threadIdx.x % C, g = threadIdx.x / C;
-  const int length = lengths[s];
-  const int nblk = min((length + bs - 1) / bs, MB);
-  const size_t row_stride = (size_t)H * C;      // float4s between rows
-  const float4 q4 = reinterpret_cast<const float4*>(q)[((size_t)s * H + h) * C + c];
-  const int* tbl = tables + (size_t)s * MB;
-
-  float m = NEG, l = 0.f;
-  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-  for (int j = 0; j < nblk; ++j) {
-    const int blk = min(max(tbl[j], 0), N - 1);
-    const float4* kb = reinterpret_cast<const float4*>(pk)
-                       + (size_t)blk * bs * row_stride + (size_t)h * C;
-    const float4* vb = reinterpret_cast<const float4*>(pv)
-                       + (size_t)blk * bs * row_stride + (size_t)h * C;
-    for (int i = threadIdx.x; i < bs * C; i += NT) {
-      const int r = i / C, cc = i % C;
-      Ks[i] = kb[r * row_stride + cc];
-      Vs[i] = vb[r * row_stride + cc];
-    }
-    __syncthreads();
-
-    // every thread runs the same trip count, so the shuffles see full warps
-    for (int i0 = 0; i0 < bs; i0 += G) {
-      const int i = i0 + g;
-      float part = 0.f;
-      if (i < bs) {
-        const float4 k4 = Ks[i * C + c];
-        part = q4.x * k4.x + q4.y * k4.y + q4.z * k4.z + q4.w * k4.w;
-      }
-      for (int off = C / 2; off; off >>= 1)
-        part += __shfl_xor_sync(0xffffffffu, part, off);
-      if (c == 0 && i < bs)
-        s_sm[i] = j * bs + i < length ? part * scale : -INFINITY;
-    }
-    __syncthreads();
-
-    float mx = -INFINITY;
-    for (int i = 0; i < bs; ++i) mx = fmaxf(mx, s_sm[i]);
-    const float m_new = fmaxf(m, mx);
-    const float corr = expf(m - m_new);
-    float rs = 0.f;
-    for (int i = 0; i < bs; ++i) rs += expf(s_sm[i] - m_new);
-    l = l * corr + rs;
-    acc.x *= corr; acc.y *= corr; acc.z *= corr; acc.w *= corr;
-    for (int i = g; i < bs; i += G) {
-      const float p = expf(s_sm[i] - m_new);
-      const float4 v4 = Vs[i * C + c];
-      acc.x = fmaf(p, v4.x, acc.x);
-      acc.y = fmaf(p, v4.y, acc.y);
-      acc.z = fmaf(p, v4.z, acc.z);
-      acc.w = fmaf(p, v4.w, acc.w);
-    }
-    m = m_new;
-    __syncthreads();
-  }
-
-  red[g * C + c] = acc;
-  __syncthreads();
-  if (threadIdx.x < C) {
-    float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
-    for (int gg = 0; gg < G; ++gg) {
-      const float4 a = red[gg * C + c];
-      sum.x += a.x; sum.y += a.y; sum.z += a.z; sum.w += a.w;
-    }
-    const float lf = fmaxf(l, 1e-30f);
-    reinterpret_cast<float4*>(out)[((size_t)s * H + h) * C + c] =
-        make_float4(sum.x / lf, sum.y / lf, sum.z / lf, sum.w / lf);
-  }
-}
-
-template <int D>
-cudaError_t launch(const float* q, const float* pk, const float* pv,
-                   const int* tables, const int* lengths, float* out, int S,
-                   int H, int N, int bs, int MB, float scale,
-                   cudaStream_t stream) {
-  constexpr int C = D / 4, G = NT / C;
-  const size_t bytes = (size_t)2 * bs * D * sizeof(float)
-                       + ((bs + 3) & ~3) * sizeof(float)
-                       + (size_t)G * D * sizeof(float);
-  const dim3 grid(H, S);
-  paged_decode_kernel<D><<<grid, NT, bytes, stream>>>(
-      q, pk, pv, tables, lengths, out, N, bs, H, MB, scale);
-  return cudaGetLastError();
-}
-
-}  // namespace
+#include "paged_attention.cuh"
 
 // q, out: [S, H, D] float32; pk, pv: [N, bs, H, D] float32; tables: [S, MB]
 // int32; lengths: [S] int32. All contiguous. Returns a cudaError_t.
@@ -148,16 +22,20 @@ extern "C" int paged_decode_f32(const void* q, const void* pk, const void* pv,
                                 const void* tables, const void* lengths,
                                 void* out, int S, int H, int D, int N, int bs,
                                 int MB, float scale, void* stream) {
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* qf = static_cast<const float*>(q);
-  const float* kf = static_cast<const float*>(pk);
-  const float* vf = static_cast<const float*>(pv);
-  const int* tb = static_cast<const int*>(tables);
-  const int* ln = static_cast<const int*>(lengths);
-  float* of = static_cast<float*>(out);
-  if (D == 64)
-    return launch<64>(qf, kf, vf, tb, ln, of, S, H, N, bs, MB, scale, st);
-  if (D == 128)
-    return launch<128>(qf, kf, vf, tb, ln, of, S, H, N, bs, MB, scale, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return paged::dispatch<1, false>(D, q, pk, pv, nullptr, nullptr, tables,
+                                   lengths, nullptr, out, S, 1, H, N, bs, MB,
+                                   scale, stream);
+}
+
+// As paged_decode_f32 with int8 pools pk, pv [N, bs, H, D] and their f32
+// row scales sk, sv [N, bs, H].
+extern "C" int paged_decode_int8_f32(const void* q, const void* pk,
+                                     const void* pv, const void* sk,
+                                     const void* sv, const void* tables,
+                                     const void* lengths, void* out, int S,
+                                     int H, int D, int N, int bs, int MB,
+                                     float scale, void* stream) {
+  return paged::dispatch<1, true>(D, q, pk, pv, sk, sv, tables, lengths,
+                                  nullptr, out, S, 1, H, N, bs, MB, scale,
+                                  stream);
 }

@@ -1,9 +1,9 @@
 """Decoder-only transformer LM — the port of ``TransformerBlock`` (dense
 FFN, optional dropout) and ``TransformerLM`` from
 ``paddle_tpu/models/transformer.py``: ``embed``, ``head``, the training
-``forward``, and the serving entry points ``prefill`` and
-``decode_step``. MoE, ``remat`` and ``residual_sharding`` are not ported
-yet.
+``forward``, and the serving entry points ``prefill``, ``decode_step``
+and ``decode_span``. MoE, ``remat`` and ``residual_sharding`` are not
+ported yet.
 
 The JAX model runs its block stack as one ``lax.scan`` over stacked
 per-layer parameters; here it is a Python loop over an ``nn.ModuleList``.
@@ -19,6 +19,7 @@ from torch import nn
 from ..core.device import resolve_device
 from ..nn.attention import MultiHeadAttention
 from ..nn.layers import Dropout, Embedding, LayerNorm, Linear
+from ..serve.kv_cache import layer_pool
 
 __all__ = ["TransformerBlock", "TransformerLM"]
 
@@ -66,6 +67,18 @@ class TransformerBlock(nn.Module):
         a, pages_k, pages_v = self.attn.decode(
             self.ln1(x), pages_k, pages_v, tables, positions, active,
             impl=attn_impl)
+        h = x + a
+        return h + self.ffn2(self.ffn1(self.ln2(h))), pages_k, pages_v
+
+    def decode_span(self, x, pages_k, pages_v, tables, start, n, active,
+                    attn_impl: str = "xla", write_from=None):
+        """The block with attention swapped for
+        :meth:`MultiHeadAttention.decode_span`; ``x`` ``[S, Q, D]``.
+        Returns ``(out, pages_k, pages_v)`` with this layer's pools updated
+        in place."""
+        a, pages_k, pages_v = self.attn.decode_span(
+            self.ln1(x), pages_k, pages_v, tables, start, n, active,
+            impl=attn_impl, write_from=write_from)
         h = x + a
         return h + self.ffn2(self.ffn1(self.ln2(h))), pages_k, pages_v
 
@@ -151,7 +164,8 @@ class TransformerLM(nn.Module):
                     attn_impl: str = "xla"):
         """Serving decode tick: one new token per slot. ``token [S]``;
         ``kv = (pages_k, pages_v, tables)`` with pools ``[L, N, bs, H,
-        hd]`` and ``tables [S, MB]``; ``positions [S]`` the new token's
+        hd]`` (or int8 ``(values, scales)`` tuples) and ``tables [S,
+        MB]``; ``positions [S]`` the new token's
         0-based position; ``active [S]`` bool (default all). Returns
         ``(logits [S, vocab], kv)``; the pools are updated in place."""
         pages_k, pages_v, tables = kv
@@ -163,6 +177,32 @@ class TransformerLM(nn.Module):
         pos_idx = positions.clamp(max=self.max_len - 1)
         x = self.emb(token[:, None]) + self.pos(pos_idx[:, None])
         for i, blk in enumerate(self.blocks):
-            x, _, _ = blk.decode_step(x, pages_k[i], pages_v[i], tables,
+            x, _, _ = blk.decode_step(x, layer_pool(pages_k, i),
+                                      layer_pool(pages_v, i), tables,
                                       positions, active, attn_impl)
         return self.head(x)[:, 0], (pages_k, pages_v, tables)
+
+    @torch.no_grad()
+    def decode_span(self, tokens, kv, start, n, active=None,
+                    attn_impl: str = "xla", write_from=None):
+        """Serving span step: ``Q`` consecutive new tokens per slot, shared
+        by the speculative verify tick (``Q = 1 + k``) and chunked prefill
+        (``Q = C``). ``tokens [S, Q]`` (token ``j`` of slot ``s`` at
+        position ``start[s] + j``); ``kv`` as in :meth:`decode_step`;
+        ``n [S]`` live tokens per slot (rows past ``n`` are padding);
+        ``write_from [S]`` an optional scatter floor for shared-prefix
+        re-reads. Returns ``(logits [S, Q, vocab], kv)``; the pools are
+        updated in place."""
+        pages_k, pages_v, tables = kv
+        S, Q = tokens.shape
+        if active is None:
+            active = torch.ones(S, dtype=torch.bool, device=tokens.device)
+        pos = (start.long()[:, None]
+               + torch.arange(Q, device=tokens.device)[None]).clamp(
+                   max=self.max_len - 1)
+        x = self.emb(tokens) + self.pos(pos)
+        for i, blk in enumerate(self.blocks):
+            x, _, _ = blk.decode_span(x, layer_pool(pages_k, i),
+                                      layer_pool(pages_v, i), tables, start,
+                                      n, active, attn_impl, write_from)
+        return self.head(x), (pages_k, pages_v, tables)

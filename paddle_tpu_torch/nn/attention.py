@@ -1,6 +1,8 @@
 """Multi-head attention — the port of ``MultiHeadAttention`` from
 ``paddle_tpu/nn/attention.py``: the ``"xla"`` (materialized scores) and
-``"flash"`` (fused kernel) forward, and the paged-KV ``decode`` step.
+``"flash"`` (fused kernel) forward, the paged-KV ``decode`` step and the
+multi-token ``decode_span`` (speculative verify, chunked prefill), over
+plain or int8 pools.
 
 The q/k/v/o projections have no bias and return the policy's accumulate
 dtype (f32), so both kernels see f32 operands on this path. Masking
@@ -16,7 +18,8 @@ import torch
 from torch import nn
 
 from ..core.dtypes import current_policy
-from .cuda_attention import flash_attention, paged_decode_attention
+from .cuda_attention import (flash_attention, paged_decode_attention,
+                             paged_span_attention)
 from .layers import xavier_uniform_
 
 __all__ = ["MultiHeadAttention"]
@@ -105,20 +108,21 @@ class MultiHeadAttention(nn.Module):
         """One decode step (q_len = 1) against this layer's paged pool:
         project the new token, write its K/V into the pool, attend over
         the slot's ragged context. ``q_in`` ``[S, 1, D]``; pools ``[N, bs,
-        H, hd]``; ``positions`` ``[S]`` the new token's 0-based position;
+        H, hd]`` or int8 ``(values, scales)`` tuples (quantized on
+        scatter); ``positions`` ``[S]`` the new token's 0-based position;
         ``active`` ``[S]`` bool (inactive slots write the null block and
         output zeros). ``impl``: ``"paged"`` = the paged-decode kernel,
         ``"xla"`` = gather + masked softmax. Returns ``(out [S, 1, D],
         pages_k, pages_v)``; the pools are updated in place (the JAX
         engine donated them to the compiled tick instead)."""
-        from ..serve.kv_cache import gather_pages, scatter_token
+        from ..serve.kv_cache import gather_pages, scatter_token_pages
         pol = current_policy()
         S = q_in.shape[0]
         q = self._heads(q_in, self.wq)[:, 0]            # [S, h, hd]
         k = self._heads(q_in, self.wk)[:, 0]
         v = self._heads(q_in, self.wv)[:, 0]
-        scatter_token(pages_k, k, tables, positions, active)
-        scatter_token(pages_v, v, tables, positions, active)
+        scatter_token_pages(pages_k, k, tables, positions, active)
+        scatter_token_pages(pages_v, v, tables, positions, active)
         # the new token sees itself: effective length = position + 1
         eff_len = torch.where(active, positions + 1,
                               torch.zeros_like(positions))
@@ -133,6 +137,51 @@ class MultiHeadAttention(nn.Module):
             raise ValueError(f"decode impl must be 'paged'|'xla', "
                              f"got {impl!r}")
         ctx = ctx.to(pol.compute_dtype).reshape(S, 1, -1)
+        return self._proj(ctx, self.wo), pages_k, pages_v
+
+    def decode_span(self, q_in, pages_k, pages_v, tables, start, n, active,
+                    impl: str = "xla", write_from=None):
+        """A span of consecutive new tokens per slot against this layer's
+        paged pool — the speculative verify tick (``Q = 1 + k``) and
+        chunked prefill (``Q = chunk``). ``q_in`` ``[S, Q, D]``: token
+        ``j`` of slot ``s`` sits at position ``start[s] + j``; ``n`` ``[S]``
+        live tokens per slot (rows ``>= n`` are padding: null-block
+        scatter, output ignored); ``active`` ``[S]``; ``write_from``
+        ``[S]`` (optional) masks the scatter below it, so a chunk
+        re-attending a shared prefix never writes co-owned pages.
+        ``impl``: ``"paged"`` = the paged-span kernel, ``"xla"`` = row
+        ``j`` through :meth:`_sdpa_row` at ``eff_len = start + j + 1``, the
+        decode step's own chain. Returns ``(out [S, Q, D], pages_k,
+        pages_v)``; the pools are updated in place."""
+        from ..serve.kv_cache import gather_pages, scatter_span_pages
+        if impl not in ("xla", "paged"):
+            raise ValueError(f"decode_span impl must be 'paged'|'xla', "
+                             f"got {impl!r}")
+        pol = current_policy()
+        S, Q = q_in.shape[:2]
+        q = self._heads(q_in, self.wq)                  # [S, Q, h, hd]
+        k = self._heads(q_in, self.wk)
+        v = self._heads(q_in, self.wv)
+        n_eff = torch.where(active, n, torch.zeros_like(n))
+        scatter_span_pages(pages_k, k, tables, start, n_eff, write_from)
+        scatter_span_pages(pages_v, v, tables, start, n_eff, write_from)
+        if impl == "paged":
+            ctx = paged_span_attention(q.contiguous(), pages_k, pages_v,
+                                       tables, start.to(torch.int32),
+                                       n_eff.to(torch.int32))
+        else:
+            kg = gather_pages(pages_k, tables)          # [S, W, h, hd]
+            vg = gather_pages(pages_v, tables)
+            rows = []
+            for j in range(Q):
+                # row j sees start + j + 1 positions, itself included; the
+                # later span rows sit past its mask
+                eff_len = torch.where(active & (j < n_eff), start + j + 1,
+                                      torch.zeros_like(start))
+                rows.append(self._sdpa_row(q[:, j], kg, vg, eff_len,
+                                           self.head_dim))
+            ctx = torch.stack(rows, dim=1)
+        ctx = ctx.to(pol.compute_dtype).reshape(S, Q, -1)
         return self._proj(ctx, self.wo), pages_k, pages_v
 
     @staticmethod

@@ -1,6 +1,6 @@
 """Attention kernels of the port — the port of
 ``paddle_tpu/nn/pallas_attention.py``'s flash forward and backward and its
-paged decode.
+paged decode and paged span, over plain and int8 pools.
 
 Each kernel comes as three pieces:
 
@@ -22,8 +22,13 @@ forward kernel alone and saves nothing.
 
 Layouts are the JAX package's: ``[B, H, T, D]`` for flash, LSE and delta
 ``[B, H, T]``; ``q [S, H, D]``, one layer's pools ``[N, bs, H, D]``,
-``tables [S, MB]``, ``lengths [S]`` for paged decode. The kernels take
-float32 (the path's projections accumulate in f32) and ``D`` in {64, 128}.
+``tables [S, MB]``, ``lengths [S]`` for paged decode; ``q [S, Q, H, D]``
+and ``start``/``n`` ``[S]`` for paged span. A quantized pool is the tuple
+``(int8 values [N, bs, H, D], f32 scales [N, bs, H])``; the kernels
+dequantize it on chip and count their launches apart
+(``paged_decode_int8``, ``paged_span_int8``). The kernels take float32
+queries (the path's projections accumulate in f32) and ``D`` in {64,
+128}.
 """
 
 from __future__ import annotations
@@ -39,15 +44,18 @@ __all__ = ["FlashAttentionFunction", "flash_attention",
            "flash_attention_bwd", "flash_attention_bwd_plain",
            "flash_attention_fwd", "flash_attention_plain", "flash_bwd_dkv",
            "flash_bwd_dkv_plain", "flash_bwd_dq", "flash_bwd_dq_plain",
-           "paged_decode_attention", "paged_decode_plain", "launch_counts",
-           "reset_launch_counts", "KERNELS"]
+           "paged_decode_attention", "paged_decode_plain",
+           "paged_span_attention", "paged_span_plain", "launch_counts",
+           "reset_launch_counts", "KERNELS", "SPAN_MAX_Q"]
 
 _NEG = -1e30
 _HEAD_DIMS = (64, 128)
 
 # kernel name -> csrc source stem
 KERNELS = {"flash_fwd": "flash_fwd", "paged_decode": "paged_decode",
-           "flash_bwd_dq": "flash_bwd", "flash_bwd_dkv": "flash_bwd"}
+           "flash_bwd_dq": "flash_bwd", "flash_bwd_dkv": "flash_bwd",
+           "paged_span": "paged_span", "paged_span_int8": "paged_span",
+           "paged_decode_int8": "paged_decode"}
 
 _launches: Dict[str, int] = {name: 0 for name in KERNELS}
 
@@ -332,16 +340,18 @@ def flash_attention(q, k, v, segments=None, causal: bool = False,
     return flash_attention_fwd(q, k, v, segments, causal, scale)[0]
 
 
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = {
-    # pointers, then B H T D / S H D N bs MB, then scale, causal, stream
-    "flash_fwd": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
-    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
-    "flash_bwd_dq": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4
-    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
-    "flash_bwd_dkv": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4
-    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
-    "paged_decode": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
-    + [ctypes.c_float, ctypes.c_void_p],
+    # pointers, then B H T D, then scale, causal, stream
+    "flash_fwd": [_P] * 6 + [_I] * 4 + [_F, _I, _P],
+    "flash_bwd_dq": [_P] * 8 + [_I] * 4 + [_F, _I, _P],
+    "flash_bwd_dkv": [_P] * 9 + [_I] * 4 + [_F, _I, _P],
+    # q, pools (and scales), tables, lengths or start and n, out; then
+    # S (Q) H D N bs MB, scale, stream
+    "paged_decode": [_P] * 6 + [_I] * 6 + [_F, _P],
+    "paged_decode_int8": [_P] * 8 + [_I] * 6 + [_F, _P],
+    "paged_span": [_P] * 7 + [_I] * 7 + [_F, _P],
+    "paged_span_int8": [_P] * 9 + [_I] * 7 + [_F, _P],
 }
 
 
@@ -354,79 +364,199 @@ def _kernel_fn(name: str):
 
 
 # ---------------------------------------------------------------------------
-# paged decode
+# paged decode and paged span
 # ---------------------------------------------------------------------------
+
+SPAN_MAX_Q = 256     # query rows per slot the span kernel takes
+_SPAN_ROWS = 8       # query rows per thread block (csrc/paged_span.cu)
+
+
+def _unpack_pages(pages):
+    """``(values, scales)`` of a quantized ``(int8 [N, bs, H, D], f32
+    scales [N, bs, H])`` pool, ``(values, None)`` of a plain one."""
+    if isinstance(pages, tuple):
+        return pages[0], pages[1]
+    return pages, None
+
+
+def _check_pool_pair(name: str, pages_k, pages_v) -> None:
+    if isinstance(pages_k, tuple) != isinstance(pages_v, tuple):
+        raise ValueError(f"{name}: the K and V pools must both be plain or "
+                         f"both (int8 values, scales)")
+
+
+def _gathered(pages, tables) -> torch.Tensor:
+    """One layer's pool in position order, ``[S, MB*bs, H, D]`` f32,
+    through the serving pool's own (dequantizing) gather, so the plain
+    versions and the ``"xla"`` path read int8 pools the same way."""
+    from ..serve.kv_cache import gather_pages
+    return gather_pages(pages, tables).float()
+
+
+def _masked_softmax_pv(s, v, vis, eq: str) -> torch.Tensor:
+    """``softmax(s) . v`` over the last axis of the scores ``s`` with the
+    kernels' conventions: pairs outside ``vis`` at ``-inf``, the row max
+    floored at ``-1e30`` and the sum clamped at ``1e-30``, so a row with
+    nothing visible gives zeros."""
+    s = s.masked_fill(~vis, float("-inf"))
+    m = s.amax(-1, keepdim=True).clamp_min(_NEG)
+    p = torch.exp(s - m)
+    l = p.sum(-1, keepdim=True).clamp_min(1e-30)
+    return torch.einsum(eq, p, v) / l
+
 
 def paged_decode_plain(q, pages_k, pages_v, tables, lengths,
                        scale: Optional[float] = None) -> torch.Tensor:
     """``[S, H, D]``: each slot's query against its table's pages in
-    position order, positions ``>= lengths`` masked, length 0 giving
-    zeros — the kernel's conventions (row max floored at ``-1e30``, sum
-    clamped at ``1e-30``)."""
+    position order (dequantized for an int8 pool), positions ``>=
+    lengths`` masked, length 0 giving zeros."""
     S, H, D = q.shape
     scale = D ** -0.5 if scale is None else scale
-    MB = tables.shape[1]
-    bs = pages_k.shape[1]
-    idx = tables.long()
-    k = pages_k[idx].reshape(S, MB * bs, H, D).float()
-    v = pages_v[idx].reshape(S, MB * bs, H, D).float()
+    k = _gathered(pages_k, tables)
+    v = _gathered(pages_v, tables)
     s = torch.einsum("shd,swhd->shw", q.float(), k) * scale
-    live = torch.arange(MB * bs, device=q.device)[None] < lengths[:, None]
-    s = s.masked_fill(~live[:, None, :], float("-inf"))
-    m = s.amax(-1, keepdim=True).clamp_min(_NEG)
-    p = torch.exp(s - m)
-    l = p.sum(-1, keepdim=True).clamp_min(1e-30)
-    return (torch.einsum("shw,swhd->shd", p, v) / l).to(q.dtype)
+    live = torch.arange(k.shape[1], device=q.device)[None] < lengths[:, None]
+    return _masked_softmax_pv(s, v, live[:, None, :],
+                              "shw,swhd->shd").to(q.dtype)
+
+
+def paged_span_plain(q, pages_k, pages_v, tables, start, n,
+                     scale: Optional[float] = None) -> torch.Tensor:
+    """``[S, Q, H, D]``: row ``j`` of slot ``s`` (position ``start[s] +
+    j``) against the slot's pages in position order (dequantized for an
+    int8 pool), seeing positions ``<= start[s] + j``; ``n == 0`` gives
+    zeros on every row, rows ``>= n`` are padding (compare live rows
+    only) — the oracle ``paged_span_reference_attention`` with the
+    kernel's conventions."""
+    S, Q, H, D = q.shape
+    scale = D ** -0.5 if scale is None else scale
+    k = _gathered(pages_k, tables)
+    v = _gathered(pages_v, tables)
+    s = torch.einsum("sqhd,swhd->sqhw", q.float(), k) * scale
+    pos = start.long()[:, None] + torch.arange(Q, device=q.device)[None]
+    vis = torch.arange(k.shape[1], device=q.device)[None, None] \
+        <= pos[..., None]                                 # [S, Q, W]
+    vis = vis & (n > 0)[:, None, None]
+    return _masked_softmax_pv(s, v, vis[:, :, None, :],
+                              "sqhw,swhd->sqhd").to(q.dtype)
+
+
+def _check_paged(name: str, q, pages_k, pages_v, tables, rows: int,
+                 **per_slot) -> Tuple[bool, list, int, int, int]:
+    """Validate the paged kernels' operands for a launch on ``q``'s card:
+    ``q [S, (Q,) H, D]`` f32 with ``D`` in {64, 128}; both pools plain f32
+    ``[N, bs, H, D]`` or both ``(int8 [N, bs, H, D], f32 scales [N, bs,
+    H])``; ``tables [S, MB]`` and each ``per_slot`` vector ``[S]`` int32;
+    all contiguous on one device. Returns ``(quant, pool pointers, N, bs,
+    MB)``."""
+    if q.device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for {q.device}")
+    kv, ks = _unpack_pages(pages_k)
+    vv, vs = _unpack_pages(pages_v)
+    quant = ks is not None
+    S, H, D = q.shape[0], q.shape[-2], q.shape[-1]
+    if kv.dim() != 4 or (H, D) != tuple(kv.shape[2:]) \
+            or vv.shape != kv.shape:
+        raise ValueError(f"{name}: q {tuple(q.shape)} vs pools "
+                         f"{tuple(kv.shape)}, {tuple(vv.shape)}")
+    N, bs = kv.shape[:2]
+    if D not in _HEAD_DIMS:
+        raise ValueError(f"{name}: head dim {D} not in {_HEAD_DIMS}")
+    if tables.dim() != 2 or tables.shape[0] != S or any(
+            tuple(t.shape) != (S,) for t in per_slot.values()):
+        raise ValueError(f"{name}: tables {tuple(tables.shape)} / "
+                         + ", ".join(f"{k} {tuple(t.shape)}"
+                                     for k, t in per_slot.items())
+                         + f" do not match S={S}")
+    # K, V and query tiles, the reduction buffer, scores and per-row
+    # state in 48 KB of shared memory (no opt-in needed)
+    smem = 16 * (2 * bs * D // 4 + rows * D // 4 + 128) \
+        + 4 * (rows * bs + 3 * rows)
+    if smem > 48 * 1024:
+        raise ValueError(f"{name}: block size {bs} too large for head dim "
+                         f"{D}")
+    if S > 65535 or H > 65535:
+        raise ValueError(f"{name}: S and H must be <= 65535")
+    _check_dtype(name, torch.float32, q=q)
+    pools = {"pages_k": kv, "pages_v": vv}
+    if quant:
+        _check_dtype(name, torch.int8, pages_k=kv, pages_v=vv)
+        pools.update(scales_k=ks, scales_v=vs)
+        for key in ("scales_k", "scales_v"):
+            if tuple(pools[key].shape) != (N, bs, H):
+                raise ValueError(f"{name}: {key} {tuple(pools[key].shape)} "
+                                 f"must be {(N, bs, H)}")
+        _check_dtype(name, torch.float32, scales_k=ks, scales_v=vs)
+    else:
+        _check_dtype(name, torch.float32, pages_k=kv, pages_v=vv)
+    _check_dtype(name, torch.int32, tables=tables, **per_slot)
+    _check_cuda(name, q.device, q=q, tables=tables, **pools, **per_slot)
+    # 16-byte (float4) and 4-byte (char4, f32) loads
+    for key, t in {"q": q, **pools}.items():
+        align = 4 if t.dtype == torch.int8 or key.startswith("scales") \
+            else 16
+        if t.data_ptr() % align:
+            raise ValueError(f"{name}: {key} is not {align}-byte aligned")
+    return quant, [t.data_ptr() for t in pools.values()], N, bs, \
+        tables.shape[1]
 
 
 def paged_decode_attention(q, pages_k, pages_v, tables, lengths,
                            scale: Optional[float] = None) -> torch.Tensor:
-    """Decode-shaped (q_len = 1) attention over one layer's paged KV
-    pool. ``lengths`` counts the valid tokens including the one just
-    scattered; 0 marks an inactive slot (zero output). Quantized
-    ``(values, scales)`` pools are not supported yet."""
-    if isinstance(pages_k, tuple) or isinstance(pages_v, tuple):
-        raise NotImplementedError("paged_decode_attention: quantized "
-                                  "(int8, scales) pools are not ported")
+    """Decode-shaped (q_len = 1) attention over one layer's paged KV pool,
+    plain or the quantized ``(int8 values, scales)`` tuple (dequantized in
+    the kernel). ``q [S, H, D]``; ``lengths`` counts the valid tokens
+    including the one just scattered; 0 marks an inactive slot (zero
+    output). CUDA tensors launch ``paged_decode`` (``paged_decode_int8``
+    for int8 pools)."""
+    _check_pool_pair("paged_decode_attention", pages_k, pages_v)
     if q.device.type == "cpu":
         return paged_decode_plain(q, pages_k, pages_v, tables, lengths,
                                   scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"paged_decode_attention: no kernel for {q.device}")
+    if q.dim() != 3:
+        raise ValueError(f"paged_decode_attention: q {tuple(q.shape)} must "
+                         f"be [S, H, D]")
+    quant, pools, N, bs, MB = _check_paged(
+        "paged_decode_attention", q, pages_k, pages_v, tables, 1,
+        lengths=lengths)
     S, H, D = q.shape
-    N, bs, Hk, Dk = pages_k.shape
-    if (H, D) != (Hk, Dk) or pages_v.shape != pages_k.shape:
-        raise ValueError(f"paged_decode_attention: q {tuple(q.shape)} vs "
-                         f"pools {tuple(pages_k.shape)}, "
-                         f"{tuple(pages_v.shape)}")
-    if D not in _HEAD_DIMS:
-        raise ValueError(f"paged_decode_attention: head dim {D} not in "
-                         f"{_HEAD_DIMS}")
-    if tables.dim() != 2 or tables.shape[0] != S \
-            or tuple(lengths.shape) != (S,):
-        raise ValueError(f"paged_decode_attention: tables "
-                         f"{tuple(tables.shape)} / lengths "
-                         f"{tuple(lengths.shape)} do not match S={S}")
-    MB = tables.shape[1]
-    # K and V tiles, scores and the cross-group reduction in 48 KB of
-    # shared memory (no opt-in needed)
-    smem = 4 * (2 * bs * D + ((bs + 3) & ~3) + 128 * 4)
-    if smem > 48 * 1024:
-        raise ValueError(f"paged_decode_attention: block size {bs} too "
-                         f"large for head dim {D}")
-    if S > 65535 or H > 65535:
-        raise ValueError("paged_decode_attention: S and H must be <= 65535")
-    _check_dtype("paged_decode_attention", torch.float32, q=q,
-                 pages_k=pages_k, pages_v=pages_v)
-    _check_dtype("paged_decode_attention", torch.int32, tables=tables,
-                 lengths=lengths)
-    _check_cuda("paged_decode_attention", q.device, q=q, pages_k=pages_k,
-                pages_v=pages_v, tables=tables, lengths=lengths)
     scale = D ** -0.5 if scale is None else float(scale)
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):          # launch on q's card
-        _launch("paged_decode", q.data_ptr(), pages_k.data_ptr(),
-                pages_v.data_ptr(), tables.data_ptr(), lengths.data_ptr(),
+        _launch("paged_decode_int8" if quant else "paged_decode",
+                q.data_ptr(), *pools, tables.data_ptr(), lengths.data_ptr(),
                 out.data_ptr(), S, H, D, N, bs, MB, scale, _stream_ptr(q))
     return out
 
+
+def paged_span_attention(q, pages_k, pages_v, tables, start, n,
+                         scale: Optional[float] = None) -> torch.Tensor:
+    """Multi-query (q_len = Q) attention over one layer's paged KV pool,
+    causal within the span: row ``j`` of slot ``s`` sits at position
+    ``start[s] + j`` and sees positions ``<= start[s] + j``. ``q [S, Q,
+    H, D]``; ``start``/``n`` ``[S]`` int32 — rows ``>= n[s]`` are padding
+    (finite output the caller ignores), ``n == 0`` marks an inactive slot
+    (zeros). Pools plain or ``(int8 values, scales)``. CUDA tensors launch
+    ``paged_span`` (``paged_span_int8``), whose row ``j`` is bit-equal to
+    :func:`paged_decode_attention` at length ``start + j + 1``; ``Q`` is at
+    most :data:`SPAN_MAX_Q`."""
+    _check_pool_pair("paged_span_attention", pages_k, pages_v)
+    if q.device.type == "cpu":
+        return paged_span_plain(q, pages_k, pages_v, tables, start, n, scale)
+    if q.dim() != 4:
+        raise ValueError(f"paged_span_attention: q {tuple(q.shape)} must be "
+                         f"[S, Q, H, D]")
+    S, Q, H, D = q.shape
+    if not 1 <= Q <= SPAN_MAX_Q:
+        raise ValueError(f"paged_span_attention: a span of {Q} query rows; "
+                         f"the kernel takes 1 to {SPAN_MAX_Q}")
+    quant, pools, N, bs, MB = _check_paged(
+        "paged_span_attention", q, pages_k, pages_v, tables, _SPAN_ROWS,
+        start=start, n=n)
+    scale = D ** -0.5 if scale is None else float(scale)
+    out = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        _launch("paged_span_int8" if quant else "paged_span", q.data_ptr(),
+                *pools, tables.data_ptr(), start.data_ptr(), n.data_ptr(),
+                out.data_ptr(), S, Q, H, D, N, bs, MB, scale, _stream_ptr(q))
+    return out

@@ -2,11 +2,15 @@
 
 from .engine import AdmitProbe, DecodeEngine
 from .kv_cache import (NULL_BLOCK, BlockAllocator, PagedKVCache, PrefixCache,
-                       PrefixMatch, gather_pages, scatter_prefill,
-                       scatter_token)
+                       PrefixMatch, dequantize_rows, gather_pages,
+                       quantize_rows, scatter_prefill, scatter_prefill_pages,
+                       scatter_span, scatter_span_pages, scatter_token,
+                       scatter_token_pages)
 from .scheduler import ContinuousBatchingScheduler, Request
 
 __all__ = ["AdmitProbe", "BlockAllocator", "ContinuousBatchingScheduler",
            "DecodeEngine", "NULL_BLOCK", "PagedKVCache", "PrefixCache",
-           "PrefixMatch", "Request", "gather_pages", "scatter_prefill",
-           "scatter_token"]
+           "PrefixMatch", "Request", "dequantize_rows", "gather_pages",
+           "quantize_rows", "scatter_prefill", "scatter_prefill_pages",
+           "scatter_span", "scatter_span_pages", "scatter_token",
+           "scatter_token_pages"]

@@ -1,19 +1,28 @@
-"""Paged KV cache — the port of ``paddle_tpu/serve/kv_cache.py`` for plain
-(unquantized) pools on one device.
+"""Paged KV cache — the port of ``paddle_tpu/serve/kv_cache.py`` on one
+device, with plain or int8 pools.
 
 The cache is one pool of fixed-size blocks per layer (``[L, N, bs, H,
 hd]``) and each sequence holds an ordered block table of pool indices;
 allocation is block-granular and freed blocks are reusable at once.
 
 - **Device side**: :func:`gather_pages`, :func:`scatter_prefill`,
-  :func:`scatter_token`. The scatters write the pool IN PLACE (the JAX
-  engine donated its pools to the compiled programs and got new ones
-  back; here the same storage is updated).
+  :func:`scatter_token`, :func:`scatter_span` and their quant-aware
+  ``*_pages`` wrappers, :func:`quantize_rows` / :func:`dequantize_rows`.
+  The scatters write the pool IN PLACE (the JAX engine donated its pools
+  to the compiled programs and got new ones back; here the same storage
+  is updated).
 - **Host side**: :class:`BlockAllocator` (refcounts and the retained
   LRU), :class:`PrefixCache` (content-hashed prompt prefixes) and
   :class:`PagedKVCache` (the pools plus the authoritative host tables
   and lengths). Admission and eviction edit these small numpy arrays
   between decode ticks.
+
+**Int8 pools** (``kv_dtype="int8"``): each pool is the tuple ``(int8
+values [L, N, bs, H, hd], f32 scales [L, N, bs, H])``, one symmetric scale
+per token row per head, so a later token landing in the same block never
+requantizes the resident ones. Rows are quantized on scatter and
+dequantized by the consumer: the paged kernels on chip, the ``"xla"``
+path in :func:`gather_pages`.
 
 Block 0 is the **null block**: unallocated table entries and masked-off
 scatter rows point at it, so every scatter is total; its contents are
@@ -30,7 +39,10 @@ import numpy as np
 import torch
 
 __all__ = ["BlockAllocator", "PagedKVCache", "PrefixCache", "PrefixMatch",
-           "gather_pages", "scatter_prefill", "scatter_token", "NULL_BLOCK"]
+           "gather_pages", "scatter_prefill", "scatter_token",
+           "scatter_span", "scatter_prefill_pages", "scatter_token_pages",
+           "scatter_span_pages", "quantize_rows", "dequantize_rows",
+           "layer_pool", "NULL_BLOCK"]
 
 NULL_BLOCK = 0
 
@@ -39,22 +51,52 @@ NULL_BLOCK = 0
 # device side
 # ---------------------------------------------------------------------------
 
-def gather_pages(pages: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+def quantize_rows(kv: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric per-row-per-head int8 quantization: ``kv [..., hd]`` ->
+    ``(int8 [..., hd], f32 scale [...])`` with ``scale = max(amax, 1e-8) /
+    127`` over the head dim, values rounded half to even and clipped to
+    +-127 — bit-equal to the JAX package's ``quantize_rows``."""
+    amax = kv.float().abs().amax(-1)
+    scale = amax.clamp_min(1e-8) / 127.0
+    q = torch.round(kv / scale[..., None]).clamp(-127, 127)
+    return q.to(torch.int8), scale
+
+
+def dequantize_rows(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`quantize_rows`: ``float(q) * scale`` in f32."""
+    return q.float() * scale[..., None]
+
+
+def layer_pool(pool, layer: int):
+    """Layer ``layer`` of an ``[L, ...]`` pool, plain or an int8 tuple."""
+    if isinstance(pool, tuple):
+        return pool[0][layer], pool[1][layer]
+    return pool[layer]
+
+
+def gather_pages(pages, table: torch.Tensor) -> torch.Tensor:
     """One layer's pool ``[N, bs, H, hd]`` gathered through ``table``
     ``[S, MB]`` into position order ``[S, MB*bs, H, hd]``; rows past a
-    sequence's length are unspecified."""
+    sequence's length are unspecified. An int8 ``(values, scales)`` pool
+    gathers dequantized f32 values."""
     S, MB = table.shape
+    idx = table.long()
+    if isinstance(pages, tuple):
+        vals, scales = pages
+        _, bs, H, hd = vals.shape
+        return dequantize_rows(vals[idx], scales[idx]).reshape(
+            S, MB * bs, H, hd)
     _, bs, H, hd = pages.shape
-    return pages[table.long()].reshape(S, MB * bs, H, hd)
+    return pages[idx].reshape(S, MB * bs, H, hd)
 
 
 def scatter_prefill(pages, kv, table, length, start=0) -> torch.Tensor:
-    """Write a prefill's K (or V) rows ``kv`` ``[B, W, H, hd]`` (positions
-    ``0..W-1``) into the pool, in place. Only rows in ``[start, length)``
-    are live — the rest go to the null block; ``start`` masks a
-    prefix-cache hit, whose rows already live in co-owned blocks that a
-    sharer must never write. ``table`` ``[B, MB]``, ``length``/``start``
-    ``[B]`` (or a scalar ``start``)."""
+    """Write a prefill's K (or V) rows ``kv`` ``[B, W, ...]`` (positions
+    ``0..W-1``) into the pool ``[N, bs, ...]``, in place. Only rows in
+    ``[start, length)`` are live — the rest go to the null block;
+    ``start`` masks a prefix-cache hit, whose rows already live in
+    co-owned blocks that a sharer must never write. ``table`` ``[B,
+    MB]``, ``length``/``start`` ``[B]`` (or a scalar ``start``)."""
     B, W = kv.shape[:2]
     bs = pages.shape[1]
     dev = pages.device
@@ -70,7 +112,7 @@ def scatter_prefill(pages, kv, table, length, start=0) -> torch.Tensor:
 
 
 def scatter_token(pages, kv, table, position, active) -> torch.Tensor:
-    """Write one decode step's K (or V) ``kv`` ``[S, H, hd]`` at each
+    """Write one decode step's K (or V) ``kv`` ``[S, ...]`` at each
     slot's ``position`` ``[S]``, in place; inactive slots write the null
     block."""
     S = kv.shape[0]
@@ -80,6 +122,58 @@ def scatter_token(pages, kv, table, position, active) -> torch.Tensor:
     blk = torch.where(active, rows, torch.full_like(rows, NULL_BLOCK))
     pages[blk, position % bs] = kv.to(pages.dtype)
     return pages
+
+
+def scatter_span(pages, kv, table, start, n, write_from=None
+                 ) -> torch.Tensor:
+    """Write a span of consecutive tokens' K (or V) ``kv`` ``[S, Q, ...]``
+    for every slot, in place: token ``j`` of slot ``s`` lands at position
+    ``start[s] + j``; only tokens ``j < n[s]`` are live (draft padding and
+    a chunk's tail go to the null block). ``write_from`` ``[S]``
+    (optional) also masks positions below it — a chunk re-reading a fully
+    shared prefix for its logits must not write the co-owned pages."""
+    S, Q = kv.shape[:2]
+    bs = pages.shape[1]
+    MB = table.shape[1]
+    dev = pages.device
+    pos = start.long()[:, None] + torch.arange(Q, device=dev)[None]  # [S, Q]
+    live = torch.arange(Q, device=dev)[None] < n.long()[:, None]
+    if write_from is not None:
+        live = live & (pos >= write_from.long()[:, None])
+    # masked-off rows may point past the table; they go to the null block
+    idx = torch.div(pos, bs, rounding_mode="floor").clamp(0, MB - 1)
+    blk = torch.where(live, torch.gather(table.long(), 1, idx),
+                      torch.full_like(idx, NULL_BLOCK))
+    pages[blk, pos % bs] = kv.to(pages.dtype)
+    return pages
+
+
+# quant-aware wrappers: a plain pool takes the values as they are; an int8
+# (values, scales) pool quantizes on scatter and writes the int8 rows and
+# their scales through the same block/offset routing
+
+def scatter_prefill_pages(pages, kv, table, length, start=0):
+    if isinstance(pages, tuple):
+        q, s = quantize_rows(kv)
+        return (scatter_prefill(pages[0], q, table, length, start),
+                scatter_prefill(pages[1], s, table, length, start))
+    return scatter_prefill(pages, kv, table, length, start)
+
+
+def scatter_token_pages(pages, kv, table, position, active):
+    if isinstance(pages, tuple):
+        q, s = quantize_rows(kv)
+        return (scatter_token(pages[0], q, table, position, active),
+                scatter_token(pages[1], s, table, position, active))
+    return scatter_token(pages, kv, table, position, active)
+
+
+def scatter_span_pages(pages, kv, table, start, n, write_from=None):
+    if isinstance(pages, tuple):
+        q, s = quantize_rows(kv)
+        return (scatter_span(pages[0], q, table, start, n, write_from),
+                scatter_span(pages[1], s, table, start, n, write_from))
+    return scatter_span(pages, kv, table, start, n, write_from)
 
 
 # ---------------------------------------------------------------------------
@@ -267,15 +361,20 @@ class PrefixCache:
 
 
 class PagedKVCache:
-    """Device pools ``k``/``v`` ``[L, N, bs, H, hd]`` plus the host
-    tables ``[max_slots, max_blocks_per_seq]`` and lengths
-    ``[max_slots]`` for up to ``max_slots`` sequences."""
+    """Device pools ``k``/``v`` plus the host tables ``[max_slots,
+    max_blocks_per_seq]`` and lengths ``[max_slots]`` for up to
+    ``max_slots`` sequences. With ``kv_dtype`` ``None``/``"f32"`` each
+    pool is ``[L, N, bs, H, hd]`` at ``dtype``; with ``"int8"`` it is the
+    tuple ``(int8 [L, N, bs, H, hd], f32 scales [L, N, bs, H])``."""
 
     def __init__(self, num_layers: int, num_heads: int, head_dim: int,
                  num_blocks: int, block_size: int, max_slots: int,
                  max_blocks_per_seq: int, dtype=torch.float32,
-                 share_prefix: bool = False, retain_prefix: bool = True,
-                 device=None):
+                 share_prefix: bool = False, kv_dtype: Optional[str] = None,
+                 retain_prefix: bool = True, device=None):
+        if kv_dtype not in (None, "f32", "float32", "int8"):
+            raise ValueError(f"kv_dtype must be None|'f32'|'int8', "
+                             f"got {kv_dtype!r}")
         self.num_layers = num_layers
         self.num_heads = num_heads
         self.head_dim = head_dim
@@ -283,9 +382,21 @@ class PagedKVCache:
         self.block_size = block_size
         self.max_slots = max_slots
         self.max_blocks_per_seq = max_blocks_per_seq
+        self.dtype = dtype
+        self.quantized = kv_dtype == "int8"
         shape = (num_layers, num_blocks, block_size, num_heads, head_dim)
-        self.k = torch.zeros(shape, dtype=dtype, device=device)
-        self.v = torch.zeros(shape, dtype=dtype, device=device)
+        if self.quantized:
+            def pool():
+                return (torch.zeros(shape, dtype=torch.int8, device=device),
+                        torch.zeros(shape[:-1], dtype=torch.float32,
+                                    device=device))
+        else:
+            def pool():
+                return torch.zeros(shape, dtype=dtype, device=device)
+        self.k = pool()
+        self.v = pool()
+        self.device = torch.device(device) if device is not None \
+            else torch.device("cpu")
         self.allocator = BlockAllocator(num_blocks)
         self.tables = np.zeros((max_slots, max_blocks_per_seq), np.int32)
         self.lengths = np.zeros((max_slots,), np.int32)
@@ -302,6 +413,34 @@ class PagedKVCache:
         self.prefix_hit_blocks = 0
         self.cow_forks = 0
         self.retained_hits = 0
+
+    @property
+    def quant_dtype(self) -> str:
+        return "int8" if self.quantized else str(self.dtype).split(".")[-1]
+
+    @property
+    def kv_bytes_per_token(self) -> int:
+        """Device bytes one resident token costs across all layers, K and
+        V: ``hd`` int8 values plus one f32 scale per head when quantized,
+        ``hd`` elements of ``dtype`` otherwise."""
+        if self.quantized:
+            per_head = self.head_dim * 1 + 4
+        else:
+            per_head = self.head_dim * self.dtype.itemsize
+        return 2 * self.num_layers * self.num_heads * per_head
+
+    @property
+    def bytes_per_block(self) -> int:
+        """Device bytes one pool block costs (both pools, scales
+        included)."""
+        return self.kv_bytes_per_token * self.block_size
+
+    def copy_block(self, src: int, dst: int) -> None:
+        """Copy pool block ``src`` to ``dst`` in every layer of both pools,
+        scale pages with their values (the copy-on-write fork)."""
+        for pool in (self.k, self.v):
+            for t in (pool if isinstance(pool, tuple) else (pool,)):
+                t[:, dst] = t[:, src]
 
     @property
     def context_width(self) -> int:
@@ -440,6 +579,5 @@ class PagedKVCache:
     def device_tables(self) -> Tuple[torch.Tensor, torch.Tensor]:
         """The current (tables, lengths) as int32 tensors on the pools'
         device (copies: the host arrays change between ticks)."""
-        dev = self.k.device
-        return (torch.tensor(self.tables, device=dev),
-                torch.tensor(self.lengths, device=dev))
+        return (torch.tensor(self.tables, device=self.device),
+                torch.tensor(self.lengths, device=self.device))

@@ -7,6 +7,12 @@ a slot the moment one frees, and a finished request is evicted the moment
 its last token lands; the tick's ``[S]`` shape never changes (the
 engine's active mask absorbs the churn). ``policy="static"`` is the gang
 baseline: a batch is admitted only when every slot is free.
+
+On a chunked engine (``prefill_chunk=C``) an admitted request prefills
+one chunk per :meth:`~ContinuousBatchingScheduler.step`, between decode
+ticks, so a long prompt does not stall the running slots. A speculative
+tick may retire several tokens per slot; they pass the finish rules one
+at a time, so eos and length stop exactly where the plain engine stops.
 """
 
 from __future__ import annotations
@@ -37,6 +43,9 @@ class Request:
     prefix_hit_blocks: Optional[int] = None
     blocks_reserved: Optional[int] = None
     cow_forks: Optional[int] = None
+    prefill_chunks: Optional[int] = None
+    draft_proposed: Optional[int] = None
+    draft_accepted: Optional[int] = None
 
     @property
     def done(self) -> bool:
@@ -70,6 +79,7 @@ class ContinuousBatchingScheduler:
         self.policy = policy
         self.queue: List[Request] = []
         self.running: Dict[int, Request] = {}        # slot -> request
+        self.prefilling: Dict[int, Request] = {}     # slot -> request
         self.completed: List[Request] = []
         self.last_backpressure: Optional[str] = None
         self._rid = itertools.count()
@@ -97,10 +107,11 @@ class ContinuousBatchingScheduler:
         req.finish_reason = reason
         slot = req.slot
         st = self.engine.slot_stats[slot]
-        req.prefix_hit_blocks = st.get("prefix_hit_blocks")
-        req.blocks_reserved = st.get("blocks_reserved")
-        req.cow_forks = st.get("cow_forks")
-        del self.running[slot]
+        for key in ("prefix_hit_blocks", "blocks_reserved", "cow_forks",
+                    "prefill_chunks", "draft_proposed", "draft_accepted"):
+            setattr(req, key, st.get(key))
+        self.running.pop(slot, None)
+        self.prefilling.pop(slot, None)
         self.engine.evict(slot)
         self.completed.append(req)
 
@@ -113,7 +124,7 @@ class ContinuousBatchingScheduler:
 
     def _admit(self) -> None:
         self.last_backpressure = None
-        if self.policy == "static" and self.running:
+        if self.policy == "static" and (self.running or self.prefilling):
             return                       # gang: wait for the whole batch
         free = self.engine.free_slots()
         while free and self.queue:
@@ -130,24 +141,42 @@ class ContinuousBatchingScheduler:
             self.queue.pop(0)
             slot = free.pop(0)
             req.slot = slot
-            tok = self.engine.admit(slot, req.prompt, reserve_len=target,
-                                    staged=req._staged)
-            req.tokens.append(tok)
-            req.first_token_ts = time.perf_counter()
-            self.running[slot] = req
-            self._maybe_finish(slot, tok)
+            self.engine.begin_prefill(slot, req.prompt, reserve_len=target,
+                                      staged=req._staged)
+            self.prefilling[slot] = req
+            # the whole prompt on a one-shot engine, the first chunk on a
+            # chunked one; the rest interleave with decode ticks
+            self._advance_prefill(slot)
+
+    def _advance_prefill(self, slot: int) -> None:
+        """One prefill call for a reserved slot; the request runs once its
+        first token lands."""
+        tok = self.engine.prefill_step(slot)
+        if tok is None:
+            return
+        req = self.prefilling.pop(slot)
+        req.tokens.append(tok)
+        req.first_token_ts = time.perf_counter()
+        self.running[slot] = req
+        self._maybe_finish(slot, tok)
 
     def step(self) -> bool:
-        """Admit, run one decode tick, collect finished requests. Returns
-        True while work remains."""
+        """Advance every prefilling slot by one chunk, admit, run one
+        decode tick, collect finished requests. Returns True while work
+        remains."""
+        for slot in list(self.prefilling):
+            self._advance_prefill(slot)
         self._admit()
         if self.running:
-            front = self.engine.decode_tick()
+            self.engine.decode_tick()
+            accepted = self.engine.last_accepted
             for slot, req in list(self.running.items()):
-                tok = int(front[slot])
-                req.tokens.append(tok)
-                self._maybe_finish(slot, tok)
-        return bool(self.queue or self.running)
+                for tok in accepted.get(slot, ()):
+                    req.tokens.append(tok)
+                    self._maybe_finish(slot, tok)
+                    if req.done:
+                        break
+        return bool(self.queue or self.running or self.prefilling)
 
     def run(self, max_ticks: int = 100000) -> List[Request]:
         """Step until the queue drains; returns completed requests in

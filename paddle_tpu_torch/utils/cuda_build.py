@@ -4,10 +4,11 @@ Each ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into its own
 shared library with a plain C interface, loaded with :mod:`ctypes`. No
 PyTorch header is included, so a build takes seconds. The library lands
 in ``paddle_tpu_torch/_build/`` under a name that carries a hash of the
-source and flags, so an edited source rebuilds and an unchanged one is
-reused. Nothing is built when the package is imported: the first launch
-builds, or :func:`build` builds several sources at once, one ``nvcc``
-process per source, all started together.
+source, the ``csrc/*.cuh`` headers and the flags, so an edited source or
+header rebuilds and an unchanged one is reused. Nothing is built when the
+package is imported: the first launch builds, or :func:`build` builds
+several sources at once, one ``nvcc`` process per source, all started
+together.
 """
 
 from __future__ import annotations
@@ -49,6 +50,8 @@ def _nvcc() -> str:
 def _target(name: str) -> Path:
     src = CSRC / f"{name}.cu"
     h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):    # included by the sources
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 

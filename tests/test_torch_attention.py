@@ -104,8 +104,12 @@ def test_paged_plain_matches_jax_kernel(nprng):
 def test_paged_wrapper_rejects_quantized_pools(nprng):
     q, pk, pv, tables, lengths = (torch.from_numpy(a)
                                   for a in _paged_case(nprng))
-    with pytest.raises(NotImplementedError):
+    # int8 pools come as (values, scales) for both K and V, never mixed
+    with pytest.raises(ValueError, match="both be plain"):
         ca.paged_decode_attention(q, (pk, pk[..., 0]), pv, tables, lengths)
+    with pytest.raises(ValueError, match="both be plain"):
+        ca.paged_span_attention(q[:, None], pk, (pv, pv[..., 0]), tables,
+                                lengths, lengths)
 
 
 def test_wrappers_refuse_devices_without_a_kernel():

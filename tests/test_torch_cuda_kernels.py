@@ -4,7 +4,8 @@ at edge shapes the smoke run does not reach: ragged T, one-token T, D =
 full slots, and the wrappers' input checks; for the flash backward also
 the autograd seam (no backward launch under ``torch.no_grad()``, and
 gradients through ``FlashAttentionFunction`` against autograd of the
-plain forward). Every test needs an
+plain forward); for the paged span the Q = 1 and per-row bit-equality
+with the paged decode, and the int8 branches of both. Every test needs an
 NVIDIA GPU (marker ``cuda``) and skips without one; run them on the card
 with ``python -m pytest --noconftest -q tests/test_torch_cuda_kernels.py``
 (the JAX harness in ``tests/conftest.py`` is not needed there).
@@ -92,7 +93,7 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(gen):
     pk = torch.randn(5, 16, 2, 64, device="cuda")
     tables = torch.ones(1, 2, dtype=torch.int32, device="cuda")
     lengths = torch.ones(1, dtype=torch.int32, device="cuda")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="both be plain"):
         ca.paged_decode_attention(qd, (pk, pk[..., 0]), pk, tables, lengths)
     with pytest.raises(ValueError, match="dtype"):
         ca.paged_decode_attention(qd, pk, pk, tables.long(), lengths)
@@ -205,3 +206,131 @@ def test_function_gradients_match_autograd_of_plain(gen, causal, segs):
     torch.cuda.synchronize()
     for g, w in zip(grads["kernel"], grads["plain"]):
         assert (g - w).abs().max().item() <= ATOL
+
+
+def _span_case(gen, S, H, D, bs, MB, quant):
+    """Pools of ``S * MB + 1`` blocks (int8 with f32 row scales when
+    ``quant``), each slot's table a disjoint random run of blocks."""
+    N = S * MB + 1
+    perm = torch.randperm(N - 1, generator=gen, device="cuda") + 1
+    tables = perm[:S * MB].reshape(S, MB).to(torch.int32)
+    pools = []
+    for _ in range(2):
+        raw = torch.randn(N, bs, H, D, generator=gen, device="cuda")
+        if quant:
+            amax = raw.abs().amax(-1)
+            scale = amax.clamp_min(1e-8) / 127.0
+            pools.append((torch.round(raw / scale[..., None]).clamp(
+                -127, 127).to(torch.int8), scale))
+        else:
+            pools.append(raw)
+    return pools[0], pools[1], tables
+
+
+@pytest.mark.parametrize("Q,D,quant", [(1, 64, False), (5, 64, False),
+                                       (128, 64, False), (5, 128, False),
+                                       (128, 128, False), (5, 64, True),
+                                       (128, 128, True)])
+def test_paged_span_kernel_matches_plain_and_decode_rows(gen, Q, D, quant):
+    """Starts mid-block, at a block boundary, at 0 and at the table's end,
+    ``n`` below ``Q`` and ``n == 0`` with a stale start; live rows within
+    ATOL of the plain version and each row bit-equal to the paged decode at
+    ``start + j + 1``."""
+    S, H, bs, MB = 5, 3, 16, 12
+    pk, pv, tables = _span_case(gen, S, H, D, bs, MB, quant)
+    cap = MB * bs
+    start = torch.tensor([3, 32, 0, cap - Q, 17], dtype=torch.int32,
+                         device="cuda").clamp(0, cap - Q)
+    n = torch.tensor([Q, max(1, Q - 2), Q, Q, 0], dtype=torch.int32,
+                     device="cuda")
+    q = torch.randn(S, Q, H, D, generator=gen, device="cuda")
+    name = "paged_span_int8" if quant else "paged_span"
+    before = ca.launch_counts()[name]
+    out = ca.paged_span_attention(q, pk, pv, tables, start, n)
+    assert ca.launch_counts()[name] == before + 1
+    ref = ca.paged_span_plain(q, pk, pv, tables, start, n)
+    torch.cuda.synchronize()
+    for s in range(S):
+        live = int(n[s])
+        assert (out[s, :live] - ref[s, :live]).abs().max().item() <= ATOL \
+            if live else out[s].abs().max().item() == 0.0
+    for j in range(Q):
+        lengths = torch.where(n > j, start + j + 1, 0).to(torch.int32)
+        single = ca.paged_decode_attention(q[:, j].contiguous(), pk, pv,
+                                           tables, lengths)
+        live = n > j
+        assert torch.equal(out[live, j], single[live]), f"row {j}"
+
+
+@pytest.mark.parametrize("D,bs", [(64, 16), (128, 8)])
+def test_paged_decode_int8_kernel_matches_plain(gen, D, bs):
+    S, H, MB = 6, 3, 10
+    pk, pv, tables = _span_case(gen, S, H, D, bs, MB, True)
+    lengths = torch.tensor([0, 1, bs, bs + 1, MB * bs, 3 * bs - 1],
+                           dtype=torch.int32, device="cuda")
+    q = torch.randn(S, H, D, generator=gen, device="cuda")
+    before = ca.launch_counts()["paged_decode_int8"]
+    out = ca.paged_decode_attention(q, pk, pv, tables, lengths)
+    assert ca.launch_counts()["paged_decode_int8"] == before + 1
+    ref = ca.paged_decode_plain(q, pk, pv, tables, lengths)
+    torch.cuda.synchronize()
+    assert (out - ref).abs().max().item() <= ATOL
+    assert out[0].abs().max().item() == 0.0
+
+
+def test_span_wrappers_refuse_what_the_kernel_does_not_take(gen):
+    pk, pv, tables = _span_case(gen, 2, 2, 64, 16, 4, False)
+    q = torch.randn(2, 5, 2, 64, generator=gen, device="cuda")
+    start = torch.zeros(2, dtype=torch.int32, device="cuda")
+    n = torch.full((2,), 5, dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError, match="dtype"):
+        ca.paged_span_attention(q.double(), pk, pv, tables, start, n)
+    with pytest.raises(ValueError, match="dtype"):
+        ca.paged_span_attention(q, pk, pv, tables, start.long(), n)
+    with pytest.raises(ValueError, match="contiguous"):
+        ca.paged_span_attention(q.transpose(0, 1).contiguous().transpose(
+            0, 1), pk, pv, tables, start, n)
+    big = torch.randn(2, ca.SPAN_MAX_Q + 1, 2, 64, device="cuda")
+    with pytest.raises(ValueError, match="query rows"):
+        ca.paged_span_attention(big, pk, pv, tables, start, n)
+    qk, qv, _ = _span_case(gen, 2, 2, 64, 16, 4, True)
+    with pytest.raises(ValueError, match="scales_k"):
+        ca.paged_span_attention(q, (qk[0], qk[1][:, :8].contiguous()), qv,
+                                tables, start, n)
+    with pytest.raises(ValueError, match="dtype"):
+        ca.paged_span_attention(q, (qk[0].float(), qk[1]), qv, tables,
+                                start, n)
+    with pytest.raises(ValueError, match="both be plain"):
+        ca.paged_span_attention(q, qk, pv, tables, start, n)
+    with pytest.raises(ValueError, match="do not match"):
+        ca.paged_span_attention(q, pk, pv, tables, start[:1].contiguous(),
+                                n)
+
+
+def test_engine_spec_chunk_int8_on_card(gen):
+    """Speculative verify, chunked prefill and int8 pools through the
+    kernels: speculation gives the plain engine's tokens, the int8 engine's
+    paged and xla paths agree, and the span kernel launched."""
+    import paddle_tpu_torch as pt
+    model = pt.TransformerLM(101, dim=128, num_layers=2, num_heads=2,
+                             ffn_hidden=256, max_len=64, generator=gen)
+    prompts = [[int(t) for t in torch.randint(0, 101, (n,), generator=gen,
+                                              device="cuda").cpu()]
+               for n in (3, 17, 40, 9)]
+    prompts[3] = prompts[3][:4] * 2
+
+    def run(**kw):
+        eng = pt.DecodeEngine(model, max_slots=3, block_size=8, **kw)
+        sched = pt.ContinuousBatchingScheduler(eng)
+        reqs = [sched.submit(p, 12) for p in prompts]
+        sched.run()
+        return [r.tokens for r in reqs]
+
+    ca.reset_launch_counts()
+    base = run()
+    assert run(speculative=3, prefill_chunk=16) == base
+    assert ca.launch_counts()["paged_span"] > 0
+    assert run(kv_dtype="int8", prefill_chunk=16) == \
+        run(kv_dtype="int8", prefill_chunk=16, attention="xla")
+    counts = ca.launch_counts()
+    assert counts["paged_span_int8"] > 0 and counts["paged_decode_int8"] > 0
