@@ -46,6 +46,27 @@ Phases (any failure exits non-zero before the final line):
    plain-attention model first; then the launch counts (6 forward, 6 dq
    and 6 dk/dv launches per step), finite and falling losses are checked,
    and 2 more steps are profiled.
+7. conv and LayerNorm kernels: ``conv1x1_dw`` against its plain version
+   at five shapes of the ResNet-50 step (within 1e-4 of max |plain|, two
+   runs bit-equal), then timed at all 15 distinct shapes of the step's 36
+   launches, summed per step; ``fused_ln_matmul`` (``ln_matmul``) over x
+   ``[16384, 512]`` with w ``[512, 512]`` and ``[512, 2048]``, with and
+   without scale and bias, its entry point's only caller.
+8. ResNet-50 training: the ``prep_resnet50`` configuration, nothing cut
+   (``resnet50(1000)``, 7x7 stem, batch 128 at 224 x 224 x 3,
+   ``momentum(0.1, 0.9)``, the conflicting-pairs batch, seeded random
+   weights, f32) with ``set_conv1x1_impl("pallas")``. Step-0 gradients
+   under ``"pallas"`` are held against ``"conv"`` (cuDNN) and
+   ``"matmul"``, and each kernel launch against cuDNN's weight gradient,
+   first; then 8 timed steps (36 ``conv1x1_dw`` launches each, finite
+   losses) and, from the same weights and BN state, 3 timed steps under
+   ``"conv"`` (not a gate). Then, again from that start and with cuDNN
+   deterministic, loss curves: 32 steps under ``"pallas"``, whose last
+   loss must lie below its first, and 8 under ``"matmul"`` and
+   ``"conv"``; at each of the 8 steps the ``"pallas"`` loss must lie
+   within 4 times the ``"matmul"``-``"conv"`` gap of the ``"matmul"``
+   loss, and the same check must fail for ``"pallas"`` with every weight
+   gradient 1% too large. Last, 2 profiled steps.
 
 Each serving and training path runs with the launch counts set to 0 just
 before it and read just after; a kernel's ``launches`` in the final list
@@ -53,7 +74,9 @@ is the sum over those paths.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 ``nvidia-smi``'s name and power limit, and before that one JSON object
-listing every kernel with its launches in phase 3, error and times.
+listing every kernel with its launches on the main paths, error and times
+(``conv1x1_dw``'s times and bound summed over the 36 launches of one
+ResNet-50 step).
 """
 
 import json
@@ -76,7 +99,9 @@ REPLACES = {"flash_fwd": "paddle_tpu/nn/pallas_attention.py:108",
             "flash_bwd_dkv": "paddle_tpu/nn/pallas_attention.py:207",
             "paged_span": "paddle_tpu/nn/pallas_attention.py:711",
             "paged_span_int8": "paddle_tpu/nn/pallas_attention.py:711",
-            "paged_decode_int8": "paddle_tpu/nn/pallas_attention.py:585"}
+            "paged_decode_int8": "paddle_tpu/nn/pallas_attention.py:585",
+            "conv1x1_dw": "paddle_tpu/nn/pallas_conv.py:46",
+            "ln_matmul": "paddle_tpu/nn/fused_ln.py:63"}
 # top-2 logit gap under which a token that differs between two f32 paths
 # that sum in other orders is a near-tie, not a fault
 GAP_TOL = 1e-3
@@ -824,7 +849,7 @@ def phase_profile(torch, np, pt, eng):
     sched.run()
 
 
-def profile_window(torch, fn, window):
+def profile_window(torch, fn, window, kernels=()):
     """``fn`` run once under torch.profiler, ending in a synchronize."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -834,12 +859,13 @@ def profile_window(torch, fn, window):
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    return device_profile(prof, wall_ms, window)
+    return device_profile(prof, wall_ms, window, kernels)
 
 
-def device_profile(prof, wall_ms, window):
+def device_profile(prof, wall_ms, window, kernels=()):
     """Device busy time, idle share and the top device rows of a
-    profiler window."""
+    profiler window; with ``kernels`` (substrings of kernel names) also
+    their device time and share of the busy time."""
     # device-side rows only (kernels, copies): the CPU ops that launched
     # them carry the same time again
     rows = [(e.key, e.count, e.self_device_time_total / 1e3)
@@ -847,11 +873,16 @@ def device_profile(prof, wall_ms, window):
             if str(e.device_type).endswith("CUDA")]
     busy_ms = sum(r[2] for r in rows)
     top = sorted(rows, key=lambda r: -r[2])[:8]
-    return {"window": window, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
-            "device_idle_share": (1 - busy_ms / wall_ms) if busy_ms
-            else None,
-            "top": [{"name": n[:80], "calls": c, "device_ms": t}
-                    for n, c, t in top]}
+    out = {"window": window, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
+           "device_idle_share": (1 - busy_ms / wall_ms) if busy_ms
+           else None,
+           "top": [{"name": n[:80], "calls": c, "device_ms": t}
+                   for n, c, t in top]}
+    if kernels:
+        ms = sum(t for n, _, t in rows if any(k in n for k in kernels))
+        out.update(kernel_device_ms=ms,
+                   kernel_share=ms / busy_ms if busy_ms else None)
+    return out
 
 
 def conflicting_pairs(np, batch_size, seq_len, vocab):
@@ -868,6 +899,18 @@ def conflicting_pairs(np, batch_size, seq_len, vocab):
     return inp, tgt, round(conflict * math.log(2.0), 4)
 
 
+def _worst(grads, ref):
+    """(name, rel) of the parameter whose gradient differs most from
+    ``ref``'s, relative to the parameter's largest ``ref`` gradient."""
+    worst = ("", 0.0)
+    for n, want in ref.items():
+        rel = ((grads[n] - want).abs().max()
+               / want.abs().max().clamp_min(1e-30)).item()
+        if not rel <= worst[1]:           # NaN counts as the worst
+            worst = (n, rel)
+    return worst
+
+
 def check_step0_grads(torch, pt, model, cfg, loss_fn, batch):
     """Every parameter's gradient on ``batch`` through the kernels against
     the plain-attention model on the same weights, within GRAD_RTOL of the
@@ -882,16 +925,10 @@ def check_step0_grads(torch, pt, model, cfg, loss_fn, batch):
         grads[name] = {n: p.grad.detach().clone()
                        for n, p in m.named_parameters()}
     model.zero_grad(set_to_none=True)
-    worst = ("", 0.0)
-    for n, want in grads["plain"].items():
-        got = grads["kernel"][n]
-        rel = ((got - want).abs().max()
-               / want.abs().max().clamp_min(1e-30)).item()
-        if not rel <= GRAD_RTOL:
-            raise RuntimeError(f"step-0 gradient of {n}: kernel vs plain "
-                               f"attention differ by {rel} of its max")
-        if rel > worst[1]:
-            worst = (n, rel)
+    worst = _worst(grads["kernel"], grads["plain"])
+    if not worst[1] <= GRAD_RTOL:
+        raise RuntimeError(f"step-0 gradient of {worst[0]}: kernel vs plain "
+                           f"attention differ by {worst[1]} of its max")
     wq = grads["kernel"]["blocks.0.attn.wq"].abs().max().item()
     if not wq > 0:
         raise RuntimeError("blocks.0.attn.wq got no gradient through the "
@@ -975,6 +1012,412 @@ def phase_train_profile(torch, trainer, batch):
                                      log_period=0), "2 training steps")))
 
 
+def resnet50_dw_shapes(batch, image):
+    """``{(M, Cin, Cout): launches}`` of conv1x1_dw in one ResNet-50 step
+    (7x7/2 stem and 3x3/2 max pool with SAME padding, then each
+    bottleneck's c1 and c3 and its strided or widening shortcut)."""
+    h = -(-(-(-image // 2)) // 2)
+    shapes, cin = {}, 64
+
+    def add(key):
+        shapes[key] = shapes.get(key, 0) + 1
+
+    for si, (f, n) in enumerate(zip([64, 128, 256, 512], [3, 4, 6, 3])):
+        for bi in range(n):
+            stride = 2 if si > 0 and bi == 0 else 1
+            add((batch * h * h, cin, f))                   # c1
+            h = -(-h // stride)                            # c2 strides
+            add((batch * h * h, f, 4 * f))                 # c3
+            if stride != 1 or cin != 4 * f:
+                add((batch * h * h, cin, 4 * f))           # shortcut
+            cin = 4 * f
+    return shapes
+
+
+# the 15 distinct (M, Cin, Cout) of the 36 launches of a step at batch
+# 128, 224 x 224, with their launches per step
+RESNET50_DW = resnet50_dw_shapes(128, 224)
+DW_CHECKED = [(401408, 64, 64), (401408, 64, 256), (100352, 256, 512),
+              (25088, 1024, 256), (6272, 512, 2048)]
+
+
+def dw_bound(M, cin, cout):
+    return bound(4 * (M * cin + M * cout + cin * cout), 2 * M * cin * cout)
+
+
+def phase_conv_kernels(torch, cc, gen):
+    """conv1x1_dw against its plain version at five shapes of the
+    ResNet-50 step, within TOL of max |plain|, bit-equal over two runs;
+    then the kernel, plain version and library call (``torch.mm(x.t(),
+    dy)``, cuBLAS, TF32 off — the same call as the plain version) timed
+    at every distinct shape of the step, and summed over the step's 36
+    launches beside the summed bound."""
+    if sum(RESNET50_DW.values()) != 36 or len(RESNET50_DW) != 15:
+        raise RuntimeError(f"RESNET50_DW lists {RESNET50_DW}")
+    rows, err = {}, 0.0
+    step = {"kernel_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+            "bound_ms": 0.0, "bytes": 0, "flops": 0}
+    for shape, n in RESNET50_DW.items():
+        M, cin, cout = shape
+        x = torch.randn(M, cin, generator=gen, device="cuda")
+        dy = torch.randn(M, cout, generator=gen, device="cuda")
+        row = {"shape": list(shape), "launches_per_step": n}
+        if shape in DW_CHECKED:
+            got = cc.conv1x1_dw(x, dy)
+            want = cc.conv1x1_dw_plain(x, dy)
+            again = cc.conv1x1_dw(x, dy)
+            torch.cuda.synchronize()
+            e = (got - want).abs().max().item()
+            lim = TOL * want.abs().max().item()
+            if not e <= lim:
+                raise RuntimeError(f"conv1x1_dw {shape}: max |kernel - "
+                                   f"plain| = {e} > {lim}")
+            if not torch.equal(got, again):
+                raise RuntimeError(f"conv1x1_dw {shape}: two runs differ")
+            row["max_abs_err"], row["max_plain"] = e, lim / TOL
+            err = max(err, e)
+            del got, want, again
+        b_ms, b_by = dw_bound(M, cin, cout)
+        row.update(kernel_ms=time_ms(torch, lambda: cc.conv1x1_dw(x, dy)),
+                   plain_ms=time_ms(torch,
+                                    lambda: cc.conv1x1_dw_plain(x, dy)),
+                   library_ms=time_ms(torch, lambda: torch.mm(x.t(), dy)),
+                   bound_ms=b_ms, bound_by=b_by,
+                   splits=cc._splits(M, cin, cout, torch.cuda.
+                                     get_device_properties(0).
+                                     multi_processor_count)[0])
+        for k in ("kernel_ms", "plain_ms", "library_ms", "bound_ms"):
+            step[k] += n * row[k]
+        step["bytes"] += n * 4 * (M * cin + M * cout + cin * cout)
+        step["flops"] += n * 2 * M * cin * cout
+        rows[shape] = row
+        log("conv1x1_dw", json.dumps(row))
+        del x, dy
+    t_b = step["bytes"] / HBM_BYTES_PER_S * 1e3
+    t_f = step["flops"] / F32_FLOPS_PER_S * 1e3
+    step.update(max_abs_err=err, launches=36,
+                bound_by="operations" if t_f >= t_b else "bytes",
+                bound_note="sum of the 36 launches' own bounds")
+    log("conv1x1_dw step (36 launches)", json.dumps(step))
+    return step
+
+
+def phase_ln_kernels(torch, F, fl, gen):
+    """fused_ln_matmul's kernel at the transformer width, with and without
+    scale and bias: the entry point's launches (its only caller), then
+    each against the plain version within TOL of max |plain|, timed beside
+    it and beside ``F.layer_norm(...) @ w``."""
+    M, K = 16384, 512
+    x = torch.randn(M, K, generator=gen, device="cuda") * 2 + 0.5
+    sc = 1 + 0.1 * torch.randn(K, generator=gen, device="cuda")
+    bi = 0.1 * torch.randn(K, generator=gen, device="cuda")
+    cases = [(N, aff) for N in (512, 2048) for aff in (False, True)]
+    ws = {N: torch.randn(K, N, generator=gen, device="cuda") / K ** 0.5
+          for N in (512, 2048)}
+    torch.cuda.synchronize()
+    fl.reset_launch_counts()
+    outs = [fl.fused_ln_matmul(x, ws[N], *((sc, bi) if aff else ()))
+            for N, aff in cases]
+    torch.cuda.synchronize()
+    counts = fl.launch_counts()
+    rows = {}
+    for (N, aff), got in zip(cases, outs):
+        w = ws[N]
+        s, b = (sc, bi) if aff else (None, None)
+        want = fl.ln_matmul_reference(x, w, s, b)
+        torch.cuda.synchronize()
+        e = (got - want).abs().max().item()
+        lim = TOL * want.abs().max().item()
+        if not e <= lim:
+            raise RuntimeError(f"ln_matmul [{M},{K}]x[{K},{N}]: max |kernel "
+                               f"- plain| = {e} > {lim}")
+        b_ms, b_by = bound(4 * (M * K + K * N + M * N + 2 * K),
+                           2 * M * K * N)
+        row = {"case": f"x [{M},{K}] w [{K},{N}]"
+                       + (" scale+bias" if aff else ""),
+               "max_abs_err": e, "max_plain": lim / TOL,
+               "kernel_ms": time_ms(torch, lambda: fl.fused_ln_matmul(
+                   x, w, s, b)),
+               "plain_ms": time_ms(torch, lambda: fl.ln_matmul_reference(
+                   x, w, s, b)),
+               "library_ms": time_ms(torch, lambda: F.layer_norm(
+                   x, (K,), s, b, 1e-6) @ w),
+               "bound_ms": b_ms, "bound_by": b_by}
+        log("ln_matmul", json.dumps(row))
+        rows[N, aff] = row
+    return rows, counts
+
+
+def conflicting_images(np, batch_size, image, classes):
+    """The ``prep_resnet50`` batch (``bench.py:155-170``): each image twice
+    with two different labels, a loss floor of ln 2."""
+    rng = np.random.RandomState(0)
+    half = batch_size // 2
+    x_u = rng.normal(size=(half, image, image, 3)).astype(np.float32)
+    la = rng.randint(0, classes, size=half).astype(np.int32)
+    lb = ((la + 1 + rng.randint(0, classes - 1, size=half))
+          % classes).astype(np.int32)
+    return {"x": np.concatenate([x_u, x_u], axis=0),
+            "label": np.concatenate([la, lb])}
+
+
+def resnet_step0_grads(torch, pt, cc, model, loss_fn, batch):
+    """Step-0 gradients of every parameter from the same weights and BN
+    state (restored after each pass), cuDNN deterministic.
+
+    Gates (GRAD_RTOL of each parameter's largest gradient):
+    - "pallas" against "conv" (cuDNN) over every parameter;
+    - "pallas" against "matmul": both run the same forward and input-
+      gradient products and differ only in who computes the 36 weight
+      gradients (the kernel, or cuBLAS through autograd), so this holds
+      the kernel on the path's own tensors, and every other gradient is
+      bit-equal;
+    - each of the 36 kernel launches of the "pallas" pass against
+      cuDNN's weight gradient (``conv2d_weight``) of the same 1x1
+      convolution on the same x and dy, with the shapes of those
+      launches those of the kernel phase."""
+    state = {n: b.clone() for n, b in model.named_buffers()}
+    kernel_dw, dw_errs, seen = cc.conv1x1_dw, [], {}
+
+    def checked_dw(x2d, dy2d):
+        got = kernel_dw(x2d, dy2d)
+        (M, cin), cout = x2d.shape, dy2d.shape[1]
+        seen[M, cin, cout] = seen.get((M, cin, cout), 0) + 1
+        want = torch.nn.grad.conv2d_weight(
+            x2d.view(M, cin, 1, 1), (cout, cin, 1, 1),
+            dy2d.view(M, cout, 1, 1))[:, :, 0, 0].T
+        dw_errs.append(((got - want).abs().max()
+                        / want.abs().max().clamp_min(1e-30)).item())
+        return got
+
+    def grads(impl, x):
+        pt.set_conv1x1_impl(impl)
+        with torch.no_grad():
+            for n, b in model.named_buffers():
+                b.copy_(state[n])
+        model.zero_grad(set_to_none=True)
+        loss_fn(model(x, train=True), batch).mean().backward()
+        return {n: p.grad.detach().clone()
+                for n, p in model.named_parameters()}
+
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    cc.conv1x1_dw = checked_dw
+    try:
+        g = {"pallas": grads("pallas", batch["x"])}
+    finally:
+        cc.conv1x1_dw = kernel_dw
+    try:
+        g["matmul"] = grads("matmul", batch["x"])
+        g["conv"] = grads("conv", batch["x"])
+    finally:
+        torch.backends.cudnn.deterministic = det
+        pt.set_conv1x1_impl("pallas")
+        model.zero_grad(set_to_none=True)
+        with torch.no_grad():
+            for n, b in model.named_buffers():
+                b.copy_(state[n])
+    for ref in ("conv", "matmul"):
+        worst = _worst(g["pallas"], g[ref])
+        if not worst[1] <= GRAD_RTOL:
+            raise RuntimeError(f"step-0 gradient of {worst[0]}: pallas vs "
+                               f"{ref} differ by {worst[1]} of its max")
+    if seen != RESNET50_DW:
+        raise RuntimeError(f"conv1x1_dw shapes of the step {seen} are not "
+                           f"the kernel phase's {RESNET50_DW}")
+    if len(dw_errs) != 36 or not max(dw_errs) <= GRAD_RTOL:
+        raise RuntimeError(f"conv1x1_dw vs cuDNN's weight gradient on the "
+                           f"path's tensors: {len(dw_errs)} launches, "
+                           f"worst {max(dw_errs, default=None)}")
+    others = [n for n, _ in model.named_parameters()
+              if not (n.endswith("conv.w")
+                      and getattr(model.get_submodule(n[:-2]), "kernel")
+                      == (1, 1))]
+    same = all(torch.equal(g["pallas"][n], g["matmul"][n]) for n in others)
+    return {"params": len(g["conv"]),
+            "pallas_vs_matmul_worst": list(_worst(g["pallas"],
+                                                  g["matmul"])),
+            "non_1x1_grads_bit_equal_pallas_matmul": same,
+            "kernel_vs_cudnn_dw_worst": max(dw_errs),
+            "pallas_vs_conv_worst": list(_worst(g["pallas"], g["conv"])),
+            "matmul_vs_conv_worst": list(_worst(g["matmul"], g["conv"]))}
+
+
+def timed_steps(torch, pt, trainer, batch, steps):
+    """``steps`` training steps; returns (ms per step, losses)."""
+    marks, losses = [], []
+
+    def handler(e):
+        if isinstance(e, (pt.train.BeginIteration, pt.train.EndIteration)):
+            marks.append(time.perf_counter())
+        if isinstance(e, pt.train.EndIteration):
+            losses.append(e.cost)
+
+    trainer.train(lambda: iter([batch] * steps), event_handler=handler,
+                  log_period=0)
+    torch.cuda.synchronize()
+    # each step ends in float(loss), a device sync: Begin -> EndIteration
+    return [1e3 * (marks[2 * i + 1] - marks[2 * i])
+            for i in range(steps)], losses
+
+
+# ResNet-50 loss curves: 8 steps are compared step by step across the
+# lowerings; lr 0.1 from random weights without warm-up makes the loss
+# fall for two steps and climb back past its start before it comes down,
+# so the loss-falls gate reads the "pallas" curve after 32 steps
+RESNET_STEPS, RESNET_FALL_STEPS = 8, 32
+# the curve gate: CURVE_K times the gap between two sound curves, plus
+# LOSS_RTOL of the loss for the f32 rounding of the loss itself (about 10
+# ulps). From the same start this network carries a rounding-sized
+# difference in the weights to 1e-3 of the loss in two steps and to
+# 1e-2-1e-1 by step 8, where the curves' distances are of one size and
+# any of them may be the largest: hence the factor
+CURVE_K, LOSS_RTOL = 4.0, 1e-6
+# the negative control: a weight gradient 1% too large must fail the
+# curve gate
+WRONG_DW = 1.01
+
+
+def curve_excess(p, m, c):
+    """The largest, over the first RESNET_STEPS steps, of ``|p - m|``
+    over its limit: CURVE_K times the running largest ``|c - m|`` plus
+    LOSS_RTOL of ``m``. At most 1 passes."""
+    gap, worst = 0.0, 0.0
+    for i in range(RESNET_STEPS):
+        gap = max(gap, abs(c[i] - m[i]))
+        worst = max(worst, abs(p[i] - m[i])
+                    / (CURVE_K * gap + LOSS_RTOL * abs(m[i])))
+    return worst
+
+
+def resnet_curves(torch, pt, cc, model, start, loss_fn, batch):
+    """Loss curves from the same weights and BN state (``start``), cuDNN
+    deterministic (``conv1x1_dw`` is already: its split of M depends on
+    the shapes only), so that no curve carries cuDNN's run-to-run noise:
+    ``"pallas"`` over RESNET_FALL_STEPS steps, ``"matmul"`` and
+    ``"conv"`` over RESNET_STEPS.
+
+    "matmul" differs from "pallas" only in who computes the 36 weight
+    gradients of a step (cuBLAS through autograd, or the kernel), "conv"
+    also in the 1x1 forward and input-gradient products (cuDNN). Both are
+    sound lowerings, and the gap between their curves is how far this
+    network carries a step's rounding. Gates: at each of the first
+    RESNET_STEPS steps the "pallas" loss lies within CURVE_K times that
+    gap (its running largest) of the "matmul" loss, plus LOSS_RTOL of the
+    loss (``curve_excess`` at most 1); the same check fails for "pallas"
+    with every weight gradient scaled by WRONG_DW; the last "pallas" loss
+    lies below its first."""
+    def run(impl, steps):
+        return resnet_run(torch, pt, model, start, loss_fn, batch, impl,
+                          steps)[1]
+
+    det, kernel_dw = torch.backends.cudnn.deterministic, cc.conv1x1_dw
+    torch.backends.cudnn.deterministic = True
+    try:
+        curves = {"pallas": run("pallas", RESNET_FALL_STEPS),
+                  "matmul": run("matmul", RESNET_STEPS),
+                  "conv": run("conv", RESNET_STEPS)}
+        cc.conv1x1_dw = lambda x2d, dy2d: WRONG_DW * kernel_dw(x2d, dy2d)
+        curves["pallas_wrong_dw"] = run("pallas", RESNET_STEPS)
+    finally:
+        cc.conv1x1_dw = kernel_dw
+        torch.backends.cudnn.deterministic = det
+    p, m, c = curves["pallas"], curves["matmul"], curves["conv"]
+    out = {"losses": curves, "excess": curve_excess(p, m, c),
+           "excess_wrong_dw": curve_excess(curves["pallas_wrong_dw"], m, c)}
+    if not out["excess"] <= 1:
+        raise RuntimeError(f"resnet: 'pallas' loss curve off 'matmul' by "
+                           f"{out['excess']} of the limit: {out}")
+    if not out["excess_wrong_dw"] > 1:
+        raise RuntimeError(f"resnet: the curve gate passed a weight "
+                           f"gradient {WRONG_DW}x too large: {out}")
+    if not all(math.isfinite(x) for x in p) or not p[-1] < p[0]:
+        raise RuntimeError(f"resnet: 'pallas' loss after "
+                           f"{RESNET_FALL_STEPS} steps not below its "
+                           f"first: {out}")
+    return out
+
+
+def resnet_run(torch, pt, model, start, loss_fn, batch, impl, steps):
+    """``steps`` steps under ``impl`` from the weights and BN state
+    ``start``, with a fresh momentum state; returns (ms per step,
+    losses)."""
+    model.load_state_dict(start)
+    pt.set_conv1x1_impl(impl)
+    trainer = pt.Trainer(model, loss_fn, pt.momentum(0.1, 0.9),
+                         device="cuda")
+    trainer.init()
+    return timed_steps(torch, pt, trainer, batch, steps)
+
+
+def phase_resnet(torch, np, pt, cc, card):
+    """The prep_resnet50 configuration trained through conv1x1_dw."""
+    B, image, classes, steps = 128, 224, 1000, RESNET_STEPS
+    prev = pt.set_conv1x1_impl("pallas")
+    try:
+        gen = torch.Generator(device="cuda").manual_seed(5678)
+        model = pt.resnet50(classes, device="cuda", generator=gen)
+        host = conflicting_images(np, B, image, classes)
+        # the batch lives on the card, as the JAX benchmark's sharded
+        # batch does: steps time the step, not a host copy
+        batch = {k: torch.as_tensor(v, device="cuda")
+                 for k, v in host.items()}
+
+        def loss_fn(out, b):
+            return pt.softmax_cross_entropy(out, b["label"])
+
+        grad_check = resnet_step0_grads(torch, pt, cc, model, loss_fn,
+                                        batch)
+        log("resnet step-0 gradients", json.dumps(grad_check))
+        start = {k: v.clone() for k, v in model.state_dict().items()}
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        cc.reset_launch_counts()
+        step_ms, losses = resnet_run(torch, pt, model, start, loss_fn,
+                                     batch, "pallas", steps)
+        counts = cc.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        ms = sum(step_ms[1:]) / (steps - 1)
+        conv_ms, conv_losses = resnet_run(torch, pt, model, start, loss_fn,
+                                          batch, "conv", 3)
+        conv_steady = sum(conv_ms[1:]) / 2
+        log("resnet", json.dumps({
+            "config": "prep_resnet50: resnet50(1000), conv7 stem, batch 128 "
+                      "x 224 x 224 x 3, momentum(0.1, 0.9), f32, "
+                      "conv1x1 'pallas'",
+            "steps": steps, "ms_per_step": ms, "step_ms": step_ms,
+            "images_per_s": B / (ms / 1e3), "losses": losses,
+            "loss_floor": round(math.log(2.0), 4), "launches": counts,
+            "peak_mem_gib": peak / 2 ** 30,
+            "conv_ab": {"impl": "conv", "step_ms": conv_ms,
+                        "ms_per_step": conv_steady,
+                        "images_per_s": B / (conv_steady / 1e3),
+                        "losses": conv_losses,
+                        "pallas_over_conv": ms / conv_steady},
+            "card": card}))
+        if counts["conv1x1_dw"] != 36 * steps:
+            raise RuntimeError(f"resnet: conv1x1_dw launched "
+                               f"{counts['conv1x1_dw']} times, expected "
+                               f"{36 * steps} (36 x {steps} steps)")
+        if not all(math.isfinite(x) for x in losses) or len(losses) != steps:
+            raise RuntimeError(f"resnet: losses {losses}")
+        log("resnet curves", json.dumps(resnet_curves(
+            torch, pt, cc, model, start, loss_fn, batch)))
+        pt.set_conv1x1_impl("pallas")
+        trainer = pt.Trainer(model, loss_fn, pt.momentum(0.1, 0.9),
+                             device="cuda")
+        trainer.init()
+        log("resnet profile", json.dumps(profile_window(
+            torch, lambda: trainer.train(lambda: iter([batch] * 2),
+                                         log_period=0),
+            "2 training steps, conv1x1 'pallas'",
+            kernels=("dw_tiles", "dw_reduce"))))
+    finally:
+        pt.set_conv1x1_impl(prev)
+    return counts
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -985,6 +1428,8 @@ def main():
 
     import paddle_tpu_torch as pt
     from paddle_tpu_torch.nn import cuda_attention as ca
+    from paddle_tpu_torch.nn import cuda_conv as cc
+    from paddle_tpu_torch.nn import fused_ln as fl
     from paddle_tpu_torch.serve import kv_cache as kvc
     from paddle_tpu_torch.utils import cuda_build
 
@@ -997,7 +1442,8 @@ def main():
     log("tf32: matmul off, cudnn off")
 
     t0 = time.perf_counter()
-    report = cuda_build.build(ca.KERNELS.values())
+    sources = {**ca.KERNELS, **cc.KERNELS, **fl.KERNELS}
+    report = cuda_build.build(sources.values())
     log(f"build: {time.perf_counter() - t0:.2f} s wall")
     for name, rep in report.items():
         log(f"build {name}: {rep['seconds']:.2f} s")
@@ -1015,15 +1461,22 @@ def main():
                                      tokens, card)
     del model, ref
     train_counts = phase_train(torch, np, pt)
+    dw = phase_conv_kernels(torch, cc, gen)
+    ln_rows, ln_counts = phase_ln_kernels(torch, F, fl, gen)
+    resnet_counts = phase_resnet(torch, np, pt, cc, card)
     counts = {n: serve_counts[n] + span_counts[n] + train_counts[n]
               for n in ca.KERNELS}
+    counts.update(resnet_counts)
+    counts.update(ln_counts)
     log("launches", json.dumps({"serving": serve_counts,
                                 "span serving": span_counts,
-                                "training": train_counts}))
+                                "training": train_counts,
+                                "resnet training": resnet_counts,
+                                "fused_ln_matmul": ln_counts}))
 
     def entry(name, row, err):
         return {"name": name, "route": "cuda",
-                "source": f"paddle_tpu_torch/csrc/{ca.KERNELS[name]}.cu",
+                "source": f"paddle_tpu_torch/csrc/{sources[name]}.cu",
                 "replaces": REPLACES[name], "launches": counts[name],
                 "max_abs_err": err, "ms": row["kernel_ms"],
                 "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
@@ -1044,6 +1497,11 @@ def main():
                 for name in ("paged_span", "paged_span_int8")]
     kernels.append(entry("paged_decode_int8", span["paged_decode_int8"],
                          span["paged_decode_int8"]["max_abs_err"]))
+    # conv1x1_dw: summed over one ResNet-50 step's 36 launches
+    kernels.append(entry("conv1x1_dw", dw, dw["max_abs_err"]))
+    # ln_matmul at the wider shape with scale and bias, errors over all
+    kernels.append(entry("ln_matmul", ln_rows[2048, True],
+                         max(r["max_abs_err"] for r in ln_rows.values())))
     for k in kernels:
         if k["launches"] < 1:
             raise RuntimeError(f"{k['name']} never launched on the path")

@@ -1,5 +1,5 @@
-"""Activations the serving path uses — the port of the matching entries of
-``paddle_tpu/nn/activations.py``."""
+"""Activations the port's models use — the port of the matching entries
+of ``paddle_tpu/nn/activations.py``."""
 
 from __future__ import annotations
 
@@ -8,7 +8,7 @@ from typing import Callable
 import torch
 import torch.nn.functional as F
 
-__all__ = ["gelu", "get"]
+__all__ = ["gelu", "get", "relu"]
 
 
 def _identity(x: torch.Tensor) -> torch.Tensor:
@@ -20,7 +20,11 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="tanh")
 
 
-_ACTS = {"": _identity, "gelu": gelu}
+def relu(x: torch.Tensor) -> torch.Tensor:
+    return torch.relu(x)
+
+
+_ACTS = {"": _identity, "gelu": gelu, "relu": relu}
 
 
 def get(act) -> Callable[[torch.Tensor], torch.Tensor]:

@@ -39,6 +39,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from ..utils import cuda_build
+from ..utils.cuda_build import check_cuda, check_dtype, stream_ptr
 
 __all__ = ["FlashAttentionFunction", "flash_attention",
            "flash_attention_bwd", "flash_attention_bwd_plain",
@@ -68,26 +69,6 @@ def launch_counts() -> Dict[str, int]:
 def reset_launch_counts() -> None:
     for name in _launches:
         _launches[name] = 0
-
-
-def _stream_ptr(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
-
-
-def _check_cuda(name: str, device: torch.device, **tensors) -> None:
-    for key, t in tensors.items():
-        if t.device != device:
-            raise ValueError(f"{name}: {key} is on {t.device}, expected "
-                             f"{device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name}: {key} must be contiguous")
-
-
-def _check_dtype(name: str, dtype: torch.dtype, **tensors) -> None:
-    for key, t in tensors.items():
-        if t.dtype != dtype:
-            raise ValueError(f"{name}: {key} has dtype {t.dtype}, the "
-                             f"kernel takes {dtype}")
 
 
 # ---------------------------------------------------------------------------
@@ -201,26 +182,21 @@ def _check_flash(name: str, q, k, v, segments, same=None, rows=None):
         raise ValueError(f"{name}: head dim {D} not in {_HEAD_DIMS}")
     if B * H > 65535:
         raise ValueError(f"{name}: B*H = {B * H} exceeds the grid's 65535")
-    _check_dtype(name, torch.float32, q=q, **same, **rows)
-    _check_cuda(name, q.device, q=q, **same, **rows)
+    check_dtype(name, torch.float32, q=q, **same, **rows)
+    check_cuda(name, q.device, q=q, **same, **rows)
     if segments is None:
         return None
     if tuple(segments.shape) != (B, T):
         raise ValueError(f"{name}: segments {tuple(segments.shape)} != "
                          f"{(B, T)}")
-    _check_dtype(name, torch.int32, segments=segments)
-    _check_cuda(name, q.device, segments=segments)
+    check_dtype(name, torch.int32, segments=segments)
+    check_cuda(name, q.device, segments=segments)
     return segments.data_ptr()
 
 
 def _launch(name: str, *args) -> None:
-    """Call kernel ``name``'s C entry point with ``args``; raise if the
-    launch was refused, else count it."""
-    fn = _kernel_fn(name)
-    err = fn(*args)
-    if err != 0:
-        raise RuntimeError(f"{name} launch failed: cudaError {err}")
-    _launches[name] += 1
+    """Launch kernel ``name`` with ``args`` and count it."""
+    cuda_build.launch(_launches, name, KERNELS[name], _ARGTYPES[name], *args)
 
 
 def flash_attention_fwd(q, k, v, segments=None, causal: bool = False,
@@ -240,7 +216,7 @@ def flash_attention_fwd(q, k, v, segments=None, causal: bool = False,
     with torch.cuda.device(q.device):          # launch on q's card
         _launch("flash_fwd", q.data_ptr(), k.data_ptr(), v.data_ptr(),
                 seg_ptr, out.data_ptr(), lse.data_ptr(), B, H, T, D, scale,
-                int(causal), _stream_ptr(q))
+                int(causal), stream_ptr(q))
     return out, lse
 
 
@@ -260,7 +236,7 @@ def flash_bwd_dq(q, k, v, segments, do, lse, delta, causal: bool = False,
         _launch("flash_bwd_dq", q.data_ptr(), k.data_ptr(), v.data_ptr(),
                 seg_ptr, do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
                 dq.data_ptr(), B, H, T, D, scale, int(causal),
-                _stream_ptr(q))
+                stream_ptr(q))
     return dq
 
 
@@ -282,7 +258,7 @@ def flash_bwd_dkv(q, k, v, segments, do, lse, delta, causal: bool = False,
         _launch("flash_bwd_dkv", q.data_ptr(), k.data_ptr(), v.data_ptr(),
                 seg_ptr, do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
                 dk.data_ptr(), dv.data_ptr(), B, H, T, D, scale,
-                int(causal), _stream_ptr(q))
+                int(causal), stream_ptr(q))
     return dk, dv
 
 
@@ -353,14 +329,6 @@ _ARGTYPES = {
     "paged_span": [_P] * 7 + [_I] * 7 + [_F, _P],
     "paged_span_int8": [_P] * 9 + [_I] * 7 + [_F, _P],
 }
-
-
-def _kernel_fn(name: str):
-    """Kernel ``name``'s C entry point ``<name>_f32``, typed."""
-    fn = getattr(cuda_build.load(KERNELS[name]), f"{name}_f32")
-    fn.argtypes = _ARGTYPES[name]
-    fn.restype = ctypes.c_int
-    return fn
 
 
 # ---------------------------------------------------------------------------
@@ -477,20 +445,20 @@ def _check_paged(name: str, q, pages_k, pages_v, tables, rows: int,
                          f"{D}")
     if S > 65535 or H > 65535:
         raise ValueError(f"{name}: S and H must be <= 65535")
-    _check_dtype(name, torch.float32, q=q)
+    check_dtype(name, torch.float32, q=q)
     pools = {"pages_k": kv, "pages_v": vv}
     if quant:
-        _check_dtype(name, torch.int8, pages_k=kv, pages_v=vv)
+        check_dtype(name, torch.int8, pages_k=kv, pages_v=vv)
         pools.update(scales_k=ks, scales_v=vs)
         for key in ("scales_k", "scales_v"):
             if tuple(pools[key].shape) != (N, bs, H):
                 raise ValueError(f"{name}: {key} {tuple(pools[key].shape)} "
                                  f"must be {(N, bs, H)}")
-        _check_dtype(name, torch.float32, scales_k=ks, scales_v=vs)
+        check_dtype(name, torch.float32, scales_k=ks, scales_v=vs)
     else:
-        _check_dtype(name, torch.float32, pages_k=kv, pages_v=vv)
-    _check_dtype(name, torch.int32, tables=tables, **per_slot)
-    _check_cuda(name, q.device, q=q, tables=tables, **pools, **per_slot)
+        check_dtype(name, torch.float32, pages_k=kv, pages_v=vv)
+    check_dtype(name, torch.int32, tables=tables, **per_slot)
+    check_cuda(name, q.device, q=q, tables=tables, **pools, **per_slot)
     # 16-byte (float4) and 4-byte (char4, f32) loads
     for key, t in {"q": q, **pools}.items():
         align = 4 if t.dtype == torch.int8 or key.startswith("scales") \
@@ -525,7 +493,7 @@ def paged_decode_attention(q, pages_k, pages_v, tables, lengths,
     with torch.cuda.device(q.device):          # launch on q's card
         _launch("paged_decode_int8" if quant else "paged_decode",
                 q.data_ptr(), *pools, tables.data_ptr(), lengths.data_ptr(),
-                out.data_ptr(), S, H, D, N, bs, MB, scale, _stream_ptr(q))
+                out.data_ptr(), S, H, D, N, bs, MB, scale, stream_ptr(q))
     return out
 
 
@@ -558,5 +526,5 @@ def paged_span_attention(q, pages_k, pages_v, tables, start, n,
     with torch.cuda.device(q.device):
         _launch("paged_span_int8" if quant else "paged_span", q.data_ptr(),
                 *pools, tables.data_ptr(), start.data_ptr(), n.data_ptr(),
-                out.data_ptr(), S, Q, H, D, N, bs, MB, scale, _stream_ptr(q))
+                out.data_ptr(), S, Q, H, D, N, bs, MB, scale, stream_ptr(q))
     return out

@@ -1,0 +1,160 @@
+"""1x1 convolution as a matrix product with a CUDA weight-gradient kernel —
+the port of ``paddle_tpu/nn/pallas_conv.py``.
+
+A 1x1 stride-1 convolution over NHWC activations is the product
+``[B*H*W, Cin] @ [Cin, Cout]``. :func:`conv1x1` computes it as one, under
+:class:`Conv1x1Function`: the forward ``x2d @ w`` and the input gradient
+``dy2d @ w^T`` stay plain ``torch.matmul`` products, as the JAX package
+leaves them to XLA; the weight gradient ``dW = x2d^T @ dy2d``, a reduction
+over a huge M into a tiny ``[Cin, Cout]``, is the ``conv1x1_dw`` kernel
+(``csrc/conv1x1_dw.cu``, the port of ``_dw_kernel``).
+:func:`conv1x1_strided` is the stride-s shortcut: slice, then
+:func:`conv1x1`.
+
+:func:`conv1x1_dw` is the wrapper: the plain version
+:func:`conv1x1_dw_plain` for CPU tensors, the kernel for CUDA tensors
+(device, dtype, shape and contiguity checked, the launch checked and
+counted in :func:`launch_counts`; no fallback). The kernel takes float32.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Dict, Tuple
+
+import torch
+
+from ..utils import cuda_build
+from ..utils.cuda_build import check_cuda, check_dtype, stream_ptr
+
+__all__ = ["Conv1x1Function", "conv1x1", "conv1x1_dw", "conv1x1_dw_plain",
+           "conv1x1_strided", "launch_counts", "reset_launch_counts",
+           "KERNELS"]
+
+# kernel name -> csrc source stem
+KERNELS = {"conv1x1_dw": "conv1x1_dw"}
+
+_launches: Dict[str, int] = {name: 0 for name in KERNELS}
+
+_TILE = 64             # output tile per block (csrc/conv1x1_dw.cu)
+_MIN_SPLIT_ROWS = 256  # no split of M shorter than this
+_BLOCKS_PER_SM = 4     # the split count aims at this many blocks per SM
+
+
+def launch_counts() -> Dict[str, int]:
+    """Kernel launches since the last :func:`reset_launch_counts`."""
+    return dict(_launches)
+
+
+def reset_launch_counts() -> None:
+    for name in _launches:
+        _launches[name] = 0
+
+
+def conv1x1_dw_plain(x2d: torch.Tensor, dy2d: torch.Tensor) -> torch.Tensor:
+    """``x2d^T @ dy2d`` in float32, ``[Cin, Cout]`` — the oracle of the JAX
+    package's tests for ``dw_pallas``."""
+    return x2d.float().T @ dy2d.float()
+
+
+def _splits(m: int, cin: int, cout: int, sms: int) -> Tuple[int, int]:
+    """``(splits, rows per split)`` of M for the kernel: enough splits that
+    the output tiles times the splits give about ``_BLOCKS_PER_SM`` blocks
+    per SM, none shorter than ``_MIN_SPLIT_ROWS`` rows. A function of the
+    shapes and the SM count only, so a run is repeatable bit for bit."""
+    tiles = -(-cin // _TILE) * -(-cout // _TILE)
+    want = -(-_BLOCKS_PER_SM * sms // tiles)
+    splits = max(1, min(want, m // _MIN_SPLIT_ROWS, 65535))
+    rows = -(-m // splits) if m else 1
+    return -(-m // rows) if m else 1, rows
+
+
+def conv1x1_dw(x2d: torch.Tensor, dy2d: torch.Tensor) -> torch.Tensor:
+    """``dW = x2d^T @ dy2d`` with f32 accumulation: ``x2d [M, Cin]``,
+    ``dy2d [M, Cout]`` give ``[Cin, Cout]`` f32. CPU tensors run
+    :func:`conv1x1_dw_plain`; CUDA tensors launch ``conv1x1_dw`` (one
+    launch, counted once, whatever the split of M)."""
+    if x2d.device.type == "cpu" and dy2d.device.type == "cpu":
+        return conv1x1_dw_plain(x2d, dy2d)
+    name = "conv1x1_dw"
+    dev = x2d.device
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: no kernel for x2d on {dev}")
+    if x2d.dim() != 2 or dy2d.dim() != 2 or x2d.shape[0] != dy2d.shape[0]:
+        raise ValueError(f"{name}: x2d {tuple(x2d.shape)} and dy2d "
+                         f"{tuple(dy2d.shape)} must be [M, Cin] and "
+                         f"[M, Cout]")
+    check_dtype(name, torch.float32, x2d=x2d, dy2d=dy2d)
+    check_cuda(name, dev, x2d=x2d, dy2d=dy2d)
+    m, cin = x2d.shape
+    cout = dy2d.shape[1]
+    if max(m * cin, m * cout, cin * cout) >= 2 ** 31:
+        raise ValueError(f"{name}: [{m}, {cin}] x [{m}, {cout}] exceeds "
+                         f"the kernel's 32-bit sizes")
+    out = torch.empty(cin, cout, dtype=torch.float32, device=dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    splits, rows = _splits(m, cin, cout, sms)
+    work = torch.empty(splits, cin, cout, dtype=torch.float32, device=dev) \
+        if splits > 1 else None
+    with torch.cuda.device(dev):
+        cuda_build.launch(_launches, name, KERNELS[name], _ARGTYPES,
+                          x2d.data_ptr(), dy2d.data_ptr(), out.data_ptr(),
+                          None if work is None else work.data_ptr(), m, cin,
+                          cout, splits, rows, stream_ptr(x2d))
+    return out
+
+
+# x, dy, out, work; M Cin Cout splits rows; stream
+_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+
+
+class Conv1x1Function(torch.autograd.Function):
+    """``y = x @ w`` over NHWC ``x [B, H, W, Cin]`` and ``w [Cin, Cout]``,
+    the JAX ``conv1x1`` ``custom_vjp``: the backward gives ``dx = dy @
+    w^T`` (a plain product) and ``dW`` from :func:`conv1x1_dw`, each only
+    where autograd asks for it."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return _product(x, w)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        cin, cout = w.shape
+        dy2 = dy.reshape(-1, cout).contiguous()
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = (dy2 @ w.T).reshape(x.shape)
+        if ctx.needs_input_grad[1]:
+            dw = conv1x1_dw(x.reshape(-1, cin), dy2).to(w.dtype)
+        return dx, dw
+
+
+def _product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    b, h, ww, cin = x.shape
+    return (x.reshape(b * h * ww, cin) @ w).reshape(b, h, ww, w.shape[1])
+
+
+def conv1x1(x: torch.Tensor, w: torch.Tensor, *,
+            kernel_dw: bool = True) -> torch.Tensor:
+    """``y[b, h, w, :] = x[b, h, w, :] @ w``; ``x [B, H, W, Cin]``, ``w
+    [Cin, Cout]``. A non-contiguous ``x`` is copied first (the kernel
+    reads rows of ``[B*H*W, Cin]``). With ``kernel_dw`` the product runs
+    under :class:`Conv1x1Function` and its weight gradient is the
+    ``conv1x1_dw`` kernel; without, autograd differentiates the plain
+    product (the ``"matmul"`` lowering)."""
+    x = x.contiguous()
+    return Conv1x1Function.apply(x, w) if kernel_dw else _product(x, w)
+
+
+def conv1x1_strided(x: torch.Tensor, w: torch.Tensor, stride=(1, 1), *,
+                    kernel_dw: bool = True) -> torch.Tensor:
+    """The stride-s 1x1 convolution (the bottleneck shortcut): slicing
+    commutes with a pointwise product, so ``x[:, ::sh, ::sw, :]`` then
+    :func:`conv1x1`; the slice's gradient scatters into zeros."""
+    sh, sw = stride
+    if (sh, sw) != (1, 1):
+        x = x[:, ::sh, ::sw, :]
+    return conv1x1(x, w, kernel_dw=kernel_dw)

@@ -1,0 +1,141 @@
+"""Fused LayerNorm and matrix product — the port of
+``paddle_tpu/nn/fused_ln.py``.
+
+:func:`fused_ln_matmul` computes ``LayerNorm(x) @ w`` with the
+``LayerNorm`` module's numerics (f32 row mean and variance,
+``rsqrt(var + eps)``, the optional scale and bias, the normalised rows
+cast back to ``x``'s dtype before the product, the product accumulated in
+f32). For CUDA tensors it launches ``ln_matmul`` (``csrc/ln_matmul.cu``,
+the port of ``_ln_matmul_kernel``), which normalises each tile of ``x``
+as it loads it, so the normalised ``[M, K]`` tensor never reaches device
+memory; for CPU tensors it runs the unfused :func:`ln_matmul_reference`.
+A CUDA call never falls back: the wrapper checks device, dtype, shape and
+contiguity, raises on a refused launch and counts each launch in
+:func:`launch_counts`. The kernel takes float32.
+
+The JAX function's argument checks are kept, so a call it refuses is
+refused here too: ``K`` of ``x`` and ``w`` must agree, and the output
+must tile by ``(block_m, block_n)`` (by default the ``_auto_block``
+heuristic's, which always divides). The JAX autotuner is not ported: the
+kernel picks its own 64 x 64 tiles, and the block sizes are only
+checked.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Dict, Optional
+
+import torch
+
+from ..utils import cuda_build
+from ..utils.cuda_build import check_cuda, check_dtype, stream_ptr
+
+__all__ = ["fused_ln_matmul", "ln_matmul_reference", "launch_counts",
+           "reset_launch_counts", "KERNELS"]
+
+# kernel name -> csrc source stem
+KERNELS = {"ln_matmul": "ln_matmul"}
+
+_launches: Dict[str, int] = {name: 0 for name in KERNELS}
+
+# x, w, scale, bias, out; M K N; eps; stream
+_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_float,
+                                                           ctypes.c_void_p]
+
+
+def launch_counts() -> Dict[str, int]:
+    """Kernel launches since the last :func:`reset_launch_counts`."""
+    return dict(_launches)
+
+
+def reset_launch_counts() -> None:
+    for name in _launches:
+        _launches[name] = 0
+
+
+def _auto_block(t: int, cap: int) -> int:
+    """Largest block ``<= cap`` dividing ``t``, preferring multiples of 128,
+    then of 8, then any divisor (``pallas_attention._auto_block``)."""
+    for b in range(min(cap, t) // 128 * 128, 127, -128):
+        if t % b == 0:
+            return b
+    for b in range(min(cap, t) // 8 * 8, 7, -8):
+        if t % b == 0:
+            return b
+    for b in range(min(cap, t), 0, -1):
+        if t % b == 0:
+            return b
+    return min(cap, t)
+
+
+def ln_matmul_reference(x, w, scale=None, bias=None, eps: float = 1e-6):
+    """Unfused ``LayerNorm(x) @ w``: f32 statistics (the biased, two-pass
+    variance), cast back to ``x.dtype`` before the product, f32
+    accumulation, the result in ``x.dtype``."""
+    x32 = x.float()
+    mean = x32.mean(-1, keepdim=True)
+    var = (x32 - mean).square().mean(-1, keepdim=True)
+    y = (x32 - mean) * torch.rsqrt(var + eps)
+    if scale is not None:
+        y = y * scale.float()
+    if bias is not None:
+        y = y + bias.float()
+    y = y.to(x.dtype)
+    return (y.float() @ w.float()).to(x.dtype)
+
+
+def _check(x, w, scale, bias) -> None:
+    """Raise unless the kernel takes the operands: f32, contiguous, on x's
+    card, ``scale``/``bias`` ``[K]``, sizes within 32-bit indices."""
+    name = "ln_matmul"
+    M, K = x.shape
+    N = w.shape[1]
+    tensors = {"x": x, "w": w}
+    for key, t in (("scale", scale), ("bias", bias)):
+        if t is not None:
+            if tuple(t.shape) != (K,):
+                raise ValueError(f"{name}: {key} {tuple(t.shape)} must be "
+                                 f"[{K}]")
+            tensors[key] = t
+    check_dtype(name, torch.float32, **tensors)
+    check_cuda(name, x.device, **tensors)
+    if max(M * K, K * N, M * N) >= 2 ** 31 or -(-M // 64) > 65535:
+        raise ValueError(f"{name}: [{M}, {K}] x [{K}, {N}] exceeds the "
+                         f"kernel's sizes")
+
+
+def fused_ln_matmul(x, w, scale=None, bias=None, *, eps: float = 1e-6,
+                    block_m: Optional[int] = None,
+                    block_n: Optional[int] = None):
+    """``LayerNorm(x) @ w``: ``x [M, K]``, ``w [K, N]``, optional
+    ``scale``/``bias`` ``[K]`` (the ``LayerNorm`` module's affine
+    parameters), ``eps`` as the module's. ``block_m``/``block_n``: tile
+    sizes the JAX kernel would use, which must divide ``M``/``N``; None
+    takes the heuristic's."""
+    if x.dim() != 2 or w.dim() != 2:
+        raise ValueError(f"fused_ln_matmul: x {tuple(x.shape)} and w "
+                         f"{tuple(w.shape)} must be [M, K] and [K, N]")
+    M, K = x.shape
+    K2, N = w.shape
+    if K != K2:
+        raise ValueError(f"x [{M},{K}] @ w [{K2},{N}]: contraction mismatch")
+    bm = _auto_block(M, 128) if block_m is None else min(block_m, M)
+    bn = _auto_block(N, 512) if block_n is None else min(block_n, N)
+    if M % bm or N % bn:
+        raise ValueError(f"[{M},{N}] must tile by blocks ({bm}, {bn})")
+    if all(t is None or t.device.type == "cpu"
+           for t in (x, w, scale, bias)):
+        return ln_matmul_reference(x, w, scale, bias, eps)
+    if x.device.type != "cuda":
+        raise ValueError(f"ln_matmul: no kernel for x on {x.device}")
+    _check(x, w, scale, bias)
+    out = torch.empty(M, N, dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        cuda_build.launch(_launches, "ln_matmul", KERNELS["ln_matmul"],
+                          _ARGTYPES, x.data_ptr(), w.data_ptr(),
+                          None if scale is None else scale.data_ptr(),
+                          None if bias is None else bias.data_ptr(),
+                          out.data_ptr(), M, K, N, float(eps),
+                          stream_ptr(x))
+    return out

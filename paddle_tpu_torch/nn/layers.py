@@ -1,27 +1,35 @@
 """Main-path layers — the port of ``Linear``, ``Embedding``,
-``LayerNorm`` and ``Dropout`` from ``paddle_tpu/nn/layers.py``.
+``LayerNorm``, ``Dropout``, ``Conv2D``, ``Pool2D``, ``GlobalPool`` and
+``BatchNorm`` from ``paddle_tpu/nn/layers.py``.
 
 Parameters keep the JAX package's names and layouts (``Linear.w`` is
-``[in, out]`` and applied as ``x @ w``), so weights cross from a JAX
-checkpoint by path name with no transposes (``utils/bridge.py``).
-Initializers follow ``paddle_tpu/core/initializers.py`` in distribution;
-they draw from an explicit :class:`torch.Generator`, so the values differ
-from JAX's for the same seed.
+``[in, out]`` and applied as ``x @ w``; ``Conv2D.w`` is HWIO), so weights
+cross from a JAX checkpoint by path name with no transposes
+(``utils/bridge.py``). Images are NHWC at every module's interface, as in
+JAX; a convolution hands cuDNN the NCHW view of the NHWC tensor, which is
+channels-last, so nothing is copied. Initializers follow
+``paddle_tpu/core/initializers.py`` in distribution; they draw from an
+explicit :class:`torch.Generator`, so the values differ from JAX's for
+the same seed.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Sequence, Tuple, Union
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..core.dtypes import current_policy
 from . import activations
 
-__all__ = ["Linear", "Embedding", "LayerNorm", "Dropout", "fan_in_uniform_",
-           "xavier_uniform_", "normal_"]
+__all__ = ["Linear", "Embedding", "LayerNorm", "Dropout", "Conv2D",
+           "Pool2D", "GlobalPool", "BatchNorm", "set_conv1x1_impl",
+           "fan_in_uniform_", "msra_normal_", "xavier_uniform_", "normal_"]
+
+Pair = Union[int, Tuple[int, int]]
 
 
 def fan_in_uniform_(t: torch.Tensor, generator=None) -> torch.Tensor:
@@ -42,6 +50,13 @@ def xavier_uniform_(t: torch.Tensor, generator=None) -> torch.Tensor:
 def normal_(t: torch.Tensor, std: float, generator=None) -> torch.Tensor:
     with torch.no_grad():
         return t.normal_(0.0, std, generator=generator)
+
+
+def msra_normal_(t: torch.Tensor, generator=None) -> torch.Tensor:
+    """N(0, 2 / fan_in) for an HWIO kernel, fan_in = kh * kw * cin
+    (``initializers.msra_normal``)."""
+    fan_in = t.shape[-2] * math.prod(t.shape[:-2])
+    return normal_(t, math.sqrt(2.0 / max(1, fan_in)), generator)
 
 
 class Linear(nn.Module):
@@ -127,3 +142,248 @@ class Dropout(nn.Module):
         mask = torch.rand(x.shape, generator=self.generator,
                           device=x.device) < keep
         return torch.where(mask, x / keep, torch.zeros_like(x))
+
+
+def _pair(v: Pair) -> Tuple[int, int]:
+    return (v, v) if isinstance(v, int) else tuple(v)
+
+
+def _conv_padding(padding):
+    """Normalize padding: "SAME"/"VALID", int p, (pad_h, pad_w), or explicit
+    [(lo, hi), (lo, hi)] — matching the kernel/stride (h, w) convention."""
+    if isinstance(padding, str):
+        return padding
+    if isinstance(padding, int):
+        return [(padding, padding), (padding, padding)]
+    padding = list(padding)
+    if all(isinstance(p, (list, tuple)) for p in padding):
+        return [tuple(p) for p in padding]
+    ph, pw = padding
+    return [(ph, ph), (pw, pw)]
+
+
+def _pads(padding, size: Sequence[int], window: Tuple[int, int],
+          stride: Tuple[int, int], dilation: Tuple[int, int] = (1, 1)):
+    """``[(lo, hi), (lo, hi)]`` over H and W with ``lax``'s rules: SAME
+    pads ``max((ceil(n / s) - 1) * s + (k - 1) * d + 1 - n, 0)`` in all,
+    the low side taking the smaller half — asymmetric at stride 2, where
+    ``torch``'s own padding is symmetric."""
+    if padding == "VALID":
+        return [(0, 0), (0, 0)]
+    if padding != "SAME":
+        return [tuple(p) for p in padding]
+    out = []
+    for n, k, s, d in zip(size, window, stride, dilation):
+        total = max((-(-n // s) - 1) * s + (k - 1) * d + 1 - n, 0)
+        out.append((total // 2, total - total // 2))
+    return out
+
+
+def _pad_nhwc(x: torch.Tensor, pads, value: float = 0.0) -> torch.Tensor:
+    (hl, hh), (wl, wh) = pads
+    if not (hl or hh or wl or wh):
+        return x
+    return F.pad(x, (0, 0, wl, wh, hl, hh), value=value)
+
+
+def _nchw(x: torch.Tensor) -> torch.Tensor:
+    """The NCHW view of an NHWC tensor (channels-last, no copy)."""
+    return x.permute(0, 3, 1, 2)
+
+
+def _nhwc(y: torch.Tensor) -> torch.Tensor:
+    return y.permute(0, 2, 3, 1)
+
+
+# How 1x1 convs lower: "conv" = the convolution (cuDNN on the card);
+# "matmul" = reshape + product; "pallas" = the product forward with the
+# conv1x1_dw CUDA kernel for the weight gradient (nn/cuda_conv.py). The
+# JAX name "pallas" is kept so one switch selects the same path on both.
+_CONV1X1_IMPL = "conv"
+
+
+def set_conv1x1_impl(impl: str) -> str:
+    """Select the 1x1-conv lowering globally; returns the previous value.
+    Read at every call (JAX reads it when a step is traced), so it takes
+    effect at the next forward."""
+    global _CONV1X1_IMPL
+    if impl not in ("conv", "matmul", "pallas"):
+        raise ValueError(f"unknown 1x1-conv lowering {impl!r}")
+    prev, _CONV1X1_IMPL = _CONV1X1_IMPL, impl
+    return prev
+
+
+class Conv2D(nn.Module):
+    """2-D convolution over NHWC activations with an HWIO kernel ``w``
+    ``[kh, kw, in_channels // groups, features]`` and, with ``use_bias``,
+    ``b [features]``. A 1x1 kernel without padding, dilation or groups
+    takes the product path that :func:`set_conv1x1_impl` selects; every
+    other convolution is ``F.conv2d`` after an explicit ``lax``-rule pad.
+    The JAX layer's space-to-depth rewrite of the 7x7/2 stem is the same
+    math to f32 roundoff, so the plain convolution stands in for it.
+    ``in_channels`` is given here; JAX infers it at init."""
+
+    def __init__(self, in_channels: int, features: int, kernel: Pair,
+                 stride: Pair = 1, padding="SAME", dilation: Pair = 1,
+                 groups: int = 1, act="", use_bias: bool = True,
+                 device=None, generator=None):
+        super().__init__()
+        self.features = features
+        self.kernel = _pair(kernel)
+        self.stride = _pair(stride)
+        self.padding = _conv_padding(padding)
+        self.dilation = _pair(dilation)
+        self.groups = groups
+        self.act = activations.get(act)
+        kh, kw = self.kernel
+        self.w = nn.Parameter(torch.empty(kh, kw, in_channels // groups,
+                                          features, device=device))
+        msra_normal_(self.w, generator)
+        self.b = nn.Parameter(torch.zeros(features, device=device)) \
+            if use_bias else None
+
+    def _is_1x1(self) -> bool:
+        pad_free = (self.padding in ("SAME", "VALID")
+                    or all(p == (0, 0) for p in self.padding))
+        return (self.kernel == (1, 1) and self.dilation == (1, 1)
+                and self.groups == 1 and pad_free)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        pol = current_policy()
+        xc, w = pol.cast_compute(x), pol.cast_compute(self.w)
+        if self._is_1x1() and _CONV1X1_IMPL != "conv":
+            from . import cuda_conv
+            y = cuda_conv.conv1x1_strided(
+                xc, w.reshape(w.shape[2], self.features), self.stride,
+                kernel_dw=_CONV1X1_IMPL == "pallas")
+        else:
+            pads = _pads(self.padding, xc.shape[1:3], self.kernel,
+                         self.stride, self.dilation)
+            y = _nhwc(F.conv2d(_nchw(_pad_nhwc(xc, pads)),
+                               w.permute(3, 2, 0, 1), stride=self.stride,
+                               dilation=self.dilation, groups=self.groups))
+        if self.b is not None:
+            y = y + self.b.to(y.dtype)
+        return self.act(y)
+
+
+class Pool2D(nn.Module):
+    """Max or average pooling over NHWC with ``lax``'s padding rules: a
+    max pool pads with ``-inf``; a SAME average divides each window's sum
+    by its count of real (unpadded) entries, a VALID one by the window
+    size."""
+
+    def __init__(self, kind: str, window: Pair,
+                 stride: Optional[Pair] = None, padding="VALID"):
+        super().__init__()
+        if kind not in ("max", "avg"):
+            raise ValueError(f"unknown pooling {kind!r}")
+        self.kind = kind
+        self.window = _pair(window)
+        self.stride = _pair(stride if stride is not None else window)
+        self.padding = padding
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        pads = _pads(self.padding, x.shape[1:3], self.window, self.stride)
+        if self.kind == "max":
+            xp = _pad_nhwc(x, pads, float("-inf"))
+            return _nhwc(F.max_pool2d(_nchw(xp), self.window, self.stride))
+
+        def window_sum(t):
+            return _nhwc(F.avg_pool2d(_nchw(_pad_nhwc(t, pads)), self.window,
+                                      self.stride, divisor_override=1))
+
+        s = window_sum(x)
+        if self.padding == "VALID":
+            return s / (self.window[0] * self.window[1])
+        cnt = window_sum(torch.ones(x.shape[:3] + (1,), dtype=x.dtype,
+                                    device=x.device))
+        return s / cnt.clamp_min(1.0)
+
+
+class GlobalPool(nn.Module):
+    """Global spatial pooling, NHWC to ``[N, C]``."""
+
+    def __init__(self, kind: str = "avg"):
+        super().__init__()
+        if kind not in ("max", "avg"):
+            raise ValueError(f"unknown pooling {kind!r}")
+        self.kind = kind
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x.amax((1, 2)) if self.kind == "max" else x.mean((1, 2))
+
+
+class _BNTrainNorm(torch.autograd.Function):
+    """``(x - mean) * inv * gamma + beta`` with the closed-form batch-norm
+    backward of the JAX ``_bn_train_norm`` ``custom_vjp``: two reductions,
+    ``sum(dy)`` and ``sum(dy * xhat)``, then ``dx = gamma * inv * (dy -
+    sum(dy) / n - xhat * sum(dy * xhat) / n)``. That is the total
+    derivative (the batch statistics' dependence on ``x`` folded in), so
+    ``mean`` and ``inv`` get no gradient."""
+
+    @staticmethod
+    def forward(ctx, x, mean, inv, gamma, beta):
+        ctx.save_for_backward(x, mean, inv, gamma)
+        xhat = (x - mean.to(x.dtype)) * inv.to(x.dtype)
+        return xhat * gamma.to(x.dtype) + beta.to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, mean, inv, gamma = ctx.saved_tensors
+        axes = tuple(range(x.dim() - 1))
+        n = x.numel() // x.shape[-1]
+        xhat = (x - mean.to(x.dtype)) * inv.to(x.dtype)
+        dbeta = dy.sum(axes, dtype=torch.float32)
+        dgamma = (dy * xhat).sum(axes, dtype=torch.float32)
+        scale = (gamma * inv).to(x.dtype)
+        dx = scale * (dy - (dbeta / n).to(x.dtype)
+                      - xhat * (dgamma / n).to(x.dtype))
+        return dx, None, None, dgamma.to(gamma.dtype), dbeta.to(gamma.dtype)
+
+
+class BatchNorm(nn.Module):
+    """Batch normalization over the last (channel) axis with running
+    statistics in the buffers ``mean`` and ``var`` (the JAX ``"state"``
+    collection). Not ``torch``'s: in training the batch variance is the
+    biased one-pass ``max(E[x^2] - E[x]^2, 0)`` in f32, and the running
+    statistics move as ``momentum * old + (1 - momentum) * batch`` with
+    momentum 0.9; eps is 1e-5. ``train=False`` normalizes with the running
+    statistics."""
+
+    def __init__(self, features: int, momentum: float = 0.9,
+                 eps: float = 1e-5, use_scale_shift: bool = True,
+                 device=None):
+        super().__init__()
+        self.momentum = momentum
+        self.eps = eps
+        self.register_buffer("mean", torch.zeros(features, device=device))
+        self.register_buffer("var", torch.ones(features, device=device))
+        if use_scale_shift:
+            self.scale = nn.Parameter(torch.ones(features, device=device))
+            self.shift = nn.Parameter(torch.zeros(features, device=device))
+        else:
+            self.scale = self.shift = None
+
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        affine = self.scale is not None
+        if train:
+            axes = tuple(range(x.dim() - 1))
+            n = x.numel() // x.shape[-1]
+            # the closed-form backward carries the statistics' gradient
+            xf = (x.detach() if affine else x).float()
+            mean = xf.sum(axes) / n
+            var = ((xf * xf).sum(axes) / n - mean * mean).clamp_min(0.0)
+            m = self.momentum
+            with torch.no_grad():
+                self.mean.copy_(m * self.mean + (1 - m) * mean)
+                self.var.copy_(m * self.var + (1 - m) * var)
+        else:
+            mean, var = self.mean, self.var
+        inv = torch.rsqrt(var + self.eps)
+        if train and affine:
+            return _BNTrainNorm.apply(x, mean, inv, self.scale, self.shift)
+        y = (x - mean.to(x.dtype)) * inv.to(x.dtype)
+        if affine:
+            y = y * self.scale.to(x.dtype) + self.shift.to(x.dtype)
+        return y

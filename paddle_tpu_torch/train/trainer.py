@@ -31,12 +31,16 @@ _log = logging.getLogger(__name__)
 
 
 class TrainState:
-    """What training carries: the parameters (by name, the model's own
-    tensors), the optimizer state and the step count."""
+    """What training carries: the parameters and the module state (the
+    model's buffers, such as BatchNorm's running statistics; the JAX
+    ``TrainState.state``), both by name and the model's own tensors, the
+    optimizer state and the step count. A ``train=True`` forward updates
+    the module state in place, once per step."""
 
-    def __init__(self, params: Dict[str, torch.Tensor], opt_state: Any,
-                 step: int):
+    def __init__(self, params: Dict[str, torch.Tensor],
+                 state: Dict[str, torch.Tensor], opt_state: Any, step: int):
         self.params = params
+        self.state = state
         self.opt_state = opt_state
         self.step = step
 
@@ -80,10 +84,13 @@ class Trainer:
     def init(self, sample_batch: Optional[Dict[str, Any]] = None
              ) -> TrainState:
         """Build the optimizer state over the model's parameters and set
-        the step to 0. The model already holds its parameters, so the
-        sample batch is not needed; it is taken for the JAX signature."""
+        the step to 0. The model already holds its parameters and buffers,
+        so the sample batch is not needed; it is taken for the JAX
+        signature."""
         params = dict(self.model.named_parameters())
-        self.train_state = TrainState(params, self.optimizer.init(params), 0)
+        self.train_state = TrainState(params,
+                                      dict(self.model.named_buffers()),
+                                      self.optimizer.init(params), 0)
         return self.train_state
 
     def _loss(self, batch) -> torch.Tensor:
@@ -149,7 +156,8 @@ class Trainer:
     @torch.no_grad()
     def evaluate(self, reader: Callable) -> Tuple[float, Dict[str, float]]:
         """Mean over batches of each batch's mean loss, with ``train``
-        false; no metrics yet (no evaluators are ported)."""
+        false (BatchNorm on its running statistics, which stay as they
+        are); no metrics yet (no evaluators are ported)."""
         costs = []
         for host_batch in reader():
             batch = self._to_device(host_batch)

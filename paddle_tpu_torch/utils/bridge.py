@@ -8,10 +8,14 @@ JAX run's, so the run continues in the port, and
 
 Two forms are taken:
 
-- the nested ``{"params": {"<model name>": {...}}}`` dict that the JAX
-  model's ``init`` returns (any ``"state"`` subtree must be empty);
+- the nested ``{"params": {"<model name>": {...}}, "state": {...}}`` dict
+  that the JAX model's ``init`` returns;
 - the flat dict of ``"::"``-joined paths that the JAX package's
   ``save_variables_npz`` writes (``np.load`` of that file gives it).
+
+The ``"params"`` collection fills the model's parameters and the
+``"state"`` collection (BatchNorm's running ``mean`` and ``var``) its
+buffers, by the same path names.
 
 Paths map to parameter names mechanically: ``block{i}/...`` is
 ``blocks.{i}...`` and the rest of the path is kept, so ``block0/attn/wq``
@@ -103,45 +107,64 @@ def _nest(named: Mapping[str, torch.Tensor], root: str) -> Dict[str, Any]:
     return tree
 
 
+def _fill(what: str, targets: Dict[str, torch.Tensor],
+          incoming: Dict[str, np.ndarray]) -> None:
+    """Copy ``incoming`` into ``targets`` by name; raises on a missing,
+    extra or mis-shaped array before copying any."""
+    missing = sorted(set(targets) - set(incoming))
+    extra = sorted(set(incoming) - set(targets))
+    if missing or extra:
+        raise ValueError(f"{what} mismatch: missing {missing}, "
+                         f"extra {extra}")
+    for name, t in targets.items():
+        a = incoming[name]
+        if tuple(a.shape) != tuple(t.shape):
+            raise ValueError(f"{name}: JAX shape {tuple(a.shape)} != "
+                             f"{tuple(t.shape)}")
+    with torch.no_grad():
+        for name, t in targets.items():
+            t.copy_(torch.from_numpy(np.array(incoming[name])))
+
+
 def load_jax_params(model: torch.nn.Module,
                     variables: Mapping[str, Any]) -> torch.nn.Module:
-    """Copy the JAX variables into ``model``'s parameters by path name.
-    Raises on a missing, extra or mis-shaped array. Returns ``model``."""
+    """Copy the JAX variables into ``model``: the ``"params"`` collection
+    into its parameters and the ``"state"`` collection into its buffers,
+    by path name. Raises on a missing, extra or mis-shaped array, or on
+    another collection. Returns ``model``."""
     flat = _flatten(variables)
-    extra_cols = {p for p in flat if p[0] != "params"}
+    extra_cols = {p for p in flat if p[0] not in ("params", "state")}
     if extra_cols:
-        raise ValueError(f"only the 'params' collection is ported; got "
+        raise ValueError(f"only the 'params' and 'state' collections are "
+                         f"ported; got "
                          f"{sorted(_SEP.join(p) for p in extra_cols)}")
-    roots = {p[1] for p in flat if len(p) > 2}
+    short = sorted(_SEP.join(p) for p in flat if len(p) < 3)
+    if short:
+        raise ValueError(f"variables {short} are not under 'params::<root>' "
+                         f"or 'state::<root>'")
+    roots = {p[1] for p in flat}
     if len(roots) != 1:
-        raise ValueError(f"expected one model root under 'params', got "
-                         f"{sorted(roots)}")
-    incoming = {_torch_name(p[2:]): a for p, a in flat.items()}
-    params = dict(model.named_parameters())
-    missing = sorted(set(params) - set(incoming))
-    extra = sorted(set(incoming) - set(params))
-    if missing or extra:
-        raise ValueError(f"parameter mismatch: missing {missing}, "
-                         f"extra {extra}")
-    for name, p in params.items():
-        a = incoming[name]
-        if tuple(a.shape) != tuple(p.shape):
-            raise ValueError(f"{name}: JAX shape {tuple(a.shape)} != "
-                             f"{tuple(p.shape)}")
-    with torch.no_grad():
-        for name, p in params.items():
-            p.copy_(torch.from_numpy(np.array(incoming[name])))
+        raise ValueError(f"expected one model root, got {sorted(roots)}")
+    incoming = {col: {_torch_name(p[2:]): a for p, a in flat.items()
+                      if p[0] == col} for col in ("params", "state")}
+    _fill("parameter", dict(model.named_parameters()), incoming["params"])
+    _fill("state", dict(model.named_buffers()), incoming["state"])
     return model
 
 
 def export_jax_params(model: torch.nn.Module,
                       root: str = _ROOT) -> Dict[str, np.ndarray]:
-    """``model``'s parameters as the flat ``"::"``-joined dict that
-    ``save_variables_npz`` writes (``"params::transformer_lm::block0::
-    attn::wq"``), numpy arrays copied off the device."""
-    return {_SEP.join(("params", root) + _jax_path(n)):
-            p.detach().cpu().numpy().copy()
-            for n, p in model.named_parameters()}
+    """``model``'s parameters and buffers as the flat ``"::"``-joined dict
+    that ``save_variables_npz`` writes (``"params::transformer_lm::block0::
+    attn::wq"``, ``"state::ResNet_0::stem::bn::mean"``), numpy arrays
+    copied off the device. ``root`` is the JAX model's name."""
+    out = {}
+    for col, named in (("params", model.named_parameters()),
+                       ("state", model.named_buffers())):
+        for n, t in named:
+            out[_SEP.join((col, root) + _jax_path(n))] = \
+                t.detach().cpu().numpy().copy()
+    return out
 
 
 def _load_state(port: Any, jax_state: Any, where: str) -> None:

@@ -1,4 +1,4 @@
-"""Build and load the port's CUDA kernels.
+"""Build, load and launch the port's CUDA kernels.
 
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into its own
 shared library with a plain C interface, loaded with :mod:`ctypes`. No
@@ -8,7 +8,9 @@ source, the ``csrc/*.cuh`` headers and the flags, so an edited source or
 header rebuilds and an unchanged one is reused. Nothing is built when the
 package is imported: the first launch builds, or :func:`build` builds
 several sources at once, one ``nvcc`` process per source, all started
-together.
+together. :func:`launch` calls a kernel's C entry point, raises on a
+refused launch and counts it; :func:`check_cuda` and :func:`check_dtype`
+are the wrappers' operand checks.
 """
 
 from __future__ import annotations
@@ -20,9 +22,10 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Sequence
 
-__all__ = ["build", "load", "CSRC", "BUILD_DIR", "NVCC_FLAGS"]
+__all__ = ["build", "check_cuda", "check_dtype", "launch", "load",
+           "stream_ptr", "CSRC", "BUILD_DIR", "NVCC_FLAGS"]
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
@@ -99,3 +102,41 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(_target(name)))
         _loaded[name] = lib
     return lib
+
+
+def launch(counts: Dict[str, int], name: str, source: str,
+           argtypes: Sequence, *args) -> None:
+    """Call ``<name>_f32`` of ``csrc/<source>.cu``'s library with ``args``
+    (typed by ``argtypes``; it returns a ``cudaError_t``): raise if the
+    launch was refused, else add one to ``counts[name]``."""
+    fn = getattr(load(source), f"{name}_f32")
+    fn.argtypes = list(argtypes)
+    fn.restype = ctypes.c_int
+    err = fn(*args)
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError {err}")
+    counts[name] += 1
+
+
+def stream_ptr(t) -> int:
+    """PyTorch's current stream on ``t``'s device, as a pointer."""
+    import torch
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def check_cuda(name: str, device, **tensors) -> None:
+    """Raise unless every tensor lies on ``device`` and is contiguous."""
+    for key, t in tensors.items():
+        if t.device != device:
+            raise ValueError(f"{name}: {key} is on {t.device}, expected "
+                             f"{device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {key} must be contiguous")
+
+
+def check_dtype(name: str, dtype, **tensors) -> None:
+    """Raise unless every tensor has ``dtype``."""
+    for key, t in tensors.items():
+        if t.dtype != dtype:
+            raise ValueError(f"{name}: {key} has dtype {t.dtype}, the "
+                             f"kernel takes {dtype}")

@@ -5,7 +5,10 @@ full slots, and the wrappers' input checks; for the flash backward also
 the autograd seam (no backward launch under ``torch.no_grad()``, and
 gradients through ``FlashAttentionFunction`` against autograd of the
 plain forward); for the paged span the Q = 1 and per-row bit-equality
-with the paged decode, and the int8 branches of both. Every test needs an
+with the paged decode, and the int8 branches of both; for the 1x1-conv
+weight gradient and the fused LayerNorm-matmul, ragged edge shapes, the
+wrappers' refusals, bit-equal reruns and a small ResNet trained through
+the kernel against the convolution path. Every test needs an
 NVIDIA GPU (marker ``cuda``) and skips without one; run them on the card
 with ``python -m pytest --noconftest -q tests/test_torch_cuda_kernels.py``
 (the JAX harness in ``tests/conftest.py`` is not needed there).
@@ -15,6 +18,8 @@ import pytest
 import torch
 
 from paddle_tpu_torch.nn import cuda_attention as ca
+from paddle_tpu_torch.nn import cuda_conv as cc
+from paddle_tpu_torch.nn import fused_ln as fl
 
 pytestmark = pytest.mark.cuda
 ATOL = 1e-4
@@ -334,3 +339,113 @@ def test_engine_spec_chunk_int8_on_card(gen):
         run(kv_dtype="int8", prefill_chunk=16, attention="xla")
     counts = ca.launch_counts()
     assert counts["paged_span_int8"] > 0 and counts["paged_decode_int8"] > 0
+
+
+def _rel_err(got, want):
+    return ((got - want).abs().max()
+            / want.abs().max().clamp_min(1.0)).item()
+
+
+@pytest.mark.parametrize("M,cin,cout", [
+    (1, 3, 10), (34, 8, 8), (34, 3, 10), (160, 64, 24), (6144, 10, 3),
+    (5000, 130, 70), (100352, 64, 64), (3000, 300, 1000)])
+def test_conv1x1_dw_kernel_matches_plain(gen, M, cin, cout):
+    x = torch.randn(M, cin, generator=gen, device="cuda")
+    dy = torch.randn(M, cout, generator=gen, device="cuda")
+    before = cc.launch_counts()["conv1x1_dw"]
+    got = cc.conv1x1_dw(x, dy)
+    assert cc.launch_counts()["conv1x1_dw"] == before + 1
+    want = cc.conv1x1_dw_plain(x, dy)
+    torch.cuda.synchronize()
+    assert got.shape == (cin, cout) and got.dtype == torch.float32
+    assert _rel_err(got, want) <= ATOL
+    assert torch.equal(cc.conv1x1_dw(x, dy), got)      # no atomics
+
+
+def test_conv1x1_dw_wrapper_refuses_what_the_kernel_does_not_take(gen):
+    x = torch.randn(64, 8, generator=gen, device="cuda")
+    dy = torch.randn(64, 16, generator=gen, device="cuda")
+    before = cc.launch_counts()["conv1x1_dw"]
+    for bad in [(x.double(), dy.double()), (x.half(), dy),
+                (x.cpu(), dy), (x, dy.cpu()), (x, dy[:32]),
+                (x.T.contiguous().T, dy), (x[:, None], dy)]:
+        with pytest.raises(ValueError):
+            cc.conv1x1_dw(*bad)
+    assert cc.launch_counts()["conv1x1_dw"] == before
+
+
+@pytest.mark.parametrize("M,K,N,affine", [
+    (128, 32, 256, ""), (128, 32, 256, "s"), (128, 32, 256, "sb"),
+    (100, 70, 130, "sb"), (3, 5, 7, "b"), (1, 1, 1, "")])
+def test_ln_matmul_kernel_matches_plain(gen, M, K, N, affine):
+    x = torch.randn(M, K, generator=gen, device="cuda") * 3 + 1
+    w = torch.randn(K, N, generator=gen, device="cuda")
+    scale = torch.randn(K, generator=gen, device="cuda") \
+        if "s" in affine else None
+    bias = torch.randn(K, generator=gen, device="cuda") \
+        if "b" in affine else None
+    before = fl.launch_counts()["ln_matmul"]
+    got = fl.fused_ln_matmul(x, w, scale, bias)
+    assert fl.launch_counts()["ln_matmul"] == before + 1
+    want = fl.ln_matmul_reference(x, w, scale, bias)
+    torch.cuda.synchronize()
+    assert _rel_err(got, want) <= ATOL
+    assert torch.equal(fl.fused_ln_matmul(x, w, scale, bias), got)
+
+
+def test_ln_matmul_wrapper_refuses_what_the_kernel_does_not_take(gen):
+    x = torch.randn(64, 32, generator=gen, device="cuda")
+    w = torch.randn(32, 48, generator=gen, device="cuda")
+    s = torch.randn(32, generator=gen, device="cuda")
+    before = fl.launch_counts()["ln_matmul"]
+    for args, kw in [((x.double(), w.double()), {}), ((x, w.cpu()), {}),
+                     ((x.cpu(), w), {}), ((x, w, s.cpu()), {}),
+                     ((x, w, s[:16]), {}), ((x.T.contiguous().T, w), {}),
+                     ((x, w[:16]), {}), ((x, w), {"block_m": 48})]:
+        with pytest.raises(ValueError):
+            fl.fused_ln_matmul(*args, **kw)
+    assert fl.launch_counts()["ln_matmul"] == before
+
+
+def test_resnet_trains_through_conv1x1_dw_on_card(gen):
+    """A small Bottleneck ResNet: gradients under "pallas" against the
+    convolution path (cuDNN, TF32 off), 12 launches per step (c1, c3 and
+    the shortcut of four blocks), and two momentum steps that lower the
+    loss."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.models import Bottleneck, ResNet
+    torch.backends.cudnn.allow_tf32 = False
+    model = ResNet(Bottleneck, [1, 1, 1, 1], 10, generator=gen)
+    x = torch.randn(8, 32, 32, 3, generator=gen, device="cuda")
+    y = torch.randint(0, 10, (8,), generator=gen, device="cuda")
+    state = {k: v.clone() for k, v in model.named_buffers()}
+    grads = {}
+    prev = pt.set_conv1x1_impl("conv")
+    try:
+        for impl in ("conv", "pallas"):
+            pt.set_conv1x1_impl(impl)
+            for k, v in model.named_buffers():
+                v.copy_(state[k])
+            model.zero_grad(set_to_none=True)
+            pt.softmax_cross_entropy(model(x, train=True), y).mean() \
+                .backward()
+            grads[impl] = {n: p.grad.clone()
+                           for n, p in model.named_parameters()}
+        for n, want in grads["conv"].items():
+            got = grads["pallas"][n]
+            rel = ((got - want).abs().max()
+                   / want.abs().max().clamp_min(1e-30)).item()
+            assert rel <= 1e-3, n
+        tr = pt.Trainer(model, lambda out, b: pt.softmax_cross_entropy(
+            out, b["y"]), pt.momentum(0.1, 0.9))
+        tr.init()
+        cc.reset_launch_counts()
+        losses = []
+        tr.train(lambda: iter([{"x": x, "y": y}] * 3),
+                 event_handler=lambda e: losses.append(e.cost)
+                 if isinstance(e, pt.train.EndIteration) else None,
+                 log_period=0)
+        assert cc.launch_counts()["conv1x1_dw"] == 12 * 3
+        assert losses[-1] < losses[0]
+    finally:
+        pt.set_conv1x1_impl(prev)
