@@ -51,7 +51,11 @@ Phases (any failure exits non-zero before the final line):
    runs bit-equal), then timed at all 15 distinct shapes of the step's 36
    launches, summed per step; ``fused_ln_matmul`` (``ln_matmul``) over x
    ``[16384, 512]`` with w ``[512, 512]`` and ``[512, 2048]``, with and
-   without scale and bias, its entry point's only caller.
+   without scale and bias, its entry point's only caller. Both run on the
+   split-TF32 tensor-core route (``csrc/gemm_f32.cuh``): each timed row
+   gives its TFLOP/s and its share of that route's bound (three TF32
+   products against 495 TFLOP/s, or the bytes) and of the f32 CUDA-core
+   bound (67 TFLOP/s).
 8. ResNet-50 training: the ``prep_resnet50`` configuration, nothing cut
    (``resnet50(1000)``, 7x7 stem, batch 128 at 224 x 224 x 3,
    ``momentum(0.1, 0.9)``, the conflicting-pairs batch, seeded random
@@ -76,7 +80,8 @@ The last line is ``{"ok": true, "device": {...}}``; the line before it is
 ``nvidia-smi``'s name and power limit, and before that one JSON object
 listing every kernel with its launches on the main paths, error and times
 (``conv1x1_dw``'s times and bound summed over the 36 launches of one
-ResNet-50 step).
+ResNet-50 step; ``bound_ms`` is the bound of the kernel's route,
+``cuda_core_bound_ms`` the f32 CUDA-core one beside it).
 """
 
 import json
@@ -88,6 +93,7 @@ import time
 # H100 SXM data-sheet peaks the bounds are computed against
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
+TF32_FLOPS_PER_S = 495e12   # tensor cores, dense
 TOL = 1e-4          # f32, kernel vs plain: summation order differs
 # step-0 gradients, flash path vs plain-attention path, relative to each
 # parameter's largest gradient: both f32, the plain path masks with -1e9
@@ -144,6 +150,29 @@ def bound(nbytes, flops):
     t_b = nbytes / HBM_BYTES_PER_S * 1e3
     t_f = flops / F32_FLOPS_PER_S * 1e3
     return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
+
+
+def split_tf32_bound(nbytes, flops):
+    """The bound of an f32 product on the split-TF32 route
+    (``csrc/gemm_f32.cuh``): three TF32 products per f32 product on the
+    tensor cores, or the bytes."""
+    t_b = nbytes / HBM_BYTES_PER_S * 1e3
+    t_f = 3 * flops / TF32_FLOPS_PER_S * 1e3
+    return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
+
+
+def gemm_rates(row, nbytes, flops):
+    """Adds to a product's timed row its achieved TFLOP/s, the route's
+    bound (split TF32) as ``bound_ms`` and the f32 CUDA-core bound beside
+    it, and the kernel's share of each."""
+    row["bound_ms"], row["bound_by"] = split_tf32_bound(nbytes, flops)
+    row["cuda_core_bound_ms"], row["cuda_core_bound_by"] = bound(nbytes,
+                                                                 flops)
+    row["tflops"] = flops / row["kernel_ms"] / 1e9
+    row["share_of_bound"] = row["bound_ms"] / row["kernel_ms"]
+    row["share_of_cuda_core_bound"] = row["cuda_core_bound_ms"] \
+        / row["kernel_ms"]
+    return row
 
 
 def check_close(name, got, want, rel=False):
@@ -1041,8 +1070,8 @@ DW_CHECKED = [(401408, 64, 64), (401408, 64, 256), (100352, 256, 512),
               (25088, 1024, 256), (6272, 512, 2048)]
 
 
-def dw_bound(M, cin, cout):
-    return bound(4 * (M * cin + M * cout + cin * cout), 2 * M * cin * cout)
+def dw_bytes_flops(M, cin, cout):
+    return 4 * (M * cin + M * cout + cin * cout), 2 * M * cin * cout
 
 
 def phase_conv_kernels(torch, cc, gen):
@@ -1050,13 +1079,17 @@ def phase_conv_kernels(torch, cc, gen):
     ResNet-50 step, within TOL of max |plain|, bit-equal over two runs;
     then the kernel, plain version and library call (``torch.mm(x.t(),
     dy)``, cuBLAS, TF32 off — the same call as the plain version) timed
-    at every distinct shape of the step, and summed over the step's 36
-    launches beside the summed bound."""
+    at every distinct shape of the step, with the kernel's TFLOP/s and
+    its share of the split-TF32 bound and of the f32 CUDA-core bound, and
+    summed over the step's 36 launches beside the summed bounds."""
+    from paddle_tpu_torch.nn.gemm_f32 import TILES
     if sum(RESNET50_DW.values()) != 36 or len(RESNET50_DW) != 15:
         raise RuntimeError(f"RESNET50_DW lists {RESNET50_DW}")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     rows, err = {}, 0.0
     step = {"kernel_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
-            "bound_ms": 0.0, "bytes": 0, "flops": 0}
+            "bound_ms": 0.0, "cuda_core_bound_ms": 0.0, "bytes": 0,
+            "flops": 0}
     for shape, n in RESNET50_DW.items():
         M, cin, cout = shape
         x = torch.randn(M, cin, generator=gen, device="cuda")
@@ -1077,27 +1110,34 @@ def phase_conv_kernels(torch, cc, gen):
             row["max_abs_err"], row["max_plain"] = e, lim / TOL
             err = max(err, e)
             del got, want, again
-        b_ms, b_by = dw_bound(M, cin, cout)
+        nbytes, flops = dw_bytes_flops(M, cin, cout)
+        tile, splits = cc._plan(M, cin, cout, sms)
         row.update(kernel_ms=time_ms(torch, lambda: cc.conv1x1_dw(x, dy)),
                    plain_ms=time_ms(torch,
                                     lambda: cc.conv1x1_dw_plain(x, dy)),
                    library_ms=time_ms(torch, lambda: torch.mm(x.t(), dy)),
-                   bound_ms=b_ms, bound_by=b_by,
-                   splits=cc._splits(M, cin, cout, torch.cuda.
-                                     get_device_properties(0).
-                                     multi_processor_count)[0])
-        for k in ("kernel_ms", "plain_ms", "library_ms", "bound_ms"):
+                   tile=list(TILES[tile][:2]), splits=splits)
+        gemm_rates(row, nbytes, flops)
+        for k in ("kernel_ms", "plain_ms", "library_ms", "bound_ms",
+                  "cuda_core_bound_ms"):
             step[k] += n * row[k]
-        step["bytes"] += n * 4 * (M * cin + M * cout + cin * cout)
-        step["flops"] += n * 2 * M * cin * cout
+        step["bytes"] += n * nbytes
+        step["flops"] += n * flops
         rows[shape] = row
         log("conv1x1_dw", json.dumps(row))
         del x, dy
     t_b = step["bytes"] / HBM_BYTES_PER_S * 1e3
-    t_f = step["flops"] / F32_FLOPS_PER_S * 1e3
-    step.update(max_abs_err=err, launches=36,
-                bound_by="operations" if t_f >= t_b else "bytes",
-                bound_note="sum of the 36 launches' own bounds")
+    step.update(
+        max_abs_err=err, launches=36,
+        bound_by="operations" if 3 * step["flops"] / TF32_FLOPS_PER_S * 1e3
+        >= t_b else "bytes",
+        cuda_core_bound_by="operations" if step["flops"] / F32_FLOPS_PER_S
+        * 1e3 >= t_b else "bytes",
+        tflops=step["flops"] / step["kernel_ms"] / 1e9,
+        share_of_bound=step["bound_ms"] / step["kernel_ms"],
+        share_of_cuda_core_bound=step["cuda_core_bound_ms"]
+        / step["kernel_ms"],
+        bound_note="sums of the 36 launches' own bounds")
     log("conv1x1_dw step (36 launches)", json.dumps(step))
     return step
 
@@ -1106,8 +1146,11 @@ def phase_ln_kernels(torch, F, fl, gen):
     """fused_ln_matmul's kernel at the transformer width, with and without
     scale and bias: the entry point's launches (its only caller), then
     each against the plain version within TOL of max |plain|, timed beside
-    it and beside ``F.layer_norm(...) @ w``."""
+    it and beside ``F.layer_norm(...) @ w``, with its TFLOP/s and its share
+    of the split-TF32 bound and of the f32 CUDA-core bound."""
+    from paddle_tpu_torch.nn.gemm_f32 import TILES
     M, K = 16384, 512
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     x = torch.randn(M, K, generator=gen, device="cuda") * 2 + 0.5
     sc = 1 + 0.1 * torch.randn(K, generator=gen, device="cuda")
     bi = 0.1 * torch.randn(K, generator=gen, device="cuda")
@@ -1131,8 +1174,6 @@ def phase_ln_kernels(torch, F, fl, gen):
         if not e <= lim:
             raise RuntimeError(f"ln_matmul [{M},{K}]x[{K},{N}]: max |kernel "
                                f"- plain| = {e} > {lim}")
-        b_ms, b_by = bound(4 * (M * K + K * N + M * N + 2 * K),
-                           2 * M * K * N)
         row = {"case": f"x [{M},{K}] w [{K},{N}]"
                        + (" scale+bias" if aff else ""),
                "max_abs_err": e, "max_plain": lim / TOL,
@@ -1142,7 +1183,8 @@ def phase_ln_kernels(torch, F, fl, gen):
                    x, w, s, b)),
                "library_ms": time_ms(torch, lambda: F.layer_norm(
                    x, (K,), s, b, 1e-6) @ w),
-               "bound_ms": b_ms, "bound_by": b_by}
+               "tile": list(TILES[fl._plan(M, N, sms)][:2])}
+        gemm_rates(row, 4 * (M * K + K * N + M * N + 2 * K), 2 * M * K * N)
         log("ln_matmul", json.dumps(row))
         rows[N, aff] = row
     return rows, counts
@@ -1481,6 +1523,8 @@ def main():
                 "max_abs_err": err, "ms": row["kernel_ms"],
                 "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                 "bound_by": row["bound_by"],
+                "cuda_core_bound_ms": row.get("cuda_core_bound_ms",
+                                              row["bound_ms"]),
                 "library_ms": row["library_ms"]}
 
     kernels = [entry("flash_fwd", flash[0],

@@ -5,125 +5,162 @@
 // row-major with M = batch * height * width, give dW [Cin, Cout] summed
 // over M in f32.
 //
-// What bounds it on the H100: the path runs it on float32 operands, which
-// have no tensor-core route without TF32 (about three decimal digits lost
-// against the f32 reference), so the work is CUDA-core FMAs (67 TFLOP/s).
-// Over the 36 calls of a ResNet-50 step at batch 128 the two bounds are
-// close: 0.54 TFLOP against 8.5 GB, operations for the wide late stages,
-// bytes for the early [401408, 64] shapes.
+// What bounds it on the H100: the products run on the tensor cores in
+// split TF32 (gemm_f32.cuh: three TF32 products per f32 product, f32
+// accuracy), 3 * 2 * M * Cin * Cout operations against 495 TFLOP/s. Over
+// the 36 calls of a ResNet-50 step at batch 128 that is close to the bytes
+// (8.5 GB at 3.35 TB/s): operations bound the wide late stages, bytes the
+// early [401408, 64] shapes.
 //
 // The trouble is the shape: the output is tiny and M is huge (401,408 rows
 // into a [64, 64] output at the first stage). The TPU kernel walks M on its
 // sequential grid and accumulates one output tile in place; on the H100
 // one block per output tile would leave 131 of 132 SMs idle. So M is split
-// too: block (j, i, s) owns the 64 x 64 output tile (i, j) over the rows of
-// split s, 256 threads as a 16 x 16 grid with a 4 x 4 patch of the tile
-// each in registers. It stages 32-row slices of x and dy in shared memory
-// (both operands are row-major [M, C], so every load reads whole rows,
-// coalesced, and the transpose costs nothing) and adds their outer
-// products. With more than one split the partial tiles go to a workspace
-// [splits, Cin, Cout] and a second pass sums them in split order, one
-// thread per output entry. No atomics: the order of every sum is fixed by
-// the shapes and the split count, so two runs are bit-equal. The wrapper
-// (paddle_tpu_torch/nn/cuda_conv.py) picks the split count from the SM
-// count and allocates the workspace. M, Cin and Cout need not be multiples
-// of anything: rows and columns past the edge load as zeros.
+// too: block (j, i, s) owns the output tile (i, j) over the rows
+// [s * M / splits, (s + 1) * M / splits) of split s, and runs the shared
+// mainloop (gemm_f32.cuh) over them in 32-row k-tiles: A = x^T, staged
+// k-major from whole rows of x, B = dy, from whole rows of dy, so every
+// copy reads rows, coalesced, and the transpose costs nothing. The tile is
+// 128 x 128 where Cin and Cout reach 128, else 64 x 64; the wrapper
+// (paddle_tpu_torch/nn/cuda_conv.py) picks it, the split count (one wave of
+// resident blocks) and the copy width (16 bytes when both operands' rows
+// and base pointers allow it, else 4). With
+// more than one split the partial tiles go to a workspace
+// [splits, Cin, Cout] and a second pass sums them in a fixed order: no
+// atomics, so two runs are bit-equal. M, Cin and Cout need not be
+// multiples of anything: rows and columns past the edge load as zeros.
 //
-// Left for later work: double-buffered (cp.async / TMA) loads, bf16
-// operands on wgmma.
+// Next step (the mainloop runs at about half the mma.sync rate; every
+// warp re-splits each fragment value it loads): split each value once as
+// it lands in shared memory, into hi and lo planes that one block an SM
+// has room for. Later: bf16 operands on wgmma/TMA.
+// A persistent stream-K split in place of the second pass.
 
-#include <cuda_runtime.h>
+#include "gemm_f32.cuh"
 
 namespace {
 
-constexpr int TILE = 64;  // output tile TILE x TILE per block
-constexpr int ROWS = 32;  // rows of M staged per shared-memory step
-constexpr int NT = 256;   // 16 x 16 threads, a 4 x 4 patch each
+using namespace gemm_f32;
 
-__global__ void __launch_bounds__(NT)
+// Copies of the rows [m_begin + 32 kt, ...) of x (columns ci0..) and dy
+// (columns co0..) into a stage, both as [k][channel].
+template <class C, int VEC>
+struct DwLoader {
+  const float* __restrict__ x;
+  const float* __restrict__ dy;
+  int Cin, Cout, ci0, co0;
+  long long m_begin, m_end;
+
+  template <int W, int PITCH>
+  __device__ __forceinline__ void rows(float* dst,
+                                       const float* __restrict__ src,
+                                       int width, int c0, int kt) const {
+    constexpr int PER_ROW = W / VEC;
+    static_assert(C::BK * PER_ROW % C::NT == 0, "whole copies per thread");
+#pragma unroll
+    for (int q = 0; q < C::BK * PER_ROW / C::NT; ++q) {
+      const int p = threadIdx.x + q * C::NT;
+      const int r = p / PER_ROW, c = p % PER_ROW * VEC;
+      const long long m = m_begin + (long long)kt * C::BK + r;
+      const bool live = m < m_end && c0 + c < width;
+      cp_async<VEC>(dst + r * PITCH + c, live ? src + m * width + c0 + c : src,
+                    live);
+    }
+  }
+
+  __device__ __forceinline__ void load(float* stage, int kt) const {
+    rows<C::BM, C::LDA>(stage, x, Cin, ci0, kt);
+    rows<C::BN, C::LDB>(stage + C::A_FLOATS, dy, Cout, co0, kt);
+  }
+
+  __device__ __forceinline__ void fixup(float*, int) const {}
+};
+
+template <class C, int VEC>
+__global__ void __launch_bounds__(C::NT, C::MIN_BLOCKS)
 dw_tiles(const float* __restrict__ x, const float* __restrict__ dy,
-         float* __restrict__ out, int M, int Cin, int Cout,
-         int rows_per_split) {
-  __shared__ __align__(16) float xs[ROWS][TILE];
-  __shared__ __align__(16) float gs[ROWS][TILE];
-  const int co0 = blockIdx.x * TILE;
-  const int ci0 = blockIdx.y * TILE;
-  const long long m_begin = (long long)blockIdx.z * rows_per_split;
-  const long long m_end = min((long long)M, m_begin + rows_per_split);
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-  for (long long m0 = m_begin; m0 < m_end; m0 += ROWS) {
-    for (int i = threadIdx.x; i < ROWS * TILE; i += NT) {
-      const int r = i / TILE, c = i % TILE;
-      const long long m = m0 + r;
-      const bool live = m < m_end;
-      xs[r][c] = (live && ci0 + c < Cin) ? x[m * Cin + ci0 + c] : 0.f;
-      gs[r][c] = (live && co0 + c < Cout) ? dy[m * Cout + co0 + c] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int r = 0; r < ROWS; ++r) {
-      const float4 a = *reinterpret_cast<const float4*>(&xs[r][ty * 4]);
-      const float4 b = *reinterpret_cast<const float4*>(&gs[r][tx * 4]);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-  float* o = out + (size_t)blockIdx.z * Cin * Cout;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int ci = ci0 + ty * 4 + i;
-    if (ci >= Cin) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int co = co0 + tx * 4 + j;
-      if (co < Cout) o[(size_t)ci * Cout + co] = acc[i][j];
-    }
-  }
+         float* __restrict__ out, int M, int Cin, int Cout, int splits) {
+  extern __shared__ __align__(16) float smem[];
+  const int s = blockIdx.z;
+  DwLoader<C, VEC> ld{x, dy, Cin, Cout, (int)blockIdx.y * C::BM,
+                      (int)blockIdx.x * C::BN, (long long)s * M / splits,
+                      (long long)(s + 1) * M / splits};
+  const int ktiles = (int)((ld.m_end - ld.m_begin + C::BK - 1) / C::BK);
+  float acc[C::MI][C::NI][4];
+  mainloop<C>(ld, ktiles, smem, acc);
+  store<C, VEC>(acc, smem, out + (size_t)s * Cin * Cout, Cin, Cout, Cout,
+                ld.ci0, ld.co0);
 }
 
-// out[i] = sum over s of part[s][i], s in increasing order.
-__global__ void dw_reduce(const float* __restrict__ part,
-                          float* __restrict__ out, int n, int splits) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  float s = part[i];
-  for (int k = 1; k < splits; ++k) s += part[(size_t)k * n + i];
-  out[i] = s;
+constexpr int RED_PARTS = 8;   // rows of threads summing one column
+
+// out[i] = sum over s of part[s][i]: thread row p sums splits
+// [p * splits / 8, (p + 1) * splits / 8) in increasing order, then row 0
+// adds the eight partial sums in increasing p. Fixed by n and splits.
+__global__ void __launch_bounds__(32 * RED_PARTS)
+dw_reduce(const float* __restrict__ part, float* __restrict__ out, int n,
+          int splits) {
+  __shared__ float partial[RED_PARTS][32];
+  const int i = blockIdx.x * 32 + threadIdx.x, p = threadIdx.y;
+  float sum = 0.f;
+  if (i < n) {
+    const int s1 = (int)((long long)(p + 1) * splits / RED_PARTS);
+    for (int s = (int)((long long)p * splits / RED_PARTS); s < s1; ++s)
+      sum += part[(size_t)s * n + i];
+  }
+  partial[p][threadIdx.x] = sum;
+  __syncthreads();
+  if (p != 0 || i >= n) return;
+#pragma unroll
+  for (int q = 1; q < RED_PARTS; ++q) sum += partial[q][threadIdx.x];
+  out[i] = sum;
+}
+
+template <class C, int VEC>
+cudaError_t launch_tiles(const float* x, const float* dy, float* tiles, int M,
+                         int Cin, int Cout, int splits, cudaStream_t st) {
+  const cudaError_t err = allow_smem<C>(dw_tiles<C, VEC>);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((Cout + C::BN - 1) / C::BN, (Cin + C::BM - 1) / C::BM,
+                  splits);
+  dw_tiles<C, VEC><<<grid, C::NT, C::SMEM_BYTES, st>>>(x, dy, tiles, M, Cin,
+                                                       Cout, splits);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// x: [M, Cin], dy: [M, Cout], out: [Cin, Cout], all float32 and contiguous;
-// work: [splits, Cin, Cout] float32 when splits > 1 (unused otherwise).
-// Split s covers rows [s * rows_per_split, (s + 1) * rows_per_split) of M;
-// splits * rows_per_split >= M. Returns a cudaError_t.
+// x: [M, Cin], dy: [M, Cout], out: [Cin, Cout], all float32 and
+// contiguous; work: [splits, Cin, Cout] float32 when splits > 1 (unused
+// otherwise). tile: 0 for 128 x 128 output tiles, 1 for 64 x 64; vec: 4
+// for 16-byte copies (x, dy 16-byte aligned, Cin and Cout multiples of 4),
+// else 1. Split s covers rows [s * M / splits, (s + 1) * M / splits).
+// Returns a cudaError_t.
 extern "C" int conv1x1_dw_f32(const void* x, const void* dy, void* out,
                               void* work, int M, int Cin, int Cout,
-                              int splits, int rows_per_split, void* stream) {
+                              int splits, int tile, int vec, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int n = Cin * Cout;
   if (M == 0)
     return (int)cudaMemsetAsync(out, 0, sizeof(float) * (size_t)n, st);
+  if ((tile != 0 && tile != 1) || (vec != 1 && vec != 4) || splits < 1)
+    return (int)cudaErrorInvalidValue;
+  const float* xf = static_cast<const float*>(x);
+  const float* df = static_cast<const float*>(dy);
   float* tiles = static_cast<float*>(splits > 1 ? work : out);
-  const dim3 grid((Cout + TILE - 1) / TILE, (Cin + TILE - 1) / TILE, splits);
-  dw_tiles<<<grid, NT, 0, st>>>(static_cast<const float*>(x),
-                                static_cast<const float*>(dy), tiles, M, Cin,
-                                Cout, rows_per_split);
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err;
+  if (tile == 0)
+    err = vec == 4 ? launch_tiles<Large<true>, 4>(xf, df, tiles, M, Cin, Cout,
+                                                  splits, st)
+                   : launch_tiles<Large<true>, 1>(xf, df, tiles, M, Cin, Cout,
+                                                  splits, st);
+  else
+    err = vec == 4 ? launch_tiles<Small<true>, 4>(xf, df, tiles, M, Cin, Cout,
+                                                  splits, st)
+                   : launch_tiles<Small<true>, 1>(xf, df, tiles, M, Cin, Cout,
+                                                  splits, st);
   if (err != cudaSuccess || splits == 1) return (int)err;
-  dw_reduce<<<(n + 255) / 256, 256, 0, st>>>(tiles, static_cast<float*>(out),
-                                             n, splits);
+  dw_reduce<<<(n + 31) / 32, dim3(32, RED_PARTS), 0, st>>>(
+      tiles, static_cast<float*>(out), n, splits);
   return (int)cudaGetLastError();
 }

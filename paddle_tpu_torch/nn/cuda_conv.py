@@ -26,6 +26,7 @@ import torch
 
 from ..utils import cuda_build
 from ..utils.cuda_build import check_cuda, check_dtype, stream_ptr
+from .gemm_f32 import TILES, copy_width, pick_tile
 
 __all__ = ["Conv1x1Function", "conv1x1", "conv1x1_dw", "conv1x1_dw_plain",
            "conv1x1_strided", "launch_counts", "reset_launch_counts",
@@ -36,9 +37,7 @@ KERNELS = {"conv1x1_dw": "conv1x1_dw"}
 
 _launches: Dict[str, int] = {name: 0 for name in KERNELS}
 
-_TILE = 64             # output tile per block (csrc/conv1x1_dw.cu)
-_MIN_SPLIT_ROWS = 256  # no split of M shorter than this
-_BLOCKS_PER_SM = 4     # the split count aims at this many blocks per SM
+_MIN_SPLIT_ROWS = 256  # no split of M shorter than this: 8 k-tiles of 32
 
 
 def launch_counts() -> Dict[str, int]:
@@ -57,16 +56,24 @@ def conv1x1_dw_plain(x2d: torch.Tensor, dy2d: torch.Tensor) -> torch.Tensor:
     return x2d.float().T @ dy2d.float()
 
 
-def _splits(m: int, cin: int, cout: int, sms: int) -> Tuple[int, int]:
-    """``(splits, rows per split)`` of M for the kernel: enough splits that
-    the output tiles times the splits give about ``_BLOCKS_PER_SM`` blocks
-    per SM, none shorter than ``_MIN_SPLIT_ROWS`` rows. A function of the
-    shapes and the SM count only, so a run is repeatable bit for bit."""
-    tiles = -(-cin // _TILE) * -(-cout // _TILE)
-    want = -(-_BLOCKS_PER_SM * sms // tiles)
-    splits = max(1, min(want, m // _MIN_SPLIT_ROWS, 65535))
-    rows = -(-m // splits) if m else 1
-    return -(-m // rows) if m else 1, rows
+def _plan(m: int, cin: int, cout: int, sms: int) -> Tuple[int, int]:
+    """``(tile, splits)`` of the kernel's launch: the tile instance for a
+    ``[cin, cout]`` output (:func:`~.gemm_f32.pick_tile`) and
+    :func:`_splits`. A function of the shapes and the SM count only, so a
+    run is repeatable bit for bit."""
+    tile = pick_tile(cin, cout)
+    return tile, _splits(m, cin, cout, sms, tile)
+
+
+def _splits(m: int, cin: int, cout: int, sms: int, tile: int) -> int:
+    """The splits of M: as many as fill one wave of resident blocks
+    (output tiles times splits up to ``blocks_per_sm * sms``), at least
+    one, none shorter than ``_MIN_SPLIT_ROWS`` rows, at most 65535 (the
+    grid's z limit)."""
+    t = TILES[tile]
+    tiles = -(-cin // t.rows) * -(-cout // t.cols)
+    return max(1, min(t.blocks_per_sm * sms // tiles, m // _MIN_SPLIT_ROWS,
+                      65535))
 
 
 def conv1x1_dw(x2d: torch.Tensor, dy2d: torch.Tensor) -> torch.Tensor:
@@ -93,19 +100,20 @@ def conv1x1_dw(x2d: torch.Tensor, dy2d: torch.Tensor) -> torch.Tensor:
                          f"the kernel's 32-bit sizes")
     out = torch.empty(cin, cout, dtype=torch.float32, device=dev)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    splits, rows = _splits(m, cin, cout, sms)
+    tile, splits = _plan(m, cin, cout, sms)
     work = torch.empty(splits, cin, cout, dtype=torch.float32, device=dev) \
         if splits > 1 else None
     with torch.cuda.device(dev):
         cuda_build.launch(_launches, name, KERNELS[name], _ARGTYPES,
                           x2d.data_ptr(), dy2d.data_ptr(), out.data_ptr(),
                           None if work is None else work.data_ptr(), m, cin,
-                          cout, splits, rows, stream_ptr(x2d))
+                          cout, splits, tile, copy_width(x2d, dy2d),
+                          stream_ptr(x2d))
     return out
 
 
-# x, dy, out, work; M Cin Cout splits rows; stream
-_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+# x, dy, out, work; M Cin Cout splits tile vec; stream
+_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 
 
 class Conv1x1Function(torch.autograd.Function):

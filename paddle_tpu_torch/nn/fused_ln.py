@@ -6,19 +6,21 @@
 ``rsqrt(var + eps)``, the optional scale and bias, the normalised rows
 cast back to ``x``'s dtype before the product, the product accumulated in
 f32). For CUDA tensors it launches ``ln_matmul`` (``csrc/ln_matmul.cu``,
-the port of ``_ln_matmul_kernel``), which normalises each tile of ``x``
-as it loads it, so the normalised ``[M, K]`` tensor never reaches device
-memory; for CPU tensors it runs the unfused :func:`ln_matmul_reference`.
-A CUDA call never falls back: the wrapper checks device, dtype, shape and
-contiguity, raises on a refused launch and counts each launch in
+the port of ``_ln_matmul_kernel``): a statistics pass writes each row's
+mean and ``rsqrt(var + eps)`` to a ``[2, M]`` workspace, then the product
+normalises each tile of ``x`` as it lands in shared memory, so the
+normalised ``[M, K]`` tensor never reaches device memory; for CPU tensors
+it runs the unfused :func:`ln_matmul_reference`. A CUDA call never falls
+back: the wrapper checks device, dtype, shape and contiguity, raises on a
+refused launch and counts each call (both passes) once in
 :func:`launch_counts`. The kernel takes float32.
 
 The JAX function's argument checks are kept, so a call it refuses is
 refused here too: ``K`` of ``x`` and ``w`` must agree, and the output
 must tile by ``(block_m, block_n)`` (by default the ``_auto_block``
 heuristic's, which always divides). The JAX autotuner is not ported: the
-kernel picks its own 64 x 64 tiles, and the block sizes are only
-checked.
+wrapper picks the kernel's own tile (128 x 128 or 64 x 64, :func:`_plan`),
+and the block sizes are only checked.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ import torch
 
 from ..utils import cuda_build
 from ..utils.cuda_build import check_cuda, check_dtype, stream_ptr
+from .gemm_f32 import copy_width, pick_tile
 
 __all__ = ["fused_ln_matmul", "ln_matmul_reference", "launch_counts",
            "reset_launch_counts", "KERNELS"]
@@ -39,9 +42,9 @@ KERNELS = {"ln_matmul": "ln_matmul"}
 
 _launches: Dict[str, int] = {name: 0 for name in KERNELS}
 
-# x, w, scale, bias, out; M K N; eps; stream
-_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_float,
-                                                           ctypes.c_void_p]
+# x, w, scale, bias, out, stats; M K N; eps; tile vec; stream
+_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [
+    ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 
 
 def launch_counts() -> Dict[str, int]:
@@ -100,9 +103,21 @@ def _check(x, w, scale, bias) -> None:
             tensors[key] = t
     check_dtype(name, torch.float32, **tensors)
     check_cuda(name, x.device, **tensors)
-    if max(M * K, K * N, M * N) >= 2 ** 31 or -(-M // 64) > 65535:
+    if max(M * K, K * N, M * N, 2 * M) >= 2 ** 31 or -(-M // 64) > 65535:
         raise ValueError(f"{name}: [{M}, {K}] x [{K}, {N}] exceeds the "
                          f"kernel's sizes")
+
+
+def _plan(M: int, N: int, sms: int) -> int:
+    """The tile instance of the product: 128 x 128 where the output gives
+    at least one such tile per SM, else 64 x 64."""
+    return pick_tile(M, N, min_tiles=sms)
+
+
+def _stats_numel(M: int) -> int:
+    """Floats of the statistics workspace: each row's mean, then each
+    row's ``1 / sqrt(var + eps)``."""
+    return 2 * M
 
 
 def fused_ln_matmul(x, w, scale=None, bias=None, *, eps: float = 1e-6,
@@ -131,11 +146,15 @@ def fused_ln_matmul(x, w, scale=None, bias=None, *, eps: float = 1e-6,
         raise ValueError(f"ln_matmul: no kernel for x on {x.device}")
     _check(x, w, scale, bias)
     out = torch.empty(M, N, dtype=torch.float32, device=x.device)
+    stats = torch.empty(_stats_numel(M), dtype=torch.float32,
+                        device=x.device)
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
     with torch.cuda.device(x.device):
         cuda_build.launch(_launches, "ln_matmul", KERNELS["ln_matmul"],
                           _ARGTYPES, x.data_ptr(), w.data_ptr(),
                           None if scale is None else scale.data_ptr(),
                           None if bias is None else bias.data_ptr(),
-                          out.data_ptr(), M, K, N, float(eps),
-                          stream_ptr(x))
+                          out.data_ptr(), stats.data_ptr(), M, K, N,
+                          float(eps), _plan(M, N, sms),
+                          copy_width(x, w, scale, bias), stream_ptr(x))
     return out

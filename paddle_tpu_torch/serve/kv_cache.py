@@ -38,6 +38,8 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..core.device import resolve_device
+
 __all__ = ["BlockAllocator", "PagedKVCache", "PrefixCache", "PrefixMatch",
            "gather_pages", "scatter_prefill", "scatter_token",
            "scatter_span", "scatter_prefill_pages", "scatter_token_pages",
@@ -365,13 +367,15 @@ class PagedKVCache:
     max_blocks_per_seq]`` and lengths ``[max_slots]`` for up to
     ``max_slots`` sequences. With ``kv_dtype`` ``None``/``"f32"`` each
     pool is ``[L, N, bs, H, hd]`` at ``dtype``; with ``"int8"`` it is the
-    tuple ``(int8 [L, N, bs, H, hd], f32 scales [L, N, bs, H])``."""
+    tuple ``(int8 [L, N, bs, H, hd], f32 scales [L, N, bs, H])``. The
+    pools live on ``device``, the card unless the caller passes
+    ``"cpu"`` (:func:`~paddle_tpu_torch.core.device.resolve_device`)."""
 
     def __init__(self, num_layers: int, num_heads: int, head_dim: int,
                  num_blocks: int, block_size: int, max_slots: int,
                  max_blocks_per_seq: int, dtype=torch.float32,
                  share_prefix: bool = False, kv_dtype: Optional[str] = None,
-                 retain_prefix: bool = True, device=None):
+                 retain_prefix: bool = True, device="cuda"):
         if kv_dtype not in (None, "f32", "float32", "int8"):
             raise ValueError(f"kv_dtype must be None|'f32'|'int8', "
                              f"got {kv_dtype!r}")
@@ -384,6 +388,7 @@ class PagedKVCache:
         self.max_blocks_per_seq = max_blocks_per_seq
         self.dtype = dtype
         self.quantized = kv_dtype == "int8"
+        device = resolve_device(device)
         shape = (num_layers, num_blocks, block_size, num_heads, head_dim)
         if self.quantized:
             def pool():
@@ -395,8 +400,7 @@ class PagedKVCache:
                 return torch.zeros(shape, dtype=dtype, device=device)
         self.k = pool()
         self.v = pool()
-        self.device = torch.device(device) if device is not None \
-            else torch.device("cpu")
+        self.device = device
         self.allocator = BlockAllocator(num_blocks)
         self.tables = np.zeros((max_slots, max_blocks_per_seq), np.int32)
         self.lengths = np.zeros((max_slots,), np.int32)

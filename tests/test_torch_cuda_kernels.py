@@ -8,7 +8,10 @@ plain forward); for the paged span the Q = 1 and per-row bit-equality
 with the paged decode, and the int8 branches of both; for the 1x1-conv
 weight gradient and the fused LayerNorm-matmul, ragged edge shapes, the
 wrappers' refusals, bit-equal reruns and a small ResNet trained through
-the kernel against the convolution path. Every test needs an
+the kernel against the convolution path, and shapes that reach each tile
+instance and each copy width of their shared mainloop (``x[1:]`` views,
+a base pointer 4 bytes off 16, K and M off the 32-row k-tile). Every
+test needs an
 NVIDIA GPU (marker ``cuda``) and skips without one; run them on the card
 with ``python -m pytest --noconftest -q tests/test_torch_cuda_kernels.py``
 (the JAX harness in ``tests/conftest.py`` is not needed there).
@@ -20,6 +23,7 @@ import torch
 from paddle_tpu_torch.nn import cuda_attention as ca
 from paddle_tpu_torch.nn import cuda_conv as cc
 from paddle_tpu_torch.nn import fused_ln as fl
+from paddle_tpu_torch.nn.gemm_f32 import LARGE, SMALL, copy_width
 
 pytestmark = pytest.mark.cuda
 ATOL = 1e-4
@@ -362,6 +366,50 @@ def test_conv1x1_dw_kernel_matches_plain(gen, M, cin, cout):
     assert torch.equal(cc.conv1x1_dw(x, dy), got)      # no atomics
 
 
+def _operand(gen, rows, cols, layout):
+    """A contiguous ``[rows, cols]`` f32 operand on the card: fresh, the
+    view ``t[1:]`` of a tensor one row longer, or a view of a flat buffer
+    one float in (its base pointer 4 bytes off 16)."""
+    if layout == "x[1:]":
+        return torch.randn(rows + 1, cols, generator=gen, device="cuda")[1:]
+    if layout == "flat+1":
+        buf = torch.randn(rows * cols + 1, generator=gen, device="cuda")
+        return buf[1:].view(rows, cols)
+    return torch.randn(rows, cols, generator=gen, device="cuda")
+
+
+def _sms():
+    return torch.cuda.get_device_properties(0).multi_processor_count
+
+
+@pytest.mark.parametrize("M,cin,cout,xl,dyl,tile,vec", [
+    (3000, 256, 256, "", "", LARGE, 4),
+    (2000, 130, 134, "", "", LARGE, 1),
+    (1000, 64, 64, "", "", SMALL, 4),
+    (777, 6, 70, "", "", SMALL, 1),
+    (1001, 128, 128, "x[1:]", "x[1:]", LARGE, 4),
+    (1001, 6, 64, "x[1:]", "", SMALL, 1),
+    (900, 128, 192, "flat+1", "", LARGE, 1),
+    (900, 64, 64, "", "flat+1", SMALL, 1)])
+def test_conv1x1_dw_each_tile_and_copy_width(gen, M, cin, cout, xl, dyl,
+                                             tile, vec):
+    """Every (tile, copy width) instance of the kernel, M off the 32-row
+    k-tile: within ATOL of the plain version, bit-equal reruns, one
+    counted launch."""
+    x = _operand(gen, M, cin, xl)
+    dy = _operand(gen, M, cout, dyl)
+    assert x.is_contiguous() and dy.is_contiguous()
+    assert cc._plan(M, cin, cout, _sms())[0] == tile
+    assert copy_width(x, dy) == vec
+    before = cc.launch_counts()["conv1x1_dw"]
+    got = cc.conv1x1_dw(x, dy)
+    assert cc.launch_counts()["conv1x1_dw"] == before + 1
+    want = cc.conv1x1_dw_plain(x, dy)
+    torch.cuda.synchronize()
+    assert _rel_err(got, want) <= ATOL
+    assert torch.equal(cc.conv1x1_dw(x, dy), got)
+
+
 def test_conv1x1_dw_wrapper_refuses_what_the_kernel_does_not_take(gen):
     x = torch.randn(64, 8, generator=gen, device="cuda")
     dy = torch.randn(64, 16, generator=gen, device="cuda")
@@ -384,6 +432,39 @@ def test_ln_matmul_kernel_matches_plain(gen, M, K, N, affine):
         if "s" in affine else None
     bias = torch.randn(K, generator=gen, device="cuda") \
         if "b" in affine else None
+    before = fl.launch_counts()["ln_matmul"]
+    got = fl.fused_ln_matmul(x, w, scale, bias)
+    assert fl.launch_counts()["ln_matmul"] == before + 1
+    want = fl.ln_matmul_reference(x, w, scale, bias)
+    torch.cuda.synchronize()
+    assert _rel_err(got, want) <= ATOL
+    assert torch.equal(fl.fused_ln_matmul(x, w, scale, bias), got)
+
+
+@pytest.mark.parametrize("M,K,N,affine,xl,tile,vec", [
+    (4096, 96, 2048, "", "", LARGE, 4),
+    (4096, 100, 2048, "sb", "", LARGE, 4),
+    (4096, 70, 2048, "sb", "", LARGE, 1),
+    (4096, 64, 2048, "s", "x[1:]", LARGE, 4),
+    (300, 100, 200, "s", "", SMALL, 4),
+    (130, 70, 129, "b", "", SMALL, 1),
+    (1025, 64, 96, "sb", "x[1:]", SMALL, 4),
+    (257, 64, 96, "sb", "flat+1", SMALL, 1)])
+def test_ln_matmul_each_tile_and_copy_width(gen, M, K, N, affine, xl, tile,
+                                            vec):
+    """Every (tile, copy width) instance of the product, K off the 32-wide
+    k-tile: within ATOL of the plain version, bit-equal reruns, one
+    counted launch (statistics pass and product together)."""
+    x = _operand(gen, M, K, xl)
+    x.mul_(3).add_(1)                    # in place: keeps the view's offset
+    w = torch.randn(K, N, generator=gen, device="cuda")
+    scale = torch.randn(K, generator=gen, device="cuda") \
+        if "s" in affine else None
+    bias = torch.randn(K, generator=gen, device="cuda") \
+        if "b" in affine else None
+    assert x.is_contiguous()
+    assert fl._plan(M, N, _sms()) == tile
+    assert copy_width(x, w, scale, bias) == vec
     before = fl.launch_counts()["ln_matmul"]
     got = fl.fused_ln_matmul(x, w, scale, bias)
     assert fl.launch_counts()["ln_matmul"] == before + 1

@@ -1,0 +1,122 @@
+"""Host-side launch plans of the kernels on the shared split-TF32
+mainloop (``csrc/gemm_f32.cuh``): ``conv1x1_dw`` and ``ln_matmul``. They
+are pure Python, so they run here without a card:
+
+- the tile instance each wrapper picks from the output's shape (and, for
+  ``ln_matmul``, the SM count);
+- ``conv1x1_dw``'s split of M: deterministic, covering M exactly in the
+  kernel's own ``s * M // splits`` bounds, no split shorter than its
+  minimum, at most one wave of resident blocks, at most 65535 splits;
+- the copy width (16- or 4-byte ``cp.async``) for aligned, odd-width and
+  storage-offset operands;
+- the size of ``ln_matmul``'s statistics workspace.
+"""
+
+import pytest
+import torch
+
+from paddle_tpu_torch.nn import cuda_conv as cc
+from paddle_tpu_torch.nn import fused_ln as fl
+from paddle_tpu_torch.nn.gemm_f32 import (LARGE, SMALL, TILES, copy_width,
+                                          pick_tile)
+
+H100_SMS = 132
+
+# the 15 distinct (M, Cin, Cout) of conv1x1_dw in a ResNet-50 step at
+# batch 128, 224 x 224 (chip_smoke.resnet50_dw_shapes)
+RESNET50_DW = [
+    (401408, 64, 64), (401408, 64, 256), (401408, 256, 64),
+    (401408, 256, 128), (100352, 128, 512), (100352, 256, 512),
+    (100352, 512, 128), (100352, 512, 256), (25088, 256, 1024),
+    (25088, 512, 1024), (25088, 1024, 256), (25088, 1024, 512),
+    (6272, 512, 2048), (6272, 1024, 2048), (6272, 2048, 512)]
+
+
+def test_tile_table_matches_the_kernel_instances():
+    # csrc/gemm_f32.cuh: Large = 128 x 128, 1 block an SM; Small = 64 x
+    # 64, 3 blocks an SM
+    assert TILES[LARGE] == (128, 128, 1) and TILES[SMALL] == (64, 64, 3)
+
+
+@pytest.mark.parametrize("rows,cols,min_tiles,want", [
+    (128, 128, 0, LARGE), (4096, 4096, 0, LARGE), (127, 4096, 0, SMALL),
+    (4096, 64, 0, SMALL), (64, 64, 0, SMALL), (1, 1, 0, SMALL),
+    (256, 256, 4, LARGE), (256, 257, 5, LARGE), (256, 256, 5, SMALL)])
+def test_pick_tile(rows, cols, min_tiles, want):
+    assert pick_tile(rows, cols, min_tiles) == want
+
+
+def test_conv1x1_dw_tiles_of_a_resnet50_step():
+    # the 64-channel outputs of the first stage take the 64 x 64 tile,
+    # every other output of the step the 128 x 128 one
+    for m, cin, cout in RESNET50_DW:
+        tile, _ = cc._plan(m, cin, cout, H100_SMS)
+        assert tile == (SMALL if min(cin, cout) < 128 else LARGE)
+
+
+@pytest.mark.parametrize("M,N,want", [
+    (16384, 512, LARGE), (16384, 2048, LARGE), (128, 256, SMALL),
+    (2048, 1280, LARGE), (1024, 1024, SMALL), (100, 4096, SMALL),
+    (1, 1, SMALL)])
+def test_ln_matmul_tile(M, N, want):
+    assert fl._plan(M, N, H100_SMS) == want
+
+
+@pytest.mark.parametrize("m,cin,cout,sms", [
+    *[(m, ci, co, H100_SMS) for m, ci, co in RESNET50_DW],
+    (1, 3, 10, H100_SMS), (34, 8, 8, H100_SMS), (255, 64, 64, H100_SMS),
+    (256, 64, 64, H100_SMS), (6144, 10, 3, H100_SMS),
+    (5000, 130, 70, 132), (100352, 64, 64, 16), (3000, 300, 1000, 1),
+    (0, 64, 64, H100_SMS), (2 ** 31 - 1, 1, 1, 10 ** 6)])
+def test_conv1x1_dw_splits_cover_m(m, cin, cout, sms):
+    tile, splits = cc._plan(m, cin, cout, sms)
+    assert (tile, splits) == cc._plan(m, cin, cout, sms)     # repeatable
+    assert 1 <= splits <= 65535
+    # the kernel's rows of split s: [s * m // splits, (s + 1) * m // splits)
+    bounds = [(s * m // splits, (s + 1) * m // splits)
+              for s in range(splits)]
+    assert bounds[0][0] == 0 and bounds[-1][1] == m
+    assert all(a[1] == b[0] for a, b in zip(bounds, bounds[1:]))
+    if splits > 1:
+        assert min(e - b for b, e in bounds) >= cc._MIN_SPLIT_ROWS
+    t = TILES[tile]
+    tiles = -(-cin // t.rows) * -(-cout // t.cols)
+    if tiles <= t.blocks_per_sm * sms:       # at most one wave of blocks
+        assert tiles * splits <= t.blocks_per_sm * sms
+
+
+def test_conv1x1_dw_splits_fill_the_card_and_cap():
+    # one output tile over a long M: one wave of 64 x 64 blocks
+    assert cc._plan(401408, 64, 64, H100_SMS) == (SMALL, 3 * H100_SMS)
+    # too short to split
+    assert cc._plan(511, 64, 64, H100_SMS) == (SMALL, 1)
+    # the grid's z limit
+    assert cc._splits(2 ** 31 - 1, 1, 1, 10 ** 6, SMALL) == 65535
+
+
+@pytest.mark.parametrize("shape,offset,want", [
+    ((64, 64), 0, 4), ((64, 6), 0, 1), ((64, 66), 0, 1), ((1, 1), 0, 1),
+    ((64, 64), 1, 1), ((64, 64), 2, 1), ((64, 64), 4, 4),
+    ((64, 64), 64, 4)])
+def test_copy_width(shape, offset, want):
+    rows, cols = shape
+    buf = torch.zeros(rows * cols + offset)
+    t = buf[offset:].view(rows, cols)
+    assert t.is_contiguous()
+    assert copy_width(t) == want
+
+
+def test_copy_width_of_all_operands():
+    x = torch.zeros(33, 64)
+    w = torch.zeros(64, 128)
+    assert copy_width(x, w, None, None) == 4
+    assert copy_width(x[1:], w) == 4                 # one 256-byte row in
+    assert copy_width(x, torch.zeros(64, 130)) == 1
+    assert copy_width(x, w, torch.zeros(65)[1:]) == 1  # scale 4 bytes off
+    assert copy_width(torch.zeros(65, 6)[1:], torch.zeros(65, 64)[1:]) == 1
+
+
+@pytest.mark.parametrize("M", [1, 3, 16384])
+def test_ln_matmul_stats_workspace(M):
+    # each row's mean, then each row's 1 / sqrt(var + eps)
+    assert fl._stats_numel(M) == 2 * M

@@ -294,6 +294,17 @@ def test_entry_points_need_a_card_unless_cpu_is_asked(models):
         DecodeEngine(tm)
 
 
+def test_paged_kv_cache_defaults_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the refusal is for a box "
+                    "without one")
+    kw = dict(num_layers=1, num_heads=2, head_dim=4, num_blocks=5,
+              block_size=BS, max_slots=2, max_blocks_per_seq=6)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        PagedKVCache(**kw)
+    assert PagedKVCache(**kw, device="cpu").k.device.type == "cpu"
+
+
 def _imports(path):
     tree = ast.parse(path.read_text())
     for node in ast.walk(tree):
