@@ -27,7 +27,16 @@ Phases (any failure exits non-zero before the final line):
    ``paged_span`` at ``Q = 1`` and each row at ``Q = 5`` bit-equal to
    ``paged_decode`` at ``start + j + 1``; ``paged_decode_int8`` and
    ``paged_span_int8`` against the dequantizing plain versions; times,
-   bounds and the SDPA yardstick.
+   bounds and the SDPA yardstick. The paged kernels are split-context
+   pairs (partials over fixed partitions of the context, then an in-order
+   merge): each paged row (phase 2's decode too) also gives the device
+   time of the entry's two launches and of SDPA from ``torch.profiler``
+   (the event time around the Python call can time the host), and the
+   launch plan (partition, row tile, grid, live blocks) on a line
+   of its own; reruns of all four entries must be bit-equal, spans across
+   partition boundaries (Q = 5 and Q = 128, plain and int8) bit-equal to
+   ``paged_decode`` row by row, and the four entries must run under
+   ``torch.cuda.set_sync_debug_mode("error")`` (no host synchronisation).
 5. span serving at the ``transformer_decode`` width, on phase 3's model:
    (a) ``speculative=4, prefill_chunk=128`` over phase 3's 16 requests
    (launch counts, pool accounting, tokens against phase 3's); (b) the
@@ -37,7 +46,7 @@ Phases (any failure exits non-zero before the final line):
    ``prefill_chunk=128``, ``attention="paged"`` against ``"xla"`` over the
    16 requests, with tokens/s, bytes per token and int8/f32 agreement.
    A chunked prefill, speculative and plain ticks and int8 ticks are
-   profiled.
+   profiled, each window with the paged kernels' device time and share.
 6. training: ``TransformerLM`` at the ``prep_transformer`` width (vocab
    32000, dim 512, 6 layers, 4 heads, ffn 2048, T 2048, flash attention)
    with seeded random weights, trained by ``Trainer`` with ``adam(1e-4)``
@@ -81,7 +90,9 @@ The last line is ``{"ok": true, "device": {...}}``; the line before it is
 listing every kernel with its launches on the main paths, error and times
 (``conv1x1_dw``'s times and bound summed over the 36 launches of one
 ResNet-50 step; ``bound_ms`` is the bound of the kernel's route,
-``cuda_core_bound_ms`` the f32 CUDA-core one beside it).
+``cuda_core_bound_ms`` the f32 CUDA-core one beside it; the paged
+kernels add ``device_ms`` and ``library_device_ms``, profiler device time
+per call).
 """
 
 import json
@@ -108,6 +119,8 @@ REPLACES = {"flash_fwd": "paddle_tpu/nn/pallas_attention.py:108",
             "paged_decode_int8": "paddle_tpu/nn/pallas_attention.py:585",
             "conv1x1_dw": "paddle_tpu/nn/pallas_conv.py:46",
             "ln_matmul": "paddle_tpu/nn/fused_ln.py:63"}
+# the paged kernels' device rows (partials and merge) in a profile window
+PAGED_ROWS = ("paged::",)
 # top-2 logit gap under which a token that differs between two f32 paths
 # that sum in other orders is a near-tie, not a fault
 GAP_TOL = 1e-3
@@ -144,6 +157,42 @@ def time_ms(torch, fn, iters=20, warmup=3):
         pairs.append((a, b))
     torch.cuda.synchronize()
     return sum(a.elapsed_time(b) for a, b in pairs) / iters
+
+
+def device_ms(torch, fn, iters=20, warmup=3):
+    """Device time of ``fn`` per call, from torch.profiler: the sum of the
+    device-side rows (kernels, copies) of ``iters`` calls, each after an L2
+    flush by a 128 MB device-to-device copy whose rows are left out; and
+    the names of the rows kept. Unlike ``time_ms`` it cannot time the
+    host: a wrapper whose Python outlasts its kernels shows only the
+    kernels here. Each row comes as ``[name, ms per call]``."""
+    from torch.profiler import ProfilerActivity, profile
+    src = torch.empty(128 * 2 ** 20 // 4, dtype=torch.float32, device="cuda")
+    dst = torch.empty_like(src)
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            dst.copy_(src)
+            fn()
+        torch.cuda.synchronize()
+    rows = [(e.key, e.self_device_time_total) for e in prof.key_averages()
+            if str(e.device_type).endswith("CUDA")
+            and not e.key.startswith("Memcpy")]
+    if not rows:
+        raise RuntimeError("device_ms: the profiler recorded no device time")
+    return (sum(t for _, t in rows) / 1e3 / iters,
+            sorted([n[:60], t / 1e3 / iters] for n, t in rows))
+
+
+def paged_device_times(torch, fn, lib_fn):
+    """Device time per call of a paged entry (both its launches) and of
+    its SDPA yardstick, with the device rows each consists of."""
+    ms, names = device_ms(torch, fn)
+    lib_ms, lib_names = device_ms(torch, lib_fn)
+    return {"device_ms": ms, "device_rows": names,
+            "library_device_ms": lib_ms, "library_device_rows": lib_names}
 
 
 def bound(nbytes, flops):
@@ -326,6 +375,31 @@ def phase_flash_bwd(torch, F, ca, gen):
     return results
 
 
+def check_rerun(torch, name, out, fn):
+    """A rerun of ``fn`` must equal ``out`` bit for bit (no atomics)."""
+    again = fn()
+    torch.cuda.synchronize()
+    if not torch.equal(out, again):
+        raise RuntimeError(f"{name}: a rerun differs from the first run")
+
+
+def paged_grid(ca, name, S, Q, H, D, bs, MB, start_l, n_l, quant=False):
+    """The launch plan of a paged entry and its partials grid: blocks in
+    all, and live ones (a tile with live rows whose last position reaches
+    the partition), counted on the host from the test's own lists."""
+    plan = ca.paged_plan(MB, bs, D, Q, quant)
+    W = MB * bs
+    live = 0
+    for st, n in zip(start_l, n_l):
+        for r0 in range(0, min(n, Q), plan.rows):
+            last = min(st + min(n, Q, r0 + plan.rows) - 1, W - 1)
+            live += H * (last // plan.part + 1)
+    return {"entry": name, "partition": plan.part, "row_tile": plan.rows,
+            "smem_bytes": plan.smem, "grid": [S * plan.tiles, H, plan.parts],
+            "blocks": S * plan.tiles * H * plan.parts, "live_blocks": live,
+            "pool_blocks_per_block": plan.part // bs}
+
+
 def phase_paged(torch, F, ca, gen):
     S, H, D, bs, MB, N = 8, 8, 64, 16, 64, 513
     lengths_l = [0, 1, 16, 17, 1024, 300, 511, 64]
@@ -348,6 +422,13 @@ def phase_paged(torch, F, ca, gen):
     err = check_close("paged_decode", out, ref)
     if out[0].abs().max().item() != 0.0:
         raise RuntimeError("paged_decode: a length-0 slot must give zeros")
+    check_rerun(torch, "paged_decode", out, lambda: ca.paged_decode_attention(
+        q, pk, pv, tables, lengths))
+    log("paged plan", json.dumps(paged_grid(ca, "paged_decode", S, 1, H, D,
+                                            bs, MB, [L - 1 for L in
+                                                     lengths_l],
+                                            [int(L > 0) for L in
+                                             lengths_l])))
     rows = {(int(tables[s, p // bs]), p % bs)
             for s, L in enumerate(lengths_l) for p in range(L)}
     nbytes = 4 * (2 * S * H * D + 2 * len(rows) * H * D + S * MB + S)
@@ -360,18 +441,21 @@ def phase_paged(torch, F, ca, gen):
     live = (torch.arange(W, device="cuda")[None] < lengths[:, None])
     mask = live[:, None, None, :]
     q4 = q[:, :, None]
-    ms = time_ms(torch, lambda: ca.paged_decode_attention(q, pk, pv, tables,
-                                                          lengths))
+    run = lambda: ca.paged_decode_attention(q, pk, pv, tables,  # noqa
+                                            lengths)
+    lib = lambda: F.scaled_dot_product_attention(q4, kg, vg,  # noqa
+                                                 attn_mask=mask)
+    ms = time_ms(torch, run)
     plain_ms = time_ms(torch, lambda: ca.paged_decode_plain(
         q, pk, pv, tables, lengths))
-    lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
-        q4, kg, vg, attn_mask=mask))
+    lib_ms = time_ms(torch, lib)
     row = {"case": f"S={S} H={H} D={D} bs={bs} MB={MB} N={N} "
                    f"lengths={lengths_l}", "max_abs_err": err,
            "kernel_ms": ms, "plain_ms": plain_ms,
            "library_ms": lib_ms, "library_note": "SDPA on the "
            "pre-gathered context, gather not timed", "bound_ms": b_ms,
-           "bound_by": b_by, "bytes": nbytes, "flops": flops}
+           "bound_by": b_by, "bytes": nbytes, "flops": flops,
+           **paged_device_times(torch, run, lib)}
     log("paged_decode", json.dumps(row))
     return row
 
@@ -527,6 +611,12 @@ def phase_span_kernels(torch, F, ca, kvc, gen, card):
             err = check_close(f"{name} {label}", out[live], ref[live])
             if (n == 0).any() and out[n == 0].abs().max().item() != 0.0:
                 raise RuntimeError(f"{name} {label}: n == 0 must give zeros")
+            check_rerun(torch, f"{name} {label}", out,
+                        lambda: ca.paged_span_attention(q, kp, vp, tables,
+                                                        start, n))
+            log("paged plan", json.dumps(paged_grid(
+                ca, f"{name} {label}", S, Q, H, D, bs, MB, start_l, n_l,
+                quant)))
             row_bytes = H * (D + 4) if quant else 4 * H * D
             nbytes = 2 * nrows * row_bytes + 4 * (2 * S * Q * H * D
                                                   + S * MB + 2 * S)
@@ -534,16 +624,18 @@ def phase_span_kernels(torch, F, ca, kvc, gen, card):
             kg = kvc.gather_pages(kp, tables).permute(0, 2, 1, 3).contiguous()
             vg = kvc.gather_pages(vp, tables).permute(0, 2, 1, 3).contiguous()
             qt = q.transpose(1, 2).contiguous()
+            run = lambda: ca.paged_span_attention(  # noqa: E731
+                q, kp, vp, tables, start, n)
+            lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                qt, kg, vg, attn_mask=mask)
             rows[name, label] = {
                 "case": f"{label} start={start_l} n={n_l}",
                 "max_abs_err": err,
-                "kernel_ms": time_ms(torch, lambda: ca.paged_span_attention(
-                    q, kp, vp, tables, start, n)),
+                "kernel_ms": time_ms(torch, run),
                 "plain_ms": time_ms(torch, lambda: ca.paged_span_plain(
                     q, kp, vp, tables, start, n)),
-                "library_ms": time_ms(
-                    torch, lambda: F.scaled_dot_product_attention(
-                        qt, kg, vg, attn_mask=mask)),
+                "library_ms": time_ms(torch, lib),
+                **paged_device_times(torch, run, lib),
                 "library_note": "SDPA with an explicit mask on the "
                 "pre-gathered" + (", pre-dequantized" if quant else "")
                 + " context, gather not timed",
@@ -587,6 +679,8 @@ def phase_span_kernels(torch, F, ca, kvc, gen, card):
     err = check_close("paged_decode_int8", out, ref)
     if out[0].abs().max().item() != 0.0:
         raise RuntimeError("paged_decode_int8: length 0 must give zeros")
+    check_rerun(torch, "paged_decode_int8", out,
+                lambda: ca.paged_decode_attention(q, qk, qv, tables, lengths))
     nrows = len(covered_rows(tables, lengths_l, bs))
     nbytes = 2 * nrows * H * (D + 4) + 4 * (2 * S * H * D + S * MB + S)
     b_ms, b_by = bound(nbytes, 4 * D * H * sum(lengths_l))
@@ -594,20 +688,100 @@ def phase_span_kernels(torch, F, ca, kvc, gen, card):
     vg = kvc.gather_pages(qv, tables).permute(0, 2, 1, 3).contiguous()
     mask = (torch.arange(W, device="cuda")[None] < lengths[:, None])[
         :, None, None, :]
+    run = lambda: ca.paged_decode_attention(q, qk, qv, tables,  # noqa
+                                            lengths)
+    lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        q[:, :, None], kg, vg, attn_mask=mask)
     rows["paged_decode_int8"] = {
         "case": f"S={S} H={H} D={D} bs={bs} MB={MB} N={N} "
                 f"lengths={lengths_l}", "max_abs_err": err,
-        "kernel_ms": time_ms(torch, lambda: ca.paged_decode_attention(
-            q, qk, qv, tables, lengths)),
+        "kernel_ms": time_ms(torch, run),
         "plain_ms": time_ms(torch, lambda: ca.paged_decode_plain(
             q, qk, qv, tables, lengths)),
-        "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(
-            q[:, :, None], kg, vg, attn_mask=mask)),
+        "library_ms": time_ms(torch, lib),
+        **paged_device_times(torch, run, lib),
         "library_note": "SDPA on the pre-gathered, pre-dequantized context, "
         "gather not timed", "bound_ms": b_ms, "bound_by": b_by,
         "bytes": nbytes, "flops": 4 * D * H * sum(lengths_l), "card": card}
     log("paged_decode_int8", json.dumps(rows["paged_decode_int8"]))
+    paged_boundary_rows(torch, ca, gen, pk, pv, qk, qv)
+    paged_no_sync(torch, ca, gen, pk, pv, qk, qv)
     return rows
+
+
+def paged_boundary_rows(torch, ca, gen, pk, pv, qk, qv):
+    """Spans across the plan's partition boundaries, plain and int8: each
+    live row bit-equal to the paged decode at ``start + j + 1``, at the
+    speculative width and at a 128-row chunk."""
+    N, bs, H, D = pk.shape
+    MB = 64
+    P = ca.paged_plan(MB, bs, D, 5).part
+    W = MB * bs
+    cases = {5: ([P - 3, 2 * P - 1, 3 * P - 4, P - 5, 4 * P - 2, W - 5, 0,
+                  P - 1], [5, 5, 5, 5, 5, 5, 5, 3]),
+             128: ([3 * P - 64, max(0, 2 * P - 100)], [128, 100])}
+    worst, starts = {}, {}
+    for Q, (start_l, n_l) in cases.items():
+        start_l = [min(st, W - n) for st, n in zip(start_l, n_l)]
+        starts[Q] = start_l
+        spans = [st + n for st, n in zip(start_l, n_l)]
+        tables = paged_tables(torch, gen, spans, bs, MB, N)
+        start = torch.tensor(start_l, dtype=torch.int32, device="cuda")
+        n = torch.tensor(n_l, dtype=torch.int32, device="cuda")
+        q = torch.randn(len(start_l), Q, H, D, generator=gen, device="cuda")
+        for quant, (kp, vp) in ((False, (pk, pv)), (True, (qk, qv))):
+            out = ca.paged_span_attention(q, kp, vp, tables, start, n)
+            diff = 0.0
+            for j in range(Q):
+                lengths = torch.where(n > j, start + j + 1, 0).to(
+                    torch.int32)
+                dec = ca.paged_decode_attention(q[:, j].contiguous(), kp, vp,
+                                                tables, lengths)
+                live = n > j
+                diff = max(diff, (out[live, j] - dec[live]).abs().max()
+                           .item())
+            torch.cuda.synchronize()
+            key = f"Q={Q}{' int8' if quant else ''}"
+            worst[key] = diff
+            if diff != 0.0:
+                raise RuntimeError(f"paged_span {key} across partition "
+                                   f"boundaries (P={P}): rows differ from "
+                                   f"paged_decode by {diff}; must be 0.0")
+    log("paged_span bit-equality across partitions", json.dumps(
+        {"partition": P, "starts": starts,
+         "max_abs_diff_vs_paged_decode": worst}))
+
+
+def paged_no_sync(torch, ca, gen, pk, pv, qk, qv):
+    """The four paged entries once under ``set_sync_debug_mode("error")``:
+    a wrapper that read a per-slot value on the host would raise."""
+    N, bs, H, D = pk.shape
+    lengths_l = [0, 1, 300, 1024]
+    tables = paged_tables(torch, gen, lengths_l, bs, 64, N)
+    lengths = torch.tensor(lengths_l, dtype=torch.int32, device="cuda")
+    start = torch.tensor([0, 100, 290, 1019], dtype=torch.int32,
+                         device="cuda")
+    n = torch.tensor([0, 5, 5, 5], dtype=torch.int32, device="cuda")
+    q1 = torch.randn(4, H, D, generator=gen, device="cuda")
+    q5 = torch.randn(4, 5, H, D, generator=gen, device="cuda")
+    torch.cuda.synchronize()
+    before = ca.launch_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for kp, vp in ((pk, pv), (qk, qv)):
+            ca.paged_decode_attention(q1, kp, vp, tables, lengths)
+            ca.paged_span_attention(q5, kp, vp, tables, start, n)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    after = ca.launch_counts()
+    names = ("paged_decode", "paged_span", "paged_decode_int8",
+             "paged_span_int8")
+    if any(after[k] != before[k] + 1 for k in names):
+        raise RuntimeError(f"paged no-sync run: launches {after} vs "
+                           f"{before}")
+    log("paged entries under sync debug mode \"error\": no synchronisation "
+        "in", ", ".join(names))
 
 
 def first_diff(a, b):
@@ -732,7 +906,7 @@ def phase_span_serving(torch, np, pt, ca, model, ref, prompts, tokens, card):
         0, V, 512)], reserve_len=512 + new)
     log("span profile", json.dumps(profile_window(
         torch, chunked_prefill, "chunked prefill of a 512-token prompt: 4 "
-        "chunks of 128 (f32), no other slot busy")))
+        "chunks of 128 (f32), no other slot busy", PAGED_ROWS)))
     eng.evict(0)
 
     # (b) the transformer_decode_spec leg at full width
@@ -768,7 +942,8 @@ def phase_span_serving(torch, np, pt, ca, model, ref, prompts, tokens, card):
         streams[k] = [list(eng.history[s][128:]) for s in range(8)]
         log("span profile", json.dumps(profile_window(
             torch, lambda: [eng.decode_tick() for _ in range(4)],
-            f"4 decode ticks, speculative={k}, 8 active slots")))
+            f"4 decode ticks, speculative={k}, 8 active slots",
+            PAGED_ROWS)))
     for s in range(8):
         base = streams[0][s]
         if streams[4][s][:len(base)] != base:
@@ -814,7 +989,7 @@ def phase_span_serving(torch, np, pt, ca, model, ref, prompts, tokens, card):
     eng.decode_tick()
     log("span profile", json.dumps(profile_window(
         torch, lambda: [eng.decode_tick() for _ in range(8)],
-        "8 decode ticks, kv_dtype=int8, 8 active slots")))
+        "8 decode ticks, kv_dtype=int8, 8 active slots", PAGED_ROWS)))
     for slot in range(8):
         eng.evict(slot)
 
@@ -874,7 +1049,7 @@ def phase_profile(torch, np, pt, eng):
     sched.step()                       # 8 prefills and the first tick
     log("profile", json.dumps(profile_window(
         torch, lambda: [sched.step() for _ in range(8)],
-        "8 decode ticks, 8 active slots")))
+        "8 decode ticks, 8 active slots", PAGED_ROWS)))
     sched.run()
 
 
@@ -1525,7 +1700,9 @@ def main():
                 "bound_by": row["bound_by"],
                 "cuda_core_bound_ms": row.get("cuda_core_bound_ms",
                                               row["bound_ms"]),
-                "library_ms": row["library_ms"]}
+                "library_ms": row["library_ms"],
+                **{k: row[k] for k in ("device_ms", "library_device_ms")
+                   if k in row}}
 
     kernels = [entry("flash_fwd", flash[0],
                      max(r["max_abs_err"] for r in flash)),

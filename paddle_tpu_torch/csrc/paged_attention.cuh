@@ -1,260 +1,432 @@
-// Paged attention rows over a paged KV pool, float32, for sm_90a: the one
-// kernel body behind paged_decode.cu (one query row per slot) and
-// paged_span.cu (Q consecutive query rows per slot, causal within the span).
+// Paged attention rows over a paged KV pool, float32, for sm_90a, as
+// split-context ("flash-decoding") kernels: the body behind paged_decode.cu
+// (one query row per slot) and paged_span.cu (Q consecutive query rows per
+// slot, causal within the span).
 //
 // Replaces the shared body of paddle_tpu/nn/pallas_attention.py's
 // _paged_decode_kernel and _paged_span_kernel, plain and int8 ("quant")
-// pools alike. Row j of slot s is the query at position start[s] + j; it
-// sees the pool positions <= start[s] + j of the blocks the slot's table
-// row names, with an online softmax (running max from -1e30, sum clamped at
-// 1e-30 at the end). A slot with n == 0 writes zeros on every row, whatever
-// its start; rows >= n are padding, computed like the others and ignored
-// by the caller. Decode is the span with Q = 1, start = length - 1 and
+// pools alike. Row j of slot s is the query at position pos = start[s] + j;
+// it sees the pool positions <= pos of the blocks the slot's table row
+// names. Rows j >= n[s] are padding and a slot with n == 0 is inactive:
+// both get zeros. Decode is the span with Q = 1, start = length - 1 and
 // n = (length > 0).
 //
-// What bounds it on the H100: bytes. Each key and value row is read once
-// per block of rows and used for 2 * D flops per query row, far below the
-// card's operations-per-byte balance, so the floor is the K/V bytes the
-// spans cover (int8: 1 byte per element plus one f32 scale per row) over
-// 3.35 TB/s.
+// What bounds it on the H100: bytes. Each key and value row is used for
+// 2 * D flops per query row, far below the card's operations-per-byte
+// balance, so the floor is the K/V bytes the spans cover (int8: 1 byte per
+// element plus one f32 scale per row) over 3.35 TB/s. At serving sizes the
+// real enemy is latency: a few hundred KB spread over a few slots.
 //
-// Design: one thread block per (head, slot, tile of R query rows), 128
-// threads; a thread owns one float4 column chunk c of D and a key group g.
-// The block reads its own table row and span (the TPU kernel's scalar
-// prefetch) and walks ceil((start + n) / bs) pool blocks (clamped to the
-// table width). For each pool block it stages the [bs, D] K and V tiles
-// in shared memory; an int8 pool is loaded as char4 and multiplied by the
-// row's f32 scale there (k = float(q) * s, as the TPU kernel does), so no
-// dequantized copy ever reaches HBM. Scores come from per-chunk dot
-// products reduced across the chunk's lanes with warp shuffles; thread r
-// keeps row r's running max and sum; every thread keeps float4 partial
-// accumulators for each row, summed across key groups at the end.
+// Design, two launches per call:
+// 1. partials_kernel: the context is cut into fixed partitions of P
+//    positions (the wrapper's plan: P a whole number of pool blocks, from
+//    bs alone; 128 at bs 16). One block of 128 threads per (slot, tile of R
+//    rows, head, partition) computes each live row's softmax partial (m,
+//    l, acc[D]) over the partition, so a slot's context is walked by
+//    ceil(len / P) blocks at once instead of one block serially. The
+//    grid's partition count comes from the table width; a block past its
+//    rows' last position returns without writing, so the host reads no
+//    per-slot value. The block reads its span and its partition's table
+//    entries in one round trip, then starts the partition's rows as
+//    cp.async copies into a two-stage ring: K (16-byte copies; an int8 pool
+//    lands raw with its f32 scales by 4-byte copies, scales being strided
+//    by H, and is dequantized in shared memory with __fmul_rn(float(q),
+//    s)), then V. The scores and the softmax run while V is in flight. Each
+//    (row, key) score is one fmaf chain over D; each row's max and sum are
+//    one warp's shuffles; p = exp(s - m) is computed once into shared
+//    memory for both the sum and the PV product, which a thread per (row,
+//    float4 column chunk) accumulates over the keys in order. A span's R
+//    rows share each staged partition, so a chunk of Q rows reads the
+//    context ceil(Q / R) times.
+// 2. merge_kernel: each row merges its ceil((min(pos, W - 1) + 1) / P)
+//    partials in the fixed order k = 0, 1, ... and divides by max(l,
+//    1e-30), a warp per (row, head). No atomics: reruns are bit-equal.
 //
-// Bit-equality contract: every query row runs the same sequence of f32
-// operations whatever R, Q and the other rows are (explicit fmaf/__fmul_rn,
-// the same key-to-group partition, shuffle tree, serial max and sum order,
-// and cross-group sum), so row j of a span equals the decode kernel run at
-// length start + j + 1 bit for bit. A pool block that is fully masked for a
-// row leaves its state unchanged: the max stays, exp(-inf) = 0, and
-// fmaf(0, v, acc) = acc on finite pools.
+// Bit-equality contract: row j of a span equals the decode kernel at
+// length start + j + 1 bit for bit. The partition boundaries are a
+// function of the position only (P depends on bs alone), so both compute
+// the same partials over the same partitions: every operation of a row
+// (explicit fmaf/__fmul_rn, the score chain, the warp's max and sum trees,
+// the PV order, the merge order) is the same whatever R, Q and the other
+// rows are. Keys a tile covers past a row's position are masked to -inf:
+// the row's max stays, exp(-inf) = 0 adds exactly 0 to the sum, and
+// fmaf(0, v, acc) = acc on finite pools, so a longer tile changes nothing.
+// A partition wholly past a row is never merged for it; were it merged, its
+// (m, l, acc) = (-1e30, 0, 0) would add exactly 0.
 //
-// Left for later work: split-K over the context (flash-decoding) to fill
-// more SMs, double-buffered block loads, one K/V pass for all rows of a
-// long span, tensor cores for the span's QK^T and PV.
+// Left for later work: tensor cores for the span's QK^T and PV (a span row
+// and a decode row would have to take the same mma route), and TMA loads.
 
 #pragma once
 
 #include <cuda_runtime.h>
 #include <cmath>
-#include <cstdint>
+#include <cstddef>
 
 namespace paged {
 
-constexpr int NT = 128;
+constexpr int NT = 128;               // threads per block, both kernels
+constexpr int NW = NT / 32;
+constexpr int MAX_BLOCKS = NT;        // pool blocks a partition may span
 constexpr float NEG = -1e30f;
 
-__device__ __forceinline__ float dot4(const float4 a, const float4 b) {
-  return fmaf(a.w, b.w, fmaf(a.z, b.z, fmaf(a.y, b.y, __fmul_rn(a.x, b.x))));
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem) : "memory");
 }
 
-__device__ __forceinline__ float4 deq4(const char4 v, const float s) {
-  return make_float4(__fmul_rn(static_cast<float>(v.x), s),
-                     __fmul_rn(static_cast<float>(v.y), s),
-                     __fmul_rn(static_cast<float>(v.z), s),
-                     __fmul_rn(static_cast<float>(v.w), s));
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(gmem) : "memory");
 }
 
-// One pool block's online-softmax step for one query row: folds the row's
-// bs scores into its running max m and sum l, and returns the factor that
-// rescales the row's old accumulator.
-__device__ __forceinline__ float row_step(const float* sr, int bs, float& m,
-                                          float& l) {
-  float mx = -INFINITY;
-  for (int i = 0; i < bs; ++i) mx = fmaxf(mx, sr[i]);
-  const float m_new = fmaxf(m, mx);
-  const float corr = expf(m - m_new);
-  float rs = 0.f;
-  for (int i = 0; i < bs; ++i) rs += expf(sr[i] - m_new);
-  l = fmaf(l, corr, rs);
-  m = m_new;
-  return corr;
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
-// Row (blk, r, h) of a [N, bs, H, D] pool, chunk cc, as f32.
-template <bool INT8>
-__device__ __forceinline__ float4 load_row4(const void* pool,
-                                            const float* scales, size_t row,
-                                            int C, int cc) {
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Shared-memory layout of partials_kernel, in bytes from the base, every
+// region on a 16-byte boundary; the wrapper's plan
+// (paddle_tpu_torch/nn/cuda_attention.py:paged_plan) computes the same
+// total.
+struct Layout {
+  int ks, vs, qs, ss, st, kraw, vraw, ksc, vsc, total;
+  static __host__ __device__ int up16(int b) { return (b + 15) / 16 * 16; }
+  __host__ __device__ Layout(int D, int R, int P, bool quant) {
+    ks = 0;                                   // [P][D + 4] f32 (padded)
+    vs = ks + 4 * P * (D + 4);                // [P][D] f32
+    qs = vs + 4 * P * D;                      // [R][D] f32
+    ss = qs + 4 * R * D;                      // [R][P] scores, then p
+    st = up16(ss + 4 * R * P);                // [2][R] m, l, then
+    kraw = up16(st + 8 * R + 4 * MAX_BLOCKS);  // [P / bs] pool blocks
+    // int8 only: [P][D] raw K, [P][D] raw V, [P] K and [P] V scales
+    vraw = kraw + (quant ? P * D : 0);
+    ksc = vraw + (quant ? P * D : 0);
+    vsc = up16(ksc + (quant ? 4 * P : 0));
+    total = up16(vsc + (quant ? 4 * P : 0));
+  }
+};
+
+// Start this thread's cp.async copies of the partition's rows [p0, p1) of
+// one pool (and, int8, its scales) into shared memory.
+template <int D, bool INT8>
+__device__ __forceinline__ void stage_rows(const void* pool,
+                                           const float* scales, void* rows,
+                                           float* srows, const int* blk_sm,
+                                           int p0, int p1, int bs, int H,
+                                           int h, int pitch) {
+  constexpr int CP = INT8 ? D / 16 : D / 4;   // 16-byte pieces of a row
+  for (int i = threadIdx.x; i < (p1 - p0) * CP; i += NT) {
+    const int li = i / CP, cc = i % CP, pos = p0 + li;
+    const size_t row =
+        ((size_t)blk_sm[li / bs] * bs + pos % bs) * H + h;
+    if constexpr (INT8)
+      cp_async16(static_cast<char*>(rows) + li * D + cc * 16,
+                 static_cast<const char*>(pool) + row * D + cc * 16);
+    else
+      cp_async16(static_cast<float*>(rows) + li * pitch + cc * 4,
+                 static_cast<const float*>(pool) + row * D + cc * 4);
+  }
   if constexpr (INT8) {
-    const char4 v = static_cast<const char4*>(pool)[row * C + cc];
-    return deq4(v, scales[row]);
-  } else {
-    return static_cast<const float4*>(pool)[row * C + cc];
+    for (int li = threadIdx.x; li < p1 - p0; li += NT) {
+      const int pos = p0 + li;
+      cp_async4(srows + li,
+                scales + ((size_t)blk_sm[li / bs] * bs + pos % bs) * H + h);
+    }
+  }
+  cp_async_commit();
+}
+
+// An int8 partition's landed rows as f32: __fmul_rn(float(q), s).
+template <int D>
+__device__ __forceinline__ void dequant_rows(const signed char* raw,
+                                             const float* sc, float* out,
+                                             int n, int pitch) {
+  for (int i = threadIdx.x; i < n * D; i += NT) {
+    const int li = i / D, d = i % D;
+    out[li * pitch + d] = __fmul_rn(static_cast<float>(raw[li * D + d]),
+                                    sc[li]);
   }
 }
 
+// One (slot, row tile, head, partition) block: each live row's softmax
+// partial over the partition's positions, written to the workspace
+// record [row][h][k] = (acc[D], m, l, -, -).
 template <int D, int R, bool INT8>
 __global__ void __launch_bounds__(NT)
-rows_kernel(const float* __restrict__ q, const void* __restrict__ pk,
-            const void* __restrict__ pv, const float* __restrict__ sk,
-            const float* __restrict__ sv, const int* __restrict__ tables,
-            const int* __restrict__ start, const int* __restrict__ count,
-            float* __restrict__ out, int N, int bs, int H, int MB, int Q,
-            float scale) {
-  constexpr int C = D / 4;      // float4 chunks per row: 16 or 32 lanes
-  constexpr int G = NT / C;     // key groups
-  extern __shared__ float4 sm4[];
-  float4* Ks = sm4;                               // [bs][C]
-  float4* Vs = Ks + bs * C;                       // [bs][C]
-  float4* Qs = Vs + bs * C;                       // [R][C]
-  float4* red = Qs + R * C;                       // [G][C]
-  float* s_sm = reinterpret_cast<float*>(red + G * C);   // [R][bs]
-  // per-row state: thread r keeps row r's and shares it through shared
-  // memory; a one-row block (decode) keeps it in every thread's registers
-  // instead, each thread running the row's serial pass itself
-  float* m_sm = s_sm + R * bs;                    // [R] running max
-  float* l_sm = m_sm + R;                         // [R] running sum
-  float* c_sm = l_sm + R;                         // [R] this block's rescale
-  float m1 = NEG, l1 = 0.f, c1 = 1.f;
-
-  const int h = blockIdx.x, s = blockIdx.y, r0 = blockIdx.z * R;
-  const int c = threadIdx.x % C, g = threadIdx.x / C;
-  const int rows = min(R, Q - r0);
+partials_kernel(const float* __restrict__ q, const void* __restrict__ pk,
+                const void* __restrict__ pv, const float* __restrict__ sk,
+                const float* __restrict__ sv, const int* __restrict__ tables,
+                const int* __restrict__ start, const int* __restrict__ count,
+                float* __restrict__ ws, int N, int bs, int H, int MB, int Q,
+                int P, float scale) {
+  constexpr int C = D / 4;          // float4 chunks per row
+  constexpr int RP = NT / C;        // rows a PV pass covers
+  constexpr int RPT = (R + RP - 1) / RP;   // PV rows per thread
+  constexpr int RB = R < 4 ? R : 4;        // rows per score task
+  const int tiles = (Q + R - 1) / R;
+  const int s = blockIdx.x / tiles, r0 = (blockIdx.x % tiles) * R;
+  const int h = blockIdx.y, k = blockIdx.z;
+  const int tid = threadIdx.x;
+  const int* tbl = tables + (size_t)s * MB;
+  // the partition's table entries, loaded beside the slot's span so the
+  // two reads share one round trip (P is a whole number of pool blocks)
+  const int jb = k * (P / bs) + tid;
+  const int entry = tid < P / bs && jb < MB ? tbl[jb] : 0;
   int st, cnt;
-  if (count == nullptr) {       // decode: start holds the lengths
+  if (count == nullptr) {           // decode: start holds the lengths
     const int length = start[s];
     st = length - 1;
     cnt = length > 0 ? 1 : 0;
   } else {
     st = start[s];
-    cnt = count[s];
+    cnt = min(count[s], Q);
   }
-  const size_t qrow = (size_t)s * Q + r0;         // first row of [S * Q]
-  float4* o4 = reinterpret_cast<float4*>(out);
-  if (cnt <= 0) {
-    for (int i = threadIdx.x; i < rows * C; i += NT)
-      o4[((qrow + i / C) * H + h) * C + i % C] =
-          make_float4(0.f, 0.f, 0.f, 0.f);
-    return;
-  }
+  const int rows = min(R, cnt - r0);
+  const int W = MB * bs;
+  if (rows <= 0) return;
+  const int last = min(st + r0 + rows - 1, W - 1);
+  const int p0 = k * P;
+  if (last < p0) return;            // every row ends before the partition
+  const int p1 = min(p0 + P, last + 1), nk = p1 - p0;
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Layout lay(D, R, P, INT8);
+  float* Ks = reinterpret_cast<float*>(smem + lay.ks);
+  float* Vs = reinterpret_cast<float*>(smem + lay.vs);
+  float4* Qs4 = reinterpret_cast<float4*>(smem + lay.qs);
+  float* Ss = reinterpret_cast<float*>(smem + lay.ss);
+  float* m_sm = reinterpret_cast<float*>(smem + lay.st);
+  float* l_sm = m_sm + R;
+  int* blk_sm = reinterpret_cast<int*>(l_sm + R);   // [P / bs] pool blocks
+  float* ksc = reinterpret_cast<float*>(smem + lay.ksc);
+  float* vsc = reinterpret_cast<float*>(smem + lay.vsc);
+  if (tid < P / bs) blk_sm[tid] = min(max(entry, 0), N - 1);
+  __syncthreads();
+
+  // the two-stage ring: K (and its scales) lands first, V second; the
+  // scores and the softmax run while V is still in flight
+  stage_rows<D, INT8>(pk, sk, INT8 ? (void*)(smem + lay.kraw) : (void*)Ks,
+                      ksc, blk_sm, p0, p1, bs, H, h, D + 4);
+  stage_rows<D, INT8>(pv, sv, INT8 ? (void*)(smem + lay.vraw) : (void*)Vs,
+                      vsc, blk_sm, p0, p1, bs, H, h, D);
+
+  // the tile's query rows (zeros past the live rows)
+  const size_t qrow = (size_t)s * Q + r0;       // first row of [S * Q]
   const float4* q4 = reinterpret_cast<const float4*>(q);
-  for (int i = threadIdx.x; i < rows * C; i += NT)
-    Qs[i] = q4[((qrow + i / C) * H + h) * C + i % C];
-  if (threadIdx.x < R) {
-    m_sm[threadIdx.x] = NEG;
-    l_sm[threadIdx.x] = 0.f;
-  }
-  const int nblk = min((st + cnt + bs - 1) / bs, MB);
-  const int* tbl = tables + (size_t)s * MB;
+  for (int i = tid; i < R * C; i += NT)
+    Qs4[i] = i / C < rows ? q4[((qrow + i / C) * H + h) * C + i % C]
+                          : make_float4(0.f, 0.f, 0.f, 0.f);
 
-  float4 acc[R];
-#pragma unroll
-  for (int r = 0; r < R; ++r) acc[r] = make_float4(0.f, 0.f, 0.f, 0.f);
-
-  for (int j = 0; j < nblk; ++j) {
-    const int blk = min(max(tbl[j], 0), N - 1);
-    for (int i = threadIdx.x; i < bs * C; i += NT) {
-      const size_t row = ((size_t)blk * bs + i / C) * H + h;
-      Ks[i] = load_row4<INT8>(pk, sk, row, C, i % C);
-      Vs[i] = load_row4<INT8>(pv, sv, row, C, i % C);
-    }
-    __syncthreads();
-
-    // scores of every (row, key) pair; every thread runs the same trip
-    // count, so the shuffles see full warps
-    for (int p0 = 0; p0 < rows * bs; p0 += G) {
-      const int p = p0 + g;
-      const int r = p / bs, i = p % bs;
-      float part = 0.f;
-      if (p < rows * bs) part = dot4(Qs[r * C + c], Ks[i * C + c]);
-      for (int off = C / 2; off; off >>= 1)
-        part += __shfl_xor_sync(0xffffffffu, part, off);
-      if (c == 0 && p < rows * bs)
-        s_sm[p] = j * bs + i <= st + r0 + r ? __fmul_rn(part, scale)
-                                             : -INFINITY;
-    }
-    __syncthreads();
-
-    if constexpr (R == 1) {
-      c1 = row_step(s_sm, bs, m1, l1);
-    } else {
-      if (threadIdx.x < rows) {
-        const int r = threadIdx.x;
-        float m = m_sm[r], l = l_sm[r];
-        c_sm[r] = row_step(s_sm + r * bs, bs, m, l);
-        m_sm[r] = m;
-        l_sm[r] = l;
-      }
-      __syncthreads();
-    }
-
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      if (r >= rows) break;
-      const float corr = R == 1 ? c1 : c_sm[r];
-      const float m_new = R == 1 ? m1 : m_sm[r];
-      float4 a = acc[r];
-      a.x = __fmul_rn(a.x, corr);
-      a.y = __fmul_rn(a.y, corr);
-      a.z = __fmul_rn(a.z, corr);
-      a.w = __fmul_rn(a.w, corr);
-      for (int i = g; i < bs; i += G) {
-        const float p = expf(s_sm[r * bs + i] - m_new);
-        const float4 v4 = Vs[i * C + c];
-        a.x = fmaf(p, v4.x, a.x);
-        a.y = fmaf(p, v4.y, a.y);
-        a.z = fmaf(p, v4.z, a.z);
-        a.w = fmaf(p, v4.w, a.w);
-      }
-      acc[r] = a;
-    }
+  cp_async_wait<1>();               // this thread's K copies
+  __syncthreads();                  // everyone's
+  if constexpr (INT8) {
+    dequant_rows<D>(reinterpret_cast<const signed char*>(smem + lay.kraw),
+                    ksc, Ks, nk, D + 4);
     __syncthreads();
   }
 
+  // scores: one task per (group of RB rows, key), each an fmaf chain over
+  // D; keys past a row's position are -inf
+  const int ng = (rows + RB - 1) / RB;
+  for (int task = tid; task < ng * nk; task += NT) {
+    const int rg = (task / nk) * RB, i = task % nk;
+    const float4* k4 = reinterpret_cast<const float4*>(Ks + i * (D + 4));
+    float dot[RB];
 #pragma unroll
-  for (int r = 0; r < R; ++r) {
+    for (int b = 0; b < RB; ++b) {
+      const float4 qv = Qs4[(rg + b) * C], kv = k4[0];
+      dot[b] = fmaf(qv.w, kv.w, fmaf(qv.z, kv.z,
+               fmaf(qv.y, kv.y, __fmul_rn(qv.x, kv.x))));
+    }
+#pragma unroll
+    for (int cc = 1; cc < C; ++cc) {
+      const float4 kv = k4[cc];
+#pragma unroll
+      for (int b = 0; b < RB; ++b) {
+        const float4 qv = Qs4[(rg + b) * C + cc];
+        dot[b] = fmaf(qv.w, kv.w, fmaf(qv.z, kv.z,
+                 fmaf(qv.y, kv.y, fmaf(qv.x, kv.x, dot[b]))));
+      }
+    }
+#pragma unroll
+    for (int b = 0; b < RB; ++b) {
+      const int r = rg + b;
+      if (r < rows)
+        Ss[r * P + i] = p0 + i <= st + r0 + r ? __fmul_rn(dot[b], scale)
+                                              : -INFINITY;
+    }
+  }
+  __syncthreads();
+
+  // a warp per row: max (floored at -1e30) and sum by shuffles, and
+  // p = exp(s - m) once, for the sum and the PV product
+  const int warp = tid / 32, lane = tid % 32;
+  for (int r = warp; r < rows; r += NW) {
+    float* sr = Ss + r * P;
+    float mx = NEG;
+    for (int i = lane; i < nk; i += 32) mx = fmaxf(mx, sr[i]);
+    for (int off = 16; off; off >>= 1)
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+    float rs = 0.f;
+    for (int i = lane; i < nk; i += 32) {
+      const float p = expf(sr[i] - mx);
+      sr[i] = p;
+      rs += p;
+    }
+    for (int off = 16; off; off >>= 1)
+      rs += __shfl_xor_sync(0xffffffffu, rs, off);
+    if (lane == 0) {
+      m_sm[r] = mx;
+      l_sm[r] = rs;
+    }
+  }
+
+  cp_async_wait<0>();               // this thread's V copies
+  __syncthreads();                  // everyone's, and the p rows
+  if constexpr (INT8) {
+    dequant_rows<D>(reinterpret_cast<const signed char*>(smem + lay.vraw),
+                    vsc, Vs, nk, D);
+    __syncthreads();
+  }
+
+  // PV: a thread per (row, column chunk), keys in order
+  const int c = tid % C, rr = tid / C;
+  const float4* V4 = reinterpret_cast<const float4*>(Vs);
+  const int parts = gridDim.z;
+#pragma unroll
+  for (int u = 0; u < RPT; ++u) {
+    const int r = rr + u * RP;
     if (r >= rows) break;
-    red[g * C + c] = acc[r];
-    __syncthreads();
-    if (threadIdx.x < C) {
-      float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
-      for (int gg = 0; gg < G; ++gg) {
-        const float4 a = red[gg * C + c];
-        sum.x += a.x; sum.y += a.y; sum.z += a.z; sum.w += a.w;
-      }
-      const float lf = fmaxf(R == 1 ? l1 : l_sm[r], 1e-30f);
-      o4[((qrow + r) * H + h) * C + c] =
-          make_float4(sum.x / lf, sum.y / lf, sum.z / lf, sum.w / lf);
+    const float* pr = Ss + r * P;
+    float4 av = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int i = 0; i < nk; ++i) {
+      const float p = pr[i];
+      const float4 v4 = V4[i * C + c];
+      av.x = fmaf(p, v4.x, av.x);
+      av.y = fmaf(p, v4.y, av.y);
+      av.z = fmaf(p, v4.z, av.z);
+      av.w = fmaf(p, v4.w, av.w);
     }
-    __syncthreads();
+    float* rec = ws + (((qrow + r) * H + h) * parts + k) * (D + 4);
+    reinterpret_cast<float4*>(rec)[c] = av;
+    if (c == 0) {
+      rec[D] = m_sm[r];
+      rec[D + 1] = l_sm[r];
+    }
   }
 }
 
-template <int D, int R>
-constexpr size_t smem_bytes(int bs) {
-  return (size_t)(2 * bs * (D / 4) + R * (D / 4) + NT) * sizeof(float4)
-         + (size_t)(R * bs + 3 * R) * sizeof(float);
+// One warp per (row, head): the row's partials merged in partition order,
+// or zeros for padding rows and inactive slots. Lane t reads the (m, l) of
+// partitions t, t + 32, ...; the max is a warp reduction (exact in any
+// order); then l and each lane's D / 32 columns of acc run one fmaf chain
+// over k = 0, 1, ... with f_k = exp(m_k - M) passed by shuffle, so the
+// records' loads do not wait on the chain.
+template <int D>
+__global__ void __launch_bounds__(NT)
+merge_kernel(const float* __restrict__ ws, const int* __restrict__ start,
+             const int* __restrict__ count, float* __restrict__ out,
+             int S, int Q, int H, int W, int P, int parts) {
+  constexpr int V = D / 32;         // columns per lane: 2 or 4
+  const int wid = blockIdx.x * NW + threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (wid >= S * Q * H) return;     // whole warps
+  const int row = wid / H, h = wid % H;
+  const int s = row / Q, j = row % Q;
+  int st, cnt;
+  if (count == nullptr) {
+    const int length = start[s];
+    st = length - 1;
+    cnt = length > 0 ? 1 : 0;
+  } else {
+    st = start[s];
+    cnt = min(count[s], Q);
+  }
+  float* o = out + (size_t)wid * D + lane * V;
+  float a[V];
+#pragma unroll
+  for (int v = 0; v < V; ++v) a[v] = 0.f;
+  // padding, an inactive slot, no table, or a row before position 0: no
+  // visible key, zeros as the plain version gives
+  if (j >= cnt || W == 0 || st + j < 0) {
+#pragma unroll
+    for (int v = 0; v < V; ++v) o[v] = 0.f;
+    return;
+  }
+  const int K = min(st + j, W - 1) / P + 1;
+  const float* rec = ws + (size_t)wid * parts * (D + 4);
+  float M = -INFINITY;
+  for (int k = lane; k < K; k += 32) M = fmaxf(M, rec[k * (D + 4) + D]);
+  for (int off = 16; off; off >>= 1)
+    M = fmaxf(M, __shfl_xor_sync(0xffffffffu, M, off));
+  float l = 0.f;
+  for (int k0 = 0; k0 < K; k0 += 32) {
+    const int kk = k0 + lane, nk = min(32, K - k0);
+    float f = 0.f, lk = 0.f;
+    if (kk < K) {
+      f = expf(rec[kk * (D + 4) + D] - M);
+      lk = rec[kk * (D + 4) + D + 1];
+    }
+    for (int i = 0; i < nk; ++i) {
+      const float fi = __shfl_sync(0xffffffffu, f, i);
+      const float li = __shfl_sync(0xffffffffu, lk, i);
+      const float* rk = rec + (k0 + i) * (D + 4) + lane * V;
+      l = fmaf(li, fi, l);
+#pragma unroll
+      for (int v = 0; v < V; ++v) a[v] = fmaf(rk[v], fi, a[v]);
+    }
+  }
+  const float lf = fmaxf(l, 1e-30f);
+#pragma unroll
+  for (int v = 0; v < V; ++v) o[v] = a[v] / lf;
 }
 
 template <int D, int R, bool INT8>
-cudaError_t launch_rows(const float* q, const void* pk, const void* pv,
-                        const float* sk, const float* sv, const int* tables,
-                        const int* start, const int* count, float* out,
-                        int S, int Q, int H, int N, int bs, int MB,
-                        float scale, cudaStream_t stream) {
-  const dim3 grid(H, S, (Q + R - 1) / R);
-  rows_kernel<D, R, INT8><<<grid, NT, smem_bytes<D, R>(bs), stream>>>(
-      q, pk, pv, sk, sv, tables, start, count, out, N, bs, H, MB, Q, scale);
+cudaError_t launch(const float* q, const void* pk, const void* pv,
+                   const float* sk, const float* sv, const int* tables,
+                   const int* start, const int* count, float* out, float* ws,
+                   int S, int Q, int H, int N, int bs, int MB, int P,
+                   float scale, cudaStream_t stream) {
+  const int W = MB * bs, parts = (W + P - 1) / P;
+  if (S * Q == 0) return cudaSuccess;
+  if (P <= 0 || P % bs || P / bs > MAX_BLOCKS || parts > 65535
+      || H > 65535)
+    return cudaErrorInvalidValue;
+  const Layout lay(D, R, P, INT8);
+  auto kern = partials_kernel<D, R, INT8>;
+  if (lay.total > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, lay.total);
+    if (e != cudaSuccess) return e;
+  }
+  if (parts > 0) {
+    const dim3 grid((unsigned)S * ((Q + R - 1) / R), H, parts);
+    kern<<<grid, NT, lay.total, stream>>>(q, pk, pv, sk, sv, tables, start,
+                                          count, ws, N, bs, H, MB, Q, P,
+                                          scale);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+  }
+  const unsigned rows_h = (unsigned)S * Q * H;   // one merge warp each
+  merge_kernel<D><<<(rows_h + NW - 1) / NW, NT, 0, stream>>>(
+      ws, start, count, out, S, Q, H, W, P, parts);
   return cudaGetLastError();
 }
 
-// The head-dim dispatch both sources export through; a head dim other than
-// 64 or 128 is refused.
-template <int R, bool INT8>
+// The head-dim and row-tile dispatch both sources export through: R = 1
+// for Q = 1, else R = RMAX; a head dim other than 64 or 128 is refused.
+template <int RMAX, bool INT8>
 int dispatch(int D, const void* q, const void* pk, const void* pv,
              const void* sk, const void* sv, const void* tables,
-             const void* start, const void* count, void* out, int S, int Q,
-             int H, int N, int bs, int MB, float scale, void* stream) {
+             const void* start, const void* count, void* out, void* ws,
+             int S, int Q, int H, int N, int bs, int MB, int P, float scale,
+             void* stream) {
   const float* qf = static_cast<const float*>(q);
   const float* skf = static_cast<const float*>(sk);
   const float* svf = static_cast<const float*>(sv);
@@ -262,13 +434,19 @@ int dispatch(int D, const void* q, const void* pk, const void* pv,
   const int* stp = static_cast<const int*>(start);
   const int* cnp = static_cast<const int*>(count);
   float* of = static_cast<float*>(out);
+  float* wf = static_cast<float*>(ws);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D == 64)
-    return launch_rows<64, R, INT8>(qf, pk, pv, skf, svf, tb, stp, cnp, of, S,
-                                    Q, H, N, bs, MB, scale, st);
-  if (D == 128)
-    return launch_rows<128, R, INT8>(qf, pk, pv, skf, svf, tb, stp, cnp, of,
-                                     S, Q, H, N, bs, MB, scale, st);
+#define PAGED_LAUNCH(DD, RR)                                                 \
+  launch<DD, RR, INT8>(qf, pk, pv, skf, svf, tb, stp, cnp, of, wf, S, Q, H, \
+                       N, bs, MB, P, scale, st)
+  if (Q == 1 || RMAX == 1) {
+    if (D == 64) return PAGED_LAUNCH(64, 1);
+    if (D == 128) return PAGED_LAUNCH(128, 1);
+  } else {
+    if (D == 64) return PAGED_LAUNCH(64, RMAX);
+    if (D == 128) return PAGED_LAUNCH(128, RMAX);
+  }
+#undef PAGED_LAUNCH
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -9,22 +9,26 @@
 // their f32 scales in shared memory, never in HBM. A table entry outside
 // [0, N) is clamped, as XLA's gather clamps.
 //
-// The body is paged_attention.cuh's rows kernel with one row per block
-// (R = 1): decode at length L is the span row at start L - 1, so
+// The body is paged_attention.cuh's split-context pair (partials over
+// fixed partitions of the context, then an in-order merge) with one row
+// per block (R = 1): decode at length L is the span row at start L - 1, so
 // paged_span.cu's rows are bit-equal to this kernel at start + j + 1. The
 // header's notes give the design and what bounds it (bytes).
 
 #include "paged_attention.cuh"
 
 // q, out: [S, H, D] float32; pk, pv: [N, bs, H, D] float32; tables: [S, MB]
-// int32; lengths: [S] int32. All contiguous. Returns a cudaError_t.
+// int32; lengths: [S] int32; ws: the partials workspace, [S, 1, H,
+// ceil(MB * bs / part), D + 4] float32; part: the plan's partition size in
+// positions, a multiple of bs. All contiguous. Returns a cudaError_t.
 extern "C" int paged_decode_f32(const void* q, const void* pk, const void* pv,
                                 const void* tables, const void* lengths,
-                                void* out, int S, int H, int D, int N, int bs,
-                                int MB, float scale, void* stream) {
+                                void* out, void* ws, int S, int H, int D,
+                                int N, int bs, int MB, int part, float scale,
+                                void* stream) {
   return paged::dispatch<1, false>(D, q, pk, pv, nullptr, nullptr, tables,
-                                   lengths, nullptr, out, S, 1, H, N, bs, MB,
-                                   scale, stream);
+                                   lengths, nullptr, out, ws, S, 1, H, N, bs,
+                                   MB, part, scale, stream);
 }
 
 // As paged_decode_f32 with int8 pools pk, pv [N, bs, H, D] and their f32
@@ -32,10 +36,11 @@ extern "C" int paged_decode_f32(const void* q, const void* pk, const void* pv,
 extern "C" int paged_decode_int8_f32(const void* q, const void* pk,
                                      const void* pv, const void* sk,
                                      const void* sv, const void* tables,
-                                     const void* lengths, void* out, int S,
-                                     int H, int D, int N, int bs, int MB,
-                                     float scale, void* stream) {
+                                     const void* lengths, void* out,
+                                     void* ws, int S, int H, int D, int N,
+                                     int bs, int MB, int part, float scale,
+                                     void* stream) {
   return paged::dispatch<1, true>(D, q, pk, pv, sk, sv, tables, lengths,
-                                  nullptr, out, S, 1, H, N, bs, MB, scale,
-                                  stream);
+                                  nullptr, out, ws, S, 1, H, N, bs, MB, part,
+                                  scale, stream);
 }

@@ -6,11 +6,12 @@
 // tick (Q = 1 + k) and chunked prefill (Q = chunk) attend the slot's own
 // pool pages, row j of slot s at position start[s] + j seeing positions
 // <= start[s] + j. n[s] == 0 writes zeros on every row; rows >= n[s] are
-// padding. Blocks of R = 8 query rows each walk the slot's table up to
-// ceil((start + n) / bs) pool blocks, so a long chunk re-reads the slot's
-// K/V once per 8 rows (mostly from L2).
+// padding and get zeros. Blocks of R = 16 query rows (one row at Q = 1)
+// share each staged K/V partition, so a chunk of Q rows reads the slot's
+// K/V ceil(Q / 16) times (the TPU kernel keeps all Q rows in one block; 16
+// rows keep the grid wide enough to fill the card).
 //
-// The body is paged_attention.cuh's rows kernel, the same one
+// The body is paged_attention.cuh's split-context pair, the one
 // paged_decode.cu runs with one row per block: every row's f32 operation
 // sequence is the decode kernel's at length start + j + 1, so Q = 1 is
 // bit-equal to paged_decode and so is each row of a wider span. The
@@ -19,20 +20,21 @@
 #include "paged_attention.cuh"
 
 namespace {
-constexpr int kRows = 8;        // query rows per thread block
+constexpr int kRows = 16;       // query rows per thread block (Q > 1)
 }  // namespace
 
 // q, out: [S, Q, H, D] float32; pk, pv: [N, bs, H, D] float32; tables:
-// [S, MB] int32; start, n: [S] int32. All contiguous. Returns a
-// cudaError_t.
+// [S, MB] int32; start, n: [S] int32; ws: the partials workspace, [S, Q, H,
+// ceil(MB * bs / part), D + 4] float32; part: the plan's partition size in
+// positions, a multiple of bs. All contiguous. Returns a cudaError_t.
 extern "C" int paged_span_f32(const void* q, const void* pk, const void* pv,
                               const void* tables, const void* start,
-                              const void* n, void* out, int S, int Q, int H,
-                              int D, int N, int bs, int MB, float scale,
-                              void* stream) {
+                              const void* n, void* out, void* ws, int S,
+                              int Q, int H, int D, int N, int bs, int MB,
+                              int part, float scale, void* stream) {
   return paged::dispatch<kRows, false>(D, q, pk, pv, nullptr, nullptr, tables,
-                                       start, n, out, S, Q, H, N, bs, MB,
-                                       scale, stream);
+                                       start, n, out, ws, S, Q, H, N, bs, MB,
+                                       part, scale, stream);
 }
 
 // As paged_span_f32 with int8 pools pk, pv [N, bs, H, D] and their f32 row
@@ -41,9 +43,17 @@ extern "C" int paged_span_int8_f32(const void* q, const void* pk,
                                    const void* pv, const void* sk,
                                    const void* sv, const void* tables,
                                    const void* start, const void* n,
-                                   void* out, int S, int Q, int H, int D,
-                                   int N, int bs, int MB, float scale,
-                                   void* stream) {
+                                   void* out, void* ws, int S, int Q, int H,
+                                   int D, int N, int bs, int MB, int part,
+                                   float scale, void* stream) {
   return paged::dispatch<kRows, true>(D, q, pk, pv, sk, sv, tables, start, n,
-                                      out, S, Q, H, N, bs, MB, scale, stream);
+                                      out, ws, S, Q, H, N, bs, MB, part, scale,
+                                      stream);
+}
+
+// The partials kernel's dynamic shared memory in bytes for head dim D, row
+// tile R, partition size part, int8 pools or not: the figure the wrapper's
+// plan must reproduce.
+extern "C" int paged_smem_bytes(int D, int R, int part, int quant) {
+  return paged::Layout(D, R, part, quant != 0).total;
 }

@@ -26,15 +26,16 @@ Layouts are the JAX package's: ``[B, H, T, D]`` for flash, LSE and delta
 and ``start``/``n`` ``[S]`` for paged span. A quantized pool is the tuple
 ``(int8 values [N, bs, H, D], f32 scales [N, bs, H])``; the kernels
 dequantize it on chip and count their launches apart
-(``paged_decode_int8``, ``paged_span_int8``). The kernels take float32
-queries (the path's projections accumulate in f32) and ``D`` in {64,
-128}.
+(``paged_decode_int8``, ``paged_span_int8``). The paged kernels split
+the context into fixed partitions (:func:`paged_plan`) and merge the
+partials in a second launch. The kernels take float32 queries (the path's
+projections accumulate in f32) and ``D`` in {64, 128}.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -46,8 +47,9 @@ __all__ = ["FlashAttentionFunction", "flash_attention",
            "flash_attention_fwd", "flash_attention_plain", "flash_bwd_dkv",
            "flash_bwd_dkv_plain", "flash_bwd_dq", "flash_bwd_dq_plain",
            "paged_decode_attention", "paged_decode_plain",
-           "paged_span_attention", "paged_span_plain", "launch_counts",
-           "reset_launch_counts", "KERNELS", "SPAN_MAX_Q"]
+           "paged_span_attention", "paged_span_plain", "paged_plan",
+           "PagedPlan", "launch_counts", "reset_launch_counts", "KERNELS",
+           "SPAN_MAX_Q"]
 
 _NEG = -1e30
 _HEAD_DIMS = (64, 128)
@@ -322,12 +324,12 @@ _ARGTYPES = {
     "flash_fwd": [_P] * 6 + [_I] * 4 + [_F, _I, _P],
     "flash_bwd_dq": [_P] * 8 + [_I] * 4 + [_F, _I, _P],
     "flash_bwd_dkv": [_P] * 9 + [_I] * 4 + [_F, _I, _P],
-    # q, pools (and scales), tables, lengths or start and n, out; then
-    # S (Q) H D N bs MB, scale, stream
-    "paged_decode": [_P] * 6 + [_I] * 6 + [_F, _P],
-    "paged_decode_int8": [_P] * 8 + [_I] * 6 + [_F, _P],
-    "paged_span": [_P] * 7 + [_I] * 7 + [_F, _P],
-    "paged_span_int8": [_P] * 9 + [_I] * 7 + [_F, _P],
+    # q, pools (and scales), tables, lengths or start and n, out,
+    # workspace; then S (Q) H D N bs MB part, scale, stream
+    "paged_decode": [_P] * 7 + [_I] * 7 + [_F, _P],
+    "paged_decode_int8": [_P] * 9 + [_I] * 7 + [_F, _P],
+    "paged_span": [_P] * 8 + [_I] * 8 + [_F, _P],
+    "paged_span_int8": [_P] * 10 + [_I] * 8 + [_F, _P],
 }
 
 
@@ -336,7 +338,60 @@ _ARGTYPES = {
 # ---------------------------------------------------------------------------
 
 SPAN_MAX_Q = 256     # query rows per slot the span kernel takes
-_SPAN_ROWS = 8       # query rows per thread block (csrc/paged_span.cu)
+_SPAN_ROWS = 16      # query rows a block at Q > 1 (csrc/paged_span.cu)
+_PART_POSITIONS = 128  # least positions a partition holds
+_MAX_SMEM = 232448   # dynamic shared memory a block may opt into (227 KB)
+_MAX_BLOCKS = 128    # pool blocks a partition may span (one per thread)
+
+
+class PagedPlan(NamedTuple):
+    """The launch plan of the paged kernels (``csrc/paged_attention.cuh``)
+    for a table of ``MB`` blocks of ``bs`` positions, head dim ``D`` and
+    ``Q`` query rows a slot.
+
+    A partition holds ``part`` positions, a whole number of pool blocks
+    that depends on ``bs`` alone, so every row's split depends on its
+    position only; ``parts`` partitions cover the table's ``MB * bs``
+    positions; ``rows`` query rows share a block, ``tiles`` blocks cover
+    a slot's ``Q`` rows; ``smem`` is the partials kernel's dynamic shared
+    memory in bytes."""
+    part: int
+    parts: int
+    rows: int
+    tiles: int
+    smem: int
+    q_rows: int
+    record: int
+
+    def workspace_shape(self, S: int, H: int) -> Tuple[int, ...]:
+        """The partials workspace: per (slot, row, head, partition) one
+        record of ``acc[D]``, ``m``, ``l`` and two pad floats."""
+        return (S, self.q_rows, H, self.parts, self.record)
+
+
+def _align16(b: int) -> int:
+    return -(-b // 16) * 16
+
+
+def paged_smem_bytes(D: int, rows: int, part: int, quant: bool) -> int:
+    """``paged::Layout``'s total: padded K and V of a partition, the
+    query tile, the scores, the row state and the partition's pool
+    blocks and, for int8 pools, the raw rows and their scales."""
+    b = 4 * part * (D + 4) + 4 * part * D + 4 * rows * D + 4 * rows * part
+    b = _align16(_align16(b) + 8 * rows + 4 * _MAX_BLOCKS)
+    if quant:
+        b = _align16(b + 2 * part * D + 4 * part) + 4 * part
+    return _align16(b)
+
+
+def paged_plan(MB: int, bs: int, D: int, Q: int,
+               quant: bool = False) -> PagedPlan:
+    """The split of the paged kernels for one launch; pure Python."""
+    part = bs * -(-_PART_POSITIONS // bs)
+    parts = -(-(MB * bs) // part)
+    rows = 1 if Q == 1 else _SPAN_ROWS
+    return PagedPlan(part, parts, rows, -(-Q // rows),
+                     paged_smem_bytes(D, rows, part, quant), Q, D + 4)
 
 
 def _unpack_pages(pages):
@@ -409,14 +464,15 @@ def paged_span_plain(q, pages_k, pages_v, tables, start, n,
                               "sqhw,swhd->sqhd").to(q.dtype)
 
 
-def _check_paged(name: str, q, pages_k, pages_v, tables, rows: int,
-                 **per_slot) -> Tuple[bool, list, int, int, int]:
+def _check_paged(name: str, q, pages_k, pages_v, tables, Q: int,
+                 **per_slot) -> Tuple[bool, list, int, int, PagedPlan]:
     """Validate the paged kernels' operands for a launch on ``q``'s card:
     ``q [S, (Q,) H, D]`` f32 with ``D`` in {64, 128}; both pools plain f32
     ``[N, bs, H, D]`` or both ``(int8 [N, bs, H, D], f32 scales [N, bs,
     H])``; ``tables [S, MB]`` and each ``per_slot`` vector ``[S]`` int32;
-    all contiguous on one device. Returns ``(quant, pool pointers, N, bs,
-    MB)``."""
+    all contiguous on one device; the plan's shared memory within what a
+    block may use. Reads no tensor's values. Returns ``(quant, pool
+    pointers, N, bs, plan)``."""
     if q.device.type != "cuda":
         raise ValueError(f"{name}: no kernel for {q.device}")
     kv, ks = _unpack_pages(pages_k)
@@ -436,15 +492,13 @@ def _check_paged(name: str, q, pages_k, pages_v, tables, rows: int,
                          + ", ".join(f"{k} {tuple(t.shape)}"
                                      for k, t in per_slot.items())
                          + f" do not match S={S}")
-    # K, V and query tiles, the reduction buffer, scores and per-row
-    # state in 48 KB of shared memory (no opt-in needed)
-    smem = 16 * (2 * bs * D // 4 + rows * D // 4 + 128) \
-        + 4 * (rows * bs + 3 * rows)
-    if smem > 48 * 1024:
+    plan = paged_plan(tables.shape[1], bs, D, Q, quant)
+    if plan.smem > _MAX_SMEM:
         raise ValueError(f"{name}: block size {bs} too large for head dim "
-                         f"{D}")
-    if S > 65535 or H > 65535:
-        raise ValueError(f"{name}: S and H must be <= 65535")
+                         f"{D}: {plan.smem} bytes of shared memory")
+    if H > 65535 or plan.parts > 65535 or S * Q * H >= 2 ** 31:
+        raise ValueError(f"{name}: H and the partition count must be <= "
+                         f"65535 and S*Q*H below 2**31")
     check_dtype(name, torch.float32, q=q)
     pools = {"pages_k": kv, "pages_v": vv}
     if quant:
@@ -459,14 +513,12 @@ def _check_paged(name: str, q, pages_k, pages_v, tables, rows: int,
         check_dtype(name, torch.float32, pages_k=kv, pages_v=vv)
     check_dtype(name, torch.int32, tables=tables, **per_slot)
     check_cuda(name, q.device, q=q, tables=tables, **pools, **per_slot)
-    # 16-byte (float4) and 4-byte (char4, f32) loads
+    # 16-byte loads and cp.async copies, 4-byte copies of the scales
     for key, t in {"q": q, **pools}.items():
-        align = 4 if t.dtype == torch.int8 or key.startswith("scales") \
-            else 16
+        align = 4 if key.startswith("scales") else 16
         if t.data_ptr() % align:
             raise ValueError(f"{name}: {key} is not {align}-byte aligned")
-    return quant, [t.data_ptr() for t in pools.values()], N, bs, \
-        tables.shape[1]
+    return quant, [t.data_ptr() for t in pools.values()], N, bs, plan
 
 
 def paged_decode_attention(q, pages_k, pages_v, tables, lengths,
@@ -476,7 +528,9 @@ def paged_decode_attention(q, pages_k, pages_v, tables, lengths,
     the kernel). ``q [S, H, D]``; ``lengths`` counts the valid tokens
     including the one just scattered; 0 marks an inactive slot (zero
     output). CUDA tensors launch ``paged_decode`` (``paged_decode_int8``
-    for int8 pools)."""
+    for int8 pools): two launches, partials over fixed partitions of the
+    context and their merge, counted as one; the wrapper reads no
+    per-slot value on the host."""
     _check_pool_pair("paged_decode_attention", pages_k, pages_v)
     if q.device.type == "cpu":
         return paged_decode_plain(q, pages_k, pages_v, tables, lengths,
@@ -484,16 +538,19 @@ def paged_decode_attention(q, pages_k, pages_v, tables, lengths,
     if q.dim() != 3:
         raise ValueError(f"paged_decode_attention: q {tuple(q.shape)} must "
                          f"be [S, H, D]")
-    quant, pools, N, bs, MB = _check_paged(
+    quant, pools, N, bs, plan = _check_paged(
         "paged_decode_attention", q, pages_k, pages_v, tables, 1,
         lengths=lengths)
     S, H, D = q.shape
     scale = D ** -0.5 if scale is None else float(scale)
     out = torch.empty_like(q)
+    ws = torch.empty(plan.workspace_shape(S, H), dtype=torch.float32,
+                     device=q.device)
     with torch.cuda.device(q.device):          # launch on q's card
         _launch("paged_decode_int8" if quant else "paged_decode",
                 q.data_ptr(), *pools, tables.data_ptr(), lengths.data_ptr(),
-                out.data_ptr(), S, H, D, N, bs, MB, scale, stream_ptr(q))
+                out.data_ptr(), ws.data_ptr(), S, H, D, N, bs,
+                tables.shape[1], plan.part, scale, stream_ptr(q))
     return out
 
 
@@ -503,9 +560,11 @@ def paged_span_attention(q, pages_k, pages_v, tables, start, n,
     causal within the span: row ``j`` of slot ``s`` sits at position
     ``start[s] + j`` and sees positions ``<= start[s] + j``. ``q [S, Q,
     H, D]``; ``start``/``n`` ``[S]`` int32 — rows ``>= n[s]`` are padding
-    (finite output the caller ignores), ``n == 0`` marks an inactive slot
-    (zeros). Pools plain or ``(int8 values, scales)``. CUDA tensors launch
-    ``paged_span`` (``paged_span_int8``), whose row ``j`` is bit-equal to
+    (the kernel writes zeros there, the plain version attends them; the
+    caller ignores them), ``n == 0`` marks an inactive slot (zeros). Pools
+    plain or ``(int8 values, scales)``. CUDA tensors launch ``paged_span``
+    (``paged_span_int8``: two launches, partials and merge, counted as
+    one), whose row ``j`` is bit-equal to
     :func:`paged_decode_attention` at length ``start + j + 1``; ``Q`` is at
     most :data:`SPAN_MAX_Q`."""
     _check_pool_pair("paged_span_attention", pages_k, pages_v)
@@ -518,13 +577,16 @@ def paged_span_attention(q, pages_k, pages_v, tables, start, n,
     if not 1 <= Q <= SPAN_MAX_Q:
         raise ValueError(f"paged_span_attention: a span of {Q} query rows; "
                          f"the kernel takes 1 to {SPAN_MAX_Q}")
-    quant, pools, N, bs, MB = _check_paged(
-        "paged_span_attention", q, pages_k, pages_v, tables, _SPAN_ROWS,
+    quant, pools, N, bs, plan = _check_paged(
+        "paged_span_attention", q, pages_k, pages_v, tables, Q,
         start=start, n=n)
     scale = D ** -0.5 if scale is None else float(scale)
     out = torch.empty_like(q)
+    ws = torch.empty(plan.workspace_shape(S, H), dtype=torch.float32,
+                     device=q.device)
     with torch.cuda.device(q.device):
         _launch("paged_span_int8" if quant else "paged_span", q.data_ptr(),
                 *pools, tables.data_ptr(), start.data_ptr(), n.data_ptr(),
-                out.data_ptr(), S, Q, H, D, N, bs, MB, scale, stream_ptr(q))
+                out.data_ptr(), ws.data_ptr(), S, Q, H, D, N, bs,
+                tables.shape[1], plan.part, scale, stream_ptr(q))
     return out

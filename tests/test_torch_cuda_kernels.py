@@ -4,8 +4,12 @@ at edge shapes the smoke run does not reach: ragged T, one-token T, D =
 full slots, and the wrappers' input checks; for the flash backward also
 the autograd seam (no backward launch under ``torch.no_grad()``, and
 gradients through ``FlashAttentionFunction`` against autograd of the
-plain forward); for the paged span the Q = 1 and per-row bit-equality
-with the paged decode, and the int8 branches of both; for the 1x1-conv
+plain forward); for the split-context paged kernels, lengths and spans
+on and across partition boundaries at block sizes 8/16/32, a slot whose
+span fills the table, reruns bit-equal for all four entries, the span's
+Q = 1 and per-row bit-equality with the paged decode (across a boundary
+too), the int8 branches of both, no host synchronisation inside an entry
+and the plan's shared memory against the kernel's own; for the 1x1-conv
 weight gradient and the fused LayerNorm-matmul, ragged edge shapes, the
 wrappers' refusals, bit-equal reruns and a small ResNet trained through
 the kernel against the convolution path, and shapes that reach each tile
@@ -66,12 +70,25 @@ def test_flash_kernel_matches_plain(gen, B, H, T, D, causal, segs, scale):
     assert (lse - lse_ref).abs().max().item() <= ATOL
 
 
-@pytest.mark.parametrize("D,bs", [(64, 8), (64, 32), (128, 16), (128, 8)])
+def _boundary_lengths(bs, MB):
+    """Decode lengths 0 and 1, on and across the plan's partition
+    boundaries, a slot filling the table, and a few block edges."""
+    P = ca.paged_plan(MB, bs, 64, 1).part
+    W = MB * bs
+    return torch.tensor([0, 1, bs, bs + 1, W, 3 * bs - 1, P - 1, P, P + 1,
+                         2 * P + bs + 1], dtype=torch.int32,
+                        device="cuda").clamp(max=W)
+
+
+@pytest.mark.parametrize("D,bs", [(64, 8), (64, 32), (128, 16), (128, 8),
+                                  (64, 16), (128, 32)])
 def test_paged_kernel_matches_plain(gen, D, bs):
-    S, H, MB = 6, 3, 10
+    """Lengths on and across partition boundaries at bs 8, 16 and 32, a
+    slot filling the table, shared blocks; reruns bit-equal."""
+    H, MB = 3, 320 // bs                       # 2.5 partitions of context
+    lengths = _boundary_lengths(bs, MB)
+    S = lengths.numel()
     N = S * MB + 1
-    lengths = torch.tensor([0, 1, bs, bs + 1, MB * bs, 3 * bs - 1],
-                           dtype=torch.int32, device="cuda")
     perm = torch.randperm(N - 1, generator=gen, device="cuda") + 1
     tables = perm[:S * MB].reshape(S, MB).to(torch.int32)
     tables[5, :2] = tables[4, :2]              # shared blocks
@@ -83,6 +100,8 @@ def test_paged_kernel_matches_plain(gen, D, bs):
     torch.cuda.synchronize()
     assert (out - ref).abs().max().item() <= ATOL
     assert out[0].abs().max().item() == 0.0
+    again = ca.paged_decode_attention(q, pk, pv, tables, lengths)
+    assert torch.equal(out, again)             # no atomics
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(gen):
@@ -109,6 +128,19 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(gen):
     big = torch.randn(2, 512, 2, 64, device="cuda")
     with pytest.raises(ValueError, match="block size"):
         ca.paged_decode_attention(qd, big, big, tables, lengths)
+    # the plan's shared memory: int8 pools at D 128 and bs 256
+    q128 = torch.randn(1, 2, 128, device="cuda")
+    big8 = torch.zeros(2, 256, 2, 128, dtype=torch.int8, device="cuda")
+    sc = torch.ones(2, 256, 2, device="cuda")
+    with pytest.raises(ValueError, match="block size"):
+        ca.paged_decode_attention(q128, (big8, sc), (big8, sc), tables,
+                                  lengths)
+    # an int8 pool off a 16-byte boundary (16-byte cp.async copies)
+    raw = torch.zeros(5 * 16 * 2 * 64 + 4, dtype=torch.int8, device="cuda")
+    off = raw[4:].view(5, 16, 2, 64)
+    s8 = torch.ones(5, 16, 2, device="cuda")
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        ca.paged_decode_attention(qd, (off, s8), (off, s8), tables, lengths)
 
 
 def test_engine_tokens_paged_equal_xla_on_card(gen):
@@ -241,42 +273,68 @@ def _span_case(gen, S, H, D, bs, MB, quant):
                                        (128, 128, False), (5, 64, True),
                                        (128, 128, True)])
 def test_paged_span_kernel_matches_plain_and_decode_rows(gen, Q, D, quant):
-    """Starts mid-block, at a block boundary, at 0 and at the table's end,
-    ``n`` below ``Q`` and ``n == 0`` with a stale start; live rows within
-    ATOL of the plain version and each row bit-equal to the paged decode at
-    ``start + j + 1``."""
-    S, H, bs, MB = 5, 3, 16, 12
-    pk, pv, tables = _span_case(gen, S, H, D, bs, MB, quant)
-    cap = MB * bs
-    start = torch.tensor([3, 32, 0, cap - Q, 17], dtype=torch.int32,
-                         device="cuda").clamp(0, cap - Q)
-    n = torch.tensor([Q, max(1, Q - 2), Q, Q, 0], dtype=torch.int32,
-                     device="cuda")
-    q = torch.randn(S, Q, H, D, generator=gen, device="cuda")
+    """At bs 8, 16 and 32: starts mid-block, at a block boundary, at 0,
+    across a partition boundary and at the table's end (a span filling
+    it), ``n`` below ``Q`` and ``n == 0`` with a stale start; live rows
+    within ATOL of the plain version, reruns bit-equal, and each row
+    bit-equal to the paged decode at ``start + j + 1``, across the
+    boundary too."""
+    S, H = 6, 3
     name = "paged_span_int8" if quant else "paged_span"
-    before = ca.launch_counts()[name]
+    for bs in (8, 16, 32):
+        MB = 384 // bs                         # three partitions
+        P = ca.paged_plan(MB, bs, D, Q).part
+        pk, pv, tables = _span_case(gen, S, H, D, bs, MB, quant)
+        cap = MB * bs
+        start = torch.tensor([3, 32, 0, cap - Q, 17, P - 2],
+                             dtype=torch.int32, device="cuda") \
+            .clamp(0, cap - Q)
+        n = torch.tensor([Q, max(1, Q - 2), Q, Q, 0, Q], dtype=torch.int32,
+                         device="cuda")
+        q = torch.randn(S, Q, H, D, generator=gen, device="cuda")
+        before = ca.launch_counts()[name]
+        out = ca.paged_span_attention(q, pk, pv, tables, start, n)
+        assert ca.launch_counts()[name] == before + 1
+        ref = ca.paged_span_plain(q, pk, pv, tables, start, n)
+        torch.cuda.synchronize()
+        for s in range(S):
+            live = int(n[s])
+            assert (out[s, :live] - ref[s, :live]).abs().max().item() \
+                <= ATOL if live else out[s].abs().max().item() == 0.0
+        assert torch.equal(out, ca.paged_span_attention(q, pk, pv, tables,
+                                                        start, n))
+        for j in range(Q):
+            lengths = torch.where(n > j, start + j + 1, 0).to(torch.int32)
+            single = ca.paged_decode_attention(q[:, j].contiguous(), pk, pv,
+                                               tables, lengths)
+            live = n > j
+            assert torch.equal(out[live, j], single[live]), \
+                f"bs {bs} row {j}"
+
+
+def test_paged_span_rows_before_position_zero_give_zeros(gen):
+    """A span starting before position 0: its rows at negative positions
+    see no key and give zeros, as the plain version does; the others
+    match it."""
+    pk, pv, tables = _span_case(gen, 2, 2, 64, 16, 16, False)
+    q = torch.randn(2, 5, 2, 64, generator=gen, device="cuda")
+    start = torch.tensor([-3, 126], dtype=torch.int32, device="cuda")
+    n = torch.tensor([5, 5], dtype=torch.int32, device="cuda")
     out = ca.paged_span_attention(q, pk, pv, tables, start, n)
-    assert ca.launch_counts()[name] == before + 1
     ref = ca.paged_span_plain(q, pk, pv, tables, start, n)
     torch.cuda.synchronize()
-    for s in range(S):
-        live = int(n[s])
-        assert (out[s, :live] - ref[s, :live]).abs().max().item() <= ATOL \
-            if live else out[s].abs().max().item() == 0.0
-    for j in range(Q):
-        lengths = torch.where(n > j, start + j + 1, 0).to(torch.int32)
-        single = ca.paged_decode_attention(q[:, j].contiguous(), pk, pv,
-                                           tables, lengths)
-        live = n > j
-        assert torch.equal(out[live, j], single[live]), f"row {j}"
+    assert out[0, :3].abs().max().item() == 0.0
+    assert (out - ref).abs().max().item() <= ATOL
 
 
-@pytest.mark.parametrize("D,bs", [(64, 16), (128, 8)])
+@pytest.mark.parametrize("D,bs", [(64, 16), (128, 8), (64, 8), (128, 32)])
 def test_paged_decode_int8_kernel_matches_plain(gen, D, bs):
-    S, H, MB = 6, 3, 10
+    """Lengths on and across partition boundaries, a slot filling the
+    table; reruns bit-equal."""
+    H, MB = 3, 320 // bs
+    lengths = _boundary_lengths(bs, MB)
+    S = lengths.numel()
     pk, pv, tables = _span_case(gen, S, H, D, bs, MB, True)
-    lengths = torch.tensor([0, 1, bs, bs + 1, MB * bs, 3 * bs - 1],
-                           dtype=torch.int32, device="cuda")
     q = torch.randn(S, H, D, generator=gen, device="cuda")
     before = ca.launch_counts()["paged_decode_int8"]
     out = ca.paged_decode_attention(q, pk, pv, tables, lengths)
@@ -285,6 +343,54 @@ def test_paged_decode_int8_kernel_matches_plain(gen, D, bs):
     torch.cuda.synchronize()
     assert (out - ref).abs().max().item() <= ATOL
     assert out[0].abs().max().item() == 0.0
+    again = ca.paged_decode_attention(q, pk, pv, tables, lengths)
+    assert torch.equal(out, again)             # no atomics
+
+
+def test_paged_plan_shared_memory_is_the_kernels(gen):
+    """The plan's shared-memory figure is the kernel's own layout."""
+    from paddle_tpu_torch.utils import cuda_build
+    import ctypes
+    fn = cuda_build.load("paged_span").paged_smem_bytes
+    fn.argtypes = [ctypes.c_int] * 4
+    fn.restype = ctypes.c_int
+    for D in (64, 128):
+        for bs in (8, 12, 16, 32, 128):
+            for Q in (1, 5, 128):
+                for quant in (False, True):
+                    plan = ca.paged_plan(64, bs, D, Q, quant)
+                    assert fn(D, plan.rows, plan.part,
+                              int(quant)) == plan.smem
+
+
+def test_paged_entries_do_not_synchronise(gen):
+    """The four entries read no per-slot value on the host: under
+    ``set_sync_debug_mode("error")`` a synchronising call would raise."""
+    S, H, D, bs, MB = 4, 2, 64, 16, 16
+    plain = _span_case(gen, S, H, D, bs, MB, False)
+    quant = _span_case(gen, S, H, D, bs, MB, True)
+    lengths = torch.tensor([0, 5, 200, 256], dtype=torch.int32,
+                           device="cuda")
+    start = torch.tensor([0, 120, 250, 7], dtype=torch.int32, device="cuda")
+    n = torch.tensor([5, 5, 5, 0], dtype=torch.int32, device="cuda")
+    q1 = torch.randn(S, H, D, generator=gen, device="cuda")
+    q5 = torch.randn(S, 5, H, D, generator=gen, device="cuda")
+    for pk, pv, tables in (plain, quant):      # build outside the check
+        ca.paged_decode_attention(q1, pk, pv, tables, lengths)
+        ca.paged_span_attention(q5, pk, pv, tables, start, n)
+    torch.cuda.synchronize()
+    before = ca.launch_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for pk, pv, tables in (plain, quant):
+            ca.paged_decode_attention(q1, pk, pv, tables, lengths)
+            ca.paged_span_attention(q5, pk, pv, tables, start, n)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    after = ca.launch_counts()
+    for name in ("paged_decode", "paged_decode_int8", "paged_span",
+                 "paged_span_int8"):
+        assert after[name] == before[name] + 1
 
 
 def test_span_wrappers_refuse_what_the_kernel_does_not_take(gen):

@@ -1,0 +1,220 @@
+"""Host-side launch plan of the split-context paged kernels
+(``csrc/paged_attention.cuh``) and the merge rule they run. Pure Python
+and PyTorch on the CPU:
+
+- the partition ``P`` is a whole number of pool blocks and depends on the
+  block size alone: the same for every table width, span length, slot
+  count and head count (``hypothesis``), which is what keeps each span row
+  bit-equal to the paged decode at its position;
+- the partitions cover the table's ``[0, MB * bs)`` exactly;
+- the partials kernel's shared memory stays within the 227 KB a block may
+  use for D in {64, 128} and bs in {8, 16, 32};
+- the workspace holds one 16-byte-aligned record per (slot, row, head,
+  partition);
+- the merge rule: each row's softmax split into the plan's partitions and
+  merged in order against the JAX ``paged_decode_attention`` and
+  ``paged_span_attention`` (Pallas interpret mode) at lengths 0, 1,
+  ``P - 1``, ``P``, ``P + 1`` and ``MB * bs``, and a partition wholly past
+  a row adding exactly 0.
+
+Tolerance of the merge against JAX: 2e-6 (f32 on both sides, summed in
+other orders over at most 192 positions), as ``tests/test_torch_span.py``.
+"""
+
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+from hypothesis import given, settings, strategies as st
+
+from paddle_tpu.nn import pallas_attention as jpa
+from paddle_tpu_torch.nn import cuda_attention as ca
+
+ATOL = 2e-6
+SMEM_LIMIT = 232448          # 227 KB, a block's dynamic shared memory
+
+
+@settings(max_examples=200, deadline=None)
+@given(bs=st.integers(1, 256), D=st.sampled_from([64, 128]),
+       MB=st.integers(1, 512), MB2=st.integers(1, 512),
+       Q=st.integers(1, ca.SPAN_MAX_Q), Q2=st.integers(1, ca.SPAN_MAX_Q),
+       quant=st.booleans())
+def test_partition_depends_on_the_block_size_alone(bs, D, MB, MB2, Q, Q2,
+                                                   quant):
+    a = ca.paged_plan(MB, bs, D, Q, quant)
+    b = ca.paged_plan(MB2, bs, D, Q2, not quant)
+    # S and H are not inputs of the plan at all
+    assert a.part == b.part
+    assert a.part % bs == 0 and a.part >= 128
+    assert a.part // bs <= 128               # one table entry per thread
+    assert a == ca.paged_plan(MB, bs, D, Q, quant)          # repeatable
+
+
+@pytest.mark.parametrize("bs,want", [(1, 128), (8, 128), (16, 128),
+                                     (32, 128), (64, 128), (12, 132),
+                                     (100, 200), (128, 128)])
+def test_partition_sizes(bs, want):
+    assert ca.paged_plan(64, bs, 64, 1).part == want
+
+
+@pytest.mark.parametrize("MB,bs", [(1, 16), (8, 16), (9, 16), (64, 16),
+                                   (3, 8), (65, 32), (100, 12), (0, 16)])
+def test_partitions_cover_the_table(MB, bs):
+    plan = ca.paged_plan(MB, bs, 64, 5)
+    W = MB * bs
+    bounds = [(k * plan.part, min((k + 1) * plan.part, W))
+              for k in range(plan.parts)]
+    if W == 0:
+        assert bounds == []
+        return
+    assert bounds[0][0] == 0 and bounds[-1][1] == W
+    assert all(a[1] == b[0] for a, b in zip(bounds, bounds[1:]))
+    assert all(e > b for b, e in bounds)
+
+
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("bs", [8, 16, 32])
+@pytest.mark.parametrize("Q", [1, 5, 128, 256])
+@pytest.mark.parametrize("quant", [False, True])
+def test_shared_memory_within_a_block(D, bs, Q, quant):
+    plan = ca.paged_plan(64, bs, D, Q, quant)
+    assert plan.smem <= SMEM_LIMIT
+    assert plan.smem % 16 == 0
+    # the padded K and plain V of a partition at least
+    assert plan.smem >= 4 * plan.part * (2 * D + 4)
+
+
+def test_row_tile():
+    assert ca.paged_plan(64, 16, 64, 1).rows == 1
+    for Q, tiles in ((5, 1), (16, 1), (17, 2), (128, 8), (256, 16)):
+        plan = ca.paged_plan(64, 16, 64, Q)
+        assert plan.rows == 16 and plan.tiles == tiles
+
+
+def test_oversized_block_is_refused_by_the_plan():
+    # the wrappers' "block size too large" refusal
+    assert ca.paged_plan(2, 512, 64, 1).smem > SMEM_LIMIT
+    assert ca.paged_plan(4, 256, 128, 5, True).smem > SMEM_LIMIT
+    assert ca.paged_plan(4, 128, 128, 5, True).smem <= SMEM_LIMIT
+
+
+@pytest.mark.parametrize("S,Q,H,D,MB,bs", [(8, 1, 8, 64, 64, 16),
+                                           (1, 128, 8, 64, 64, 16),
+                                           (3, 5, 2, 128, 9, 8)])
+def test_workspace_shape(S, Q, H, D, MB, bs):
+    plan = ca.paged_plan(MB, bs, D, Q)
+    shape = plan.workspace_shape(S, H)
+    assert shape == (S, Q, H, -(-MB * bs // plan.part), D + 4)
+    assert (4 * shape[-1]) % 16 == 0          # float4 records
+
+
+# ---------------------------------------------------------------------------
+# the merge rule
+# ---------------------------------------------------------------------------
+
+def _partials(q, k, v, pos, P, parts, scale):
+    """Per-partition ``(m, l, acc)`` of each row: ``q [R, D]``, ``k, v
+    [R, W, D]`` (each row's context in position order), ``pos [R]``; the
+    kernel's conventions (running max from -1e30, -inf past the row)."""
+    W = k.shape[1]
+    s = torch.einsum("rd,rwd->rw", q, k) * scale
+    s = s.masked_fill(torch.arange(W)[None] > pos[:, None], float("-inf"))
+    out = []
+    for kk in range(parts):
+        sl = slice(kk * P, min((kk + 1) * P, W))
+        m = s[:, sl].amax(-1).clamp_min(-1e30)
+        p = torch.exp(s[:, sl] - m[:, None])
+        out.append((m, p.sum(-1), torch.einsum("rw,rwd->rd", p, v[:, sl])))
+    return out
+
+
+def _merge(partials, K):
+    """Row r merges its first ``K[r]`` partials in order; ``max(l,
+    1e-30)``."""
+    R, D = partials[0][2].shape
+    M = torch.full((R,), -float("inf"))
+    for kk, (m, _, _) in enumerate(partials):
+        M = torch.where(kk < K, torch.maximum(M, m), M)
+    l = torch.zeros(R)
+    acc = torch.zeros(R, D)
+    for kk, (m, lk, ak) in enumerate(partials):
+        f = torch.where(kk < K, torch.exp(m - M), torch.zeros(R))
+        l = l + f * lk
+        acc = acc + f[:, None] * ak
+    return acc / l.clamp_min(1e-30)[:, None]
+
+
+def _split_attention(q, pk, pv, tables, pos, live, P):
+    """``[S, Q, H, D]`` by the kernels' two passes: ``q [S, Q, H, D]``,
+    ``pos [S, Q]`` each row's position, ``live [S, Q]``."""
+    S, Q, H, D = q.shape
+    bs = pk.shape[1]
+    W = tables.shape[1] * bs
+    k = pk[tables.long()].reshape(S, W, H, D)
+    v = pv[tables.long()].reshape(S, W, H, D)
+    parts = -(-W // P)
+    rq = q.permute(0, 2, 1, 3).reshape(-1, D)                 # [S*H*Q, D]
+    rk = k.permute(0, 2, 1, 3)[:, :, None].expand(S, H, Q, W, D) \
+        .reshape(-1, W, D)
+    rv = v.permute(0, 2, 1, 3)[:, :, None].expand(S, H, Q, W, D) \
+        .reshape(-1, W, D)
+    rpos = pos[:, None].expand(S, H, Q).reshape(-1)
+    partials = _partials(rq, rk, rv, rpos, P, parts, D ** -0.5)
+    K = torch.clamp(rpos, max=W - 1) // P + 1
+    out = _merge(partials, K)
+    # a partition wholly past a row adds exactly 0
+    assert torch.equal(_merge(partials, torch.full_like(K, parts)), out)
+    out = out.reshape(S, H, Q, D).permute(0, 2, 1, 3)
+    return out * live[..., None, None]
+
+
+def _pools(rng, S, H, D, bs, MB):
+    N = S * MB + 1
+    pk = rng.randn(N, bs, H, D).astype(np.float32)
+    pv = rng.randn(N, bs, H, D).astype(np.float32)
+    tables = (1 + rng.permutation(N - 1)[:S * MB]).reshape(S, MB) \
+        .astype(np.int32)
+    return pk, pv, tables
+
+
+def test_split_merge_matches_jax_paged_decode():
+    S, H, D, bs, MB = 6, 2, 16, 16, 12
+    P = ca.paged_plan(MB, bs, D, 1).part
+    assert P == 128 and MB * bs == 192
+    rng = np.random.RandomState(0)
+    pk, pv, tables = _pools(rng, S, H, D, bs, MB)
+    lengths = np.array([0, 1, P - 1, P, P + 1, MB * bs], np.int32)
+    q = rng.randn(S, H, D).astype(np.float32)
+    want = np.asarray(jpa.paged_decode_attention(
+        *(jnp.asarray(a) for a in (q, pk, pv, tables, lengths))))
+    t = torch.from_numpy
+    got = _split_attention(t(q)[:, None], t(pk), t(pv), t(tables),
+                           t(lengths)[:, None].long() - 1,
+                           t(lengths)[:, None] > 0, P)[:, 0]
+    np.testing.assert_allclose(got.numpy(), want, atol=ATOL, rtol=0)
+    assert not got[0].any()
+    plain = ca.paged_decode_plain(t(q), t(pk), t(pv), t(tables), t(lengths))
+    np.testing.assert_allclose(got.numpy(), plain.numpy(), atol=ATOL,
+                               rtol=0)
+
+
+def test_split_merge_matches_jax_paged_span():
+    """Spans ending at, starting at and crossing a partition boundary,
+    one filling the table, one inactive."""
+    S, H, D, bs, MB, Q = 5, 2, 16, 16, 12, 5
+    P = ca.paged_plan(MB, bs, D, Q).part
+    rng = np.random.RandomState(1)
+    pk, pv, tables = _pools(rng, S, H, D, bs, MB)
+    start = np.array([P - Q, P, P - 2, MB * bs - Q, 7], np.int32)
+    n = np.array([Q, Q, Q, Q, 0], np.int32)
+    q = rng.randn(S, Q, H, D).astype(np.float32)
+    want = np.asarray(jpa.paged_span_attention(
+        *(jnp.asarray(a) for a in (q, pk, pv, tables, start, n))))
+    t = torch.from_numpy
+    pos = t(start)[:, None].long() + torch.arange(Q)[None]
+    live = torch.arange(Q)[None] < t(n)[:, None]
+    got = _split_attention(t(q), t(pk), t(pv), t(tables), pos, live, P)
+    for s in range(S):
+        np.testing.assert_allclose(got[s, :n[s]].numpy(), want[s, :n[s]],
+                                   atol=ATOL, rtol=0)
+    assert not got[4].any()
