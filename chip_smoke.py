@@ -9,11 +9,23 @@ Phases (any failure exits non-zero before the final line):
 0. environment: the card's name and power limit, torch and CUDA versions,
    TF32 switched off (the kernels and their plain versions are f32).
 1. build: every CUDA kernel of the path from ``paddle_tpu_torch/csrc``
-   with ``nvcc`` for ``sm_90a``, all sources at once.
+   with ``nvcc`` for ``sm_90a``, all sources at once; ptxas's registers
+   and spills of every ``flash_bwd.cu`` instance on a line of their own,
+   and a spill in any of them fails the run.
 2. kernels: each kernel against its plain PyTorch version on the card, at
    the shapes the serving and training paths give it, with times for the
    kernel, the plain version, one PyTorch library call as a yardstick,
-   and the least time the card could take.
+   and the least time the card could take. The flash backward rows (dq,
+   dk/dv and the whole backward, at ``[8,4,2048,128]`` causal,
+   ``[2,8,512,128]`` with segments and ``[17,4,2048,128]`` causal, the
+   first training batch whose stored ds would pass the plan's 1 GiB)
+   run on the split-TF32 route: dk/dv storing ds and not, dq from the
+   stored ds and recomputing, the way the plan picks marked as the main
+   path's; each gives its TFLOP/s and its share of that route's bound
+   (``bound_ms``) and of the f32 CUDA-core bound, the device time of its
+   launches from ``torch.profiler`` beside the event time (SDPA's
+   backward too), and each case's launch plan (``flash_bwd_plan``) on a
+   line of its own.
 3. the slice: ``TransformerLM`` at the ``transformer_decode`` width
    (vocab 32000, dim 512, 6 layers, 8 heads, ffn 2048, max_len 1024,
    flash prefill) with seeded random weights, served by ``DecodeEngine``
@@ -54,7 +66,8 @@ Phases (any failure exits non-zero before the final line):
    Step-0 gradients of every parameter are held against the
    plain-attention model first; then the launch counts (6 forward, 6 dq
    and 6 dk/dv launches per step), finite and falling losses are checked,
-   and 2 more steps are profiled.
+   and 2 more steps are profiled (with the flash backward kernels'
+   device time and share).
 7. conv and LayerNorm kernels: ``conv1x1_dw`` against its plain version
    at five shapes of the ResNet-50 step (within 1e-4 of max |plain|, two
    runs bit-equal), then timed at all 15 distinct shapes of the step's 36
@@ -90,13 +103,16 @@ The last line is ``{"ok": true, "device": {...}}``; the line before it is
 listing every kernel with its launches on the main paths, error and times
 (``conv1x1_dw``'s times and bound summed over the 36 launches of one
 ResNet-50 step; ``bound_ms`` is the bound of the kernel's route,
-``cuda_core_bound_ms`` the f32 CUDA-core one beside it; the paged
-kernels add ``device_ms`` and ``library_device_ms``, profiler device time
-per call).
+``cuda_core_bound_ms`` the f32 CUDA-core one beside it; the paged and
+flash backward kernels add ``device_ms`` and ``library_device_ms``,
+profiler device time per call; the flash backward's two entries are timed
+at the training shape as the training path launches them, dk/dv storing
+ds and dq reading it back).
 """
 
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -289,24 +305,50 @@ def phase_flash(torch, F, ca, gen):
     return results
 
 
-def phase_flash_bwd(torch, F, ca, gen):
-    """flash_bwd_dq and flash_bwd_dkv against their plain versions at the
-    training shape and at a segments shape with padding tails (dO zero on
-    padding rows, as label -1 makes it in the model). Errors are held to
-    TOL relative to max(1, max |plain|): dv and dk of the first keys under
-    causal masking sum over up to 2048 rows and pass 1. Bounds count the
-    least work for each kernel's own function (dq: q.k^T, dO.v^T, ds.k —
-    6*D operations per visible pair; dk/dv: those two and p^T.dO, ds^T.q
-    — 8*D), and for the whole backward five products, 10*D. The library
-    yardstick is the backward of F.scaled_dot_product_attention on the
-    same f32 inputs (autograd of one SDPA forward; the forward itself is
-    not timed)."""
-    results = []
-    cases = [("training [8,4,2048,128] causal", (8, 4, 2048, 128), True,
+# the backward's cases: the training shape, a segments shape with padding
+# tails, and the training model at the first batch whose ds buffer passes
+# the plan's budget (1 GiB), where the whole backward recomputes in dq
+BWD_CASES = [("training [8,4,2048,128] causal", (8, 4, 2048, 128), True,
               None),
-             ("[2,8,512,128] segments", (2, 8, 512, 128), False, SEG_ROWS)]
-    for label, shape, causal, seg_rows in cases:
+             ("[2,8,512,128] segments", (2, 8, 512, 128), False, SEG_ROWS),
+             ("past the ds budget [17,4,2048,128] causal",
+              (17, 4, 2048, 128), True, None)]
+BWD_VARIANTS = {("flash_bwd_dkv", True): "stores ds",
+                ("flash_bwd_dkv", False): "stores no ds",
+                ("flash_bwd_dq", True): "from the stored ds",
+                ("flash_bwd_dq", False): "recomputes s and dp"}
+OUTS = {"flash_bwd_dq": "q", "flash_bwd_dkv": "kv",
+        "flash_attention_bwd": "qkv"}
+
+
+def phase_flash_bwd(torch, F, ca, gen):
+    """flash_bwd_dq and flash_bwd_dkv against their plain versions at
+    ``BWD_CASES`` (dO zero on padding rows, as label -1 makes it in the
+    model). Each kernel runs both ways its entry takes: dk/dv storing ds
+    in a ``[B*H, T, T]`` buffer or not, dq reading that ds back (ds.k
+    alone) or recomputing s and dp; the way the case's plan picks
+    (``stored_ds``) is what ``flash_attention_bwd``, the training path,
+    launches, and its row is marked ``main_path``. Errors are held to TOL
+    relative to max(1, max |plain|): dv and dk of the first keys under
+    causal masking sum over up to 2048 rows and pass 1. Bounds count the
+    least work of each row's own function: dq recomputing q.k^T, dO.v^T
+    and ds.k, 6*D operations per visible pair; dq from ds, ds.k, 2*D, and
+    the visible ds entries read; dk/dv those two scores and p^T.dO,
+    ds^T.q, 8*D, and storing ds the visible entries written; the whole
+    backward five products, 10*D. Each row gives its TFLOP/s and its
+    share of the split-TF32 bound (the kernels' route, ``bound_ms``) and
+    of the f32 CUDA-core bound, and the device time of its launches from
+    torch.profiler beside the event time. The library yardstick is the
+    backward of F.scaled_dot_product_attention on the same f32 inputs
+    (autograd of one SDPA forward; the forward itself is not timed). One
+    line per case gives the launch plan. Reruns of every row must be
+    bit-equal."""
+    results = []
+    for label, shape, causal, seg_rows in BWD_CASES:
         B, H, T, D = shape
+        plan = ca.flash_bwd_plan(B, H, T, D, causal)
+        log("flash_bwd plan", json.dumps({"case": label,
+                                          **plan._asdict()}))
         q, k, v, do = (torch.randn(shape, generator=gen, device="cuda")
                        for _ in range(4))
         seg = None if seg_rows is None else torch.tensor(
@@ -316,63 +358,131 @@ def phase_flash_bwd(torch, F, ca, gen):
         o, lse = ca.flash_attention_fwd(q, k, v, seg, causal)
         delta = (do * o).sum(-1)
         args = (q, k, v, seg, do, lse, delta, causal)
-        dq = ca.flash_bwd_dq(*args)
-        dk, dv = ca.flash_bwd_dkv(*args)
-        dq_ref = ca.flash_bwd_dq_plain(*args)
-        dk_ref, dv_ref = ca.flash_bwd_dkv_plain(*args)
-        torch.cuda.synchronize()
-        err_dq = check_close(f"flash_bwd {label} dq", dq, dq_ref, rel=True)
-        err_dkv = max(check_close(f"flash_bwd {label} dk", dk, dk_ref,
-                                  rel=True),
-                      check_close(f"flash_bwd {label} dv", dv, dv_ref,
-                                  rel=True))
-        again = ca.flash_attention_bwd(q, k, v, seg, o, lse, do, causal)
-        if not all(torch.equal(a, b) for a, b in zip(again, (dq, dk, dv))):
-            raise RuntimeError(f"flash_bwd {label}: two runs differ")
+        ds = torch.empty((B * H, T, T), dtype=torch.float32, device="cuda")
+        # dk/dv storing ds runs before dq reads it
+        calls = {
+            ("flash_bwd_dkv", True): lambda: ca.flash_bwd_dkv(*args, ds=ds),
+            ("flash_bwd_dkv", False): lambda: ca.flash_bwd_dkv(*args),
+            ("flash_bwd_dq", True): lambda: (ca.flash_bwd_dq(*args, ds=ds),),
+            ("flash_bwd_dq", False): lambda: (ca.flash_bwd_dq(*args),),
+            ("flash_attention_bwd", plan.stored_ds):
+                lambda: ca.flash_attention_bwd(q, k, v, seg, o, lse, do,
+                                               causal)}
+        plains = {"flash_bwd_dq": lambda: (ca.flash_bwd_dq_plain(*args),),
+                  "flash_bwd_dkv": lambda: ca.flash_bwd_dkv_plain(*args),
+                  "flash_attention_bwd": lambda: ca.flash_attention_bwd_plain(
+                      q, k, v, seg, o, lse, do, causal)}
+        errs = {}
+        for (name, stored), fn in calls.items():
+            got = fn()
+            want = plains[name]()
+            torch.cuda.synchronize()
+            errs[name, stored] = max(
+                check_close(f"{name} {label} d{x}", g, w, rel=True)
+                for x, g, w in zip(OUTS[name], got, want))
+            del want
+            if not all(torch.equal(a, b) for a, b in zip(got, fn())):
+                raise RuntimeError(f"{name} {label}: two runs differ")
         vis, pairs = visible_pairs(torch, B, T, causal, seg)
-        td = B * H * T * D
+        td = 4 * B * H * T * D
         rowb = 4 * B * H * T
         segb = 0 if seg is None else 4 * B * T
-        b_dq = bound(4 * 5 * td + 2 * rowb + segb, 6 * D * H * pairs)
-        b_dkv = bound(4 * 6 * td + 2 * rowb + segb, 8 * D * H * pairs)
-        # whole backward: q, k, v, O, dO, LSE in; dq, dk, dv out
-        b_all = bound(4 * 8 * td + rowb + segb, 10 * D * H * pairs)
+        dsb = 4 * H * pairs                  # the visible entries of ds
+        work = {  # (bytes, flops) of each row's own function
+            ("flash_bwd_dq", False): (5 * td + 2 * rowb + segb,
+                                      6 * D * H * pairs),
+            ("flash_bwd_dq", True): (2 * td + dsb + segb, 2 * D * H * pairs),
+            ("flash_bwd_dkv", False): (6 * td + 2 * rowb + segb,
+                                       8 * D * H * pairs),
+            ("flash_bwd_dkv", True): (6 * td + 2 * rowb + segb + dsb,
+                                      8 * D * H * pairs),
+            # q, k, v, O, dO, LSE in; dq, dk, dv out
+            ("flash_attention_bwd", plan.stored_ds): (
+                8 * td + rowb + segb, 10 * D * H * pairs)}
         mask = None if seg is None else vis[:, None]
         qs, ks, vs = (t.clone().requires_grad_() for t in (q, k, v))
         sdpa_out = F.scaled_dot_product_attention(
             qs, ks, vs, attn_mask=mask, is_causal=causal and mask is None)
-        lib_ms = time_ms(torch, lambda: torch.autograd.grad(
-            sdpa_out, (qs, ks, vs), do, retain_graph=True))
-        del sdpa_out, qs, ks, vs
-        rows = {
-            "flash_bwd_dq": {
-                "kernel_ms": time_ms(torch, lambda: ca.flash_bwd_dq(*args)),
-                "plain_ms": time_ms(torch,
-                                    lambda: ca.flash_bwd_dq_plain(*args)),
-                "bound_ms": b_dq[0], "bound_by": b_dq[1],
-                "max_abs_err": err_dq},
-            "flash_bwd_dkv": {
-                "kernel_ms": time_ms(torch, lambda: ca.flash_bwd_dkv(*args)),
-                "plain_ms": time_ms(torch,
-                                    lambda: ca.flash_bwd_dkv_plain(*args)),
-                "bound_ms": b_dkv[0], "bound_by": b_dkv[1],
-                "max_abs_err": err_dkv},
-            "flash_attention_bwd": {
-                "kernel_ms": time_ms(torch, lambda: ca.flash_attention_bwd(
-                    q, k, v, seg, o, lse, do, causal)),
-                "plain_ms": time_ms(
-                    torch, lambda: ca.flash_attention_bwd_plain(
-                        q, k, v, seg, o, lse, do, causal)),
-                "bound_ms": b_all[0], "bound_by": b_all[1],
-                "note": "delta (one PyTorch reduction) + both kernels"},
-        }
-        for name, row in rows.items():
-            row.update({"case": label, "library_ms": lib_ms,
-                        "library_note": "SDPA backward: dq, dk and dv",
-                        "pairs_per_head": pairs})
+
+        def sdpa_bwd():
+            return torch.autograd.grad(sdpa_out, (qs, ks, vs), do,
+                                       retain_graph=True)
+
+        lib_ms = time_ms(torch, sdpa_bwd)
+        lib_dev, _ = device_ms(torch, sdpa_bwd)
+        del sdpa_out, qs, ks, vs, vis, mask
+        plain_ms = {name: time_ms(torch, fn) for name, fn in plains.items()}
+        rows = {}
+        for (name, stored), fn in calls.items():
+            dev, dev_rows = device_ms(torch, fn)
+            row = {"case": label,
+                   "variant": BWD_VARIANTS.get(
+                       (name, stored), "dq from the stored ds" if stored
+                       else "dq recomputes s and dp"),
+                   "main_path": stored == plan.stored_ds,
+                   "kernel_ms": time_ms(torch, fn), "device_ms": dev,
+                   "device_rows": dev_rows, "plain_ms": plain_ms[name],
+                   "library_ms": lib_ms, "library_device_ms": lib_dev,
+                   "library_note": "SDPA backward: dq, dk and dv",
+                   "pairs_per_head": pairs,
+                   "max_abs_err": errs[name, stored]}
+            if name == "flash_attention_bwd":
+                row["note"] = "delta (one PyTorch reduction) + both kernels"
+            rows[name, stored] = gemm_rates(row, *work[name, stored])
             log(name, json.dumps(row))
         results.append(rows)
+        del ds
     return results
+
+
+def main_path_row(rows, name):
+    """The row of ``name`` launched the way the training path launches
+    it."""
+    return next(r for (n, _), r in rows.items() if n == name
+                and r["main_path"])
+
+
+# ptxas's -v report of a flash_bwd.cu instance: kernel (dq, dkv, or dq_ds:
+# dq from stored ds), D, warps, rows of a streamed tile, stages (the
+# template arguments of its Cfg)
+BWD_INSTANCE = re.compile(r"flash_bwd_(dq|dkv|dq_ds)_kernel\w*?"
+                          r"CfgILi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)ELi\d+E")
+
+
+def bwd_registers(ca, log_text):
+    """Registers and spills of every flash_bwd.cu instance from the build's
+    ptxas report; any instance the plan can pick that spills, or that the
+    report lacks, fails the run."""
+    found, cur = {}, None
+    for line in log_text.splitlines():
+        m = BWD_INSTANCE.search(line)
+        if m and "Compiling entry" in line:
+            cur = (m[1], int(m[2]), int(m[3]), int(m[4]), int(m[5]))
+            found[cur] = {}
+        elif cur is not None:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+            if m:
+                found[cur].update(spill_stores=int(m[1]),
+                                  spill_loads=int(m[2]))
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                found[cur]["registers"] = int(m[1])
+    out = []
+    for D, tiles in ca._BWD_TILES.items():
+        for t in tiles:
+            for kernel in ("dq", "dkv", "dq_ds"):
+                key = (kernel, D, t.rows // 8, t.stream_rows, t.stages)
+                rep = found.get(key, {})
+                if len(rep) != 3:
+                    raise RuntimeError(f"flash_bwd: no ptxas report for "
+                                       f"{key}")
+                if rep["spill_stores"] or rep["spill_loads"]:
+                    raise RuntimeError(f"flash_bwd {key} spills: {rep}")
+                out.append({"kernel": f"flash_bwd_{kernel}", "D": D,
+                            "rows": t.rows, "stream_rows": t.stream_rows,
+                            "stages": t.stages, **rep})
+    return out
 
 
 def check_rerun(torch, name, out, fn):
@@ -1210,10 +1320,12 @@ def phase_train(torch, np, pt):
 
 
 def phase_train_profile(torch, trainer, batch):
-    """Device busy share and time by kernel over 2 training steps."""
+    """Device busy share and time by kernel over 2 training steps, with
+    the flash backward kernels' device time and share."""
     log("train profile", json.dumps(profile_window(
         torch, lambda: trainer.train(lambda: iter([batch] * 2),
-                                     log_period=0), "2 training steps")))
+                                     log_period=0), "2 training steps",
+        kernels=("flash_bwd",))))
 
 
 def resnet50_dw_shapes(batch, image):
@@ -1667,6 +1779,8 @@ def main():
         for line in str(rep["log"]).splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  {line.strip()}")
+    log("flash_bwd ptxas", json.dumps(bwd_registers(
+        ca, str(report["flash_bwd"]["log"]))))
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     flash = phase_flash(torch, F, ca, gen)
@@ -1707,9 +1821,12 @@ def main():
     kernels = [entry("flash_fwd", flash[0],
                      max(r["max_abs_err"] for r in flash)),
                entry("paged_decode", paged, paged["max_abs_err"])]
-    # the backward kernels at the training shape, errors over both shapes
-    kernels += [entry(name, bwd[0][name],
-                      max(r[name]["max_abs_err"] for r in bwd))
+    # the backward kernels at the training shape as the training path
+    # launches them (dk/dv storing ds, dq from it); errors over every case
+    # and both ways of each kernel
+    kernels += [entry(name, main_path_row(bwd[0], name),
+                      max(row["max_abs_err"] for rows in bwd
+                          for (n, _), row in rows.items() if n == name))
                 for name in ("flash_bwd_dq", "flash_bwd_dkv")]
     # the span kernels at the speculative shape, errors over both shapes
     kernels += [entry(name, span[name, "spec [8,5,8,64]"],

@@ -1,4 +1,5 @@
-// Flash-attention backward, float32, for sm_90a: two kernels.
+// Flash-attention backward, float32, for sm_90a: two kernels on the
+// tensor cores in split TF32.
 //
 // Replaces paddle_tpu/nn/pallas_attention.py:_dq_kernel and _dkv_kernel
 // (launched by _flash_backward). Given q, k, v [B, H, T, D], the upstream
@@ -10,472 +11,847 @@
 //   flash_bwd_dkv: dk = scale * sum_q ds^T . q,  dv = sum_q p^T . dO
 // with ds = p * (dO.v^T - delta), under optional causal masking and
 // packed-sequence segment ids [B, T] (1-based, 0 = padding) shared across
-// heads. The two kernels split the work the TPU way (dq over key tiles,
-// dk/dv over query tiles) rather than accumulating dq with atomics, so
-// every run gives the same bits.
+// heads.
 //
-// What bounds it on the H100: the path runs it on float32 operands, and
-// float32 has no tensor-core route without TF32 (about three decimal
-// digits), so the products are CUDA-core FMAs at about 67 TFLOP/s. At the
-// training shape [8, 4, 2048, 128] causal the backward needs five products
-// per visible query-key pair, 85.9 GFLOP against 269 MB: operations bound
-// it (1.28 ms), not bytes (0.08 ms). This design does seven products (s
-// and dO.v^T are recomputed in both kernels) to keep the split free of
-// atomics.
+// What bounds it on the H100: operations. At the training shape
+// [8, 4, 2048, 128] causal the kernels' own functions need 51.6 (dq: s,
+// dp, ds.k) and 68.8 GFLOP (dk/dv: s, dp, p^T.dO, ds^T.q) against 269 MB.
+// On f32 CUDA cores (67 TFLOP/s) that is 0.77 + 1.03 ms, 44% of SDPA's f32
+// backward before anything else counts, so every product runs on the
+// tensor cores instead, in split TF32 (mma_tf32.cuh: three TF32 mma.sync
+// per f32 product, f32 accuracy): 3 * 2 * M * N * K against 495 TFLOP/s,
+// 0.31 + 0.42 ms, or 0.48 + 0.64 ms at the 321 TFLOP/s the card's mma.sync
+// reaches (tools/mma_tf32_peak.py).
 //
-// Design, shared by both kernels: 256 threads as a 16 x 16 grid over a
-// 64 x 64 tile of pairs, each thread owning a 4 x 4 patch (rows ty*4 + i,
-// columns tx + 16*j) and the matching 4 rows x D/16 columns of its
-// accumulators in registers. Tiles of 64 rows are staged in shared memory
-// with rows padded to D + 1 floats, so the column reads of the score
-// products hit distinct banks; the p / ds tile goes through shared memory
-// once for the accumulating products. Masked pairs get a score of -inf,
-// so p = 0 for them and for padding rows (whose LSE is about -1e30); rows
-// past T are masked the same way and never written. Whole tiles are
-// skipped by the forward's rules: the causal cone, and segment-id ranges
-// that cannot meet (_block_needed / _seg_block_relevant). Both kernels
-// take far more shared memory than the default 48 KB (at D = 128: dq
-// 149 KB, dk/dv 166 KB), opted into with cudaFuncSetAttribute, so one
-// block runs per SM.
+// Design, shared by both kernels. A block owns ROWS resident rows (query
+// rows in dq, key rows in dk/dv) and walks the other side's rows in
+// streamed tiles of BS <= 32 rows:
+//   - The two resident operands (Q and dO in dq, K and V in dk/dv) are
+//     reused by every streamed tile, so they are split into TF32 hi and lo
+//     planes once, as they land, and their fragments load ready-split. The
+//     streamed tiles are split in registers as their fragments load.
+//   - Streamed tiles (K and V, or Q, dO, LSE and delta) and their segment
+//     ids land by cp.async in a ring of STAGES stages, 16-byte copies where
+//     the wrapper found every operand 16-byte aligned, else 4-byte ones:
+//     tile t + 1 loads while tile t computes, one barrier a tile.
+//   - Warps work in pairs, each pair on 16 resident rows: one warp forms
+//     the scores s = q.k^T (then p), the other dp = dO.v^T (then dp -
+//     delta), so neither loads the other's operands; they swap the two
+//     16 x BS tiles once through shared memory (a barrier of the pair
+//     alone), and each then accumulates half of D. Two accumulators of 16
+//     rows x D = 128 would take 128 registers a thread (dk and dv), so the
+//     halves keep the kernels clear of spills at 8 warps an SM.
+//   - The scores contract over D in partials of 32, all D / 32 in flight
+//     (independent mma chains); the accumulating products (dq += ds.k, or
+//     dv += p^T.dO and dk += ds^T.q) contract over the streamed tile, one
+//     fresh partial each. Each partial is added to its f32 accumulator
+//     with an ordinary FADD: the tensor cores truncate as they add, and a
+//     long chain into one accumulator drifts (gemm_f32.cuh).
+//   - p and ds stay in registers: the mma accumulator holds columns 2t and
+//     2t + 1 of its row where the next product's A fragment wants k = t
+//     and t + 4, so that product takes its k order permuted the same way
+//     (k = t is column 2t, k = t + 4 is 2t + 1) in both operands.
+//   - p = 2^(s * scale * log2 e - LSE * log2 e) by ex2.approx.ftz, one FFMA
+//     and one MUFU; on tiles whose every pair is visible the masks are not
+//     formed at all.
+// Masked pairs get a score of -inf, so p = 0 for them and for padding rows
+// (whose LSE is about -1e30); rows past T load as zeros, are masked the
+// same way and are never written. Whole streamed tiles are skipped by the
+// forward's rules, the causal cone and segment-id ranges that cannot meet
+// (_block_needed / _seg_block_relevant); every warp finds the next tile
+// alike, so the skip costs no barrier. Within a tile a pair whose 16 rows
+// the causal cone hides skips its products.
 //
-//   flash_bwd_dq:  one block per (b*h, 64-row query tile); Q, dO, LSE and
-//                  delta stay resident, K and V tiles stream through the
-//                  loop that replaces the TPU's sequential key-block axis.
-//                  Under causal masking the grid walks the query tiles from
-//                  the last (longest) one.
-//   flash_bwd_dkv: one block per (b*h, 64-row key tile); K and V stay
-//                  resident, Q, dO, LSE and delta tiles stream. Under
-//                  causal masking key tile t starts at query tile t.
+//   flash_bwd_dq:  Q, dO, LSE and delta resident, K and V streamed; under
+//                  causal masking the blocks take the query tiles from the
+//                  last (longest) one.
+//   flash_bwd_dkv: K and V resident, Q, dO, LSE and delta streamed; under
+//                  causal masking key tile 0 (the longest) goes first and
+//                  key tile t starts at the query tile holding row t.
 //
-// Left for later work: wgmma/TMA pipelines, bf16, fusing delta into a
-// prologue, more blocks per SM.
+// Why two kernels and no atomics: dq sums over key tiles and dk/dv over
+// query tiles, each inside one block in a fixed order, so every run gives
+// the same bits. Without a ds buffer each kernel recomputes s and dp
+// (seven products where five would do). The whole backward
+// (paddle_tpu_torch/nn/cuda_attention.py: flash_attention_bwd) runs dk/dv
+// first and has it store ds in a [B * H, T, T] buffer where the plan
+// allows (T % 4 == 0 and at most 1 GiB, the rise of a step's peak memory
+// it may cost; 512 MiB at the training shape); dq then reads its tiles of
+// ds back (flash_bwd_dq_ds_kernel) and runs only ds.k: five products,
+// still one writer per value and a fixed order, so still the same bits.
+//
+// The host plan (flash_bwd_plan there) picks the instance from the shapes
+// alone: Large (8 warps, 64 rows, streamed tiles of 32) unless its blocks
+// would leave the card under one wave, then Small (4 warps, 32 rows,
+// tiles of 16); and whether ds is stored.
 
-#include <cuda_runtime.h>
 #include <climits>
 #include <cmath>
+#include <type_traits>
+
+#include "mma_tf32.cuh"
 
 namespace {
 
-constexpr int BQ = 64;
-constexpr int BK = 64;
-constexpr int NT = 256;
+using namespace tf32x3;
 
-// Rows [row0, row0 + ROWS) of a [T, D] matrix into shared memory with row
-// stride ld; rows past T are zero.
-template <int D, int ROWS>
-__device__ __forceinline__ void load_tile(float* dst, int ld,
-                                          const float* __restrict__ src,
-                                          int row0, int T) {
-  constexpr int C4 = D / 4;
-  for (int i = threadIdx.x; i < ROWS * C4; i += NT) {
-    const int r = i / C4, c = (i % C4) * 4;
-    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row0 + r < T)
-      val = *reinterpret_cast<const float4*>(src + (size_t)(row0 + r) * D + c);
-    float* d = dst + r * ld + c;
-    d[0] = val.x; d[1] = val.y; d[2] = val.z; d[3] = val.w;
+template <int D_, int WARPS_, int BS_, int STAGES_, int MIN_BLOCKS_>
+struct Cfg {
+  static constexpr int D = D_, WARPS = WARPS_, BS = BS_, STAGES = STAGES_;
+  static constexpr int MIN_BLOCKS = MIN_BLOCKS_;
+  static constexpr int ROWS = 8 * WARPS, NT = 32 * WARPS;  // 16 rows a pair
+  static constexpr int NJ = BS / 8;   // score n-tiles; k-steps of the rest
+  static constexpr int ND = D / 16;   // accumulator n-tiles: half of D
+  static constexpr int CHUNKS = D / 32;  // score partials (32 d) in flight
+  // row pitch in floats: 16-byte rows for cp.async, and fragment loads free
+  // of bank conflicts (pitch = 4 mod 32)
+  static constexpr int LD = D + 4;
+  static constexpr int PLANE = ROWS * LD;        // a resident hi or lo plane
+  static constexpr int TILE = BS * LD;           // a streamed matrix
+  // a stage: two matrices, then LSE, delta and segment ids of BS rows
+  static constexpr int STAGE = 2 * TILE + 3 * BS;
+  // the pairs' exchange: each warp's score fragments, a float4 a lane
+  static constexpr int XCHG = WARPS * NJ * 128;
+  static constexpr int SMEM_BYTES =
+      4 * (4 * PLANE + STAGES * STAGE + XCHG);
+  static_assert(WARPS % 2 == 0 && WARPS <= 8, "pairs of warps");
+  static_assert(BS % 16 == 0 && BS <= 32, "partials of at most 32 rows");
+  static_assert(SMEM_BYTES <= 232448, "shared memory a block may use");
+};
+
+// The instances (paddle_tpu_torch/nn/cuda_attention.py: _BWD_TILES, by the
+// index the entry points take): Large, 8 warps over 64 resident rows and
+// streamed tiles of 32, at D = 128 215 KB (one block an SM); Small, 4 warps
+// over 32 rows and tiles of 16, 103 KB (two an SM); at D = 64, 119 KB (one)
+// and 55 KB (three, by registers).
+template <int D>
+using Large = Cfg<D, 8, 32, 2, 1>;
+template <int D>
+using Small = Cfg<D, 4, 16, 2, D == 64 ? 3 : 2>;
+
+struct Args {
+  const float *q, *k, *v;
+  const int* seg;
+  const float *dout, *lse, *delta;
+  float *dq, *dk, *dv;
+  float* ds;    // [B * H, T, T]: dk/dv writes its ds there, dq reads it
+  int B, H, T;
+  float scale;
+  int causal;
+  int vec;      // 4: 16-byte copies (q, k, v, dout 16-byte aligned), or 1
+};
+
+// Copies or splits with VEC-float pieces: 4 where a.vec says so, else 1
+// (one uniform branch, so both widths share the kernel's compute).
+template <class F>
+__device__ __forceinline__ void by_width(const Args& a, const F& f) {
+  if (a.vec == 4)
+    f(std::integral_constant<int, 4>());
+  else
+    f(std::integral_constant<int, 1>());
+}
+
+// Rows [row0, row0 + ROWS) of a [T, D] matrix, split into TF32 hi and lo
+// planes of pitch LD; rows past T are zero.
+template <class C, int VEC>
+__device__ __forceinline__ void load_split(unsigned* hi, unsigned* lo,
+                                           const float* __restrict__ src,
+                                           int row0, int T) {
+  constexpr int PER_ROW = C::D / VEC;
+  for (int i = threadIdx.x; i < C::ROWS * PER_ROW; i += C::NT) {
+    const int r = i / PER_ROW, c = i % PER_ROW * VEC;
+    const bool live = row0 + r < T;
+    const float* p = src + (size_t)(row0 + r) * C::D + c;
+    const int at = r * C::LD + c;
+    if constexpr (VEC == 4) {
+      const float4 x = live ? __ldg(reinterpret_cast<const float4*>(p))
+                            : make_float4(0.f, 0.f, 0.f, 0.f);
+      uint4 h, l;
+      split_tf32(x.x, h.x, l.x);
+      split_tf32(x.y, h.y, l.y);
+      split_tf32(x.z, h.z, l.z);
+      split_tf32(x.w, h.w, l.w);
+      *reinterpret_cast<uint4*>(hi + at) = h;
+      *reinterpret_cast<uint4*>(lo + at) = l;
+    } else {
+      split_tf32(live ? __ldg(p) : 0.f, hi[at], lo[at]);
+    }
   }
 }
 
-// min and max segment id over the live rows of a 64-row tile; warp 0 only.
-__device__ __forceinline__ void seg_range(const int* __restrict__ seg,
-                                          int row0, int T, int* out) {
+// Copies of rows [row0, row0 + BS) of a [T, D] matrix into a stage matrix
+// of pitch LD; rows past T zero-filled.
+template <class C, int VEC>
+__device__ __forceinline__ void stage_rows(float* dst,
+                                           const float* __restrict__ src,
+                                           int row0, int T) {
+  constexpr int PER_ROW = C::D / VEC;
+  for (int i = threadIdx.x; i < C::BS * PER_ROW; i += C::NT) {
+    const int r = i / PER_ROW, c = i % PER_ROW * VEC;
+    const bool live = row0 + r < T;
+    cp_async<VEC>(dst + r * C::LD + c,
+                  live ? src + (size_t)(row0 + r) * C::D + c : src, live);
+  }
+}
+
+// Copies of entries [row0, row0 + BS) of a [T] vector (4 bytes each);
+// entries past T zero-filled.
+template <class C>
+__device__ __forceinline__ void stage_vec(float* dst,
+                                          const float* __restrict__ src,
+                                          int row0, int T) {
+  for (int i = threadIdx.x; i < C::BS; i += C::NT) {
+    const bool live = row0 + i < T;
+    cp_async<1>(dst + i, live ? src + row0 + i : src, live);
+  }
+}
+
+// (min, max) segment id over rows [row0, row0 + n) below T, n <= 64, in
+// every lane of the calling warp; (INT_MAX, INT_MIN) for no rows.
+__device__ __forceinline__ int2 seg_range(const int* __restrict__ seg,
+                                          int row0, int n, int T) {
   int mn = INT_MAX, mx = INT_MIN;
-  for (int r = threadIdx.x; r < 64; r += 32) {
+  for (int r = threadIdx.x % 32; r < n; r += 32) {
     if (row0 + r < T) {
       const int s = seg[row0 + r];
       mn = min(mn, s);
       mx = max(mx, s);
     }
   }
+#pragma unroll
   for (int off = 16; off; off >>= 1) {
     mn = min(mn, __shfl_xor_sync(0xffffffffu, mn, off));
     mx = max(mx, __shfl_xor_sync(0xffffffffu, mx, off));
   }
-  if (threadIdx.x == 0) { out[0] = mn; out[1] = mx; }
+  return make_int2(mn, mx);
 }
 
-// Whether a query tile with ids in [r[0], r[1]] and a key tile with ids in
-// [r[2], r[3]] can hold a visible pair (_seg_block_relevant).
-__device__ __forceinline__ bool seg_tiles_meet(const int* r) {
-  return r[0] <= r[3] && r[1] >= r[2] && r[1] > 0 && r[3] > 0;
+// Whether rows with ids in a and rows with ids in b can hold a visible
+// pair (_seg_block_relevant).
+__device__ __forceinline__ bool seg_meet(int2 a, int2 b) {
+  return a.x <= b.y && a.y >= b.x && a.y > 0 && b.y > 0;
 }
 
-template <int D>
-constexpr int dq_smem_floats() {
-  return 4 * BQ * (D + 1) + BQ * (BK + 1);
+// The first streamed tile in [t, end) whose segment ids meet the block's
+// own range (t itself without segments); end if none.
+template <class C>
+__device__ __forceinline__ int next_tile(const int* __restrict__ seg,
+                                         int2 own, int t, int end, int T) {
+  if (!seg) return t;
+  for (; t < end; ++t)
+    if (seg_meet(own, seg_range(seg, t * C::BS, C::BS, T))) break;
+  return t;
 }
 
-template <int D>
-constexpr int dkv_smem_floats() {
-  return 4 * BQ * (D + 1) + 2 * BK * (BQ + 1) + 2 * BQ;
-}
-
-template <int D>
-__global__ void __launch_bounds__(NT)
-flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                    const float* __restrict__ v, const int* __restrict__ seg,
-                    const float* __restrict__ dout,
-                    const float* __restrict__ lse,
-                    const float* __restrict__ delta, float* __restrict__ dq,
-                    int H, int T, float scale, int causal) {
-  constexpr int CPT = D / 16;               // dq columns per thread
-  constexpr int LD = D + 1;
-  extern __shared__ float smem[];
-  float* Qs = smem;                         // [BQ][LD]
-  float* dOs = Qs + BQ * LD;                // [BQ][LD]
-  float* Ks = dOs + BQ * LD;                // [BK][LD]
-  float* Vs = Ks + BK * LD;                 // [BK][LD]
-  float* dSs = Vs + BK * LD;                // [BQ][BK + 1]
-  __shared__ int srange[4];                 // q min, q max, k min, k max
-
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int bh = blockIdx.y;
-  const int qt = causal ? (gridDim.x - 1 - blockIdx.x) : blockIdx.x;
-  const int q0 = qt * BQ;
-  const size_t base = (size_t)bh * T * D;
-  const int* segb = seg ? seg + (size_t)(bh / H) * T : nullptr;
-
-  load_tile<D, BQ>(Qs, LD, q + base, q0, T);
-  load_tile<D, BQ>(dOs, LD, dout + base, q0, T);
-
-  float lse_r[4], delta_r[4];
-  int qseg[4];
+// acc[j] = the warp's 16 resident rows (wrow + g, + 8) against streamed
+// rows 8 j + 2 t (+ 1) of tile, over D: the resident side from its hi/lo
+// planes, the streamed side split as it loads, in partials of 32 d. CHUNKS
+// partials run at once, so a warp has CHUNKS * NJ independent mma chains;
+// they are added in the order of d, as one at a time would be.
+template <class C>
+__device__ __forceinline__ void scores(float (&acc)[C::NJ][4],
+                                       const unsigned* __restrict__ hi,
+                                       const unsigned* __restrict__ lo,
+                                       const float* __restrict__ tile,
+                                       int wrow, int g, int t) {
+  constexpr int CC = C::CHUNKS;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty * 4 + i;
-    lse_r[i] = row < T ? lse[(size_t)bh * T + row] : 0.f;
-    delta_r[i] = row < T ? delta[(size_t)bh * T + row] : 0.f;
-    qseg[i] = (segb && row < T) ? segb[row] : 0;
-  }
-  if (segb && threadIdx.x < 32) seg_range(segb, q0, T, srange);
-
-  float acc[4][CPT];
+  for (int c0 = 0; c0 < C::D; c0 += 32 * CC) {
+    float part[CC][C::NJ][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+    for (int kk = 0; kk < 32; kk += 8) {
 #pragma unroll
-    for (int c = 0; c < CPT; ++c) acc[i][c] = 0.f;
-
-  const int n_kt_all = (T + BK - 1) / BK;
-  const int n_kt = causal ? min(qt + 1, n_kt_all) : n_kt_all;  // BQ == BK
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * BK;
-    if (segb) {
-      __syncthreads();
-      if (threadIdx.x < 32) seg_range(segb, k0, T, srange + 2);
-      __syncthreads();
-      if (!seg_tiles_meet(srange)) continue;
-    }
-    load_tile<D, BK>(Ks, LD, k + base, k0, T);
-    load_tile<D, BK>(Vs, LD, v + base, k0, T);
-    __syncthreads();
-
-    // s = Q.K^T and dp = dO.V^T over this tile, a 4 x 4 patch each
-    float s[4][4], dp[4][4];
+      for (int cc = 0; cc < CC; ++cc) {
+        const int k = c0 + 32 * cc + kk;
+        unsigned ah[4], al[4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) { s[i][j] = 0.f; dp[i][j] = 0.f; }
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      float a[4], g[4], b[4], w[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        a[i] = Qs[(ty * 4 + i) * LD + d];
-        g[i] = dOs[(ty * 4 + i) * LD + d];
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        b[j] = Ks[(tx + 16 * j) * LD + d];
-        w[j] = Vs[(tx + 16 * j) * LD + d];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          s[i][j] = fmaf(a[i], b[j], s[i][j]);
-          dp[i][j] = fmaf(g[i], w[j], dp[i][j]);
+        for (int e = 0; e < 4; ++e) {  // (g, t) (g+8, t) (g, t+4) (g+8, t+4)
+          const int at = (wrow + g + 8 * (e & 1)) * C::LD + k + t + 4 * (e >> 1);
+          ah[e] = hi[at];
+          al[e] = lo[at];
         }
-    }
-
-    // ds = p * (dp - delta), p = exp(s * scale - LSE), masked pairs p = 0
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qi = q0 + ty * 4 + i;
+        for (int j = 0; j < C::NJ; ++j) {
+          unsigned bh[2], bl[2];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kj = k0 + tx + 16 * j;
-        bool vis = qi < T && kj < T;
-        if (causal) vis = vis && kj <= qi;
-        if (segb) {
-          const int ks = kj < T ? segb[kj] : 0;
-          vis = vis && ks == qseg[i] && ks > 0;
+          for (int h = 0; h < 2; ++h)
+            split_tf32(tile[(8 * j + g) * C::LD + k + t + 4 * h], bh[h],
+                       bl[h]);
+          mma3(part[cc][j], ah, al, bh, bl, kk == 0);
         }
-        const float sv = vis ? s[i][j] * scale : -INFINITY;
-        const float p = expf(sv - lse_r[i]);
-        dSs[(ty * 4 + i) * (BK + 1) + tx + 16 * j] =
-            p * (dp[i][j] - delta_r[i]);
       }
     }
-    __syncthreads();
-
-    // dq += ds . K
-#pragma unroll 4
-    for (int kk = 0; kk < BK; ++kk) {
-      float ds[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) ds[i] = dSs[(ty * 4 + i) * (BK + 1) + kk];
+    for (int cc = 0; cc < CC; ++cc)
 #pragma unroll
-      for (int c = 0; c < CPT; ++c) {
-        const float kv = Ks[kk * LD + tx + 16 * c];
+      for (int j = 0; j < C::NJ; ++j)
 #pragma unroll
-        for (int i = 0; i < 4; ++i) acc[i][c] = fmaf(ds[i], kv, acc[i][c]);
-      }
-    }
-    __syncthreads();
+        for (int e = 0; e < 4; ++e)
+          acc[j][e] = c0 + cc == 0 ? part[cc][j][e]
+                                   : acc[j][e] + part[cc][j][e];
   }
+}
 
+constexpr float LOG2E = 1.4426950408889634f;
+
+// 2^x by ex2.approx.ftz: exp(s * scale - lse) as 2^(s * scale * log2 e -
+// lse * log2 e), one FFMA and one MUFU; results below 2^-126 flush to 0
+// and -inf gives 0 (a masked pair)
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// x (a score accumulator) as the split A fragments of a product over its
+// columns: k-step j takes columns 8 j .. 8 j + 7 with k = t standing for
+// column 2 t and k = t + 4 for 2 t + 1, so a0..a3 are the accumulator's
+// own c0, c2, c1, c3.
+template <class C>
+__device__ __forceinline__ void a_frags(const float (&x)[C::NJ][4],
+                                        unsigned (&h)[C::NJ][4],
+                                        unsigned (&l)[C::NJ][4]) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty * 4 + i;
+  for (int j = 0; j < C::NJ; ++j) {
+    split_tf32(x[j][0], h[j][0], l[j][0]);
+    split_tf32(x[j][2], h[j][1], l[j][1]);
+    split_tf32(x[j][1], h[j][2], l[j][2]);
+    split_tf32(x[j][3], h[j][3], l[j][3]);
+  }
+}
+
+// acc += A . tile over the tile's BS rows, one fresh partial: A from
+// a_frags, tile rows 8 j + 2 t + h in a_frags' k order, columns 8 n + g.
+template <class C>
+__device__ __forceinline__ void accumulate(float (&acc)[C::ND][4],
+                                           const unsigned (&ah)[C::NJ][4],
+                                           const unsigned (&al)[C::NJ][4],
+                                           const float* __restrict__ tile,
+                                           int g, int t) {
+#pragma unroll
+  for (int n = 0; n < C::ND; ++n) {
+    float part[4];
+#pragma unroll
+    for (int j = 0; j < C::NJ; ++j) {
+      unsigned bh[2], bl[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        split_tf32(tile[(8 * j + 2 * t + h) * C::LD + 8 * n + g], bh[h],
+                   bl[h]);
+      mma3(part, ah[j], al[j], bh, bl, j == 0);
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] += part[e];
+  }
+}
+
+// Writes the warp's rows of acc * mul to out (rows below T).
+template <class C>
+__device__ __forceinline__ void store_rows(const float (&acc)[C::ND][4],
+                                           float* __restrict__ out, int row0,
+                                           int T, float mul, int g, int t) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = row0 + g + 8 * h;
     if (row >= T) continue;
 #pragma unroll
-    for (int c = 0; c < CPT; ++c)
-      dq[base + (size_t)row * D + tx + 16 * c] = acc[i][c] * scale;
+    for (int n = 0; n < C::ND; ++n)
+      *reinterpret_cast<float2*>(out + (size_t)row * C::D + 8 * n + 2 * t) =
+          make_float2(acc[n][2 * h] * mul, acc[n][2 * h + 1] * mul);
   }
 }
 
-template <int D>
-__global__ void __launch_bounds__(NT)
-flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v, const int* __restrict__ seg,
-                     const float* __restrict__ dout,
-                     const float* __restrict__ lse,
-                     const float* __restrict__ delta, float* __restrict__ dk,
-                     float* __restrict__ dv, int H, int T, float scale,
-                     int causal) {
-  constexpr int CPT = D / 16;               // dk / dv columns per thread
-  constexpr int LD = D + 1;
-  extern __shared__ float smem[];
-  float* Ks = smem;                         // [BK][LD]
-  float* Vs = Ks + BK * LD;                 // [BK][LD]
-  float* Qs = Vs + BK * LD;                 // [BQ][LD]
-  float* dOs = Qs + BQ * LD;                // [BQ][LD]
-  float* Ps = dOs + BQ * LD;                // [BK][BQ + 1]  p^T
-  float* dSs = Ps + BK * (BQ + 1);          // [BK][BQ + 1]  ds^T
-  float* Ls = dSs + BK * (BQ + 1);          // [BQ]  LSE of the query tile
-  float* Dl = Ls + BQ;                      // [BQ]  delta of the query tile
-  __shared__ int srange[4];                 // q min, q max, k min, k max
-
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int bh = blockIdx.y;
-  const int kt = blockIdx.x;
-  const int k0 = kt * BK;
-  const size_t base = (size_t)bh * T * D;
-  const int* segb = seg ? seg + (size_t)(bh / H) * T : nullptr;
-
-  load_tile<D, BK>(Ks, LD, k + base, k0, T);
-  load_tile<D, BK>(Vs, LD, v + base, k0, T);
-
-  int kseg[4];
+// The warp pair's exchange: x goes to this warp's slot of xchg, and the
+// partner's fragments (same rows, the other product) come back in y, after
+// a barrier of the pair's 64 threads alone (named barrier 1 + pair).
+template <class C>
+__device__ __forceinline__ void swap_pair(float* xchg,
+                                          const float (&x)[C::NJ][4],
+                                          float (&y)[C::NJ][4]) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = k0 + ty * 4 + i;
-    kseg[i] = (segb && row < T) ? segb[row] : 0;
-  }
-  if (segb && threadIdx.x < 32) seg_range(segb, k0, T, srange + 2);
-
-  float dk_acc[4][CPT], dv_acc[4][CPT];
+  for (int j = 0; j < C::NJ; ++j)
+    *reinterpret_cast<float4*>(xchg + (warp * C::NJ + j) * 128 + 4 * lane) =
+        make_float4(x[j][0], x[j][1], x[j][2], x[j][3]);
+  asm volatile("bar.sync %0, 64;\n" ::"r"(1 + warp / 2) : "memory");
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < CPT; ++c) { dk_acc[i][c] = 0.f; dv_acc[i][c] = 0.f; }
-
-  const int n_qt = (T + BQ - 1) / BQ;
-  for (int qt = causal ? kt : 0; qt < n_qt; ++qt) {   // BQ == BK
-    const int q0 = qt * BQ;
-    if (segb) {
-      __syncthreads();
-      if (threadIdx.x < 32) seg_range(segb, q0, T, srange);
-      __syncthreads();
-      if (!seg_tiles_meet(srange)) continue;
-    }
-    load_tile<D, BQ>(Qs, LD, q + base, q0, T);
-    load_tile<D, BQ>(dOs, LD, dout + base, q0, T);
-    for (int r = threadIdx.x; r < BQ; r += NT) {
-      const bool live = q0 + r < T;
-      Ls[r] = live ? lse[(size_t)bh * T + q0 + r] : 0.f;
-      Dl[r] = live ? delta[(size_t)bh * T + q0 + r] : 0.f;
-    }
-    __syncthreads();
-
-    // s^T = K.Q^T and dp^T = V.dO^T: key rows ty*4 + i, query cols tx + 16j
-    float s[4][4], dp[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) { s[i][j] = 0.f; dp[i][j] = 0.f; }
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      float a[4], w[4], b[4], g[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        a[i] = Ks[(ty * 4 + i) * LD + d];
-        w[i] = Vs[(ty * 4 + i) * LD + d];
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        b[j] = Qs[(tx + 16 * j) * LD + d];
-        g[j] = dOs[(tx + 16 * j) * LD + d];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          s[i][j] = fmaf(a[i], b[j], s[i][j]);
-          dp[i][j] = fmaf(w[i], g[j], dp[i][j]);
-        }
-    }
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int kj = k0 + ty * 4 + i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int qc = tx + 16 * j;
-        const int qi = q0 + qc;
-        bool vis = qi < T && kj < T;
-        if (causal) vis = vis && kj <= qi;
-        if (segb) {
-          const int qs = qi < T ? segb[qi] : 0;
-          vis = vis && qs == kseg[i] && qs > 0;
-        }
-        const float sv = vis ? s[i][j] * scale : -INFINITY;
-        const float p = expf(sv - Ls[qc]);
-        Ps[(ty * 4 + i) * (BQ + 1) + qc] = p;
-        dSs[(ty * 4 + i) * (BQ + 1) + qc] = p * (dp[i][j] - Dl[qc]);
-      }
-    }
-    __syncthreads();
-
-    // dv += p^T . dO and dk += ds^T . Q
-#pragma unroll 4
-    for (int qq = 0; qq < BQ; ++qq) {
-      float p[4], ds[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        p[i] = Ps[(ty * 4 + i) * (BQ + 1) + qq];
-        ds[i] = dSs[(ty * 4 + i) * (BQ + 1) + qq];
-      }
-#pragma unroll
-      for (int c = 0; c < CPT; ++c) {
-        const float g = dOs[qq * LD + tx + 16 * c];
-        const float qv = Qs[qq * LD + tx + 16 * c];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          dv_acc[i][c] = fmaf(p[i], g, dv_acc[i][c]);
-          dk_acc[i][c] = fmaf(ds[i], qv, dk_acc[i][c]);
-        }
-      }
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = k0 + ty * 4 + i;
-    if (row >= T) continue;
-#pragma unroll
-    for (int c = 0; c < CPT; ++c) {
-      const size_t at = base + (size_t)row * D + tx + 16 * c;
-      dk[at] = dk_acc[i][c] * scale;
-      dv[at] = dv_acc[i][c];
-    }
+  for (int j = 0; j < C::NJ; ++j) {
+    const float4 v = *reinterpret_cast<const float4*>(
+        xchg + ((warp ^ 1) * C::NJ + j) * 128 + 4 * lane);
+    y[j][0] = v.x;
+    y[j][1] = v.y;
+    y[j][2] = v.z;
+    y[j][3] = v.w;
   }
 }
 
-template <int D>
-cudaError_t launch_dq(const float* q, const float* k, const float* v,
-                      const int* seg, const float* dout, const float* lse,
-                      const float* delta, float* dq, int B, int H, int T,
-                      float scale, int causal, cudaStream_t stream) {
-  const int bytes = dq_smem_floats<D>() * (int)sizeof(float);
+// The streamed-tile loop both kernels share: tiles from first to end in
+// order, those next_tile keeps, through the cp.async ring; load(stage, i)
+// issues this thread's copies of tile i, body(stage, i) computes on it.
+// setup() (the resident planes) runs while the first copies are in flight,
+// and only if there is a tile.
+template <class C, class Setup, class Load, class Body>
+__device__ __forceinline__ void stream(float* ring, const int* seg, int2 own,
+                                       int first, int end, int T,
+                                       const Setup& setup, const Load& load,
+                                       const Body& body) {
+  int pend[C::STAGES - 1];       // tiles in flight, oldest first
+  int nt = next_tile<C>(seg, own, first, end, T);
+#pragma unroll
+  for (int s = 0; s < C::STAGES - 1; ++s) {
+    pend[s] = nt;
+    if (nt < end) {
+      load(ring + s * C::STAGE, nt);
+      nt = next_tile<C>(seg, own, nt + 1, end, T);
+    }
+    cp_async_commit();
+  }
+  if (pend[0] < end) setup();
+  for (int slot = 0; pend[0] < end; slot = (slot + 1) % C::STAGES) {
+    const int cur = pend[0];
+    cp_async_wait<C::STAGES - 2>();    // this thread's copies of cur
+    __syncthreads();  // everyone's copies and planes visible; last tile read
+    if (nt < end) load(ring + (slot + C::STAGES - 1) % C::STAGES * C::STAGE,
+                       nt);
+    cp_async_commit();
+#pragma unroll
+    for (int s = 0; s + 1 < C::STAGES - 1; ++s) pend[s] = pend[s + 1];
+    pend[C::STAGES - 2] = nt;
+    if (nt < end) nt = next_tile<C>(seg, own, nt + 1, end, T);
+    body(ring + slot * C::STAGE, cur);
+  }
+  cp_async_wait<0>();
+}
+
+template <class C>
+__global__ void __launch_bounds__(C::NT, C::MIN_BLOCKS)
+flash_bwd_dq_kernel(const Args a) {
+  extern __shared__ __align__(16) float smem[];
+  unsigned* qh = reinterpret_cast<unsigned*>(smem);
+  unsigned* ql = qh + C::PLANE;
+  unsigned* gh = ql + C::PLANE;                // dO
+  unsigned* gl = gh + C::PLANE;
+  float* ring = smem + 4 * C::PLANE;
+  float* xchg = ring + C::STAGES * C::STAGE;
+  const int T = a.T, BH = a.B * a.H;
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const int half = threadIdx.x / 32 % 2;       // 0: s, 1: dp; half of D
+  const int wrow = 16 * (threadIdx.x / 64);
+  const int bh = blockIdx.x % BH, rank = blockIdx.x / BH;
+  const int n_rt = (T + C::ROWS - 1) / C::ROWS;
+  const int q0 = (a.causal ? n_rt - 1 - rank : rank) * C::ROWS;
+  const size_t base = (size_t)bh * T * C::D;
+  const int* seg = a.seg ? a.seg + (size_t)(bh / a.H) * T : nullptr;
+
+  const int n_st = (T + C::BS - 1) / C::BS;
+  const int end = a.causal ? min((q0 + C::ROWS - 1) / C::BS + 1, n_st) : n_st;
+  const int2 own = seg ? seg_range(seg, q0, C::ROWS, T) : make_int2(0, 0);
+  const auto load = [&](float* st, int kt) {
+    by_width(a, [&](auto vec) {
+      stage_rows<C, decltype(vec)::value>(st, a.k + base, kt * C::BS, T);
+      stage_rows<C, decltype(vec)::value>(st + C::TILE, a.v + base,
+                                          kt * C::BS, T);
+    });
+    if (seg)
+      stage_vec<C>(st + 2 * C::TILE + 2 * C::BS,
+                   reinterpret_cast<const float*>(seg), kt * C::BS, T);
+  };
+
+  float acc[C::ND][4];
+#pragma unroll
+  for (int n = 0; n < C::ND; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  const float sl2e = a.scale * LOG2E;
+  int qrow[2], qseg[2];
+  float lse_r[2], delta_r[2];                  // LSE as -lse * log2 e
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = q0 + wrow + g + 8 * h;
+    const bool live = row < T;
+    qrow[h] = row;
+    lse_r[h] = live ? -a.lse[(size_t)bh * T + row] * LOG2E : 0.f;
+    delta_r[h] = live ? a.delta[(size_t)bh * T + row] : 0.f;
+    qseg[h] = seg && live ? seg[row] : 0;
+  }
+  const auto setup = [&] {
+    by_width(a, [&](auto vec) {
+      load_split<C, decltype(vec)::value>(qh, ql, a.q + base, q0, T);
+      load_split<C, decltype(vec)::value>(gh, gl, a.dout + base, q0, T);
+    });
+  };
+  stream<C>(ring, seg, own, 0, end, T, setup, load, [&](const float* st,
+                                                        int kt) {
+    const int k0 = kt * C::BS;
+    // a pair whose rows lie past T, or see no key of the tile, skips it
+    if (q0 + wrow >= T || (a.causal && k0 > q0 + wrow + 15)) return;
+    // s = Q . K^T in one warp of the pair, dp = dO . V^T in the other
+    float x[C::NJ][4], y[C::NJ][4];
+    scores<C>(x, half ? gh : qh, half ? gl : ql, st + half * C::TILE, wrow,
+              g, t);
+    const int* kseg =
+        reinterpret_cast<const int*>(st + 2 * C::TILE + 2 * C::BS);
+    // every pair of the tile visible: in T, inside the cone, no segments
+    const bool inside = !seg && k0 + C::BS <= T && q0 + wrow + 16 <= T &&
+                        (!a.causal || k0 + C::BS - 1 <= q0 + wrow);
+    if (half) {                                     // dp - delta
+#pragma unroll
+      for (int j = 0; j < C::NJ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) x[j][e] -= delta_r[e >> 1];
+    } else if (inside) {                            // p
+#pragma unroll
+      for (int j = 0; j < C::NJ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          x[j][e] = exp2_ftz(fmaf(x[j][e], sl2e, lse_r[e >> 1]));
+    } else {                                        // p, masked
+#pragma unroll
+      for (int j = 0; j < C::NJ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int h = e >> 1, col = 8 * j + 2 * t + (e & 1);
+          const int kj = k0 + col;
+          bool vis = qrow[h] < T && kj < T;
+          if (a.causal) vis = vis && kj <= qrow[h];
+          if (seg) vis = vis && kseg[col] == qseg[h] && qseg[h] > 0;
+          x[j][e] =
+              exp2_ftz(vis ? fmaf(x[j][e], sl2e, lse_r[h]) : -INFINITY);
+        }
+    }
+    swap_pair<C>(xchg, x, y);
+#pragma unroll
+    for (int j = 0; j < C::NJ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) x[j][e] *= y[j][e];  // ds = p * (dp - d)
+    unsigned dh[C::NJ][4], dl[C::NJ][4];
+    a_frags<C>(x, dh, dl);
+    accumulate<C>(acc, dh, dl, st + half * (C::D / 2), g, t);  // += ds . K
+  });
+  store_rows<C>(acc, a.dq + base + half * (C::D / 2), q0 + wrow, T, a.scale,
+                g, t);
+}
+
+template <class C>
+__global__ void __launch_bounds__(C::NT, C::MIN_BLOCKS)
+flash_bwd_dkv_kernel(const Args a) {
+  extern __shared__ __align__(16) float smem[];
+  unsigned* kh = reinterpret_cast<unsigned*>(smem);
+  unsigned* kl = kh + C::PLANE;
+  unsigned* vh = kl + C::PLANE;
+  unsigned* vl = vh + C::PLANE;
+  float* ring = smem + 4 * C::PLANE;
+  float* xchg = ring + C::STAGES * C::STAGE;
+  const int T = a.T, BH = a.B * a.H;
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const int half = threadIdx.x / 32 % 2;       // 0: s^T, 1: dp^T; half of D
+  const int wrow = 16 * (threadIdx.x / 64);
+  const int bh = blockIdx.x % BH;
+  const int k0 = blockIdx.x / BH * C::ROWS;
+  const size_t base = (size_t)bh * T * C::D;
+  const int* seg = a.seg ? a.seg + (size_t)(bh / a.H) * T : nullptr;
+
+  const int end = (T + C::BS - 1) / C::BS;
+  const int first = a.causal ? k0 / C::BS : 0;
+  const int2 own = seg ? seg_range(seg, k0, C::ROWS, T) : make_int2(0, 0);
+  const float* lse = a.lse + (size_t)bh * T;
+  const float* delta = a.delta + (size_t)bh * T;
+  const auto load = [&](float* st, int qt) {
+    const int r0 = qt * C::BS;
+    by_width(a, [&](auto vec) {
+      stage_rows<C, decltype(vec)::value>(st, a.q + base, r0, T);
+      stage_rows<C, decltype(vec)::value>(st + C::TILE, a.dout + base, r0,
+                                          T);
+    });
+    stage_vec<C>(st + 2 * C::TILE, lse, r0, T);
+    stage_vec<C>(st + 2 * C::TILE + C::BS, delta, r0, T);
+    if (seg)
+      stage_vec<C>(st + 2 * C::TILE + 2 * C::BS,
+                   reinterpret_cast<const float*>(seg), r0, T);
+  };
+
+  float dk[C::ND][4], dv[C::ND][4];
+#pragma unroll
+  for (int n = 0; n < C::ND; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
+  const float sl2e = a.scale * LOG2E;
+  int krow[2], kseg[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    krow[h] = k0 + wrow + g + 8 * h;
+    kseg[h] = seg && krow[h] < T ? seg[krow[h]] : 0;
+  }
+  const auto setup = [&] {
+    by_width(a, [&](auto vec) {
+      load_split<C, decltype(vec)::value>(kh, kl, a.k + base, k0, T);
+      load_split<C, decltype(vec)::value>(vh, vl, a.v + base, k0, T);
+    });
+  };
+  stream<C>(ring, seg, own, first, end, T, setup, load, [&](const float* st,
+                                                            int qt) {
+    const int q0 = qt * C::BS;
+    // a pair whose rows lie past T, or that no query of the tile sees,
+    // skips it
+    if (k0 + wrow >= T || (a.causal && q0 + C::BS - 1 < k0 + wrow)) return;
+    const float* Ls = st + 2 * C::TILE;
+    const float* Dl = Ls + C::BS;
+    const int* qseg = reinterpret_cast<const int*>(Dl + C::BS);
+    // s^T = K . Q^T in one warp of the pair, dp^T = V . dO^T in the other
+    float x[C::NJ][4], y[C::NJ][4];
+    scores<C>(x, half ? vh : kh, half ? vl : kl, st + half * C::TILE, wrow,
+              g, t);
+    // every pair of the tile visible: in T, inside the cone, no segments
+    const bool inside = !seg && q0 + C::BS <= T && k0 + wrow + 16 <= T &&
+                        (!a.causal || k0 + wrow + 15 <= q0);
+    if (half) {                                     // dp - delta
+#pragma unroll
+      for (int j = 0; j < C::NJ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) x[j][e] -= Dl[8 * j + 2 * t + (e & 1)];
+    } else if (inside) {                            // p
+#pragma unroll
+      for (int j = 0; j < C::NJ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          x[j][e] = exp2_ftz(fmaf(x[j][e], sl2e,
+                                  -Ls[8 * j + 2 * t + (e & 1)] * LOG2E));
+    } else {                                        // p, masked
+#pragma unroll
+      for (int j = 0; j < C::NJ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int h = e >> 1, col = 8 * j + 2 * t + (e & 1);
+          const int qi = q0 + col;
+          bool vis = krow[h] < T && qi < T;
+          if (a.causal) vis = vis && krow[h] <= qi;
+          if (seg) vis = vis && qseg[col] == kseg[h] && kseg[h] > 0;
+          x[j][e] = exp2_ftz(vis ? fmaf(x[j][e], sl2e, -Ls[col] * LOG2E)
+                                 : -INFINITY);
+        }
+    }
+    swap_pair<C>(xchg, x, y);
+    float p[C::NJ][4], ds[C::NJ][4];
+#pragma unroll
+    for (int j = 0; j < C::NJ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        p[j][e] = half ? y[j][e] : x[j][e];
+        ds[j][e] = x[j][e] * y[j][e];               // p * (dp - delta)
+      }
+    if (a.ds && half) {      // ds[q][k] for dq's own product (five products)
+      float* out = a.ds + (size_t)bh * T * T;
+#pragma unroll
+      for (int j = 0; j < C::NJ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int qi = q0 + 8 * j + 2 * t + (e & 1), kj = krow[e >> 1];
+          if (qi < T && kj < T) out[(size_t)qi * T + kj] = ds[j][e];
+        }
+    }
+    const int col0 = half * (C::D / 2);
+    {
+      unsigned fh[C::NJ][4], fl[C::NJ][4];
+      a_frags<C>(p, fh, fl);
+      accumulate<C>(dv, fh, fl, st + C::TILE + col0, g, t);  // += p^T . dO
+    }
+    unsigned fh[C::NJ][4], fl[C::NJ][4];
+    a_frags<C>(ds, fh, fl);
+    accumulate<C>(dk, fh, fl, st + col0, g, t);              // += ds^T . Q
+  });
+  const int col0 = half * (C::D / 2);
+  store_rows<C>(dk, a.dk + base + col0, k0 + wrow, T, a.scale, g, t);
+  store_rows<C>(dv, a.dv + base + col0, k0 + wrow, T, 1.f, g, t);
+}
+
+// flash_bwd_dq from the ds that flash_bwd_dkv stored: no resident planes,
+// a stage holds a K tile and the block's [ROWS x BS] tile of ds; only the
+// product dq += ds . K runs (ds masked by visibility, so entries dk/dv did
+// not write are never used).
+template <class C>
+struct FromDs : C {
+  // ds rows: 16-byte pitch, and float2 fragment loads free of bank
+  // conflicts (pitch = 8 or 24 mod 32)
+  static constexpr int LDDS = C::BS + 8;
+  static constexpr int STAGE = C::TILE + C::ROWS * LDDS + C::BS;
+  static constexpr int SMEM_BYTES = 4 * C::STAGES * STAGE;
+};
+
+template <class C>
+__global__ void __launch_bounds__(C::NT, C::MIN_BLOCKS)
+flash_bwd_dq_ds_kernel(const Args a) {
+  extern __shared__ __align__(16) float smem[];
+  const int T = a.T, BH = a.B * a.H;
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const int half = threadIdx.x / 32 % 2;       // half of D
+  const int wrow = 16 * (threadIdx.x / 64);
+  const int bh = blockIdx.x % BH, rank = blockIdx.x / BH;
+  const int n_rt = (T + C::ROWS - 1) / C::ROWS;
+  const int q0 = (a.causal ? n_rt - 1 - rank : rank) * C::ROWS;
+  const size_t base = (size_t)bh * T * C::D;
+  const float* ds = a.ds + (size_t)bh * T * T;
+  const int* seg = a.seg ? a.seg + (size_t)(bh / a.H) * T : nullptr;
+
+  const int n_st = (T + C::BS - 1) / C::BS;
+  const int end = a.causal ? min((q0 + C::ROWS - 1) / C::BS + 1, n_st) : n_st;
+  const int2 own = seg ? seg_range(seg, q0, C::ROWS, T) : make_int2(0, 0);
+  const auto load = [&](float* st, int kt) {
+    const int k0 = kt * C::BS;
+    by_width(a, [&](auto vec) {
+      constexpr int VEC = decltype(vec)::value;
+      stage_rows<C, VEC>(st, a.k + base, k0, T);
+      constexpr int PER_ROW = C::BS / VEC;       // ds rows (T % 4 == 0)
+      for (int i = threadIdx.x; i < C::ROWS * PER_ROW; i += C::NT) {
+        const int r = i / PER_ROW, c = i % PER_ROW * VEC;
+        const bool live = q0 + r < T && k0 + c < T;
+        cp_async<VEC>(st + C::TILE + r * C::LDDS + c,
+                      live ? ds + (size_t)(q0 + r) * T + k0 + c : ds, live);
+      }
+    });
+    if (seg)
+      stage_vec<C>(st + C::TILE + C::ROWS * C::LDDS,
+                   reinterpret_cast<const float*>(seg), k0, T);
+  };
+
+  float acc[C::ND][4];
+#pragma unroll
+  for (int n = 0; n < C::ND; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  int qrow[2], qseg[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    qrow[h] = q0 + wrow + g + 8 * h;
+    qseg[h] = seg && qrow[h] < T ? seg[qrow[h]] : 0;
+  }
+  stream<C>(smem, seg, own, 0, end, T, [] {}, load, [&](const float* st,
+                                                        int kt) {
+    const int k0 = kt * C::BS;
+    if (q0 + wrow >= T || (a.causal && k0 > q0 + wrow + 15)) return;
+    const float* dsS = st + C::TILE;
+    const int* kseg = reinterpret_cast<const int*>(dsS + C::ROWS * C::LDDS);
+    float x[C::NJ][4];     // ds in the score accumulator's layout
+#pragma unroll
+    for (int j = 0; j < C::NJ; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float2 v = *reinterpret_cast<const float2*>(
+            dsS + (wrow + g + 8 * h) * C::LDDS + 8 * j + 2 * t);
+        x[j][2 * h] = v.x;
+        x[j][2 * h + 1] = v.y;
+      }
+    // every pair of the tile visible: in T, inside the cone, no segments
+    const bool inside = !seg && k0 + C::BS <= T && q0 + wrow + 16 <= T &&
+                        (!a.causal || k0 + C::BS - 1 <= q0 + wrow);
+    if (!inside) {
+#pragma unroll
+      for (int j = 0; j < C::NJ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int h = e >> 1, col = 8 * j + 2 * t + (e & 1);
+          const int kj = k0 + col;
+          bool vis = qrow[h] < T && kj < T;
+          if (a.causal) vis = vis && kj <= qrow[h];
+          if (seg) vis = vis && kseg[col] == qseg[h] && qseg[h] > 0;
+          x[j][e] = vis ? x[j][e] : 0.f;
+        }
+    }
+    unsigned dh[C::NJ][4], dl[C::NJ][4];
+    a_frags<C>(x, dh, dl);
+    accumulate<C>(acc, dh, dl, st + half * (C::D / 2), g, t);  // += ds . K
+  });
+  store_rows<C>(acc, a.dq + base + half * (C::D / 2), q0 + wrow, T, a.scale,
+                g, t);
+}
+
+template <class C, class Kernel>
+cudaError_t launch_kernel(Kernel kernel, const Args& a, cudaStream_t stream) {
   // above 48 KB a block's shared memory must be opted into per kernel
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      bytes);
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM_BYTES);
   if (err != cudaSuccess) return err;
-  const dim3 grid((T + BQ - 1) / BQ, B * H);
-  flash_bwd_dq_kernel<D><<<grid, NT, bytes, stream>>>(
-      q, k, v, seg, dout, lse, delta, dq, H, T, scale, causal);
+  // one block per (b*h, resident tile), b*h fastest: all first tiles
+  // (the longest under causal masking) start before any second one
+  const long long blocks =
+      (long long)a.B * a.H * ((a.T + C::ROWS - 1) / C::ROWS);
+  kernel<<<(unsigned)blocks, C::NT, C::SMEM_BYTES, stream>>>(a);
   return cudaGetLastError();
 }
 
-template <int D>
-cudaError_t launch_dkv(const float* q, const float* k, const float* v,
-                       const int* seg, const float* dout, const float* lse,
-                       const float* delta, float* dk, float* dv, int B, int H,
-                       int T, float scale, int causal, cudaStream_t stream) {
-  const int bytes = dkv_smem_floats<D>() * (int)sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      bytes);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((T + BK - 1) / BK, B * H);
-  flash_bwd_dkv_kernel<D><<<grid, NT, bytes, stream>>>(
-      q, k, v, seg, dout, lse, delta, dk, dv, H, T, scale, causal);
-  return cudaGetLastError();
+template <bool DKV, class C>
+cudaError_t launch(const Args& a, cudaStream_t stream) {
+  if constexpr (DKV) {
+    return launch_kernel<C>(flash_bwd_dkv_kernel<C>, a, stream);
+  } else {
+    if (a.ds)
+      return launch_kernel<FromDs<C>>(flash_bwd_dq_ds_kernel<FromDs<C>>, a,
+                                      stream);
+    return launch_kernel<C>(flash_bwd_dq_kernel<C>, a, stream);
+  }
+}
+
+template <bool DKV, int D>
+cudaError_t dispatch(const Args& a, int tile, cudaStream_t stream) {
+  if (a.vec != 4 && a.vec != 1) return cudaErrorInvalidValue;
+  if (tile == 0) return launch<DKV, Large<D>>(a, stream);
+  if (tile == 1) return launch<DKV, Small<D>>(a, stream);
+  return cudaErrorInvalidValue;
+}
+
+template <bool DKV>
+int run(const Args& a, int D, int tile, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (D == 64) return static_cast<int>(dispatch<DKV, 64>(a, tile, st));
+  if (D == 128) return static_cast<int>(dispatch<DKV, 128>(a, tile, st));
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
 // q, k, v, dout, dq: [B, H, T, D] float32, contiguous. seg: [B, T] int32
-// or null. lse, delta: [B, H, T] float32. Returns a cudaError_t (0 =
-// launched).
+// or null. lse, delta: [B, H, T] float32. ds: null, or [B * H, T, T]
+// float32 that flash_bwd_dkv_f32 filled on these inputs (then only
+// ds . k runs; T % 4 == 0). tile: 0 (Large) or 1 (Small); vec: 4 (16-byte
+// copies: q, k, v and dout 16-byte aligned) or 1. Returns a cudaError_t
+// (0 = launched).
 extern "C" int flash_bwd_dq_f32(const void* q, const void* k, const void* v,
                                 const void* seg, const void* dout,
                                 const void* lse, const void* delta, void* dq,
-                                int B, int H, int T, int D, float scale,
-                                int causal, void* stream) {
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* qf = static_cast<const float*>(q);
-  const float* kf = static_cast<const float*>(k);
-  const float* vf = static_cast<const float*>(v);
-  const int* sg = static_cast<const int*>(seg);
-  const float* gf = static_cast<const float*>(dout);
-  const float* lf = static_cast<const float*>(lse);
-  const float* df = static_cast<const float*>(delta);
-  float* out = static_cast<float*>(dq);
-  if (D == 64)
-    return launch_dq<64>(qf, kf, vf, sg, gf, lf, df, out, B, H, T, scale,
-                         causal, st);
-  if (D == 128)
-    return launch_dq<128>(qf, kf, vf, sg, gf, lf, df, out, B, H, T, scale,
-                          causal, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+                                void* ds, int B, int H, int T, int D,
+                                float scale, int causal, int tile, int vec,
+                                void* stream) {
+  const Args a{static_cast<const float*>(q), static_cast<const float*>(k),
+               static_cast<const float*>(v), static_cast<const int*>(seg),
+               static_cast<const float*>(dout), static_cast<const float*>(lse),
+               static_cast<const float*>(delta), static_cast<float*>(dq),
+               nullptr, nullptr, static_cast<float*>(ds), B, H, T, scale,
+               causal, vec};
+  return run<false>(a, D, tile, stream);
 }
 
-// As flash_bwd_dq_f32, writing dk and dv [B, H, T, D] float32.
+// As flash_bwd_dq_f32, writing dk and dv [B, H, T, D] float32, and with a
+// non-null ds [B * H, T, T] also ds[q][k] of every tile it visits.
 extern "C" int flash_bwd_dkv_f32(const void* q, const void* k, const void* v,
                                  const void* seg, const void* dout,
                                  const void* lse, const void* delta, void* dk,
-                                 void* dv, int B, int H, int T, int D,
-                                 float scale, int causal, void* stream) {
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* qf = static_cast<const float*>(q);
-  const float* kf = static_cast<const float*>(k);
-  const float* vf = static_cast<const float*>(v);
-  const int* sg = static_cast<const int*>(seg);
-  const float* gf = static_cast<const float*>(dout);
-  const float* lf = static_cast<const float*>(lse);
-  const float* df = static_cast<const float*>(delta);
-  float* dkf = static_cast<float*>(dk);
-  float* dvf = static_cast<float*>(dv);
-  if (D == 64)
-    return launch_dkv<64>(qf, kf, vf, sg, gf, lf, df, dkf, dvf, B, H, T,
-                          scale, causal, st);
-  if (D == 128)
-    return launch_dkv<128>(qf, kf, vf, sg, gf, lf, df, dkf, dvf, B, H, T,
-                           scale, causal, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+                                 void* dv, void* ds, int B, int H, int T,
+                                 int D, float scale, int causal, int tile,
+                                 int vec, void* stream) {
+  const Args a{static_cast<const float*>(q), static_cast<const float*>(k),
+               static_cast<const float*>(v), static_cast<const int*>(seg),
+               static_cast<const float*>(dout), static_cast<const float*>(lse),
+               static_cast<const float*>(delta), nullptr,
+               static_cast<float*>(dk), static_cast<float*>(dv),
+               static_cast<float*>(ds), B, H, T, scale, causal, vec};
+  return run<true>(a, D, tile, stream);
+}
+
+// Dynamic shared memory of instance tile at head dim D (both kernels), or
+// -1: the plan's figure is checked against it.
+extern "C" int flash_bwd_smem_bytes(int D, int tile) {
+  if (D == 64) return tile == 0 ? Large<64>::SMEM_BYTES
+                                : tile == 1 ? Small<64>::SMEM_BYTES : -1;
+  if (D == 128) return tile == 0 ? Large<128>::SMEM_BYTES
+                                 : tile == 1 ? Small<128>::SMEM_BYTES : -1;
+  return -1;
 }

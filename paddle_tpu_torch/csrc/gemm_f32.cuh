@@ -55,7 +55,11 @@
 
 #include <cuda_runtime.h>
 
+#include "mma_tf32.cuh"
+
 namespace gemm_f32 {
+
+using namespace tf32x3;  // cp_async, split_tf32, mma_tf32
 
 template <int BM_, int BN_, int WM_, int WN_, int STAGES_, int MIN_BLOCKS_,
           bool A_KMAJOR_>
@@ -89,63 +93,6 @@ template <bool A_KMAJOR>
 using Large = Cfg<128, 128, 64, 32, 4, 1, A_KMAJOR>;
 template <bool A_KMAJOR>
 using Small = Cfg<64, 64, 32, 32, 4, 3, A_KMAJOR>;
-
-// VEC floats from gmem to smem, zero-filled when !pred (gmem must still be
-// a valid address then; the caller passes its base pointer).
-template <int VEC>
-__device__ __forceinline__ void cp_async(float* smem, const float* gmem,
-                                         bool pred) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  if constexpr (VEC == 4) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-                 "l"(gmem), "r"(pred ? 16 : 0)
-                 : "memory");
-  } else {
-    static_assert(VEC == 1, "4- or 16-byte copies");
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
-                 "l"(gmem), "r"(pred ? 4 : 0)
-                 : "memory");
-  }
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// v rounded to TF32's 10 mantissa bits, to nearest with ties away from
-// zero: cvt.rna.tf32.f32's rounding for every finite v, in two integer ops
-// (ptxas expands the cvt into a longer compare-and-select sequence)
-__device__ __forceinline__ unsigned tf32_rna(float v) {
-  return (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
-}
-
-// v = hi + lo, both TF32 bit patterns
-__device__ __forceinline__ void split_tf32(float v, unsigned& hi,
-                                           unsigned& lo) {
-  hi = tf32_rna(v);
-  lo = tf32_rna(v - __uint_as_float(hi));
-}
-
-// d += a . b over one m16n8k8 tile; with first, d = a . b
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const unsigned (&a)[4],
-                                         const unsigned (&b)[2], bool first) {
-  if (first)
-    asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};\n"
-        : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]),
-          "f"(0.f));
-  else
-    asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
 
 // Sets acc to this block's A . B over k-tiles [0, ktiles). Thread layout
 // of acc[i][j][e] (the m16n8 accumulator fragment): row wm + 16 i + g

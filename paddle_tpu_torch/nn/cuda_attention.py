@@ -41,11 +41,13 @@ import torch
 
 from ..utils import cuda_build
 from ..utils.cuda_build import check_cuda, check_dtype, stream_ptr
+from .gemm_f32 import copy_width
 
-__all__ = ["FlashAttentionFunction", "flash_attention",
+__all__ = ["FlashAttentionFunction", "FlashBwdPlan", "flash_attention",
            "flash_attention_bwd", "flash_attention_bwd_plain",
            "flash_attention_fwd", "flash_attention_plain", "flash_bwd_dkv",
            "flash_bwd_dkv_plain", "flash_bwd_dq", "flash_bwd_dq_plain",
+           "flash_bwd_plan",
            "paged_decode_attention", "paged_decode_plain",
            "paged_span_attention", "paged_span_plain", "paged_plan",
            "PagedPlan", "launch_counts", "reset_launch_counts", "KERNELS",
@@ -222,45 +224,154 @@ def flash_attention_fwd(q, k, v, segments=None, causal: bool = False,
     return out, lse
 
 
+class _BwdTile(NamedTuple):
+    rows: int           # resident rows a block owns, 16 a pair of warps
+    stream_rows: int    # rows of each streamed tile
+    stages: int         # cp.async ring stages
+    blocks_per_sm: int  # resident blocks an SM holds (smem, registers)
+
+
+# the instances of csrc/flash_bwd.cu (Large, Small) by head dim, in the
+# order of the index its entry points take
+_BWD_TILES = {128: (_BwdTile(64, 32, 2, 1), _BwdTile(32, 16, 2, 2)),
+              64: (_BwdTile(64, 32, 2, 1), _BwdTile(32, 16, 2, 3))}
+_SMS = 132           # the H100's SMs: one wave of blocks
+# largest [B*H, T, T] ds buffer the backward stores: the buffer lives for
+# one flash_attention_bwd call, so it raises a step's peak memory by its
+# size at most, and that rise is held to 1 GiB
+_DS_BUDGET = 2 ** 30
+
+
+class FlashBwdPlan(NamedTuple):
+    """The launch of ``flash_bwd_dq`` and ``flash_bwd_dkv`` (one instance
+    for both kernels, ``csrc/flash_bwd.cu``): ``tile`` is the instance
+    index the entry points take; a block of ``warps`` warps, in pairs of
+    16 rows, owns ``rows`` resident rows (query rows in dq, key rows in
+    dk/dv) and streams the other side's rows in tiles of ``stream_rows``
+    through ``stages`` ``cp.async`` stages in ``smem`` bytes of shared
+    memory, of which an SM holds ``blocks_per_sm``; ``grid`` blocks cover
+    ``B * H`` heads times ``T`` in ``rows``, so the grid covers ``T``
+    exactly (``tiles`` a head). With ``stored_ds``, :func:`flash_attention_bwd`
+    has ``flash_bwd_dkv`` store ``ds`` in a ``[B * H, T, T]`` buffer and
+    ``flash_bwd_dq`` read it back (five products in place of seven);
+    without it dq recomputes ``s`` and ``dp`` (seven)."""
+    tile: int
+    rows: int
+    warps: int
+    stream_rows: int
+    stages: int
+    smem: int
+    blocks_per_sm: int
+    tiles: int
+    grid: int
+    stored_ds: bool
+
+
+def _bwd_smem(D: int, t: _BwdTile) -> int:
+    """``Cfg::SMEM_BYTES``: four resident ``rows x (D + 4)`` planes (hi and
+    lo of two operands), per stage two ``stream_rows x (D + 4)`` matrices
+    and three ``stream_rows`` vectors (LSE, delta, segment ids), and the
+    pairs' exchange, a ``16 x stream_rows`` score tile a warp."""
+    ld = D + 4
+    return 4 * (4 * t.rows * ld
+                + t.stages * (2 * t.stream_rows * ld + 3 * t.stream_rows)
+                + t.rows // 8 * 16 * t.stream_rows)
+
+
+def flash_bwd_plan(B: int, H: int, T: int, D: int,
+                   causal: bool = False) -> FlashBwdPlan:
+    """The backward kernels' launch for ``[B, H, T, D]``; pure Python, a
+    function of the shapes alone, so one shape always takes one instance
+    and reruns are bit-equal. The large instance unless its blocks would
+    fill less than one wave of the card (``_SMS`` SMs times the blocks an
+    SM holds), then the small one; ``ds`` stored where ``T`` is a multiple
+    of 4 (16-byte rows) and the buffer takes at most ``_DS_BUDGET`` (1
+    GiB: at ``T = 2048`` and 4 heads, batches up to 16).
+    ``causal`` changes no instance: the kernels only order their tiles by
+    it (the longest first)."""
+    del causal
+    tiles = _BWD_TILES[D]
+    large = tiles[0]
+    n_large = B * H * -(-T // large.rows)
+    tile = 0 if n_large >= _SMS * large.blocks_per_sm else 1
+    t = tiles[tile]
+    n = -(-T // t.rows)
+    return FlashBwdPlan(tile, t.rows, t.rows // 8, t.stream_rows, t.stages,
+                        _bwd_smem(D, t), t.blocks_per_sm, n, B * H * n,
+                        T % 4 == 0 and 4 * B * H * T * T <= _DS_BUDGET)
+
+
+def _launch_bwd(name: str, q, k, v, seg_ptr, do, lse, delta, outs,
+                causal: bool, scale: Optional[float], ds=None) -> None:
+    """Launch ``name`` on the plan's instance and copy width; ``ds`` the
+    stored-ds buffer (:attr:`FlashBwdPlan.stored_ds`) or ``None``."""
+    B, H, T, D = q.shape
+    scale = D ** -0.5 if scale is None else float(scale)
+    plan = flash_bwd_plan(B, H, T, D, causal)
+    with torch.cuda.device(q.device):          # launch on q's card
+        _launch(name, q.data_ptr(), k.data_ptr(), v.data_ptr(), seg_ptr,
+                do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                *(t.data_ptr() for t in outs),
+                None if ds is None else ds.data_ptr(), B, H, T, D, scale,
+                int(causal), plan.tile, copy_width(q, k, v, do),
+                stream_ptr(q))
+
+
+def _check_ds(name: str, q, ds) -> None:
+    """A stored-ds buffer: ``[B * H, T, T]`` f32, contiguous on ``q``'s
+    card, 16-byte aligned, ``T`` a multiple of 4 (the kernels copy its
+    rows 16 bytes at a time)."""
+    B, H, T, _ = q.shape
+    if tuple(ds.shape) != (B * H, T, T):
+        raise ValueError(f"{name}: ds {tuple(ds.shape)} != {(B * H, T, T)}")
+    if T % 4 or ds.data_ptr() % 16:
+        raise ValueError(f"{name}: a stored ds needs T % 4 == 0 (T = {T}) "
+                         f"and a 16-byte aligned buffer")
+    check_dtype(name, torch.float32, ds=ds)
+    check_cuda(name, q.device, ds=ds)
+
+
 def flash_bwd_dq(q, k, v, segments, do, lse, delta, causal: bool = False,
-                 scale: Optional[float] = None) -> torch.Tensor:
+                 scale: Optional[float] = None, ds=None) -> torch.Tensor:
     """dq of the flash forward (the ``flash_bwd_dq`` kernel), given the
-    forward's ``LSE`` and ``delta = rowsum(dO * O)``."""
+    forward's ``LSE`` and ``delta = rowsum(dO * O)``. With ``ds``, the
+    ``[B * H, T, T]`` buffer that :func:`flash_bwd_dkv` filled on the same
+    operands, the kernel reads ds back and runs only ``ds . k``; without
+    it, it recomputes ``s`` and ``dp``. CPU tensors run the plain version,
+    which needs no buffer and leaves ``ds`` as it is."""
     if q.device.type == "cpu":
         return flash_bwd_dq_plain(q, k, v, segments, do, lse, delta, causal,
                                   scale)
     seg_ptr = _check_flash("flash_bwd_dq", q, k, v, segments, {"do": do},
                            {"lse": lse, "delta": delta})
-    B, H, T, D = q.shape
-    scale = D ** -0.5 if scale is None else float(scale)
+    if ds is not None:
+        _check_ds("flash_bwd_dq", q, ds)
     dq = torch.empty_like(q)
-    with torch.cuda.device(q.device):
-        _launch("flash_bwd_dq", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                seg_ptr, do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-                dq.data_ptr(), B, H, T, D, scale, int(causal),
-                stream_ptr(q))
+    _launch_bwd("flash_bwd_dq", q, k, v, seg_ptr, do, lse, delta, (dq,),
+                causal, scale, ds)
     return dq
 
 
 def flash_bwd_dkv(q, k, v, segments, do, lse, delta, causal: bool = False,
-                  scale: Optional[float] = None
+                  scale: Optional[float] = None, ds=None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(dk, dv)`` of the flash forward (the ``flash_bwd_dkv`` kernel),
-    given the forward's ``LSE`` and ``delta = rowsum(dO * O)``."""
+    given the forward's ``LSE`` and ``delta = rowsum(dO * O)``. With
+    ``ds``, a ``[B * H, T, T]`` f32 buffer, the kernel also stores there
+    ``ds[q][k]`` of every tile it visits, for :func:`flash_bwd_dq`; the
+    entries of skipped tiles stay as they were. CPU tensors run the plain
+    version and leave ``ds`` as it is."""
     if q.device.type == "cpu":
         return flash_bwd_dkv_plain(q, k, v, segments, do, lse, delta,
                                    causal, scale)
     seg_ptr = _check_flash("flash_bwd_dkv", q, k, v, segments, {"do": do},
                            {"lse": lse, "delta": delta})
-    B, H, T, D = q.shape
-    scale = D ** -0.5 if scale is None else float(scale)
+    if ds is not None:
+        _check_ds("flash_bwd_dkv", q, ds)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    with torch.cuda.device(q.device):
-        _launch("flash_bwd_dkv", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                seg_ptr, do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-                dk.data_ptr(), dv.data_ptr(), B, H, T, D, scale,
-                int(causal), stream_ptr(q))
+    _launch_bwd("flash_bwd_dkv", q, k, v, seg_ptr, do, lse, delta, (dk, dv),
+                causal, scale, ds)
     return dk, dv
 
 
@@ -270,17 +381,22 @@ def flash_attention_bwd(q, k, v, segments, o, lse, do, causal: bool = False,
     """``(dq, dk, dv)`` of :func:`flash_attention_fwd` from its saved
     ``O`` and ``LSE`` and the upstream gradient ``dO``. CPU tensors run
     :func:`flash_attention_bwd_plain`; CUDA tensors compute ``delta`` with
-    one PyTorch reduction and launch ``flash_bwd_dq`` and
-    ``flash_bwd_dkv``."""
+    one PyTorch reduction and call :func:`flash_bwd_dkv` and
+    :func:`flash_bwd_dq`: where the plan stores ``ds``, dk/dv writes it to
+    a buffer of this call's and dq reads it back instead of recomputing
+    it."""
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, segments, o, lse, do,
                                          causal, scale)
-    _check_flash("flash_attention_bwd", q, k, v, segments, {"o": o,
-                                                            "do": do},
-                 {"lse": lse})
+    _check_flash("flash_attention_bwd", q, k, v, segments,
+                 {"o": o, "do": do}, {"lse": lse})
     delta = _delta(o, do)
-    dq = flash_bwd_dq(q, k, v, segments, do, lse, delta, causal, scale)
-    dk, dv = flash_bwd_dkv(q, k, v, segments, do, lse, delta, causal, scale)
+    B, H, T, D = q.shape
+    ds = torch.empty((B * H, T, T), dtype=torch.float32, device=q.device) \
+        if flash_bwd_plan(B, H, T, D, causal).stored_ds else None
+    dk, dv = flash_bwd_dkv(q, k, v, segments, do, lse, delta, causal, scale,
+                           ds)
+    dq = flash_bwd_dq(q, k, v, segments, do, lse, delta, causal, scale, ds)
     return dq, dk, dv
 
 
@@ -320,10 +436,11 @@ def flash_attention(q, k, v, segments=None, causal: bool = False,
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = {
-    # pointers, then B H T D, then scale, causal, stream
+    # pointers (for the backward, ds last), then B H T D, then scale,
+    # causal, (tile, vec,) stream
     "flash_fwd": [_P] * 6 + [_I] * 4 + [_F, _I, _P],
-    "flash_bwd_dq": [_P] * 8 + [_I] * 4 + [_F, _I, _P],
-    "flash_bwd_dkv": [_P] * 9 + [_I] * 4 + [_F, _I, _P],
+    "flash_bwd_dq": [_P] * 9 + [_I] * 4 + [_F, _I, _I, _I, _P],
+    "flash_bwd_dkv": [_P] * 10 + [_I] * 4 + [_F, _I, _I, _I, _P],
     # q, pools (and scales), tables, lengths or start and n, out,
     # workspace; then S (Q) H D N bs MB part, scale, stream
     "paged_decode": [_P] * 7 + [_I] * 7 + [_F, _P],

@@ -62,10 +62,10 @@ def _target(name: str) -> Path:
 def build(names: Iterable[str]) -> Dict[str, Dict[str, object]]:
     """Compile every named source that has no current library, all
     ``nvcc`` processes at once. Returns per source ``{"seconds", "log"}``
-    (the log holds ``ptxas``'s register and spill report; a source that
-    was already built reports 0 seconds and an empty log). Raises with
-    the compiler's output if any build fails. A name given twice builds
-    once."""
+    (the log holds ``ptxas``'s register and spill report, kept beside the
+    library; a source that was already built reports 0 seconds and the
+    log of its build). Raises with the compiler's output if any build
+    fails. A name given twice builds once."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     procs = {}
@@ -74,7 +74,9 @@ def build(names: Iterable[str]) -> Dict[str, Dict[str, object]]:
     for name in dict.fromkeys(names):
         out = _target(name)
         if out.exists():
-            report[name] = {"seconds": 0.0, "log": ""}
+            saved = out.with_suffix(".log")
+            report[name] = {"seconds": 0.0, "log": saved.read_text()
+                            if saved.exists() else ""}
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
@@ -88,6 +90,7 @@ def build(names: Iterable[str]) -> Dict[str, Dict[str, object]]:
         if proc.returncode != 0:
             failed.append(f"--- {name} (exit {proc.returncode}) ---\n{log}")
             continue
+        out.with_suffix(".log").write_text(log)
         os.replace(tmp, out)
     if failed:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed))

@@ -14,8 +14,11 @@ weight gradient and the fused LayerNorm-matmul, ragged edge shapes, the
 wrappers' refusals, bit-equal reruns and a small ResNet trained through
 the kernel against the convolution path, and shapes that reach each tile
 instance and each copy width of their shared mainloop (``x[1:]`` views,
-a base pointer 4 bytes off 16, K and M off the 32-row k-tile). Every
-test needs an
+a base pointer 4 bytes off 16, K and M off the 32-row k-tile); for the
+flash backward T at each tile size of its plan -1, exactly and +1, T =
+2048 on both instances, each instance with 16- and 4-byte copies, the
+stored ds over a buffer of NaN, and the plan's shared memory against
+the kernels' own. Every test needs an
 NVIDIA GPU (marker ``cuda``) and skips without one; run them on the card
 with ``python -m pytest --noconftest -q tests/test_torch_cuda_kernels.py``
 (the JAX harness in ``tests/conftest.py`` is not needed there).
@@ -174,6 +177,18 @@ def test_engine_tokens_paged_equal_xla_on_card(gen):
     (2, 3, 65, 128, False, False),            # T one past a tile
     (2, 2, 200, 128, True, True),             # causal with segments
     (1, 2, 130, 64, False, True),
+    # T at each tile size of the plan's instances -1, exactly, +1:
+    # streamed tiles of 16 and 32 rows, resident tiles of 32 and 64
+    (1, 3, 15, 128, True, False), (1, 3, 16, 64, True, True),
+    (1, 3, 17, 128, False, True), (1, 3, 31, 64, True, False),
+    (1, 3, 32, 128, True, True), (1, 3, 33, 64, False, False),
+    (2, 2, 64, 128, True, False), (5, 28, 63, 128, True, False),
+    (5, 28, 64, 64, True, True), (5, 28, 65, 128, True, True),
+    # T = 2048 causal at small B*H: the small and the large instance
+    (1, 2, 2048, 128, True, False), (1, 5, 2048, 128, True, False),
+    # D 64 and 128 with segments and padding tails on both instances
+    (2, 2, 300, 64, False, True), (4, 20, 300, 64, True, True),
+    (3, 12, 300, 128, False, True),
 ])
 def test_flash_bwd_kernels_match_plain(gen, B, H, T, D, causal, segs):
     q, k, v, do = (torch.randn(B, H, T, D, generator=gen, device="cuda")
@@ -195,9 +210,106 @@ def test_flash_bwd_kernels_match_plain(gen, B, H, T, D, causal, segs):
     assert all(torch.equal(a, b) for a, b in zip(got, again))  # no atomics
 
 
+def _flat(gen, shape, offset):
+    """A contiguous f32 tensor on the card whose base pointer lies
+    ``offset`` floats past a fresh allocation (16-byte aligned at 0)."""
+    n = 1
+    for d in shape:
+        n *= d
+    buf = torch.randn(n + offset, generator=gen, device="cuda")
+    return buf[offset:].view(shape)
+
+
+@pytest.mark.parametrize("B,H,T,D,tile", [
+    (3, 3, 1000, 128, 0), (1, 2, 300, 128, 1),
+    (3, 6, 1000, 64, 0), (1, 3, 97, 64, 1)])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_flash_bwd_each_tile_and_copy_width(gen, B, H, T, D, tile, offset):
+    """Every instance the plan can pick, with 16-byte copies (aligned
+    operands) and 4-byte ones (every operand 4 bytes off 16), causal with
+    segments: within ATOL of the plain version, bit-equal reruns, one
+    counted launch each."""
+    q, k, v, do = (_flat(gen, (B, H, T, D), offset) for _ in range(4))
+    seg = _segments(B, T)
+    do.mul_((seg > 0)[:, None, :, None])
+    assert ca.flash_bwd_plan(B, H, T, D, True).tile == tile
+    assert copy_width(q, k, v, do) == (1 if offset else 4)
+    # the forward on aligned copies (its kernel takes 16-byte loads)
+    o, lse = ca.flash_attention_fwd(q.clone(), k.clone(), v.clone(), seg,
+                                    True)
+    delta = (do * o).sum(-1)
+    args = (q, k, v, seg, do, lse, delta, True)
+    before = ca.launch_counts()
+    dq = ca.flash_bwd_dq(*args)
+    dk, dv = ca.flash_bwd_dkv(*args)
+    after = ca.launch_counts()
+    assert after["flash_bwd_dq"] == before["flash_bwd_dq"] + 1
+    assert after["flash_bwd_dkv"] == before["flash_bwd_dkv"] + 1
+    want = (ca.flash_bwd_dq_plain(*args), *ca.flash_bwd_dkv_plain(*args))
+    torch.cuda.synchronize()
+    for g, w in zip((dq, dk, dv), want):
+        assert (g - w).abs().max().item() <= ATOL
+    assert torch.equal(ca.flash_bwd_dq(*args), dq)
+    assert all(torch.equal(a, b) for a, b in
+               zip(ca.flash_bwd_dkv(*args), (dk, dv)))
+
+
+@pytest.mark.parametrize("B,H,T,D,causal", [(2, 3, 200, 64, True),
+                                             (2, 2, 128, 128, False),
+                                             (3, 12, 300, 128, True)])
+def test_flash_bwd_stored_ds_reads_no_unwritten_entry(gen, B, H, T, D,
+                                                      causal):
+    """dk/dv stores ds in a buffer that holds NaN everywhere, and dq reads
+    it back: the entries dk/dv never wrote (skipped tiles: other segments,
+    padding, the causal cone) keep their NaN and must not reach dq.
+    Against the plain version and the recomputing dq within ATOL, one
+    counted launch each; the whole backward stores ds at these shapes and
+    agrees bit for bit."""
+    assert ca.flash_bwd_plan(B, H, T, D, causal).stored_ds
+    q, k, v, do = (torch.randn(B, H, T, D, generator=gen, device="cuda")
+                   for _ in range(4))
+    seg = _segments(B, T)
+    do = do * (seg > 0)[:, None, :, None]
+    o, lse = ca.flash_attention_fwd(q, k, v, seg, causal)
+    delta = (do * o).sum(-1)
+    args = (q, k, v, seg, do, lse, delta, causal)
+    ds = torch.full((B * H, T, T), float("nan"), device="cuda")
+    before = ca.launch_counts()
+    dk, dv = ca.flash_bwd_dkv(*args, ds=ds)
+    dq = ca.flash_bwd_dq(*args, ds=ds)
+    after = ca.launch_counts()
+    assert after["flash_bwd_dq"] == before["flash_bwd_dq"] + 1
+    assert after["flash_bwd_dkv"] == before["flash_bwd_dkv"] + 1
+    want = ca.flash_attention_bwd_plain(q, k, v, seg, o, lse, do, causal)
+    alone = ca.flash_bwd_dq(*args)
+    torch.cuda.synchronize()
+    assert torch.isnan(ds).any()             # some entries left unwritten
+    for g, w in zip((dq, dk, dv), want):
+        assert torch.isfinite(g).all()
+        assert (g - w).abs().max().item() <= ATOL
+    assert (dq - alone).abs().max().item() <= ATOL
+    whole = ca.flash_attention_bwd(q, k, v, seg, o, lse, do, causal)
+    assert all(torch.equal(a, b) for a, b in zip(whole, (dq, dk, dv)))
+
+
+def test_flash_bwd_plan_shared_memory_is_the_kernels(gen):
+    """The plan's shared-memory figure is the kernels' own, for every
+    instance at both head dims."""
+    from paddle_tpu_torch.utils import cuda_build
+    import ctypes
+    fn = cuda_build.load("flash_bwd").flash_bwd_smem_bytes
+    fn.argtypes = [ctypes.c_int] * 2
+    fn.restype = ctypes.c_int
+    for D, tiles in ca._BWD_TILES.items():
+        for i, t in enumerate(tiles):
+            assert fn(D, i) == ca._bwd_smem(D, t)
+    assert fn(96, 0) == -1 and fn(128, 2) == -1
+
+
 def test_flash_bwd_wrappers_refuse_what_the_kernels_do_not_take(gen):
     q = torch.randn(1, 2, 64, 64, generator=gen, device="cuda")
     o, lse = ca.flash_attention_fwd(q, q, q)
+    before = ca.launch_counts()
     with pytest.raises(ValueError, match="dtype"):
         h = q.half()
         ca.flash_attention_bwd(h, h, h, None, h, lse, h)
@@ -212,6 +324,35 @@ def test_flash_bwd_wrappers_refuse_what_the_kernels_do_not_take(gen):
             1, 1, 2).transpose(1, 2).contiguous().transpose(1, 2))
     with pytest.raises(ValueError, match="lse"):
         ca.flash_bwd_dkv(q, q, q, None, q, lse[:, :1].contiguous(), lse)
+    with pytest.raises(ValueError, match="segments"):
+        ca.flash_bwd_dq(q, q, q, torch.ones(1, 63, dtype=torch.int32,
+                                             device="cuda"), q, lse, lse)
+    with pytest.raises(ValueError, match="dtype"):
+        ca.flash_bwd_dkv(q, q, q, torch.ones(1, 64, dtype=torch.int64,
+                                              device="cuda"), q, lse, lse)
+    with pytest.raises(ValueError, match="B\\*H"):
+        w = torch.zeros(1, 65536, 1, 64, device="cuda")
+        r = torch.zeros(1, 65536, 1, device="cuda")
+        ca.flash_bwd_dq(w, w, w, None, w, r, r)
+    # a stored-ds buffer: [B*H, T, T] f32, 16-byte aligned, T % 4 == 0
+    with pytest.raises(ValueError, match="ds"):
+        ca.flash_bwd_dkv(q, q, q, None, q, lse, lse,
+                         ds=torch.empty(2, 64, 63, device="cuda"))
+    with pytest.raises(ValueError, match="aligned"):
+        ca.flash_bwd_dq(q, q, q, None, q, lse, lse,
+                        ds=torch.empty(2 * 64 * 64 + 1,
+                                       device="cuda")[1:].view(2, 64, 64))
+    with pytest.raises(ValueError, match="dtype"):
+        ca.flash_bwd_dq(q, q, q, None, q, lse, lse,
+                        ds=torch.empty(2, 64, 64, device="cuda").half())
+    with pytest.raises(ValueError, match="T % 4"):
+        w = torch.randn(1, 2, 62, 64, generator=gen, device="cuda")
+        r = torch.zeros(1, 2, 62, device="cuda")
+        ca.flash_bwd_dkv(w, w, w, None, w, r, r,
+                         ds=torch.empty(2, 62, 62, device="cuda"))
+    after = ca.launch_counts()
+    assert after["flash_bwd_dq"] == before["flash_bwd_dq"]
+    assert after["flash_bwd_dkv"] == before["flash_bwd_dkv"]
 
 
 def test_no_grad_flash_launches_no_backward(gen):

@@ -6,7 +6,8 @@ from an edited copy of paddle_tpu_torch/csrc/ in one process on one card:
 
     python3 tools/gemm_variants.py [variant ...]
 
-Variants (edits of csrc/gemm_f32.cuh):
+Variants (edits of csrc/gemm_f32.cuh and csrc/mma_tf32.cuh, its
+fragment arithmetic):
   cvt_split   the TF32 rounding by cvt.rna.tf32.f32 instead of two
               integer ops
   lo_trunc    lo passed to the tensor cores unrounded (they read its top
@@ -68,13 +69,13 @@ def main():
             if name != "tree":
                 src = Path(tmp) / name
                 shutil.copytree(orig, src)
-                header = src / "gemm_f32.cuh"
-                text = header.read_text()
                 for old, new in EDITS[name]:
-                    if old not in text:
+                    header = next((h for h in (src / "gemm_f32.cuh",
+                                               src / "mma_tf32.cuh")
+                                   if old in h.read_text()), None)
+                    if header is None:
                         raise RuntimeError(f"{name}: {old!r} not in source")
-                    text = text.replace(old, new)
-                header.write_text(text)
+                    header.write_text(header.read_text().replace(old, new))
             cuda_build.CSRC = src
             cuda_build._loaded.clear()
             cuda_build.build(["conv1x1_dw", "ln_matmul"])
