@@ -10,12 +10,22 @@ Phases (any failure exits non-zero before the final line):
    TF32 switched off (the kernels and their plain versions are f32).
 1. build: every CUDA kernel of the path from ``paddle_tpu_torch/csrc``
    with ``nvcc`` for ``sm_90a``, all sources at once; ptxas's registers
-   and spills of every ``flash_bwd.cu`` instance on a line of their own,
-   and a spill in any of them fails the run.
+   and spills of every ``flash_fwd.cu`` and ``flash_bwd.cu`` instance on
+   a line of their own, and a spill in any of them fails the run.
 2. kernels: each kernel against its plain PyTorch version on the card, at
    the shapes the serving and training paths give it, with times for the
    kernel, the plain version, one PyTorch library call as a yardstick,
-   and the least time the card could take. The flash backward rows (dq,
+   and the least time the card could take. The flash forward rows (the
+   serving slice ``[1,8,1024,64]`` causal, ``[2,8,512,128]`` with
+   segments, the training shape ``[8,4,2048,128]`` causal, and the
+   segments case on views 4 bytes off 16, which take 4-byte copies) run
+   on the split-TF32 route: each gives O and LSE against the plain
+   version, a bit-equal rerun, its TFLOP/s and share of that route's
+   bound and of the f32 CUDA-core bound, the profiler's device time of
+   the kernel and of SDPA's forward beside the event time, and its
+   launch plan (``flash_fwd_plan``) on a line of its own; T = 1 and a
+   ragged T with padded segments are held to the plain version too. The
+   flash backward rows (dq,
    dk/dv and the whole backward, at ``[8,4,2048,128]`` causal,
    ``[2,8,512,128]`` with segments and ``[17,4,2048,128]`` causal, the
    first training batch whose stored ds would pass the plan's 1 GiB)
@@ -104,7 +114,7 @@ listing every kernel with its launches on the main paths, error and times
 (``conv1x1_dw``'s times and bound summed over the 36 launches of one
 ResNet-50 step; ``bound_ms`` is the bound of the kernel's route,
 ``cuda_core_bound_ms`` the f32 CUDA-core one beside it; the paged and
-flash backward kernels add ``device_ms`` and ``library_device_ms``,
+flash kernels add ``device_ms`` and ``library_device_ms``,
 profiler device time per call; the flash backward's two entries are timed
 at the training shape as the training path launches them, dk/dv storing
 ds and dq reading it back).
@@ -267,40 +277,107 @@ SEG_ROWS = [[1] * 200 + [2] * 150 + [3] * 100 + [0] * 62,
             [1] * 300 + [2] * 180 + [0] * 32]
 
 
-def phase_flash(torch, F, ca, gen):
-    results = []
-    cases = [("slice [1,8,1024,64] causal", (1, 8, 1024, 64), True, None),
-             ("[2,8,512,128] segments", (2, 8, 512, 128), False, SEG_ROWS),
+# the forward's cases: the serving slice's prefill shape, a segments shape
+# with padding tails, the training shape, and the segments case on views
+# whose base lies 1 float (4 bytes) off 16 bytes
+FWD_CASES = [("slice [1,8,1024,64] causal", (1, 8, 1024, 64), True, None, 0),
+             ("[2,8,512,128] segments", (2, 8, 512, 128), False, SEG_ROWS,
+              0),
              ("training [8,4,2048,128] causal", (8, 4, 2048, 128), True,
-              None)]
-    for label, shape, causal, seg_rows in cases:
+              None, 0),
+             ("[2,8,512,128] segments, views 4 bytes off 16",
+              (2, 8, 512, 128), False, SEG_ROWS, 1)]
+
+
+# gates only: one token, and T off every tile size with segments whose
+# padding tail ends mid-tile
+FWD_EDGES = [((1, 2, 1, 64), True, None),
+             ((2, 3, 100, 128), True, [[1] * 40 + [2] * 50 + [0] * 10,
+                                       [1] * 97 + [0] * 3])]
+
+
+def phase_flash(torch, F, ca, gen):
+    """flash_fwd against its plain version at ``FWD_CASES``, O and LSE
+    within TOL, reruns bit-equal, each case's launch plan
+    (``flash_fwd_plan``) on a line of its own. Each row gives the event
+    and the profiler's device time of the kernel and of SDPA's forward on
+    the same f32 inputs (with an explicit mask where there are segments),
+    the plain version's time, and through ``gemm_rates`` its TFLOP/s of
+    4·D per visible pair and its share of the split-TF32 bound (the
+    kernel's route, ``bound_ms``) and of the f32 CUDA-core bound. The
+    case on views 4 bytes off 16 (``buf[1:].view``) takes 4-byte copies;
+    SDPA is not run on those views (its kernel stops the process with a
+    misaligned address there). Then ``FWD_EDGES``, held to the plain
+    version and rerun, not timed."""
+    from paddle_tpu_torch.nn.gemm_f32 import copy_width
+    results = []
+    for label, shape, causal, seg_rows, offset in FWD_CASES:
         B, H, T, D = shape
-        q, k, v = (torch.randn(shape, generator=gen, device="cuda")
-                   for _ in range(3))
+        plan = ca.flash_fwd_plan(B, H, T, D, causal)
+        log("flash_fwd plan", json.dumps({"case": label,
+                                          **plan._asdict()}))
+        n = B * H * T * D
+        q, k, v = (torch.randn(n + offset, generator=gen, device="cuda")
+                   [offset:].view(shape) for _ in range(3))
+        width = copy_width(q, k, v)
+        if width != (1 if offset else 4):
+            raise RuntimeError(f"flash_fwd {label}: copy width {width}")
         seg = None if seg_rows is None else torch.tensor(
             seg_rows, dtype=torch.int32, device="cuda")
-        o, lse = ca.flash_attention_fwd(q, k, v, seg, causal)
+
+        def fn():
+            return ca.flash_attention_fwd(q, k, v, seg, causal)
+
+        o, lse = fn()
         o_ref, lse_ref = ca.flash_attention_plain(q, k, v, seg, causal)
         torch.cuda.synchronize()
         err = max(check_close(f"flash {label} O", o, o_ref),
                   check_close(f"flash {label} LSE", lse, lse_ref))
+        check_rerun(torch, f"flash_fwd {label} O", o, lambda: fn()[0])
+        check_rerun(torch, f"flash_fwd {label} LSE", lse, lambda: fn()[1])
+        del o_ref, lse_ref
         vis, pairs = visible_pairs(torch, B, T, causal, seg)
         nbytes = 4 * (4 * B * H * T * D + B * H * T) \
             + (0 if seg is None else 4 * B * T)
         flops = 4 * D * H * pairs
-        b_ms, b_by = bound(nbytes, flops)
         mask = None if seg is None else vis[:, None]
-        ms = time_ms(torch, lambda: ca.flash_attention_fwd(q, k, v, seg,
-                                                           causal))
-        plain_ms = time_ms(torch, lambda: ca.flash_attention_plain(
-            q, k, v, seg, causal))
-        lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
-            q, k, v, attn_mask=mask, is_causal=causal and mask is None))
-        row = {"case": label, "max_abs_err": err, "kernel_ms": ms,
-               "plain_ms": plain_ms, "library_ms": lib_ms,
-               "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
-               "flops": flops}
+
+        def sdpa():
+            return F.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask, is_causal=causal and mask is None)
+
+        dev, dev_rows = device_ms(torch, fn)
+        row = {"case": label, "copy_width": width, "max_abs_err": err,
+               "kernel_ms": time_ms(torch, fn), "device_ms": dev,
+               "device_rows": dev_rows,
+               "plain_ms": time_ms(torch, lambda: ca.flash_attention_plain(
+                   q, k, v, seg, causal)),
+               "pairs_per_head": pairs, "bytes": nbytes, "flops": flops}
+        if offset:       # SDPA's kernel faults on such views: not run
+            row.update(library_ms=None, library_device_ms=None)
+        else:
+            row.update(library_ms=time_ms(torch, sdpa),
+                       library_device_ms=device_ms(torch, sdpa)[0])
+        gemm_rates(row, nbytes, flops)
         log("flash_fwd", json.dumps(row))
+        results.append(row)
+        del vis, mask
+    for shape, causal, seg_rows in FWD_EDGES:
+        q, k, v = (torch.randn(shape, generator=gen, device="cuda")
+                   for _ in range(3))
+        seg = None if seg_rows is None else torch.tensor(
+            seg_rows, dtype=torch.int32, device="cuda")
+        label = f"edge {list(shape)}{' causal' if causal else ''}" \
+            f"{' segments' if seg is not None else ''}"
+        o, lse = ca.flash_attention_fwd(q, k, v, seg, causal)
+        o_ref, lse_ref = ca.flash_attention_plain(q, k, v, seg, causal)
+        torch.cuda.synchronize()
+        row = {"case": label, "max_abs_err": max(
+            check_close(f"flash {label} O", o, o_ref),
+            check_close(f"flash {label} LSE", lse, lse_ref))}
+        check_rerun(torch, f"flash_fwd {label} O", o, lambda: ca.
+                    flash_attention_fwd(q, k, v, seg, causal)[0])
+        log("flash_fwd edge", json.dumps(row))
         results.append(row)
     return results
 
@@ -449,16 +526,18 @@ BWD_INSTANCE = re.compile(r"flash_bwd_(dq|dkv|dq_ds)_kernel\w*?"
                           r"CfgILi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)ELi\d+E")
 
 
-def bwd_registers(ca, log_text):
-    """Registers and spills of every flash_bwd.cu instance from the build's
-    ptxas report; any instance the plan can pick that spills, or that the
-    report lacks, fails the run."""
+def ptxas_entries(pattern, log_text):
+    """Registers and spills of every kernel entry in a ptxas ``-v`` log
+    whose mangled name matches ``pattern``, keyed by the match's groups
+    as ints."""
     found, cur = {}, None
     for line in log_text.splitlines():
-        m = BWD_INSTANCE.search(line)
-        if m and "Compiling entry" in line:
-            cur = (m[1], int(m[2]), int(m[3]), int(m[4]), int(m[5]))
-            found[cur] = {}
+        if "Compiling entry" in line:
+            m = pattern.search(line)
+            cur = tuple(int(x) if x.isdigit() else x for x in m.groups()) \
+                if m else None
+            if cur is not None:
+                found[cur] = {}
         elif cur is not None:
             m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
                           r"loads", line)
@@ -468,21 +547,54 @@ def bwd_registers(ca, log_text):
             m = re.search(r"Used (\d+) registers", line)
             if m:
                 found[cur]["registers"] = int(m[1])
+    return found
+
+
+def checked_entry(found, key, name):
+    """``found[key]``, which must be a whole report with no spill."""
+    rep = found.get(key, {})
+    if len(rep) != 3:
+        raise RuntimeError(f"{name}: no ptxas report for {key}")
+    if rep["spill_stores"] or rep["spill_loads"]:
+        raise RuntimeError(f"{name} {key} spills: {rep}")
+    return rep
+
+
+def bwd_registers(ca, log_text):
+    """Registers and spills of every flash_bwd.cu instance from the build's
+    ptxas report; any instance the plan can pick that spills, or that the
+    report lacks, fails the run."""
+    found = ptxas_entries(BWD_INSTANCE, log_text)
     out = []
     for D, tiles in ca._BWD_TILES.items():
         for t in tiles:
             for kernel in ("dq", "dkv", "dq_ds"):
                 key = (kernel, D, t.rows // 8, t.stream_rows, t.stages)
-                rep = found.get(key, {})
-                if len(rep) != 3:
-                    raise RuntimeError(f"flash_bwd: no ptxas report for "
-                                       f"{key}")
-                if rep["spill_stores"] or rep["spill_loads"]:
-                    raise RuntimeError(f"flash_bwd {key} spills: {rep}")
                 out.append({"kernel": f"flash_bwd_{kernel}", "D": D,
                             "rows": t.rows, "stream_rows": t.stream_rows,
-                            "stages": t.stages, **rep})
+                            "stages": t.stages,
+                            **checked_entry(found, key, "flash_bwd")})
     return out
+
+
+# ptxas's -v report of a flash_fwd.cu instance: D, row groups, key splits,
+# keys a split takes of a tile, stages (the template arguments of its Cfg)
+FWD_INSTANCE = re.compile(r"flash_fwd_kernel\w*?CfgILi(\d+)ELi(\d+)ELi(\d+)"
+                          r"ELi(\d+)ELi(\d+)ELi\d+E")
+
+
+def fwd_registers(ca, log_text):
+    """Registers and spills of every flash_fwd.cu instance the plan can
+    pick, from the build's ptxas report; a spill, or an instance the
+    report lacks, fails the run."""
+    found = ptxas_entries(FWD_INSTANCE, log_text)
+    return [{"kernel": "flash_fwd", "D": D, "rows": t.rows,
+             "stream_rows": t.stream_rows, "stages": t.stages,
+             "key_splits": t.key_splits,
+             **checked_entry(found, (D, t.rows // 16, t.key_splits,
+                                     t.stream_rows // t.key_splits,
+                                     t.stages), "flash_fwd")}
+            for D, tiles in ca._FWD_TILES.items() for t in tiles]
 
 
 def check_rerun(torch, name, out, fn):
@@ -1779,6 +1891,8 @@ def main():
         for line in str(rep["log"]).splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  {line.strip()}")
+    log("flash_fwd ptxas", json.dumps(fwd_registers(
+        ca, str(report["flash_fwd"]["log"]))))
     log("flash_bwd ptxas", json.dumps(bwd_registers(
         ca, str(report["flash_bwd"]["log"]))))
 

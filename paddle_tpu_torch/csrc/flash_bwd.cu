@@ -85,15 +85,11 @@
 // would leave the card under one wave, then Small (4 warps, 32 rows,
 // tiles of 16); and whether ds is stored.
 
-#include <climits>
-#include <cmath>
-#include <type_traits>
-
-#include "mma_tf32.cuh"
+#include "flash_tiles.cuh"
 
 namespace {
 
-using namespace tf32x3;
+using namespace flash_tiles;
 
 template <int D_, int WARPS_, int BS_, int STAGES_, int MIN_BLOCKS_>
 struct Cfg {
@@ -141,226 +137,6 @@ struct Args {
   int vec;      // 4: 16-byte copies (q, k, v, dout 16-byte aligned), or 1
 };
 
-// Copies or splits with VEC-float pieces: 4 where a.vec says so, else 1
-// (one uniform branch, so both widths share the kernel's compute).
-template <class F>
-__device__ __forceinline__ void by_width(const Args& a, const F& f) {
-  if (a.vec == 4)
-    f(std::integral_constant<int, 4>());
-  else
-    f(std::integral_constant<int, 1>());
-}
-
-// Rows [row0, row0 + ROWS) of a [T, D] matrix, split into TF32 hi and lo
-// planes of pitch LD; rows past T are zero.
-template <class C, int VEC>
-__device__ __forceinline__ void load_split(unsigned* hi, unsigned* lo,
-                                           const float* __restrict__ src,
-                                           int row0, int T) {
-  constexpr int PER_ROW = C::D / VEC;
-  for (int i = threadIdx.x; i < C::ROWS * PER_ROW; i += C::NT) {
-    const int r = i / PER_ROW, c = i % PER_ROW * VEC;
-    const bool live = row0 + r < T;
-    const float* p = src + (size_t)(row0 + r) * C::D + c;
-    const int at = r * C::LD + c;
-    if constexpr (VEC == 4) {
-      const float4 x = live ? __ldg(reinterpret_cast<const float4*>(p))
-                            : make_float4(0.f, 0.f, 0.f, 0.f);
-      uint4 h, l;
-      split_tf32(x.x, h.x, l.x);
-      split_tf32(x.y, h.y, l.y);
-      split_tf32(x.z, h.z, l.z);
-      split_tf32(x.w, h.w, l.w);
-      *reinterpret_cast<uint4*>(hi + at) = h;
-      *reinterpret_cast<uint4*>(lo + at) = l;
-    } else {
-      split_tf32(live ? __ldg(p) : 0.f, hi[at], lo[at]);
-    }
-  }
-}
-
-// Copies of rows [row0, row0 + BS) of a [T, D] matrix into a stage matrix
-// of pitch LD; rows past T zero-filled.
-template <class C, int VEC>
-__device__ __forceinline__ void stage_rows(float* dst,
-                                           const float* __restrict__ src,
-                                           int row0, int T) {
-  constexpr int PER_ROW = C::D / VEC;
-  for (int i = threadIdx.x; i < C::BS * PER_ROW; i += C::NT) {
-    const int r = i / PER_ROW, c = i % PER_ROW * VEC;
-    const bool live = row0 + r < T;
-    cp_async<VEC>(dst + r * C::LD + c,
-                  live ? src + (size_t)(row0 + r) * C::D + c : src, live);
-  }
-}
-
-// Copies of entries [row0, row0 + BS) of a [T] vector (4 bytes each);
-// entries past T zero-filled.
-template <class C>
-__device__ __forceinline__ void stage_vec(float* dst,
-                                          const float* __restrict__ src,
-                                          int row0, int T) {
-  for (int i = threadIdx.x; i < C::BS; i += C::NT) {
-    const bool live = row0 + i < T;
-    cp_async<1>(dst + i, live ? src + row0 + i : src, live);
-  }
-}
-
-// (min, max) segment id over rows [row0, row0 + n) below T, n <= 64, in
-// every lane of the calling warp; (INT_MAX, INT_MIN) for no rows.
-__device__ __forceinline__ int2 seg_range(const int* __restrict__ seg,
-                                          int row0, int n, int T) {
-  int mn = INT_MAX, mx = INT_MIN;
-  for (int r = threadIdx.x % 32; r < n; r += 32) {
-    if (row0 + r < T) {
-      const int s = seg[row0 + r];
-      mn = min(mn, s);
-      mx = max(mx, s);
-    }
-  }
-#pragma unroll
-  for (int off = 16; off; off >>= 1) {
-    mn = min(mn, __shfl_xor_sync(0xffffffffu, mn, off));
-    mx = max(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-  }
-  return make_int2(mn, mx);
-}
-
-// Whether rows with ids in a and rows with ids in b can hold a visible
-// pair (_seg_block_relevant).
-__device__ __forceinline__ bool seg_meet(int2 a, int2 b) {
-  return a.x <= b.y && a.y >= b.x && a.y > 0 && b.y > 0;
-}
-
-// The first streamed tile in [t, end) whose segment ids meet the block's
-// own range (t itself without segments); end if none.
-template <class C>
-__device__ __forceinline__ int next_tile(const int* __restrict__ seg,
-                                         int2 own, int t, int end, int T) {
-  if (!seg) return t;
-  for (; t < end; ++t)
-    if (seg_meet(own, seg_range(seg, t * C::BS, C::BS, T))) break;
-  return t;
-}
-
-// acc[j] = the warp's 16 resident rows (wrow + g, + 8) against streamed
-// rows 8 j + 2 t (+ 1) of tile, over D: the resident side from its hi/lo
-// planes, the streamed side split as it loads, in partials of 32 d. CHUNKS
-// partials run at once, so a warp has CHUNKS * NJ independent mma chains;
-// they are added in the order of d, as one at a time would be.
-template <class C>
-__device__ __forceinline__ void scores(float (&acc)[C::NJ][4],
-                                       const unsigned* __restrict__ hi,
-                                       const unsigned* __restrict__ lo,
-                                       const float* __restrict__ tile,
-                                       int wrow, int g, int t) {
-  constexpr int CC = C::CHUNKS;
-#pragma unroll
-  for (int c0 = 0; c0 < C::D; c0 += 32 * CC) {
-    float part[CC][C::NJ][4];
-#pragma unroll
-    for (int kk = 0; kk < 32; kk += 8) {
-#pragma unroll
-      for (int cc = 0; cc < CC; ++cc) {
-        const int k = c0 + 32 * cc + kk;
-        unsigned ah[4], al[4];
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {  // (g, t) (g+8, t) (g, t+4) (g+8, t+4)
-          const int at = (wrow + g + 8 * (e & 1)) * C::LD + k + t + 4 * (e >> 1);
-          ah[e] = hi[at];
-          al[e] = lo[at];
-        }
-#pragma unroll
-        for (int j = 0; j < C::NJ; ++j) {
-          unsigned bh[2], bl[2];
-#pragma unroll
-          for (int h = 0; h < 2; ++h)
-            split_tf32(tile[(8 * j + g) * C::LD + k + t + 4 * h], bh[h],
-                       bl[h]);
-          mma3(part[cc][j], ah, al, bh, bl, kk == 0);
-        }
-      }
-    }
-#pragma unroll
-    for (int cc = 0; cc < CC; ++cc)
-#pragma unroll
-      for (int j = 0; j < C::NJ; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          acc[j][e] = c0 + cc == 0 ? part[cc][j][e]
-                                   : acc[j][e] + part[cc][j][e];
-  }
-}
-
-constexpr float LOG2E = 1.4426950408889634f;
-
-// 2^x by ex2.approx.ftz: exp(s * scale - lse) as 2^(s * scale * log2 e -
-// lse * log2 e), one FFMA and one MUFU; results below 2^-126 flush to 0
-// and -inf gives 0 (a masked pair)
-__device__ __forceinline__ float exp2_ftz(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// x (a score accumulator) as the split A fragments of a product over its
-// columns: k-step j takes columns 8 j .. 8 j + 7 with k = t standing for
-// column 2 t and k = t + 4 for 2 t + 1, so a0..a3 are the accumulator's
-// own c0, c2, c1, c3.
-template <class C>
-__device__ __forceinline__ void a_frags(const float (&x)[C::NJ][4],
-                                        unsigned (&h)[C::NJ][4],
-                                        unsigned (&l)[C::NJ][4]) {
-#pragma unroll
-  for (int j = 0; j < C::NJ; ++j) {
-    split_tf32(x[j][0], h[j][0], l[j][0]);
-    split_tf32(x[j][2], h[j][1], l[j][1]);
-    split_tf32(x[j][1], h[j][2], l[j][2]);
-    split_tf32(x[j][3], h[j][3], l[j][3]);
-  }
-}
-
-// acc += A . tile over the tile's BS rows, one fresh partial: A from
-// a_frags, tile rows 8 j + 2 t + h in a_frags' k order, columns 8 n + g.
-template <class C>
-__device__ __forceinline__ void accumulate(float (&acc)[C::ND][4],
-                                           const unsigned (&ah)[C::NJ][4],
-                                           const unsigned (&al)[C::NJ][4],
-                                           const float* __restrict__ tile,
-                                           int g, int t) {
-#pragma unroll
-  for (int n = 0; n < C::ND; ++n) {
-    float part[4];
-#pragma unroll
-    for (int j = 0; j < C::NJ; ++j) {
-      unsigned bh[2], bl[2];
-#pragma unroll
-      for (int h = 0; h < 2; ++h)
-        split_tf32(tile[(8 * j + 2 * t + h) * C::LD + 8 * n + g], bh[h],
-                   bl[h]);
-      mma3(part, ah[j], al[j], bh, bl, j == 0);
-    }
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] += part[e];
-  }
-}
-
-// Writes the warp's rows of acc * mul to out (rows below T).
-template <class C>
-__device__ __forceinline__ void store_rows(const float (&acc)[C::ND][4],
-                                           float* __restrict__ out, int row0,
-                                           int T, float mul, int g, int t) {
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int row = row0 + g + 8 * h;
-    if (row >= T) continue;
-#pragma unroll
-    for (int n = 0; n < C::ND; ++n)
-      *reinterpret_cast<float2*>(out + (size_t)row * C::D + 8 * n + 2 * t) =
-          make_float2(acc[n][2 * h] * mul, acc[n][2 * h + 1] * mul);
-  }
-}
-
 // The warp pair's exchange: x goes to this warp's slot of xchg, and the
 // partner's fragments (same rows, the other product) come back in y, after
 // a barrier of the pair's 64 threads alone (named barrier 1 + pair).
@@ -383,44 +159,6 @@ __device__ __forceinline__ void swap_pair(float* xchg,
     y[j][2] = v.z;
     y[j][3] = v.w;
   }
-}
-
-// The streamed-tile loop both kernels share: tiles from first to end in
-// order, those next_tile keeps, through the cp.async ring; load(stage, i)
-// issues this thread's copies of tile i, body(stage, i) computes on it.
-// setup() (the resident planes) runs while the first copies are in flight,
-// and only if there is a tile.
-template <class C, class Setup, class Load, class Body>
-__device__ __forceinline__ void stream(float* ring, const int* seg, int2 own,
-                                       int first, int end, int T,
-                                       const Setup& setup, const Load& load,
-                                       const Body& body) {
-  int pend[C::STAGES - 1];       // tiles in flight, oldest first
-  int nt = next_tile<C>(seg, own, first, end, T);
-#pragma unroll
-  for (int s = 0; s < C::STAGES - 1; ++s) {
-    pend[s] = nt;
-    if (nt < end) {
-      load(ring + s * C::STAGE, nt);
-      nt = next_tile<C>(seg, own, nt + 1, end, T);
-    }
-    cp_async_commit();
-  }
-  if (pend[0] < end) setup();
-  for (int slot = 0; pend[0] < end; slot = (slot + 1) % C::STAGES) {
-    const int cur = pend[0];
-    cp_async_wait<C::STAGES - 2>();    // this thread's copies of cur
-    __syncthreads();  // everyone's copies and planes visible; last tile read
-    if (nt < end) load(ring + (slot + C::STAGES - 1) % C::STAGES * C::STAGE,
-                       nt);
-    cp_async_commit();
-#pragma unroll
-    for (int s = 0; s + 1 < C::STAGES - 1; ++s) pend[s] = pend[s + 1];
-    pend[C::STAGES - 2] = nt;
-    if (nt < end) nt = next_tile<C>(seg, own, nt + 1, end, T);
-    body(ring + slot * C::STAGE, cur);
-  }
-  cp_async_wait<0>();
 }
 
 template <class C>
@@ -462,6 +200,7 @@ flash_bwd_dq_kernel(const Args a) {
   for (int n = 0; n < C::ND; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  const float one[2] = {1.f, 1.f};  // accumulate rescales nothing
   const float sl2e = a.scale * LOG2E;
   int qrow[2], qseg[2];
   float lse_r[2], delta_r[2];                  // LSE as -lse * log2 e
@@ -526,10 +265,10 @@ flash_bwd_dq_kernel(const Args a) {
       for (int e = 0; e < 4; ++e) x[j][e] *= y[j][e];  // ds = p * (dp - d)
     unsigned dh[C::NJ][4], dl[C::NJ][4];
     a_frags<C>(x, dh, dl);
-    accumulate<C>(acc, dh, dl, st + half * (C::D / 2), g, t);  // += ds . K
+    accumulate<C>(acc, dh, dl, st + half * (C::D / 2), one, g, t);  // += ds . K
   });
-  store_rows<C>(acc, a.dq + base + half * (C::D / 2), q0 + wrow, T, a.scale,
-                g, t);
+  const float sc[2] = {a.scale, a.scale};
+  store_rows<C>(acc, a.dq + base + half * (C::D / 2), q0 + wrow, T, sc, g, t);
 }
 
 template <class C>
@@ -575,6 +314,7 @@ flash_bwd_dkv_kernel(const Args a) {
   for (int n = 0; n < C::ND; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
+  const float one[2] = {1.f, 1.f};  // accumulate rescales nothing
   const float sl2e = a.scale * LOG2E;
   int krow[2], kseg[2];
 #pragma unroll
@@ -653,15 +393,16 @@ flash_bwd_dkv_kernel(const Args a) {
     {
       unsigned fh[C::NJ][4], fl[C::NJ][4];
       a_frags<C>(p, fh, fl);
-      accumulate<C>(dv, fh, fl, st + C::TILE + col0, g, t);  // += p^T . dO
+      accumulate<C>(dv, fh, fl, st + C::TILE + col0, one, g, t);  // += p^T . dO
     }
     unsigned fh[C::NJ][4], fl[C::NJ][4];
     a_frags<C>(ds, fh, fl);
-    accumulate<C>(dk, fh, fl, st + col0, g, t);              // += ds^T . Q
+    accumulate<C>(dk, fh, fl, st + col0, one, g, t);         // += ds^T . Q
   });
   const int col0 = half * (C::D / 2);
-  store_rows<C>(dk, a.dk + base + col0, k0 + wrow, T, a.scale, g, t);
-  store_rows<C>(dv, a.dv + base + col0, k0 + wrow, T, 1.f, g, t);
+  const float sc[2] = {a.scale, a.scale};
+  store_rows<C>(dk, a.dk + base + col0, k0 + wrow, T, sc, g, t);
+  store_rows<C>(dv, a.dv + base + col0, k0 + wrow, T, one, g, t);
 }
 
 // flash_bwd_dq from the ds that flash_bwd_dkv stored: no resident planes,
@@ -718,6 +459,7 @@ flash_bwd_dq_ds_kernel(const Args a) {
   for (int n = 0; n < C::ND; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  const float one[2] = {1.f, 1.f};  // accumulate rescales nothing
   int qrow[2], qseg[2];
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
@@ -758,10 +500,10 @@ flash_bwd_dq_ds_kernel(const Args a) {
     }
     unsigned dh[C::NJ][4], dl[C::NJ][4];
     a_frags<C>(x, dh, dl);
-    accumulate<C>(acc, dh, dl, st + half * (C::D / 2), g, t);  // += ds . K
+    accumulate<C>(acc, dh, dl, st + half * (C::D / 2), one, g, t);  // += ds . K
   });
-  store_rows<C>(acc, a.dq + base + half * (C::D / 2), q0 + wrow, T, a.scale,
-                g, t);
+  const float sc[2] = {a.scale, a.scale};
+  store_rows<C>(acc, a.dq + base + half * (C::D / 2), q0 + wrow, T, sc, g, t);
 }
 
 template <class C, class Kernel>

@@ -1,260 +1,341 @@
-// Flash-attention forward, float32, for sm_90a.
+// Flash-attention forward, float32, for sm_90a, on the tensor cores in
+// split TF32.
 //
 // Replaces paddle_tpu/nn/pallas_attention.py:_attn_kernel (launched by
 // _flash_forward): blockwise online-softmax attention over [B, H, T, D]
-// that writes O [B, H, T, D] and the per-row log-sum-exp [B, H, T], with
-// optional causal masking and packed-sequence segment ids [B, T]
-// (1-based, 0 = padding) shared across heads.
+// that writes O [B, H, T, D] and the per-row log-sum-exp LSE [B, H, T]
+// (which the backward, flash_bwd.cu, consumes), with optional causal
+// masking and packed-sequence segment ids [B, T] (1-based, 0 = padding)
+// shared across heads.
 //
-// What bounds it on the H100: the path runs it on float32 operands, and
-// float32 has no tensor-core route without TF32, which would cost about
-// three decimal digits against the f32 reference. So the work is CUDA-core
-// FMAs (about 67 TFLOP/s on the card) and, at the serving shape
-// [1, 8, 1024, 64] causal, operations bound it, not bytes: 1.07 GFLOP
-// against 8.4 MB.
+// What bounds it on the H100: operations. At the training shape
+// [8, 4, 2048, 128] causal its two products need 34.4 GFLOP (4 * D per
+// visible pair) against 34 MB; on f32 CUDA cores (67 TFLOP/s) that is
+// 0.51 ms, more than half of SDPA's f32 forward, so both products run on
+// the tensor cores in split TF32 (mma_tf32.cuh: three TF32 mma.sync per
+// f32 product, f32 accuracy): 3 * 34.4 GFLOP against 495 TFLOP/s, 0.21 ms,
+// or 0.32 ms at the 321 TFLOP/s the card's mma.sync reaches
+// (tools/mma_tf32_peak.py).
 //
-// Design: one thread block per (b*h, 64-row query tile), 256 threads as a
-// 16 x 16 grid; each thread owns a 4 x 4 patch of the 64 x 64 score tile
-// and the matching 4 rows x D/16 columns of the output accumulator, so the
-// running max m, sum l and accumulator live in registers. K/V tiles of 64
-// rows are staged in shared memory (rows padded to D + 1 floats so the
-// column reads of the score product hit distinct banks), the probability
-// tile goes through shared memory once for the P.V product. The key loop
-// stops at the causal limit and skips tiles whose segment-id ranges cannot
-// meet (the _block_needed / _seg_block_relevant rules); every kept tile is
-// masked per element with -inf, so a skip never changes the result and a
-// row with no visible key ends with l = 0 and writes zeros. The running max
-// starts at -1e30 and l is clamped at 1e-30, as in the TPU kernel. Under
-// causal masking the grid walks query tiles from the last (longest) one so
-// the long tiles start first.
+// Design (the tile machinery is flash_tiles.cuh's, shared with the
+// backward):
+//   - A block owns RG groups of 16 query rows; each group's rows are taken
+//     by KS warps, the warp of split s taking keys [s * SUB, (s + 1) * SUB)
+//     of every streamed tile of BS = KS * SUB keys. A row's running max m,
+//     sum l and O accumulator stay in its warp's registers, and P never
+//     goes through shared memory; with KS > 1 the splits' (m, l, O) meet
+//     once, at the end, through the ring (split 0 takes the others in
+//     order). The large instance has KS = 1; the small one, for shapes
+//     with too few rows of 16 to fill the card, KS = 2, so that each row
+//     has two warps walking its keys.
+//   - Q is resident: split once into TF32 hi and lo planes as it lands, so
+//     its A fragments load ready-split.
+//   - K and V tiles of BS rows, with their segment ids, land by cp.async in
+//     a ring of STAGES stages (16-byte copies where the wrapper found q, k
+//     and v 16-byte aligned, else 4-byte ones in the same kernel): tile
+//     t + 1 loads while tile t computes, one barrier a tile. Each warp
+//     splits the K and V values it reads as their fragments load (a split
+//     once a block, at one more barrier a tile, measured slower: PERF.md
+//     section 6).
+//   - S = Q . K^T contracts over D in partials of 32, all D / 32 in flight,
+//     each partial added to the f32 scores by FADD: the tensor cores
+//     truncate as they add, and a long chain into one accumulator drifts
+//     (gemm_f32.cuh).
+//   - The online softmax runs on the accumulator fragments: a row lives in
+//     a quad of lanes, so its tile max takes two shuffles; each lane keeps
+//     its own part of l, summed over the quad once at the end. p =
+//     2^(s * scale * log2 e - m * log2 e) by ex2.approx.ftz (one FMUL, one
+//     FFMA, one MUFU), the scale applied before the max so that any sign
+//     of scale keeps the masks. Masks are formed only on tiles that cross
+//     the causal diagonal, a segment or T; whole key tiles are skipped by
+//     the causal cone and by segment-id ranges that cannot meet
+//     (_block_needed / _seg_block_relevant), and a warp whose 16 rows the
+//     cone hides from a tile skips its products but meets the barriers.
+//   - O += P . V keeps P in registers, split hi/lo there: the accumulator
+//     holds columns 2t and 2t + 1 of its row where the A fragment wants
+//     k = t and t + 4, so V's B fragments are read in that permuted k
+//     order (row 8 j + 2 t + h). One fresh partial a tile per 8 columns,
+//     folded in as acc = acc * corr + partial (one FFMA): the rescale by
+//     corr costs nothing extra.
+//   - Epilogue: O / max(l, 1e-30) and LSE = m + ln(max(l, 1e-30)), m
+//     starting at -1e30: a row with no visible key writes zeros and an LSE
+//     of -1e30, as flash_attention_plain defines them.
 //
-// Left for later work: wgmma/TMA pipelines, bf16, split over keys.
+// Masked pairs get a score of -inf, so p = 0 for them; K and V rows past T
+// land as zeros and are masked; query rows past T are computed and never
+// written. The host plan (flash_fwd_plan in nn/cuda_attention.py) picks
+// the instance from the shapes alone: Large (8 warps, 128 rows) unless its
+// blocks would leave the card under one wave, then Small (4 warps, 32
+// rows, two key splits). Under causal masking the blocks take the query
+// tiles from the last (longest) one. One writer per output value and a
+// fixed order: every run gives the same bits.
 
-#include <cuda_runtime.h>
-#include <climits>
-#include <cmath>
+#include "flash_tiles.cuh"
 
 namespace {
 
-constexpr int BQ = 64;
-constexpr int BK = 64;
-constexpr int NT = 256;
+using namespace flash_tiles;
+
 constexpr float NEG = -1e30f;
 
+// RG row groups of 16 query rows; each takes its keys in KS splits, a warp
+// a split: of every streamed tile of BS = KS * SUB rows, the warp of split
+// s takes rows [s * SUB, (s + 1) * SUB).
+template <int D_, int RG_, int KS_, int SUB_, int STAGES_, int MIN_BLOCKS_>
+struct Cfg {
+  static constexpr int D = D_, RG = RG_, KS = KS_, SUB = SUB_;
+  static constexpr int STAGES = STAGES_, MIN_BLOCKS = MIN_BLOCKS_;
+  static constexpr int WARPS = RG * KS, NT = 32 * WARPS;
+  static constexpr int ROWS = 16 * RG, BS = KS * SUB;
+  static constexpr int NJ = SUB / 8;     // score n-tiles; P . V k-steps
+  static constexpr int ND = D / 8;       // output n-tiles
+  static constexpr int CHUNKS = D / 32;  // score partials (32 d) in flight
+  static constexpr int LD = D + 4;       // row pitch in floats
+  static constexpr int PLANE = ROWS * LD;          // a Q hi or lo plane
+  static constexpr int TILE = BS * LD;             // a streamed matrix
+  static constexpr int STAGE = 2 * TILE + BS;      // K, V, segment ids
+  static constexpr int SMEM_BYTES = 4 * (2 * PLANE + STAGES * STAGE);
+  // the splits' row states merged at the end, through the ring: a float4
+  // a lane for each 8 columns of acc and one for (m, l), a warp of each
+  // split past the first
+  static constexpr int MERGE = (KS - 1) * RG * 32 * 4 * (D / 8 + 1);
+  static_assert(SUB % 8 == 0 && SUB <= 32, "partials of at most 32 rows");
+  static_assert(MERGE <= STAGES * STAGE, "the merge fits the ring");
+  static_assert(SMEM_BYTES <= 232448, "shared memory a block may use");
+};
+
+// The instances (paddle_tpu_torch/nn/cuda_attention.py: _FWD_TILES, by the
+// index the entry point takes): Large, 8 warps over 128 query rows and K/V
+// tiles of 32, at D = 128 203 KB, at D = 64 105 KB (one block an SM: at
+// two, ptxas's cap of 128 registers spills); Small, 4 warps over 32 rows,
+// two key splits of 16 rows a tile of 32, 102 KB and 52 KB (two an SM,
+// by shared memory at D = 128 and by registers at D = 64). Where Large
+// would leave the card under a wave there are few rows of 16 to share
+// out: the splits give each row two warps.
 template <int D>
-constexpr int smem_floats() {
-  return BQ * (D + 1) + BK * (D + 1) + BK * D + BQ * (BK + 1);
-}
-
-// Rows [row0, row0 + ROWS) of a [T, D] matrix into shared memory with row
-// stride ld; rows past T are zero.
-template <int D, int ROWS>
-__device__ __forceinline__ void load_tile(float* dst, int ld,
-                                          const float* __restrict__ src,
-                                          int row0, int T) {
-  constexpr int C4 = D / 4;
-  for (int i = threadIdx.x; i < ROWS * C4; i += NT) {
-    const int r = i / C4, c = (i % C4) * 4;
-    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row0 + r < T)
-      val = *reinterpret_cast<const float4*>(src + (size_t)(row0 + r) * D + c);
-    float* d = dst + r * ld + c;
-    d[0] = val.x; d[1] = val.y; d[2] = val.z; d[3] = val.w;
-  }
-}
-
-// min and max segment id over the live rows of a 64-row tile; warp 0 only.
-__device__ __forceinline__ void seg_range(const int* __restrict__ seg,
-                                          int row0, int T, int* out) {
-  int mn = INT_MAX, mx = INT_MIN;
-  for (int r = threadIdx.x; r < 64; r += 32) {
-    if (row0 + r < T) {
-      const int s = seg[row0 + r];
-      mn = min(mn, s);
-      mx = max(mx, s);
-    }
-  }
-  for (int off = 16; off; off >>= 1) {
-    mn = min(mn, __shfl_xor_sync(0xffffffffu, mn, off));
-    mx = max(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-  }
-  if (threadIdx.x == 0) { out[0] = mn; out[1] = mx; }
-}
-
+using Large = Cfg<D, 8, 1, 32, 2, 1>;
 template <int D>
-__global__ void __launch_bounds__(NT)
-flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, const int* __restrict__ seg,
-                 float* __restrict__ o, float* __restrict__ lse,
-                 int H, int T, float scale, int causal) {
-  constexpr int CPT = D / 16;               // output columns per thread
-  extern __shared__ float smem[];
-  float* Qs = smem;                         // [BQ][D + 1]
-  float* Ks = Qs + BQ * (D + 1);            // [BK][D + 1]
-  float* Vs = Ks + BK * (D + 1);            // [BK][D]
-  float* Ps = Vs + BK * D;                  // [BQ][BK + 1]
-  __shared__ int srange[4];                 // q min, q max, k min, k max
+using Small = Cfg<D, 2, 2, 16, 2, 2>;
 
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int bh = blockIdx.y;
-  const int qt = causal ? (gridDim.x - 1 - blockIdx.x) : blockIdx.x;
-  const int q0 = qt * BQ;
-  const size_t base = (size_t)bh * T * D;
-  const int* segb = seg ? seg + (size_t)(bh / H) * T : nullptr;
+struct Args {
+  const float *q, *k, *v;
+  const int* seg;
+  float *o, *lse;
+  int B, H, T;
+  float scale;
+  int causal;
+  int vec;      // 4: 16-byte copies (q, k, v 16-byte aligned), or 1
+};
 
-  load_tile<D, BQ>(Qs, D + 1, q + base, q0, T);
+template <class C>
+__global__ void __launch_bounds__(C::NT, C::MIN_BLOCKS)
+flash_fwd_kernel(const Args a) {
+  extern __shared__ __align__(16) float smem[];
+  unsigned* qh = reinterpret_cast<unsigned*>(smem);
+  unsigned* ql = qh + C::PLANE;
+  float* ring = smem + 2 * C::PLANE;
+  const int T = a.T, BH = a.B * a.H;
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const int warp = threadIdx.x / 32, split = warp / C::RG;
+  const int wrow = 16 * (warp % C::RG), sub0 = split * C::SUB;
+  const int bh = blockIdx.x % BH, rank = blockIdx.x / BH;
+  const int n_rt = (T + C::ROWS - 1) / C::ROWS;
+  const int q0 = (a.causal ? n_rt - 1 - rank : rank) * C::ROWS;
+  const size_t base = (size_t)bh * T * C::D;
+  const int* seg = a.seg ? a.seg + (size_t)(bh / a.H) * T : nullptr;
 
-  int qseg[4];
-  if (segb) {
+  const int n_st = (T + C::BS - 1) / C::BS;
+  const int end = a.causal ? min((q0 + C::ROWS - 1) / C::BS + 1, n_st) : n_st;
+  const int2 own = seg ? seg_range(seg, q0, C::ROWS, T) : make_int2(0, 0);
+  const auto load = [&](float* st, int kt) {
+    by_width(a, [&](auto vec) {
+      stage_rows<C, decltype(vec)::value>(st, a.k + base, kt * C::BS, T);
+      stage_rows<C, decltype(vec)::value>(st + C::TILE, a.v + base,
+                                          kt * C::BS, T);
+    });
+    if (seg)
+      stage_vec<C>(st + 2 * C::TILE, reinterpret_cast<const float*>(seg),
+                   kt * C::BS, T);
+  };
+  const auto setup = [&] {
+    by_width(a, [&](auto vec) {
+      load_split<C, decltype(vec)::value>(qh, ql, a.q + base, q0, T);
+    });
+  };
+
+  float acc[C::ND][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = q0 + ty * 4 + i;
-      qseg[i] = row < T ? segb[row] : 0;
-    }
-    if (threadIdx.x < 32) seg_range(segb, q0, T, srange);
+  for (int n = 0; n < C::ND; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  float m[2] = {NEG, NEG}, l[2] = {0.f, 0.f};  // l: this lane's columns
+  int qrow[2], qseg[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    qrow[h] = q0 + wrow + g + 8 * h;
+    qseg[h] = seg && qrow[h] < T ? seg[qrow[h]] : 0;
   }
-
-  float m[4], l[4], acc[4][CPT];
+  stream<C>(ring, seg, own, 0, end, T, setup, load, [&](const float* st,
+                                                        int kt) {
+    const int k0 = kt * C::BS + sub0;        // the warp's first key
+    // a warp whose rows lie past T, or see no key of its part, skips it
+    if (q0 + wrow >= T || k0 >= T || (a.causal && k0 > q0 + wrow + 15))
+      return;
+    float s[C::NJ][4];
+    scores<C>(s, qh, ql, st + sub0 * C::LD, wrow, g, t);
+    // every key of its part in T, inside the warp's cone, no segments
+    const bool inside = !seg && k0 + C::SUB <= T &&
+                        (!a.causal || k0 + C::SUB - 1 <= q0 + wrow);
+    float mx[2] = {-INFINITY, -INFINITY};
+    if (inside) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = NEG;
-    l[i] = 0.f;
+      for (int j = 0; j < C::NJ; ++j)
 #pragma unroll
-    for (int c = 0; c < CPT; ++c) acc[i][c] = 0.f;
-  }
-
-  const int n_kt_all = (T + BK - 1) / BK;
-  const int n_kt = causal ? min(qt + 1, n_kt_all) : n_kt_all;  // BQ == BK
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * BK;
-    if (segb) {
-      __syncthreads();
-      if (threadIdx.x < 32) seg_range(segb, k0, T, srange + 2);
-      __syncthreads();
-      const bool relevant = srange[0] <= srange[3] && srange[1] >= srange[2]
-                            && srange[1] > 0 && srange[3] > 0;
-      if (!relevant) continue;
-    }
-    load_tile<D, BK>(Ks, D + 1, k + base, k0, T);
-    load_tile<D, BK>(Vs, D, v + base, k0, T);
-    __syncthreads();
-
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      float a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = Qs[(ty * 4 + i) * (D + 1) + d];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = Ks[(tx + 16 * j) * (D + 1) + d];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(a[i], b[j], s[i][j]);
-    }
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qi = q0 + ty * 4 + i;
-      float mx = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kj = k0 + tx + 16 * j;
-        bool vis = kj < T;
-        if (causal) vis = vis && kj <= qi;
-        if (segb) {
-          const int ks = kj < T ? segb[kj] : 0;
-          vis = vis && ks == qseg[i] && ks > 0;
+        for (int e = 0; e < 4; ++e) {
+          s[j][e] *= a.scale;
+          mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
         }
-        s[i][j] = vis ? s[i][j] * scale : -INFINITY;
-        mx = fmaxf(mx, s[i][j]);
-      }
-      // the 16 threads of a row are lanes tx = 0..15 of one half warp
-      for (int off = 8; off; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m[i], mx);
-      const float corr = expf(m[i] - m_new);
-      float rs = 0.f;
+    } else {
+      const int* kseg =
+          reinterpret_cast<const int*>(st + 2 * C::TILE) + sub0;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = expf(s[i][j] - m_new);
-        rs += p;
-        Ps[(ty * 4 + i) * (BK + 1) + tx + 16 * j] = p;
-      }
-      for (int off = 8; off; off >>= 1)
-        rs += __shfl_xor_sync(0xffffffffu, rs, off);
-      l[i] = l[i] * corr + rs;
-      m[i] = m_new;
+      for (int j = 0; j < C::NJ; ++j)
 #pragma unroll
-      for (int c = 0; c < CPT; ++c) acc[i][c] *= corr;
+        for (int e = 0; e < 4; ++e) {
+          const int h = e >> 1, col = 8 * j + 2 * t + (e & 1);
+          const int kj = k0 + col;
+          bool vis = kj < T;
+          if (a.causal) vis = vis && kj <= qrow[h];
+          if (seg) vis = vis && kseg[col] == qseg[h] && qseg[h] > 0;
+          s[j][e] = vis ? s[j][e] * a.scale : -INFINITY;
+          mx[h] = fmaxf(mx[h], s[j][e]);
+        }
+    }
+    float corr[2], mneg[2];                  // mneg: -m * log2 e
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+      const float m_new = fmaxf(m[h], mx[h]);
+      corr[h] = exp2_ftz((m[h] - m_new) * LOG2E);
+      m[h] = m_new;
+      mneg[h] = -m_new * LOG2E;
+      l[h] *= corr[h];
+    }
+#pragma unroll
+    for (int j = 0; j < C::NJ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[j][e] = exp2_ftz(fmaf(s[j][e], LOG2E, mneg[e >> 1]));
+        l[e >> 1] += s[j][e];
+      }
+    unsigned ph[C::NJ][4], pl[C::NJ][4];
+    a_frags<C>(s, ph, pl);
+    accumulate<C>(acc, ph, pl, st + C::TILE + sub0 * C::LD, corr, g, t);
+  });
+  if constexpr (C::KS > 1) {
+    // the first split's warp takes the others' (m, l, acc) lane by lane
+    // (same rows, same columns), in split order
+    __syncthreads();                         // the ring is free
+    float4* x = reinterpret_cast<float4*>(ring) + lane;
+    const auto at = [&](int s) {
+      return x + ((s - 1) * C::RG + warp % C::RG) * 32 * (C::ND + 1);
+    };
+    if (split) {
+      float4* p = at(split);
+#pragma unroll
+      for (int n = 0; n < C::ND; ++n)
+        p[32 * n] = make_float4(acc[n][0], acc[n][1], acc[n][2], acc[n][3]);
+      p[32 * C::ND] = make_float4(m[0], m[1], l[0], l[1]);
     }
     __syncthreads();
-
-#pragma unroll 4
-    for (int kk = 0; kk < BK; ++kk) {
-      float p[4];
+    if (split) return;
 #pragma unroll
-      for (int i = 0; i < 4; ++i) p[i] = Ps[(ty * 4 + i) * (BK + 1) + kk];
+    for (int s = 1; s < C::KS; ++s) {
+      const float4* p = at(s);
+      const float4 ml = p[32 * C::ND];
+      const float mo[2] = {ml.x, ml.y}, lo[2] = {ml.z, ml.w};
+      float cs[2], co[2];
 #pragma unroll
-      for (int c = 0; c < CPT; ++c) {
-        const float vv = Vs[kk * D + tx + 16 * c];
+      for (int h = 0; h < 2; ++h) {
+        const float m_new = fmaxf(m[h], mo[h]);
+        cs[h] = exp2_ftz((m[h] - m_new) * LOG2E);
+        co[h] = exp2_ftz((mo[h] - m_new) * LOG2E);
+        l[h] = fmaf(lo[h], co[h], l[h] * cs[h]);
+        m[h] = m_new;
+      }
 #pragma unroll
-        for (int i = 0; i < 4; ++i) acc[i][c] = fmaf(p[i], vv, acc[i][c]);
+      for (int n = 0; n < C::ND; ++n) {
+        const float4 y = p[32 * n];
+        const float ye[4] = {y.x, y.y, y.z, y.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          acc[n][e] = fmaf(ye[e], co[e >> 1], acc[n][e] * cs[e >> 1]);
       }
     }
-    __syncthreads();
   }
+  float inv[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float lr = l[h] + __shfl_xor_sync(0xffffffffu, l[h], 1);
+    lr += __shfl_xor_sync(0xffffffffu, lr, 2);
+    const float lf = fmaxf(lr, 1e-30f);
+    inv[h] = 1.f / lf;
+    if (t == 0 && qrow[h] < T)
+      a.lse[(size_t)bh * T + qrow[h]] = m[h] + logf(lf);
+  }
+  store_rows<C>(acc, a.o + base, q0 + wrow, T, inv, g, t);
+}
 
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty * 4 + i;
-    if (row >= T) continue;
-    const float lf = fmaxf(l[i], 1e-30f);
-#pragma unroll
-    for (int c = 0; c < CPT; ++c)
-      o[base + (size_t)row * D + tx + 16 * c] = acc[i][c] / lf;
-    if (tx == 0) lse[(size_t)bh * T + row] = m[i] + logf(lf);
-  }
+template <class C>
+cudaError_t launch(const Args& a, cudaStream_t stream) {
+  // above 48 KB a block's shared memory must be opted into per kernel
+  const cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      C::SMEM_BYTES);
+  if (err != cudaSuccess) return err;
+  // one block per (b*h, query tile), b*h fastest: all first tiles (the
+  // longest under causal masking) start before any second one
+  const long long blocks =
+      (long long)a.B * a.H * ((a.T + C::ROWS - 1) / C::ROWS);
+  flash_fwd_kernel<C><<<(unsigned)blocks, C::NT, C::SMEM_BYTES, stream>>>(a);
+  return cudaGetLastError();
 }
 
 template <int D>
-cudaError_t launch(const float* q, const float* k, const float* v,
-                   const int* seg, float* o, float* lse, int B, int H, int T,
-                   float scale, int causal, cudaStream_t stream) {
-  const int bytes = smem_floats<D>() * (int)sizeof(float);
-  // above 48 KB a block's shared memory must be opted into per kernel
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      bytes);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((T + BQ - 1) / BQ, B * H);
-  flash_fwd_kernel<D><<<grid, NT, bytes, stream>>>(q, k, v, seg, o, lse, H,
-                                                    T, scale, causal);
-  return cudaGetLastError();
+cudaError_t dispatch(const Args& a, int tile, cudaStream_t stream) {
+  if (a.vec != 4 && a.vec != 1) return cudaErrorInvalidValue;
+  if (tile == 0) return launch<Large<D>>(a, stream);
+  if (tile == 1) return launch<Small<D>>(a, stream);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // q, k, v, o: [B, H, T, D] float32, contiguous. seg: [B, T] int32 or null.
-// lse: [B, H, T] float32. Returns a cudaError_t (0 = launched).
+// lse: [B, H, T] float32. tile: 0 (Large) or 1 (Small); vec: 4 (16-byte
+// copies: q, k and v 16-byte aligned) or 1. Returns a cudaError_t
+// (0 = launched).
 extern "C" int flash_fwd_f32(const void* q, const void* k, const void* v,
                              const void* seg, void* o, void* lse, int B,
                              int H, int T, int D, float scale, int causal,
-                             void* stream) {
+                             int tile, int vec, void* stream) {
+  const Args a{static_cast<const float*>(q), static_cast<const float*>(k),
+               static_cast<const float*>(v), static_cast<const int*>(seg),
+               static_cast<float*>(o), static_cast<float*>(lse), B, H, T,
+               scale, causal, vec};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* qf = static_cast<const float*>(q);
-  const float* kf = static_cast<const float*>(k);
-  const float* vf = static_cast<const float*>(v);
-  const int* sg = static_cast<const int*>(seg);
-  float* of = static_cast<float*>(o);
-  float* lf = static_cast<float*>(lse);
-  if (D == 64)
-    return launch<64>(qf, kf, vf, sg, of, lf, B, H, T, scale, causal, st);
-  if (D == 128)
-    return launch<128>(qf, kf, vf, sg, of, lf, B, H, T, scale, causal, st);
+  if (D == 64) return static_cast<int>(dispatch<64>(a, tile, st));
+  if (D == 128) return static_cast<int>(dispatch<128>(a, tile, st));
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Dynamic shared memory of instance tile at head dim D, or -1: the plan's
+// figure is checked against it.
+extern "C" int flash_fwd_smem_bytes(int D, int tile) {
+  if (D == 64) return tile == 0 ? Large<64>::SMEM_BYTES
+                                : tile == 1 ? Small<64>::SMEM_BYTES : -1;
+  if (D == 128) return tile == 0 ? Large<128>::SMEM_BYTES
+                                 : tile == 1 ? Small<128>::SMEM_BYTES : -1;
+  return -1;
 }

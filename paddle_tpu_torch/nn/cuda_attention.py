@@ -43,11 +43,12 @@ from ..utils import cuda_build
 from ..utils.cuda_build import check_cuda, check_dtype, stream_ptr
 from .gemm_f32 import copy_width
 
-__all__ = ["FlashAttentionFunction", "FlashBwdPlan", "flash_attention",
+__all__ = ["FlashAttentionFunction", "FlashBwdPlan", "FlashFwdPlan",
+           "flash_attention",
            "flash_attention_bwd", "flash_attention_bwd_plain",
            "flash_attention_fwd", "flash_attention_plain", "flash_bwd_dkv",
            "flash_bwd_dkv_plain", "flash_bwd_dq", "flash_bwd_dq_plain",
-           "flash_bwd_plan",
+           "flash_bwd_plan", "flash_fwd_plan",
            "paged_decode_attention", "paged_decode_plain",
            "paged_span_attention", "paged_span_plain", "paged_plan",
            "PagedPlan", "launch_counts", "reset_launch_counts", "KERNELS",
@@ -209,19 +210,31 @@ def flash_attention_fwd(q, k, v, segments=None, causal: bool = False,
     """Fused attention forward over ``[B, H, T, D]`` returning ``(O,
     LSE)``; ``segments`` ``[B, T]`` int32 packed-sequence ids (1-based,
     0 = padding) confine attention within each sub-sequence, shared
-    across heads. Any ``T`` is taken; tiles past ``T`` are masked."""
+    across heads. Any ``T`` is taken; tiles past ``T`` are masked. CUDA
+    tensors launch ``flash_fwd`` on :func:`flash_fwd_plan`'s instance,
+    with 16-byte copies where ``q``, ``k`` and ``v`` allow them, else
+    4-byte ones (any contiguous view)."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, segments, causal, scale)
     seg_ptr = _check_flash("flash_attention", q, k, v, segments)
     B, H, T, D = q.shape
     scale = D ** -0.5 if scale is None else float(scale)
+    plan = flash_fwd_plan(B, H, T, D, causal)
     out = torch.empty_like(q)
     lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):          # launch on q's card
         _launch("flash_fwd", q.data_ptr(), k.data_ptr(), v.data_ptr(),
                 seg_ptr, out.data_ptr(), lse.data_ptr(), B, H, T, D, scale,
-                int(causal), stream_ptr(q))
+                int(causal), plan.tile, copy_width(q, k, v), stream_ptr(q))
     return out, lse
+
+
+class _FwdTile(NamedTuple):
+    rows: int           # query rows a block owns, 16 a row group
+    stream_rows: int    # rows of each streamed K/V tile
+    stages: int         # cp.async ring stages
+    blocks_per_sm: int  # resident blocks an SM holds (smem, registers)
+    key_splits: int     # warps a row group, each on its part of a tile
 
 
 class _BwdTile(NamedTuple):
@@ -231,8 +244,10 @@ class _BwdTile(NamedTuple):
     blocks_per_sm: int  # resident blocks an SM holds (smem, registers)
 
 
-# the instances of csrc/flash_bwd.cu (Large, Small) by head dim, in the
-# order of the index its entry points take
+# the instances of csrc/flash_fwd.cu and csrc/flash_bwd.cu (Large, Small)
+# by head dim, in the order of the index their entry points take
+_FWD_TILES = {D: (_FwdTile(128, 32, 2, 1, 1), _FwdTile(32, 32, 2, 2, 2))
+              for D in (64, 128)}
 _BWD_TILES = {128: (_BwdTile(64, 32, 2, 1), _BwdTile(32, 16, 2, 2)),
               64: (_BwdTile(64, 32, 2, 1), _BwdTile(32, 16, 2, 3))}
 _SMS = 132           # the H100's SMs: one wave of blocks
@@ -240,6 +255,64 @@ _SMS = 132           # the H100's SMs: one wave of blocks
 # one flash_attention_bwd call, so it raises a step's peak memory by its
 # size at most, and that rise is held to 1 GiB
 _DS_BUDGET = 2 ** 30
+
+
+def _pick_tile(tiles, B: int, H: int, T: int) -> int:
+    """0 (the large instance) unless its blocks would fill less than one
+    wave of the card (``_SMS`` SMs times the blocks an SM holds), else 1."""
+    large = tiles[0]
+    n_large = B * H * -(-T // large.rows)
+    return 0 if n_large >= _SMS * large.blocks_per_sm else 1
+
+
+class FlashFwdPlan(NamedTuple):
+    """The launch of ``flash_fwd`` (``csrc/flash_fwd.cu``): ``tile`` is the
+    instance index the entry point takes; a block owns ``rows`` query
+    rows in groups of 16, each taken by ``key_splits`` warps (``warps``
+    in all), and streams K and V in tiles of ``stream_rows`` through
+    ``stages`` ``cp.async`` stages in ``smem`` bytes of shared memory, of
+    which an SM holds ``blocks_per_sm``; each warp of a row group takes
+    its ``stream_rows / key_splits`` rows of every tile, and the groups'
+    states are merged at the end. ``grid`` blocks cover ``B * H`` heads
+    times ``T`` in ``rows`` (``tiles`` a head)."""
+    tile: int
+    rows: int
+    warps: int
+    key_splits: int
+    stream_rows: int
+    stages: int
+    smem: int
+    blocks_per_sm: int
+    tiles: int
+    grid: int
+
+
+def _fwd_smem(D: int, t: _FwdTile) -> int:
+    """``Cfg::SMEM_BYTES`` of the forward: Q's hi and lo planes, ``rows x
+    (D + 4)`` each, and per stage K and V, ``stream_rows x (D + 4)`` each,
+    and their ``stream_rows`` segment ids (the key splits' merge reuses
+    the ring)."""
+    ld = D + 4
+    return 4 * (2 * t.rows * ld
+                + t.stages * (2 * t.stream_rows * ld + t.stream_rows))
+
+
+def flash_fwd_plan(B: int, H: int, T: int, D: int,
+                   causal: bool = False) -> FlashFwdPlan:
+    """The forward kernel's launch for ``[B, H, T, D]``; pure Python, a
+    function of the shapes alone, so one shape always takes one instance
+    and reruns are bit-equal. The large instance (128 query rows a block,
+    a warp each 16) unless its blocks would fill less than one wave of
+    the card, then the small one (32 rows, two warps each 16, splitting
+    the keys). ``causal`` changes no instance: the kernel only orders its
+    query tiles by it (the longest first)."""
+    del causal
+    tile = _pick_tile(_FWD_TILES[D], B, H, T)
+    t = _FWD_TILES[D][tile]
+    n = -(-T // t.rows)
+    return FlashFwdPlan(tile, t.rows, t.rows // 16 * t.key_splits,
+                        t.key_splits, t.stream_rows, t.stages,
+                        _fwd_smem(D, t), t.blocks_per_sm, n, B * H * n)
 
 
 class FlashBwdPlan(NamedTuple):
@@ -290,11 +363,8 @@ def flash_bwd_plan(B: int, H: int, T: int, D: int,
     ``causal`` changes no instance: the kernels only order their tiles by
     it (the longest first)."""
     del causal
-    tiles = _BWD_TILES[D]
-    large = tiles[0]
-    n_large = B * H * -(-T // large.rows)
-    tile = 0 if n_large >= _SMS * large.blocks_per_sm else 1
-    t = tiles[tile]
+    tile = _pick_tile(_BWD_TILES[D], B, H, T)
+    t = _BWD_TILES[D][tile]
     n = -(-T // t.rows)
     return FlashBwdPlan(tile, t.rows, t.rows // 8, t.stream_rows, t.stages,
                         _bwd_smem(D, t), t.blocks_per_sm, n, B * H * n,
@@ -437,8 +507,8 @@ def flash_attention(q, k, v, segments=None, causal: bool = False,
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = {
     # pointers (for the backward, ds last), then B H T D, then scale,
-    # causal, (tile, vec,) stream
-    "flash_fwd": [_P] * 6 + [_I] * 4 + [_F, _I, _P],
+    # causal, tile, vec, stream
+    "flash_fwd": [_P] * 6 + [_I] * 4 + [_F, _I, _I, _I, _P],
     "flash_bwd_dq": [_P] * 9 + [_I] * 4 + [_F, _I, _I, _I, _P],
     "flash_bwd_dkv": [_P] * 10 + [_I] * 4 + [_F, _I, _I, _I, _P],
     # q, pools (and scales), tables, lengths or start and n, out,

@@ -18,7 +18,10 @@ a base pointer 4 bytes off 16, K and M off the 32-row k-tile); for the
 flash backward T at each tile size of its plan -1, exactly and +1, T =
 2048 on both instances, each instance with 16- and 4-byte copies, the
 stored ds over a buffer of NaN, and the plan's shared memory against
-the kernels' own. Every test needs an
+the kernels' own; for the flash forward T at its tile sizes -1, exactly
+and +1, a negative scale, T = 2048 on both instances, each instance with
+16- and 4-byte copies (views 4 bytes off 16), reruns bit-equal, and the
+plan's shared memory against the kernel's own. Every test needs an
 NVIDIA GPU (marker ``cuda``) and skips without one; run them on the card
 with ``python -m pytest --noconftest -q tests/test_torch_cuda_kernels.py``
 (the JAX harness in ``tests/conftest.py`` is not needed there).
@@ -59,6 +62,14 @@ def _segments(B, T):
     (2, 2, 200, 64, True, True, None),
     (1, 1, 1, 64, False, False, None),
     (1, 2, 64, 128, True, False, 0.3),
+    # T at the key tile (32) and the query tiles (32, 128) -1, exactly, +1
+    (1, 3, 31, 64, True, True, None), (1, 3, 32, 128, True, False, None),
+    (1, 3, 33, 128, False, True, None), (2, 2, 127, 64, True, False, None),
+    (2, 2, 128, 128, True, True, None), (2, 2, 129, 64, False, False, None),
+    # a negative scale: the masks must hold with the max taken after it
+    (1, 2, 96, 64, True, True, -0.2),
+    # T = 2048 causal on the small (B*H = 2) and the large (B*H = 40) one
+    (1, 2, 2048, 128, True, False, None), (5, 8, 2048, 64, True, False, None),
 ])
 def test_flash_kernel_matches_plain(gen, B, H, T, D, causal, segs, scale):
     q, k, v = (torch.randn(B, H, T, D, generator=gen, device="cuda")
@@ -71,6 +82,8 @@ def test_flash_kernel_matches_plain(gen, B, H, T, D, causal, segs, scale):
     torch.cuda.synchronize()
     assert (o - o_ref).abs().max().item() <= ATOL
     assert (lse - lse_ref).abs().max().item() <= ATOL
+    again = ca.flash_attention_fwd(q, k, v, seg, causal, scale)
+    assert torch.equal(o, again[0]) and torch.equal(lse, again[1])
 
 
 def _boundary_lengths(bs, MB):
@@ -234,9 +247,7 @@ def test_flash_bwd_each_tile_and_copy_width(gen, B, H, T, D, tile, offset):
     do.mul_((seg > 0)[:, None, :, None])
     assert ca.flash_bwd_plan(B, H, T, D, True).tile == tile
     assert copy_width(q, k, v, do) == (1 if offset else 4)
-    # the forward on aligned copies (its kernel takes 16-byte loads)
-    o, lse = ca.flash_attention_fwd(q.clone(), k.clone(), v.clone(), seg,
-                                    True)
+    o, lse = ca.flash_attention_fwd(q, k, v, seg, True)
     delta = (do * o).sum(-1)
     args = (q, k, v, seg, do, lse, delta, True)
     before = ca.launch_counts()
@@ -290,6 +301,44 @@ def test_flash_bwd_stored_ds_reads_no_unwritten_entry(gen, B, H, T, D,
     assert (dq - alone).abs().max().item() <= ATOL
     whole = ca.flash_attention_bwd(q, k, v, seg, o, lse, do, causal)
     assert all(torch.equal(a, b) for a, b in zip(whole, (dq, dk, dv)))
+
+
+@pytest.mark.parametrize("B,H,T,D,tile", [
+    (3, 12, 500, 128, 0), (1, 2, 300, 128, 1),
+    (4, 17, 500, 64, 0), (1, 3, 97, 64, 1)])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_flash_fwd_each_tile_and_copy_width(gen, B, H, T, D, tile, offset):
+    """Every instance the forward's plan can pick, with 16-byte copies
+    (aligned operands) and 4-byte ones (every operand a view 4 bytes off
+    16, ``buf[1:].view(...)``), causal with segments: O and LSE within
+    ATOL of the plain version, bit-equal reruns, one counted launch."""
+    q, k, v = (_flat(gen, (B, H, T, D), offset) for _ in range(3))
+    seg = _segments(B, T)
+    assert ca.flash_fwd_plan(B, H, T, D, True).tile == tile
+    assert copy_width(q, k, v) == (1 if offset else 4)
+    before = ca.launch_counts()["flash_fwd"]
+    o, lse = ca.flash_attention_fwd(q, k, v, seg, True)
+    assert ca.launch_counts()["flash_fwd"] == before + 1
+    o_ref, lse_ref = ca.flash_attention_plain(q, k, v, seg, True)
+    torch.cuda.synchronize()
+    assert (o - o_ref).abs().max().item() <= ATOL
+    assert (lse - lse_ref).abs().max().item() <= ATOL
+    again = ca.flash_attention_fwd(q, k, v, seg, True)
+    assert torch.equal(o, again[0]) and torch.equal(lse, again[1])
+
+
+def test_flash_fwd_plan_shared_memory_is_the_kernels(gen):
+    """The forward plan's shared-memory figure is the kernel's own, for
+    every instance at both head dims."""
+    from paddle_tpu_torch.utils import cuda_build
+    import ctypes
+    fn = cuda_build.load("flash_fwd").flash_fwd_smem_bytes
+    fn.argtypes = [ctypes.c_int] * 2
+    fn.restype = ctypes.c_int
+    for D, tiles in ca._FWD_TILES.items():
+        for i, t in enumerate(tiles):
+            assert fn(D, i) == ca._fwd_smem(D, t)
+    assert fn(96, 0) == -1 and fn(128, 2) == -1
 
 
 def test_flash_bwd_plan_shared_memory_is_the_kernels(gen):

@@ -147,13 +147,13 @@ def main():
                 src = Path(tmp) / name
                 shutil.copytree(orig, src)
                 edits, large = EDITS[name]
-                source = src / "flash_bwd.cu"
-                text = source.read_text()
-                for old, new in edits:
-                    if old not in text:
+                for old, new in edits:       # in whichever file holds it
+                    source = next((f for f in (src / "flash_bwd.cu",
+                                               src / "flash_tiles.cuh")
+                                   if old in f.read_text()), None)
+                    if source is None:
                         raise RuntimeError(f"{name}: {old!r} not in source")
-                    text = text.replace(old, new)      # every occurrence
-                source.write_text(text)
+                    source.write_text(source.read_text().replace(old, new))
                 if large is not None:
                     ca._BWD_TILES = {
                         D: (t[0]._replace(stream_rows=large[0],
