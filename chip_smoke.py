@@ -69,6 +69,22 @@ Phases (any failure exits non-zero before the final line):
    16 requests, with tokens/s, bytes per token and int8/f32 agreement.
    A chunked prefill, speculative and plain ticks and int8 ticks are
    profiled, each window with the paged kernels' device time and share.
+   Since the serving programs are CUDA graphs (phases 3 and 5 serve
+   through them, each engine warmed before its counted run), phase 4 also
+   captures each of the five serving entries alone in a graph and holds
+   two replays against the plain version, and (d) serves the 16 requests
+   through the graphs in five modes: greedy; ``speculative=4,
+   prefill_chunk=128``; int8 with ``prefill_chunk=128``; sampled
+   (temperature 0.8, top-k 50, top-p 0.95, seed 7) with and without
+   ``speculative=4``. Each mode checks compile counts ``{prefill: 1, tick:
+   1}`` after ``warmup()`` and after the run, the kernels each graph
+   captured, launch counts equal to replays times captured launches and
+   the pools back at their start; greedy tokens must equal those of the
+   same engine with its programs' bodies run eagerly, bit for bit, and
+   sampled tokens those of a second engine of the same seed that was not
+   warmed. Each mode prints ms per tick, tokens/s and TTFT p50 of the run
+   and ms per tick and the device idle share over 8 steady ticks, graphs
+   beside the eager bodies.
 6. training: ``TransformerLM`` at the ``prep_transformer`` width (vocab
    32000, dim 512, 6 layers, 4 heads, ffn 2048, T 2048, flash attention)
    with seeded random weights, trained by ``Trainer`` with ``adam(1e-4)``
@@ -703,6 +719,7 @@ def phase_slice(torch, np, pt):
         f"prompt lengths {[len(p) for p in prompts]}")
 
     start_free = eng.cache.free_blocks
+    eng.warmup()                       # both graphs captured before counting
     reqs, counts, tick_s, wall = run_requests(torch, pt, ca, eng, prompts,
                                               32)
     check_requests("slice", reqs, 32, V)
@@ -928,6 +945,7 @@ def phase_span_kernels(torch, F, ca, kvc, gen, card):
     log("paged_decode_int8", json.dumps(rows["paged_decode_int8"]))
     paged_boundary_rows(torch, ca, gen, pk, pv, qk, qv)
     paged_no_sync(torch, ca, gen, pk, pv, qk, qv)
+    kernels_in_graphs(torch, ca, gen, pk, pv, qk, qv)
     return rows
 
 
@@ -1004,6 +1022,71 @@ def paged_no_sync(torch, ca, gen, pk, pv, qk, qv):
                            f"{before}")
     log("paged entries under sync debug mode \"error\": no synchronisation "
         "in", ", ".join(names))
+
+
+def kernels_in_graphs(torch, ca, gen, pk, pv, qk, qv):
+    """The five kernel entries of the serving programs, each captured
+    alone in a CUDA graph (after one eager launch on the capture stream):
+    two replays, each after new query values are copied into the captured
+    input, held against the plain version on those values; the capture
+    counts one launch and each replay adds it."""
+    N, bs, H, D = pk.shape
+    lengths_l = [0, 1, 300, 1024]
+    tables = paged_tables(torch, gen, lengths_l, bs, 64, N)
+    lengths = torch.tensor(lengths_l, dtype=torch.int32, device="cuda")
+    start = torch.tensor([0, 100, 290, 1019], dtype=torch.int32,
+                         device="cuda")
+    n = torch.tensor([0, 5, 3, 5], dtype=torch.int32, device="cuda")
+    live = torch.arange(5, device="cuda")[None] < n[:, None]
+    q1 = torch.randn(4, H, D, generator=gen, device="cuda")
+    q5 = torch.randn(4, 5, H, D, generator=gen, device="cuda")
+    fq, fk, fv = (torch.randn(1, 8, 1024, 64, generator=gen, device="cuda")
+                  for _ in range(3))
+    every = slice(None)
+    cases = [("flash_fwd", fq, every,
+              lambda: ca.flash_attention_fwd(fq, fk, fv, None, True)[0],
+              lambda: ca.flash_attention_plain(fq, fk, fv, None, True)[0])]
+    for quant, (kp, vp) in ((False, (pk, pv)), (True, (qk, qv))):
+        tag = "_int8" if quant else ""
+        cases += [
+            ("paged_decode" + tag, q1, every,
+             lambda kp=kp, vp=vp: ca.paged_decode_attention(
+                 q1, kp, vp, tables, lengths),
+             lambda kp=kp, vp=vp: ca.paged_decode_plain(
+                 q1, kp, vp, tables, lengths)),
+            ("paged_span" + tag, q5, live,
+             lambda kp=kp, vp=vp: ca.paged_span_attention(
+                 q5, kp, vp, tables, start, n),
+             lambda kp=kp, vp=vp: ca.paged_span_plain(
+                 q5, kp, vp, tables, start, n))]
+    errs = {}
+    stream = torch.cuda.Stream()
+    for name, q, rows, run, plain in cases:
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):
+            run()
+        torch.cuda.current_stream().wait_stream(stream)
+        graph = torch.cuda.CUDAGraph()
+        with ca.capturing_launches() as captured, \
+                torch.cuda.graph(graph, stream=stream):
+            out = run()
+        before = ca.launch_counts()
+        worst = 0.0
+        for _ in range(2):
+            q.copy_(torch.randn(q.shape, generator=gen, device="cuda"))
+            graph.replay()
+            ca.count_replay(captured)
+            torch.cuda.synchronize()
+            worst = max(worst, check_close(f"{name} in a graph", out[rows],
+                                           plain()[rows]))
+        after = ca.launch_counts()
+        if {k: v for k, v in captured.items() if v} != {name: 1} \
+                or after[name] != before[name] + 2:
+            raise RuntimeError(f"{name} in a graph: captured {captured}, "
+                               f"launches {before[name]} -> {after[name]}")
+        errs[name] = worst
+    log("kernels in CUDA graphs (two replays each, max |kernel - plain|)",
+        json.dumps(errs))
 
 
 def first_diff(a, b):
@@ -1095,6 +1178,7 @@ def phase_span_serving(torch, np, pt, ca, model, ref, prompts, tokens, card):
                           prefill_chunk=128)
     start_free = eng.cache.free_blocks
     f32_bytes = eng.cache.kv_bytes_per_token
+    eng.warmup()
     reqs, c, tick_s, wall = run_requests(torch, pt, ca, eng, prompts, new)
     add(c)
     check_requests("span (a)", reqs, new, V)
@@ -1187,6 +1271,7 @@ def phase_span_serving(torch, np, pt, ca, model, ref, prompts, tokens, card):
                               attention=impl, kv_dtype="int8",
                               prefill_chunk=128)
         start_free = eng.cache.free_blocks
+        eng.warmup()
         reqs, c, tick_s, wall = run_requests(torch, pt, ca, eng, prompts,
                                              new)
         add(c)
@@ -1216,11 +1301,11 @@ def phase_span_serving(torch, np, pt, ca, model, ref, prompts, tokens, card):
         eng.evict(slot)
 
     def int8_gap(rid, i):
-        # replay the request alone on the int8 paged engine and read the
-        # logits its token i came from
-        eng = pt.DecodeEngine(model, max_slots=1, block_size=16,
-                              attention="paged", kv_dtype="int8",
-                              prefill_chunk=128)
+        # replay the request alone on the int8 paged engine, its programs'
+        # bodies run eagerly, and read the logits its token i came from
+        eng = eager_body(pt.DecodeEngine(model, max_slots=1, block_size=16,
+                                         attention="paged", kv_dtype="int8",
+                                         prefill_chunk=128))
         seen = []
         for name in ("decode_step", "decode_span"):
             fn = getattr(model, name)
@@ -1258,6 +1343,163 @@ def phase_span_serving(torch, np, pt, ca, model, ref, prompts, tokens, card):
                                                                 paged)),
         "launches_paged": out["paged"][3], "launches_xla": out["xla"][3],
         "card": card}))
+    return counts
+
+
+def eager_body(eng):
+    """``eng`` with every call run through its programs' bodies eagerly,
+    on the same static buffers: the function each CUDA graph captures,
+    as the yardstick of the graphs (and a way to read the logits a call
+    made)."""
+    for prog in (eng._prefill, eng._tick):
+        def launch(_prog=prog, **values):
+            _prog.inputs.stage(**values)
+            _prog.eager_out = _prog.run_eager()
+
+        prog.launch = launch
+        prog.fetch = lambda _prog=prog: _prog.eager_out.cpu().numpy()
+    return eng
+
+
+# the graph serving phase's modes: engine arguments and the kernel each
+# program must capture, L times
+SAMPLED = {"temperature": 0.8, "top_k": 50, "top_p": 0.95, "seed": 7}
+GRAPH_MODES = [
+    ("greedy", {}, "flash_fwd", "paged_decode"),
+    ("speculative=4, prefill_chunk=128",
+     {"speculative": 4, "prefill_chunk": 128}, "paged_span", "paged_span"),
+    ("int8, prefill_chunk=128", {"kv_dtype": "int8", "prefill_chunk": 128},
+     "paged_span_int8", "paged_decode_int8"),
+    ("sampled", {"sampling": SAMPLED}, "flash_fwd", "paged_decode"),
+    ("sampled, speculative=4", {"sampling": SAMPLED, "speculative": 4},
+     "flash_fwd", "paged_span"),
+]
+
+
+def serving_numbers(eng, reqs, tick_s, wall):
+    ttft = sorted(r.ttft_ms for r in reqs)
+    return {"ticks": eng.ticks, "decode_tokens": eng.tokens_generated,
+            "wall_s": wall, "ms_per_tick": 1e3 * sum(tick_s) / len(tick_s),
+            "decode_tokens_per_s": eng.tokens_generated / sum(tick_s),
+            "ttft_p50_ms": ttft[len(ttft) // 2]}
+
+
+def steady_ticks(torch, np, eng, window):
+    """8 slots of 128-token prompts: ms per tick over 8 ticks after one,
+    then the device busy time and idle share over 8 more under the
+    profiler; the idle share also against the 8 unprofiled ticks' wall."""
+    rng = np.random.RandomState(1)
+    for slot in range(8):
+        eng.admit(slot, [int(t) for t in rng.randint(0, 32000, 128)],
+                  reserve_len=128 + 96)
+    eng.decode_tick()
+    torch.cuda.synchronize()
+    tok0, t0 = eng.tokens_generated, time.perf_counter()
+    for _ in range(8):
+        eng.decode_tick()
+    wall = time.perf_counter() - t0
+    tokens = eng.tokens_generated - tok0
+    prof = profile_window(torch, lambda: [eng.decode_tick()
+                                          for _ in range(8)], window,
+                          PAGED_ROWS)
+    # the profiler's own host work stretches its window's wall time, so
+    # the idle share is also given against the unprofiled ticks' wall
+    out = {"ms_per_tick": wall / 8 * 1e3, "tokens_per_s": tokens / wall,
+           "device_busy_ms_per_tick": prof["device_busy_ms"] / 8,
+           "idle_share_of_unprofiled_wall": 1 - prof["device_busy_ms"]
+           / (wall * 1e3), "profile": prof}
+    for slot in range(8):
+        eng.evict(slot)
+    return out
+
+
+def phase_graph_serving(torch, np, pt, ca, model, prompts, card):
+    """The serving programs as CUDA graphs at the transformer_decode
+    width, in five modes (greedy; speculative=4 with prefill_chunk=128;
+    int8 pools with prefill_chunk=128; sampled at temperature 0.8, top-k
+    50, top-p 0.95, with and without speculative=4), over phase 3's 16
+    requests of 32 tokens. In each mode: compile counts {prefill: 1, tick:
+    1} after warmup and after the run; each program captured its kernel L
+    times; the launch counts equal replays times captured launches; the
+    pools return to their start; the greedy tokens equal, bit for bit,
+    those of the same engine with its programs' bodies run eagerly; the
+    sampled tokens equal those of a second seeded engine that was not
+    warmed. Then ms per tick, tokens/s, TTFT p50 and the idle share over
+    8 steady ticks, graphs beside the eager bodies."""
+    V, L, new = 32000, 6, 32
+    counts = {}
+    progs = ("prefill", "tick")
+
+    def engine(kw):
+        kw = dict(kw)
+        if "sampling" in kw:
+            kw["sampling"] = pt.SamplingConfig(**kw["sampling"])
+        return pt.DecodeEngine(model, max_slots=8, block_size=16,
+                               attention="paged", **kw)
+
+    for label, kw, k_prefill, k_tick in GRAPH_MODES:
+        eng = engine(kw)
+        start_free = eng.cache.free_blocks
+        warm = eng.warmup()
+        cap = {p.name: {k: v for k, v in p.captured.items() if v}
+               for p in (eng._prefill, eng._tick)}
+        if warm["compile_counts"] != {"prefill": 1, "tick": 1} \
+                or cap != {"prefill": {k_prefill: L}, "tick": {k_tick: L}}:
+            raise RuntimeError(f"graphs {label}: warmup {warm}, captured "
+                               f"{cap}")
+        before = {p.name: p.replays for p in (eng._prefill, eng._tick)}
+        reqs, c, tick_s, wall = run_requests(torch, pt, ca, eng, prompts,
+                                             new)
+        reps = {p.name: p.replays - before[p.name]
+                for p in (eng._prefill, eng._tick)}
+        for k, v in c.items():
+            counts[k] = counts.get(k, 0) + v
+        check_requests(f"graphs {label}", reqs, new, V)
+        want = {k: sum(reps[n] * cap[n].get(k, 0) for n in progs)
+                for k in ca.KERNELS}
+        if c != want or reps != {"prefill": eng.prefill_chunks,
+                                 "tick": eng.ticks}:
+            raise RuntimeError(f"graphs {label}: launches {c} != replays "
+                               f"{reps} x captured {cap}")
+        if eng.compile_counts() != {"prefill": 1, "tick": 1}:
+            raise RuntimeError(f"graphs {label}: rebuilt, "
+                               f"{eng.compile_counts()}")
+        if eng.cache.free_blocks != start_free or eng.cache.allocator._rc:
+            raise RuntimeError(f"graphs {label}: pool leak")
+        got = [r.tokens for r in reqs]
+        row = {"mode": label, "warmup": warm, "captured": cap,
+               "replays": reps, "launches": c,
+               "graph": serving_numbers(eng, reqs, tick_s, wall)}
+
+        ref_eng = eager_body(engine(kw))
+        e_reqs, e_c, e_tick_s, e_wall = run_requests(torch, pt, ca, ref_eng,
+                                                     prompts, new)
+        eager = [r.tokens for r in e_reqs]
+        row["eager"] = serving_numbers(ref_eng, e_reqs, e_tick_s, e_wall)
+        row["eager_launches"] = e_c
+        row["requests_equal_eager"] = sum(a == b for a, b in zip(got, eager))
+        if "sampling" in kw:
+            cold = engine(kw)             # not warmed: captured on first use
+            c_reqs, _, _, _ = run_requests(torch, pt, ca, cold, prompts, new)
+            if [r.tokens for r in c_reqs] != got \
+                    or cold.compile_counts() != {"prefill": 1, "tick": 1}:
+                raise RuntimeError(f"graphs {label}: an unwarmed engine of "
+                                   f"the same seed gave other tokens")
+            row["unwarmed_engine_tokens_identical"] = True
+            row["distinct_tokens"] = len({t for toks in got for t in toks})
+        elif got != eager:
+            raise RuntimeError(f"graphs {label}: tokens differ from the "
+                               f"eager bodies' in "
+                               f"{len(got) - row['requests_equal_eager']} "
+                               f"requests")
+        row["steady_graph"] = steady_ticks(
+            torch, np, eng, f"graphs, {label}: 8 ticks, 8 active slots")
+        row["steady_eager"] = steady_ticks(
+            torch, np, ref_eng, f"eager bodies, {label}: 8 ticks, 8 active "
+            f"slots")
+        row["card"] = card
+        log("graph serving", json.dumps(row))
+        del eng, ref_eng
     return counts
 
 
@@ -1904,17 +2146,20 @@ def main():
     serve_counts, model, ref, prompts, tokens = phase_slice(torch, np, pt)
     span_counts = phase_span_serving(torch, np, pt, ca, model, ref, prompts,
                                      tokens, card)
+    graph_counts = phase_graph_serving(torch, np, pt, ca, model, prompts,
+                                       card)
     del model, ref
     train_counts = phase_train(torch, np, pt)
     dw = phase_conv_kernels(torch, cc, gen)
     ln_rows, ln_counts = phase_ln_kernels(torch, F, fl, gen)
     resnet_counts = phase_resnet(torch, np, pt, cc, card)
-    counts = {n: serve_counts[n] + span_counts[n] + train_counts[n]
-              for n in ca.KERNELS}
+    counts = {n: serve_counts[n] + span_counts[n] + graph_counts[n]
+              + train_counts[n] for n in ca.KERNELS}
     counts.update(resnet_counts)
     counts.update(ln_counts)
     log("launches", json.dumps({"serving": serve_counts,
                                 "span serving": span_counts,
+                                "graph serving": graph_counts,
                                 "training": train_counts,
                                 "resnet training": resnet_counts,
                                 "fused_ln_matmul": ln_counts}))

@@ -16,14 +16,15 @@ from .nn.fused_ln import fused_ln_matmul
 from .nn.layers import set_conv1x1_impl
 from .optim import (adam, chain, clip_by_global_norm, momentum, sgd,
                     weight_decay)
-from .serve import ContinuousBatchingScheduler, DecodeEngine, Request
+from .serve import (ContinuousBatchingScheduler, DecodeEngine, Request,
+                    SamplingConfig)
 from .train import Trainer
 from .utils.bridge import (export_jax_opt_state, export_jax_params,
                            load_jax_opt_state, load_jax_params)
 
 __all__ = ["ContinuousBatchingScheduler", "DecodeEngine", "Policy",
-           "Request", "ResNet", "Trainer", "TransformerBlock",
-           "TransformerLM", "adam", "chain", "clip_by_global_norm",
+           "Request", "ResNet", "SamplingConfig", "Trainer",
+           "TransformerBlock", "TransformerLM", "adam", "chain", "clip_by_global_norm",
            "current_policy", "export_jax_opt_state", "export_jax_params",
            "fused_ln_matmul", "load_jax_opt_state", "load_jax_params",
            "momentum", "resnet50", "resnet_cifar", "resolve_device",

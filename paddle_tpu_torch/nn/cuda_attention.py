@@ -34,8 +34,9 @@ projections accumulate in f32) and ``D`` in {64, 128}.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
-from typing import Dict, NamedTuple, Optional, Tuple
+from typing import Dict, Iterator, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -51,8 +52,8 @@ __all__ = ["FlashAttentionFunction", "FlashBwdPlan", "FlashFwdPlan",
            "flash_bwd_plan", "flash_fwd_plan",
            "paged_decode_attention", "paged_decode_plain",
            "paged_span_attention", "paged_span_plain", "paged_plan",
-           "PagedPlan", "launch_counts", "reset_launch_counts", "KERNELS",
-           "SPAN_MAX_Q"]
+           "PagedPlan", "launch_counts", "reset_launch_counts",
+           "capturing_launches", "count_replay", "KERNELS", "SPAN_MAX_Q"]
 
 _NEG = -1e30
 _HEAD_DIMS = (64, 128)
@@ -64,16 +65,39 @@ KERNELS = {"flash_fwd": "flash_fwd", "paged_decode": "paged_decode",
            "paged_decode_int8": "paged_decode"}
 
 _launches: Dict[str, int] = {name: 0 for name in KERNELS}
+# where _launch counts: _launches, or a capture's own tally while a CUDA
+# graph is being captured (its launches run only when it replays)
+_counter = [_launches]
 
 
 def launch_counts() -> Dict[str, int]:
-    """Kernel launches since the last :func:`reset_launch_counts`."""
+    """Kernel launches since the last :func:`reset_launch_counts`, those
+    of CUDA graph replays included (:func:`count_replay`)."""
     return dict(_launches)
 
 
 def reset_launch_counts() -> None:
     for name in _launches:
         _launches[name] = 0
+
+
+@contextlib.contextmanager
+def capturing_launches() -> Iterator[Dict[str, int]]:
+    """Inside the block (a CUDA graph capture) the wrappers count their
+    launches in the yielded dict instead of :func:`launch_counts`: a
+    captured launch runs only when the graph replays."""
+    captured = {name: 0 for name in KERNELS}
+    _counter.append(captured)
+    try:
+        yield captured
+    finally:
+        _counter.pop()
+
+
+def count_replay(captured: Dict[str, int]) -> None:
+    """Count one replay of a graph whose capture launched ``captured``."""
+    for name, n in captured.items():
+        _launches[name] += n
 
 
 # ---------------------------------------------------------------------------
@@ -201,7 +225,8 @@ def _check_flash(name: str, q, k, v, segments, same=None, rows=None):
 
 def _launch(name: str, *args) -> None:
     """Launch kernel ``name`` with ``args`` and count it."""
-    cuda_build.launch(_launches, name, KERNELS[name], _ARGTYPES[name], *args)
+    cuda_build.launch(_counter[-1], name, KERNELS[name], _ARGTYPES[name],
+                      *args)
 
 
 def flash_attention_fwd(q, k, v, segments=None, causal: bool = False,

@@ -6,11 +6,13 @@ from .kv_cache import (NULL_BLOCK, BlockAllocator, PagedKVCache, PrefixCache,
                        quantize_rows, scatter_prefill, scatter_prefill_pages,
                        scatter_span, scatter_span_pages, scatter_token,
                        scatter_token_pages)
-from .scheduler import ContinuousBatchingScheduler, Request
+from .sampling import SamplingConfig
+from .scheduler import ORDERS, ContinuousBatchingScheduler, Request
 
 __all__ = ["AdmitProbe", "BlockAllocator", "ContinuousBatchingScheduler",
            "DecodeEngine", "NULL_BLOCK", "PagedKVCache", "PrefixCache",
-           "PrefixMatch", "Request", "dequantize_rows", "gather_pages",
+           "ORDERS", "PrefixMatch", "Request", "SamplingConfig",
+           "dequantize_rows", "gather_pages",
            "quantize_rows", "scatter_prefill", "scatter_prefill_pages",
            "scatter_span", "scatter_span_pages", "scatter_token",
            "scatter_token_pages"]

@@ -1,37 +1,57 @@
 """The decode engine — the port of ``DecodeEngine`` from
-``paddle_tpu/serve/engine.py`` for greedy single-device serving.
-
-Two entry points serve any number of concurrent ragged requests:
+``paddle_tpu/serve/engine.py`` on one device: two programs built once,
+serving any number of concurrent ragged requests.
 
 - **prefill**: one-shot at the fixed padded width ``[1, W]`` (``W`` = the
   per-slot context capacity), scattering rows ``[shared, P)`` of every
   layer's K/V into the slot's blocks and taking the first token from
-  logits row ``P - 1``; or, with ``prefill_chunk=C``, ``ceil(P / C)``
-  span calls of ``C`` tokens each that the scheduler interleaves with
-  decode ticks;
+  logits row ``P - 1`` (a device gather); or, with ``prefill_chunk=C``, a
+  span call at the fixed chunk width ``[1, C]``, run ``ceil(P / C)``
+  times, which the scheduler interleaves with decode ticks;
 - the **decode tick** at the fixed slot count ``[S]``: every active slot
-  appends its pending token and gets the greedy next one; inactive lanes
-  are masked. With ``speculative=k`` the tick appends the pending token
-  plus ``k`` n-gram self-drafted guesses, verifies them in one span call
-  and retires the longest draft prefix the model reproduced plus the
-  model's own next token — the same stream as the plain tick.
+  appends its pending token and gets the next one; inactive lanes are
+  masked. With ``speculative=k`` the tick is ``[S, 1 + k]``: the pending
+  token plus ``k`` n-gram self-drafted guesses verified in one span call.
+  Greedy verification retires the longest draft prefix the model
+  reproduced plus the model's own next token — the plain tick's stream.
+
+On the card each program is a CUDA graph, captured on first use or by
+:meth:`DecodeEngine.warmup` and replayed on every later call: the
+counterpart of the JAX engine's two ``jax.jit`` programs, and
+:meth:`DecodeEngine.compile_counts` counts the captures. Every per-call
+value (ids, lengths, starts, masks, counters, the block tables) reaches
+the graph through a device buffer at a fixed address
+(:mod:`~paddle_tpu_torch.serve.graphs`); the KV pools are updated in
+place. A capture or replay that fails raises: there is no eager path on
+the card. On the CPU the same bodies run eagerly on the same buffers.
+
+Sampling is greedy (argmax) by default. ``sampling=SamplingConfig(...)``
+draws with temperature / top-k / top-p from per-slot, per-tick keys
+(``fold_in(fold_in(PRNGKey(seed), tick), slot)``, computed inside the
+graph from a device counter), the JAX package's threefry-2x32 stream bit
+for bit. With speculation it verifies by the rejection rule of [S3]: a
+draft ``d`` is accepted with probability ``p(d)`` of the filtered target
+distribution, a rejection resamples from ``p`` with ``d`` excluded, and a
+run of accepted drafts ends in a bonus sample — three key roles (0, 1,
+2) folded into each row's key, all in one replay; the host walks the
+accept prefix.
 
 Copy-on-write prefix sharing (``share_prefix=True``): admission maps
 every resident full-block prefix hit into the slot's table by reference;
 an exact-duplicate prompt also shares its partial boundary block and forks
-it (one-block device copy, scale pages included) before the first write
-there. With ``retain_prefix`` the evicted registered blocks park in a
-retained LRU. ``kv_dtype="int8"`` keeps the pools as int8 values with f32
-row scales.
+it (one-block device copy, scale pages included, outside any graph)
+before the first write there. With ``retain_prefix`` the evicted
+registered blocks park in a retained LRU. ``kv_dtype="int8"`` keeps the
+pools as int8 values with f32 row scales.
 
-The JAX engine compiled its two programs once and donated the KV pools to
-them; here PyTorch runs eagerly and the pools are updated in place.
-:meth:`launch_counts` reads the kernel wrappers' launch counters.
+:meth:`launch_counts` reads the kernel wrappers' launch counters, which a
+replay advances by the launches its capture saw.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Any, Dict, List, Optional
 
 import numpy as np
@@ -39,9 +59,12 @@ import torch
 
 from ..core.device import resolve_device
 from ..nn import cuda_attention
+from .graphs import GraphPool, Program
 from .kv_cache import PagedKVCache, layer_pool, scatter_prefill_pages
+from .sampling import (SamplingConfig, categorical, filter_logits, fold_in,
+                       prng_key, sample_tokens, tick_keys, uniform)
 
-__all__ = ["DecodeEngine", "AdmitProbe"]
+__all__ = ["DecodeEngine", "AdmitProbe", "SamplingConfig"]
 
 
 @dataclasses.dataclass
@@ -81,10 +104,12 @@ class DecodeEngine:
         retention of evicted prefix blocks.
       speculative: n-gram self-drafted tokens verified per tick (0 =
         off); greedy verification keeps the token stream of the plain
-        tick.
+        tick, sampled verification the [S3] rejection rule.
       prefill_chunk: prefill chunk width C (None = one-shot prefill at
         the full width); a prompt of P tokens prefills in ``ceil(P / C)``
         span calls.
+      sampling: a :class:`SamplingConfig` for seeded stochastic decoding
+        (None = greedy).
       kv_dtype: ``None``/``"f32"`` (f32 pools) or ``"int8"`` (int8 values
         and f32 row scales, dequantized by the consumer).
       device: where the pools live (default ``"cuda"``); must match the
@@ -97,6 +122,7 @@ class DecodeEngine:
                  attention: str = "paged", share_prefix: bool = True,
                  retain_prefix: bool = True, speculative: int = 0,
                  prefill_chunk: Optional[int] = None,
+                 sampling: Optional[SamplingConfig] = None,
                  kv_dtype: Optional[str] = None, device="cuda"):
         want = resolve_device(device)
         self.device = next(model.parameters()).device
@@ -111,10 +137,13 @@ class DecodeEngine:
         if prefill_chunk is not None and prefill_chunk < 1:
             raise ValueError(f"prefill_chunk must be >= 1, "
                              f"got {prefill_chunk}")
+        if sampling is not None:
+            sampling.validate(model.emb.vocab)
         self.model = model
         self.attention = attention
         self.speculative = int(speculative)
         self.prefill_chunk = prefill_chunk
+        self.sampling = sampling
         attn = model.blocks[0].attn
         if max_blocks_per_seq is None:
             max_blocks_per_seq = max(1, model.max_len // block_size)
@@ -155,6 +184,25 @@ class DecodeEngine:
         self._W = self.cache.context_width
         self._K1 = 1 + self.speculative
 
+        # the two programs; their per-call values are int32 device buffers
+        pool = GraphPool(self.device)
+        S, K1 = max_slots, self._K1
+        if prefill_chunk is None:
+            self._prefill = Program(
+                "prefill", self._prefill_body,
+                {"ids": (1, self._W), "length": (1,), "start": (1,),
+                 "slot": (1,), "counter": (1,)}, pool)
+        else:
+            self._prefill = Program(
+                "prefill", self._chunk_body,
+                {"ids": (1, prefill_chunk), "start": (1,), "n": (1,),
+                 "write_from": (1,), "slot": (1,), "counter": (1,)}, pool)
+        shapes = {"tokens": (S,) if self.speculative == 0 else (S, K1),
+                  "n": (S,), "active": (S,), "tick": (1,)}
+        if self.speculative == 0:
+            del shapes["n"]
+        self._tick = Program("tick", self._tick_body, shapes, pool)
+
     @property
     def context_width(self) -> int:
         return self._W
@@ -162,8 +210,162 @@ class DecodeEngine:
     @staticmethod
     def launch_counts() -> Dict[str, int]:
         """Hand-written kernel launches (flash prefill, paged decode,
-        paged span, plain and int8) since the counters were last reset."""
+        paged span, plain and int8) since the counters were last reset,
+        those of graph replays included."""
         return cuda_attention.launch_counts()
+
+    def compile_counts(self) -> Dict[str, int]:
+        """Programs built per entry point: CUDA graphs captured on the
+        card, first uses on the CPU. Both 1 after :meth:`warmup` (or the
+        first prefill and tick) and for the engine's lifetime after:
+        admissions, evictions, speculation, chunking, sharing and int8
+        change only the contents of the programs' buffers."""
+        return {"prefill": self._prefill.builds, "tick": self._tick.builds}
+
+    # -- the programs' bodies ----------------------------------------------
+    #
+    # Each reads its program's device inputs, the cache's device mirror
+    # and the pools, and returns one int32 tensor. Nothing in them reads a
+    # device value on the host or copies a host value to the device, so
+    # they can be captured.
+
+    def _first_token(self, last: torch.Tensor,
+                     counter: torch.Tensor) -> torch.Tensor:
+        """``last [1, V]`` -> the first token ``[1]``: argmax, or a draw
+        with the key ``fold_in(PRNGKey(seed), counter)``."""
+        cfg = self.sampling
+        if cfg is None:
+            return torch.argmax(last, dim=-1).int()
+        key = fold_in(prng_key(cfg.seed), counter)
+        return sample_tokens(cfg, last, key).int()
+
+    @staticmethod
+    def _row(logits: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
+        """Row ``index [1]`` of ``logits [1, T, V]`` -> ``[1, V]``, gathered
+        on the device."""
+        idx = index.long()[:, None, None].expand(-1, 1, logits.shape[-1])
+        return logits.gather(1, idx)[:, 0]
+
+    def _prefill_body(self) -> torch.Tensor:
+        i = self._prefill.inputs.dev
+        tables, _ = self.cache.mirror()
+        table = tables.index_select(0, i["slot"].long())
+        logits, (ks, vs) = self.model.prefill(i["ids"].long())
+        for layer in range(self.cache.num_layers):
+            scatter_prefill_pages(layer_pool(self.cache.k, layer),
+                                  ks[layer], table, i["length"], i["start"])
+            scatter_prefill_pages(layer_pool(self.cache.v, layer),
+                                  vs[layer], table, i["length"], i["start"])
+        return self._first_token(self._row(logits, i["length"] - 1),
+                                 i["counter"])
+
+    def _chunk_body(self) -> torch.Tensor:
+        i = self._prefill.inputs.dev
+        tables, _ = self.cache.mirror()
+        table = tables.index_select(0, i["slot"].long())
+        logits, _ = self.model.decode_span(
+            i["ids"].long(), (self.cache.k, self.cache.v, table),
+            i["start"], i["n"], torch.ones_like(i["n"], dtype=torch.bool),
+            attn_impl=self.attention, write_from=i["write_from"])
+        return self._first_token(self._row(logits, i["n"] - 1),
+                                 i["counter"])
+
+    def _tick_body(self) -> torch.Tensor:
+        i = self._tick.inputs.dev
+        tables, lengths = self.cache.mirror()
+        kv = (self.cache.k, self.cache.v, tables)
+        active = i["active"] != 0
+        cfg = self.sampling
+        if self.speculative == 0:
+            logits, _ = self.model.decode_step(
+                i["tokens"].long(), kv, lengths, active,
+                attn_impl=self.attention)
+            if cfg is None:
+                return torch.argmax(logits, dim=-1).int()
+            keys = tick_keys(cfg.seed, i["tick"], self.max_slots)
+            return sample_tokens(cfg, logits, keys).int()
+        logits, _ = self.model.decode_span(
+            i["tokens"].long(), kv, lengths, i["n"], active,
+            attn_impl=self.attention)
+        if cfg is None:
+            return torch.argmax(logits, dim=-1).int()        # [S, 1+k]
+        return self._verify_sampled(cfg, logits, i["tokens"].long(),
+                                    i["tick"])
+
+    def _verify_sampled(self, cfg, logits, tokens, tick) -> torch.Tensor:
+        """The [S3] rejection rule over a verify span, ``logits [S, Q, V]``
+        with ``Q = 1 + k`` and ``tokens [S, Q]`` (pending, drafts). Draft
+        row ``j``'s proposal is a point mass at ``tokens[:, j + 1]``: it is
+        accepted when a uniform ``u`` lands under ``p_j(draft)``, and a
+        rejection resamples from ``p_j`` with the draft excluded
+        (``norm(max(p - q, 0))``); the bonus is a draw from each row's
+        ``p``. Row ``j`` of slot ``s`` draws from ``fold_in(fold_in(key_s,
+        j), role)`` with role 0 (the coin), 1 (the resample), 2 (the
+        bonus). Returns ``[S, 3k + 1]``: the accept bits ``[S, k]``, the
+        resamples ``[S, k]`` and the bonus samples ``[S, 1 + k]``."""
+        x = filter_logits(cfg, logits)                       # [S, Q, V]
+        S, Q = tokens.shape
+        k0, k1 = tick_keys(cfg.seed, tick, S)
+        rows = torch.arange(Q, dtype=torch.int64, device=x.device)
+        rk = fold_in((k0[:, None], k1[:, None]), rows[None, :])  # [S, Q]
+
+        def role(c, last=Q):
+            r0, r1 = fold_in(rk, c)
+            return r0[:, :last], r1[:, :last]
+
+        u = uniform(role(0))                                 # [S, Q]
+        drafts = tokens[:, 1:, None]                         # [S, k, 1]
+        # p_j(draft) as JAX's softmax computes it: exp(x - max) / sum
+        e = torch.exp(x[:, :-1] - x[:, :-1].amax(-1, keepdim=True))
+        p_draft = (e.gather(-1, drafts) / e.sum(-1, keepdim=True))[..., 0]
+        accept = u[:, :-1] < p_draft                         # [S, k]
+        res_x = x[:, :-1].scatter(-1, drafts, float("-inf"))
+        resample = categorical(role(1, Q - 1), res_x)        # [S, k]
+        bonus = categorical(role(2), x)                      # [S, Q]
+        return torch.cat([accept.int(), resample.int(), bonus.int()], dim=1)
+
+    # -- warmup ------------------------------------------------------------
+
+    def warmup(self) -> Dict[str, Any]:
+        """Build both programs now, before the first request: each runs
+        once on all-inactive dummy operands (zero ids, length 1 into slot
+        0's all-null table row, every tick lane masked off), so the stray
+        writes land only in the null block, and the host counters the keys
+        fold (ticks, prefill calls) are left as they were: warmed and
+        unwarmed engines emit identical streams. On the card that is each
+        program's capture; :meth:`compile_counts` is ``{prefill: 1, tick:
+        1}`` after it.
+
+        Returns the start-up breakdown: ``prefill_s``, ``tick_s``,
+        ``wall_s`` and ``compile_counts``. The JAX engine's
+        ``autotune_trials``, ``autotune_cache_hit``,
+        ``xla_cache_entries_added`` and ``xla_cache_hit`` are ``None``:
+        the port has no autotuner and no persistent cache of built
+        programs yet (a captured graph lives as long as its process)."""
+        if self.active.any() or self._prefilling:
+            raise RuntimeError("warmup() must run before any admission "
+                               "(fresh engine)")
+        t0 = time.perf_counter()
+        self.cache.device_tables()
+        if self.prefill_chunk is None:
+            self._prefill.launch(ids=0, length=1, start=0, slot=0,
+                                 counter=self._prefill_counter())
+        else:
+            self._prefill.launch(ids=0, start=0, n=1, write_from=0, slot=0,
+                                 counter=self._prefill_counter())
+        self._prefill.fetch()
+        t1 = time.perf_counter()
+        self.cache.device_tables()
+        if self.speculative == 0:
+            self._tick.launch(tokens=0, active=0, tick=self.ticks)
+        else:
+            self._tick.launch(tokens=0, n=0, active=0, tick=self.ticks)
+        self._tick.fetch()
+        t2 = time.perf_counter()
+        return {"prefill_s": t1 - t0, "tick_s": t2 - t1, "wall_s": t2 - t0,
+                "autotune_trials": None, "autotune_cache_hit": None,
+                "xla_cache_entries_added": None, "xla_cache_hit": None,
+                "compile_counts": self.compile_counts()}
 
     def free_slots(self) -> List[int]:
         return [s for s in range(self.max_slots)
@@ -266,50 +468,41 @@ class DecodeEngine:
                                   "cursor": min(shared, P - 1),
                                   "shared_len": shared, "staged": staged}
 
-    @torch.no_grad()
+    def _prefill_counter(self) -> int:
+        """The first-token key's counter of the next prefill call,
+        ``1 + prefill_chunks + ticks`` (the JAX engine's
+        ``_prefill_key``); greedy engines stage it unused."""
+        return 1 + self.prefill_chunks + self.ticks
+
     def prefill_step(self, slot: int) -> Optional[int]:
         """Run one prefill call for a :meth:`begin_prefill`'d slot: the
         whole prompt, or its next ``C``-token chunk. Returns the first
         generated token when the prompt is done (the slot is then live
-        for decode ticks), else None."""
+        for decode ticks), else None (without waiting for the device)."""
         st = self._prefilling[slot]
         prompt, P = st["prompt"], len(st["prompt"])
-        dev = self.device
-        table = torch.tensor(self.cache.tables[slot:slot + 1], device=dev)
-        shared = torch.tensor([st["shared_len"]], device=dev)
+        self.cache.device_tables()
         if self.prefill_chunk is None:
             ids = st["staged"] if st["staged"] is not None \
                 else self.stage_prompt(prompt)
-            logits, (ks, vs) = self.model.prefill(
-                torch.as_tensor(ids, dtype=torch.long, device=dev))
-            length = torch.tensor([P], device=dev)
-            for layer in range(self.cache.num_layers):
-                scatter_prefill_pages(layer_pool(self.cache.k, layer),
-                                      ks[layer], table, length, shared)
-                scatter_prefill_pages(layer_pool(self.cache.v, layer),
-                                      vs[layer], table, length, shared)
-            last = logits[0, P - 1]
+            self._prefill.launch(ids=ids, length=P, start=st["shared_len"],
+                                 slot=slot, counter=self._prefill_counter())
             st["cursor"] = P
         else:
             C, cur = self.prefill_chunk, st["cursor"]
             n = min(C, P - cur)
-            ids = np.zeros((1, C), np.int64)
+            ids = np.zeros((1, C), np.int32)
             ids[0, :n] = prompt[cur:cur + n]
-            logits, _ = self.model.decode_span(
-                torch.as_tensor(ids, device=dev),
-                (self.cache.k, self.cache.v, table),
-                torch.tensor([cur], dtype=torch.int32, device=dev),
-                torch.tensor([n], dtype=torch.int32, device=dev),
-                torch.ones(1, dtype=torch.bool, device=dev),
-                attn_impl=self.attention, write_from=shared)
-            last = logits[0, n - 1]
+            self._prefill.launch(ids=ids, start=cur, n=n,
+                                 write_from=st["shared_len"], slot=slot,
+                                 counter=self._prefill_counter())
             st["cursor"] = cur + n
         self.slot_stats[slot]["prefill_chunks"] += 1
         self.prefill_chunks += 1
         if st["cursor"] < P:
             return None
         del self._prefilling[slot]
-        tok = int(torch.argmax(last))
+        tok = int(self._prefill.fetch()[0])
         self.prefills += 1
         self.cache.lengths[slot] = P
         self.active[slot] = True
@@ -395,7 +588,7 @@ class DecodeEngine:
                 self.slot_stats[slot]["cow_forks"] += 1
         return n
 
-    @torch.no_grad()
+
     def decode_tick(self) -> np.ndarray:
         """One decode step over every slot: append each active slot's
         pending token (and, with ``speculative=k``, its drafts) to its KV
@@ -403,49 +596,65 @@ class DecodeEngine:
         :attr:`last_accepted` maps each active slot to the tokens it
         retired this tick."""
         n = self._pre_tick_guard()
-        tables, lengths = self.cache.device_tables()
-        dev = self.device
-        active = torch.tensor(self.active, device=dev)
-        kv = (self.cache.k, self.cache.v, tables)
-        # the pending token, then the drafts
-        toks = np.zeros((self.max_slots, self._K1), np.int64)
-        toks[:, 0] = self.tokens
+        self.cache.device_tables()
+        k = self.speculative
         drafted = 0
-        if self.speculative == 0:
-            logits, _ = self.model.decode_step(
-                torch.as_tensor(toks[:, 0], device=dev), kv, lengths, active,
-                attn_impl=self.attention)
-            nxt = torch.argmax(logits, dim=-1)[:, None]
+        if k == 0:
+            self._tick.launch(tokens=self.tokens, active=self.active,
+                              tick=self.ticks)
+            # the plain tick advances every active slot by one: the bump
+            # runs while the device works (the device mirror is a
+            # snapshot taken before it)
+            self.cache.lengths[self.active] += 1
         else:
+            # the pending token, then the drafts
+            toks = np.zeros((self.max_slots, self._K1), np.int32)
             for slot in np.flatnonzero(self.active):
+                toks[slot, 0] = self.tokens[slot]
                 toks[slot, 1:] = self._propose_drafts(slot)
                 drafted += int(n[slot]) - 1
-            logits, _ = self.model.decode_span(
-                torch.as_tensor(toks, device=dev), kv, lengths,
-                torch.as_tensor(n, device=dev), active,
-                attn_impl=self.attention)
-            nxt = torch.argmax(logits, dim=-1)                # [S, 1+k]
-        nxt = nxt.to(torch.int32).cpu().numpy()
+            self._tick.launch(tokens=toks, n=n, active=self.active,
+                              tick=self.ticks)
+        out = self._tick.fetch()
+        stochastic = k > 0 and self.sampling is not None
         self.last_accepted = {}
         front = np.zeros((self.max_slots,), np.int32)
         retired = accepted_drafts = 0
         for slot in np.flatnonzero(self.active):
-            # the longest draft prefix the model reproduced, plus the
-            # model's own token after it: the plain tick's stream
-            take = 1
-            while take < int(n[slot]) \
-                    and int(toks[slot, take]) == int(nxt[slot, take - 1]):
-                take += 1
-            accepted = [int(t) for t in nxt[slot, :take]]
-            self.cache.lengths[slot] += take
+            live = int(n[slot])
+            if k == 0:
+                accepted = [int(out[slot])]
+            elif stochastic:
+                # [S3] walk: accept drafts while the row's coin lands under
+                # p(draft); the stopping row's token is the residual
+                # resample, or the bonus from the last live row when every
+                # draft survived
+                acc, res, bon = out[slot, :k], out[slot, k:2 * k], \
+                    out[slot, 2 * k:]
+                take = 0
+                while take < live - 1 and acc[take]:
+                    take += 1
+                accepted = [int(t) for t in toks[slot, 1:1 + take]]
+                accepted.append(int(res[take] if take < live - 1
+                                    else bon[live - 1]))
+            else:
+                # the longest draft prefix the model reproduced, plus the
+                # model's own token after it: the plain tick's stream
+                take = 1
+                while take < live and int(toks[slot, take]) \
+                        == int(out[slot, take - 1]):
+                    take += 1
+                accepted = [int(t) for t in out[slot, :take]]
+            if k:
+                self.cache.lengths[slot] += len(accepted)
             self.last_accepted[slot] = accepted
             front[slot] = accepted[-1]
             self._history_append(slot, accepted)
-            retired += take
-            accepted_drafts += take - 1
+            retired += len(accepted)
+            accepted_drafts += len(accepted) - 1
             st = self.slot_stats[slot]
-            st["draft_proposed"] += int(n[slot]) - 1
-            st["draft_accepted"] += take - 1
+            st["draft_proposed"] += live - 1
+            st["draft_accepted"] += len(accepted) - 1
         self.tokens = front
         self.ticks += 1
         self.tokens_generated += retired

@@ -39,6 +39,7 @@ import numpy as np
 import torch
 
 from ..core.device import resolve_device
+from .graphs import StagedInts
 
 __all__ = ["BlockAllocator", "PagedKVCache", "PrefixCache", "PrefixMatch",
            "gather_pages", "scatter_prefill", "scatter_token",
@@ -404,6 +405,10 @@ class PagedKVCache:
         self.allocator = BlockAllocator(num_blocks)
         self.tables = np.zeros((max_slots, max_blocks_per_seq), np.int32)
         self.lengths = np.zeros((max_slots,), np.int32)
+        # the persistent device mirror of tables and lengths that the
+        # serving programs (CUDA graphs on the card) read
+        self._mirror = StagedInts({"tables": (max_slots, max_blocks_per_seq),
+                                   "lengths": (max_slots,)}, device)
         self._owned: List[List[int]] = [[] for _ in range(max_slots)]
         # table indices this slot ADOPTED, and its reserved fork target
         self._adopted: List[set] = [set() for _ in range(max_slots)]
@@ -581,7 +586,17 @@ class PagedKVCache:
         return src, dst
 
     def device_tables(self) -> Tuple[torch.Tensor, torch.Tensor]:
-        """The current (tables, lengths) as int32 tensors on the pools'
-        device (copies: the host arrays change between ticks)."""
-        return (torch.tensor(self.tables, device=self.device),
-                torch.tensor(self.lengths, device=self.device))
+        """Copy the host tables and lengths into their persistent int32
+        device mirror (one non-blocking copy from a pinned stage on the
+        card) and return the mirror ``(tables [S, MB], lengths [S])``: the
+        same two tensors on every call, which a captured graph reads at
+        fixed addresses. The copy is a snapshot: host edits after it reach
+        the device at the next call."""
+        self._mirror.stage(tables=self.tables, lengths=self.lengths)
+        return self.mirror()
+
+    def mirror(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The device mirror ``(tables, lengths)`` as the last
+        :meth:`device_tables` left it, without a copy: what a serving
+        program's body reads."""
+        return self._mirror.dev["tables"], self._mirror.dev["lengths"]

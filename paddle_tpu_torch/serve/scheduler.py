@@ -1,12 +1,25 @@
 """Iteration-level (continuous-batching) request scheduling — the port of
 ``Request`` and ``ContinuousBatchingScheduler`` from
-``paddle_tpu/serve/scheduler.py`` for colocated serving in arrival order.
+``paddle_tpu/serve/scheduler.py`` for colocated serving.
 
 Scheduling decisions happen between decode ticks: a queued request takes
 a slot the moment one frees, and a finished request is evicted the moment
 its last token lands; the tick's ``[S]`` shape never changes (the
 engine's active mask absorbs the churn). ``policy="static"`` is the gang
 baseline: a batch is admitted only when every slot is free.
+
+Because admission happens between ticks, the queue order is the whole
+policy: ``order="fcfs"`` admits in arrival order, ``"sjf"`` the shortest
+decode budget first, ``"priority"`` the highest ``priority`` tier first
+(arrival breaks every tie). A request may carry ``deadline_s``, a budget
+from its submission: past it, a queued, prefilling or running request is
+finished with ``finish_reason="timeout"`` between ticks and its blocks
+return to the pool. With ``shed=True`` a deadline-carrying request whose
+predicted completion already passes its deadline is rejected at
+submission (``finish_reason="shed"``), which needs a tick-time estimate:
+``est_tick_s`` as the prior, then an average over the observed intervals
+between busy steps. The clock is injectable, so deadlines are tested
+exactly with a fake one.
 
 On a chunked engine (``prefill_chunk=C``) an admitted request prefills
 one chunk per :meth:`~ContinuousBatchingScheduler.step`, between decode
@@ -20,26 +33,40 @@ from __future__ import annotations
 import dataclasses
 import itertools
 import time
-from typing import Dict, List, Optional
+from typing import Any, Dict, List, Optional
 
-__all__ = ["Request", "ContinuousBatchingScheduler"]
+__all__ = ["Request", "ContinuousBatchingScheduler", "ORDERS"]
+
+# queue orders: arrival, shortest decode budget first, highest priority
+# tier first (arrival breaks the ties of all three)
+ORDERS = ("fcfs", "sjf", "priority")
 
 
 @dataclasses.dataclass
 class Request:
-    """One generation request and its lifecycle timestamps;
-    ``finish_reason`` is ``"length"`` or ``"eos"``."""
+    """One generation request and its lifecycle timestamps.
+    ``finish_reason`` is ``"length"``, ``"eos"``, ``"timeout"`` (its
+    ``deadline_s`` from submission passed) or ``"shed"`` (rejected at
+    submission). ``priority`` is the tier the ``"priority"`` order admits
+    by, ``seq`` the scheduler's arrival index the orders break ties on;
+    ``retries`` counts resubmissions of the request (0 here: the port has
+    no fleet to resubmit it yet)."""
     rid: int
     prompt: List[int]
     max_new_tokens: int
     eos_id: Optional[int] = None
+    deadline_s: Optional[float] = None
+    priority: int = 0
+    retries: int = 0
+    seq: int = 0
     tokens: List[int] = dataclasses.field(default_factory=list)
     slot: Optional[int] = None
     submit_ts: float = 0.0
     first_token_ts: Optional[float] = None
     finish_ts: Optional[float] = None
     finish_reason: Optional[str] = None
-    # the engine's per-slot sharing stats, copied at finish
+    # the engine's per-slot sharing stats, copied at finish (None for a
+    # request that never took a slot)
     prefix_hit_blocks: Optional[int] = None
     blocks_reserved: Optional[int] = None
     cow_forks: Optional[int] = None
@@ -69,51 +96,155 @@ class Request:
 
 class ContinuousBatchingScheduler:
     """Drives a :class:`~paddle_tpu_torch.serve.DecodeEngine` over a
-    request queue, admitting in arrival order."""
+    request queue.
 
-    def __init__(self, engine, policy: str = "continuous"):
+    ``policy`` is ``"continuous"`` (admit between every tick) or
+    ``"static"`` (the gang baseline); ``order`` one of :data:`ORDERS`;
+    ``shed=True`` turns on submit-time shedding, with ``est_tick_s`` the
+    prior tick time (no estimate and no observation: nothing is shed);
+    ``clock`` the wall clock (default ``time.perf_counter``)."""
+
+    def __init__(self, engine, policy: str = "continuous",
+                 order: str = "fcfs", shed: bool = False,
+                 est_tick_s: Optional[float] = None,
+                 clock=time.perf_counter):
         if policy not in ("continuous", "static"):
             raise ValueError(f"policy must be 'continuous'|'static', "
                              f"got {policy!r}")
+        if order not in ORDERS:
+            raise ValueError(f"order must be one of {ORDERS}, got {order!r}")
         self.engine = engine
         self.policy = policy
+        self.order = order
+        self.shed = shed
+        self.est_tick_s = est_tick_s
+        self._clock = clock
         self.queue: List[Request] = []
         self.running: Dict[int, Request] = {}        # slot -> request
         self.prefilling: Dict[int, Request] = {}     # slot -> request
         self.completed: List[Request] = []
         self.last_backpressure: Optional[str] = None
         self._rid = itertools.count()
+        self._seq = itertools.count()
+        self._last_step_ts: Optional[float] = None
+        self._was_busy = False
+
+    # -- load model --------------------------------------------------------
+
+    def pending_new_tokens(self) -> int:
+        """Decode tokens still owed: the remaining budget of every running
+        request plus the whole budget of every queued and prefilling one
+        (a backlog in ticks times slots)."""
+        run = sum(r.max_new_tokens - len(r.tokens)
+                  for r in self.running.values())
+        return (run + sum(r.max_new_tokens for r in self.queue)
+                + sum(r.max_new_tokens for r in self.prefilling.values()))
+
+    def prefill_backlog(self) -> int:
+        """Prompt tokens not yet prefilled (queued and prefilling)."""
+        return (sum(len(r.prompt) for r in self.queue)
+                + sum(len(r.prompt) for r in self.prefilling.values()))
+
+    def load_report(self) -> Dict[str, Any]:
+        """The scheduler's load: owed decode tokens, request counts and
+        the prefill backlog."""
+        return {"pending_new_tokens": self.pending_new_tokens(),
+                "running": len(self.running), "queued": len(self.queue),
+                "prefilling": len(self.prefilling),
+                "prefill_backlog": self.prefill_backlog()}
+
+    def predicted_completion_s(self, max_new_tokens: int
+                               ) -> Optional[float]:
+        """Predicted seconds from submission to finish of a new request
+        under the current backlog, or None without a tick-time estimate.
+        The service rate is taken as ``max_slots`` tokens a tick (the
+        full-batch bound), so the wait is ``backlog / max_slots`` ticks and
+        the run ``max_new_tokens`` ticks: an underestimate under partial
+        occupancy, which sheds less, not more."""
+        if self.est_tick_s is None:
+            return None
+        ticks = (self.pending_new_tokens() / max(1, self.engine.max_slots)
+                 + max_new_tokens)
+        return ticks * self.est_tick_s
+
+    # -- submission --------------------------------------------------------
 
     def submit(self, prompt: List[int], max_new_tokens: int,
-               eos_id: Optional[int] = None) -> Request:
+               eos_id: Optional[int] = None,
+               deadline_s: Optional[float] = None,
+               priority: int = 0) -> Request:
         """Queue one request; the padded prefill array is staged now, off
-        the tick loop."""
+        the tick loop. A shed request comes back finished."""
         if max_new_tokens < 1:
             raise ValueError("max_new_tokens must be >= 1")
+        if deadline_s is not None and deadline_s < 0:
+            raise ValueError("deadline_s must be >= 0")
         req = Request(rid=next(self._rid), prompt=list(prompt),
                       max_new_tokens=max_new_tokens, eos_id=eos_id,
-                      submit_ts=time.perf_counter())
+                      deadline_s=deadline_s, priority=priority,
+                      seq=next(self._seq), submit_ts=self._clock())
         if len(req.prompt) + max_new_tokens > self.engine.context_width:
             raise ValueError(
                 f"prompt {len(req.prompt)} + max_new_tokens "
                 f"{max_new_tokens} exceeds slot capacity "
                 f"{self.engine.context_width}")
+        if self.shed and deadline_s is not None:
+            est = self.predicted_completion_s(max_new_tokens)
+            if est is not None and est > deadline_s:
+                self._finish(req, "shed")     # no slot, no blocks
+                return req
         req._staged = self.engine.stage_prompt(req.prompt)
         self.queue.append(req)
         return req
 
+    # -- the tick loop -----------------------------------------------------
+
     def _finish(self, req: Request, reason: str) -> None:
-        req.finish_ts = time.perf_counter()
+        """Stamp the reason and time; a request holding a slot (running or
+        prefilling) copies the engine's per-slot stats and gives the slot's
+        blocks back."""
+        req.finish_ts = self._clock()
         req.finish_reason = reason
         slot = req.slot
-        st = self.engine.slot_stats[slot]
-        for key in ("prefix_hit_blocks", "blocks_reserved", "cow_forks",
-                    "prefill_chunks", "draft_proposed", "draft_accepted"):
-            setattr(req, key, st.get(key))
-        self.running.pop(slot, None)
-        self.prefilling.pop(slot, None)
-        self.engine.evict(slot)
+        if slot is not None and (self.running.get(slot) is req
+                                 or self.prefilling.get(slot) is req):
+            st = self.engine.slot_stats[slot]
+            for key in ("prefix_hit_blocks", "blocks_reserved", "cow_forks",
+                        "prefill_chunks", "draft_proposed",
+                        "draft_accepted"):
+                setattr(req, key, st.get(key))
+            self.running.pop(slot, None)
+            self.prefilling.pop(slot, None)
+            self.engine.evict(slot)
         self.completed.append(req)
+
+    def _expire(self) -> None:
+        """The deadline sweep, between ticks: a running or prefilling
+        request past its deadline is finished and its blocks freed; a
+        queued one is dropped before it takes a slot."""
+        now = self._clock()
+
+        def expired(req):
+            return (req.deadline_s is not None
+                    and now - req.submit_ts > req.deadline_s)
+
+        for table in (self.running, self.prefilling):
+            for req in [r for r in table.values() if expired(r)]:
+                self._finish(req, "timeout")
+        for req in [r for r in self.queue if expired(r)]:
+            self.queue.remove(req)
+            self._finish(req, "timeout")
+
+    def _admit_order(self) -> List[Request]:
+        """The queue in admission order: arrival (fcfs), decode budget
+        (sjf: prefill is one call whatever the prompt) or descending tier
+        (priority), arrival breaking ties."""
+        if self.order == "sjf":
+            return sorted(self.queue, key=lambda r: (r.max_new_tokens,
+                                                     r.seq))
+        if self.order == "priority":
+            return sorted(self.queue, key=lambda r: (-r.priority, r.seq))
+        return list(self.queue)
 
     def _maybe_finish(self, slot: int, tok: int) -> None:
         req = self.running[slot]
@@ -127,18 +258,20 @@ class ContinuousBatchingScheduler:
         if self.policy == "static" and (self.running or self.prefilling):
             return                       # gang: wait for the whole batch
         free = self.engine.free_slots()
-        while free and self.queue:
-            req = self.queue[0]
+        for req in self._admit_order():
+            if not free:
+                break
             # a tick appends the pending token before sampling, so the
             # cache holds prompt + all generated tokens but the last
             target = max(len(req.prompt) + req.max_new_tokens - 1,
                          len(req.prompt))
             probe = self.engine.admit_probe(target, include_slots=False)
             if not probe.ok:
-                # pool backpressure: stop in arrival order (no bypass)
+                # pool backpressure: stop in policy order (a bypass by a
+                # smaller request would starve the head)
                 self.last_backpressure = probe.reason
                 break
-            self.queue.pop(0)
+            self.queue.remove(req)
             slot = free.pop(0)
             req.slot = slot
             self.engine.begin_prefill(slot, req.prompt, reserve_len=target,
@@ -156,14 +289,25 @@ class ContinuousBatchingScheduler:
             return
         req = self.prefilling.pop(slot)
         req.tokens.append(tok)
-        req.first_token_ts = time.perf_counter()
+        req.first_token_ts = self._clock()
         self.running[slot] = req
         self._maybe_finish(slot, tok)
 
     def step(self) -> bool:
-        """Advance every prefilling slot by one chunk, admit, run one
-        decode tick, collect finished requests. Returns True while work
-        remains."""
+        """Expire deadlines, advance every prefilling slot by one chunk,
+        admit, run one decode tick, collect finished requests. Returns
+        True while work remains."""
+        now = self._clock()
+        if self._last_step_ts is not None and self._was_busy:
+            # the tick-time estimate: an average over the intervals
+            # between busy steps (after an idle one the interval is think
+            # time, not tick time)
+            dt = now - self._last_step_ts
+            if dt > 0:
+                self.est_tick_s = (dt if self.est_tick_s is None
+                                   else 0.7 * self.est_tick_s + 0.3 * dt)
+        self._last_step_ts = now
+        self._expire()
         for slot in list(self.prefilling):
             self._advance_prefill(slot)
         self._admit()
@@ -176,7 +320,8 @@ class ContinuousBatchingScheduler:
                     self._maybe_finish(slot, tok)
                     if req.done:
                         break
-        return bool(self.queue or self.running or self.prefilling)
+        self._was_busy = bool(self.queue or self.running or self.prefilling)
+        return self._was_busy
 
     def run(self, max_ticks: int = 100000) -> List[Request]:
         """Step until the queue drains; returns completed requests in

@@ -21,11 +21,19 @@ stored ds over a buffer of NaN, and the plan's shared memory against
 the kernels' own; for the flash forward T at its tile sizes -1, exactly
 and +1, a negative scale, T = 2048 on both instances, each instance with
 16- and 4-byte copies (views 4 bytes off 16), reruns bit-equal, and the
-plan's shared memory against the kernel's own. Every test needs an
+plan's shared memory against the kernel's own; for the serving programs
+as CUDA graphs, five engine modes (greedy, speculation with chunked
+prefill, int8, sampled with and without speculation) against the eager
+bodies or an unwarmed engine, launch counts under replay, replays that
+run no Python and a capture that fails. Every test needs an
 NVIDIA GPU (marker ``cuda``) and skips without one; run them on the card
 with ``python -m pytest --noconftest -q tests/test_torch_cuda_kernels.py``
 (the JAX harness in ``tests/conftest.py`` is not needed there).
 Tolerance: atol 1e-4 — f32 on both sides, summed in different orders."""
+
+import pathlib
+import subprocess
+import sys
 
 import pytest
 import torch
@@ -639,6 +647,114 @@ def test_engine_spec_chunk_int8_on_card(gen):
         run(kv_dtype="int8", prefill_chunk=16, attention="xla")
     counts = ca.launch_counts()
     assert counts["paged_span_int8"] > 0 and counts["paged_decode_int8"] > 0
+
+
+def _eager_bodies(eng):
+    """``eng`` with every call run through its programs' bodies eagerly on
+    the same static buffers (the functions its graphs capture)."""
+    for prog in (eng._prefill, eng._tick):
+        def launch(_prog=prog, **values):
+            _prog.inputs.stage(**values)
+            _prog.eager_out = _prog.run_eager()
+
+        prog.launch = launch
+        prog.fetch = lambda _prog=prog: _prog.eager_out.cpu().numpy()
+    return eng
+
+
+GRAPH_MODES = [{}, {"speculative": 3, "prefill_chunk": 16},
+               {"kv_dtype": "int8", "prefill_chunk": 16},
+               {"sampling": {"temperature": 0.8, "top_k": 20,
+                             "top_p": 0.9, "seed": 3}},
+               {"sampling": {"seed": 4}, "speculative": 3}]
+
+
+@pytest.mark.parametrize("kw", GRAPH_MODES)
+def test_engine_graphs_on_card(gen, kw):
+    """The serving programs as CUDA graphs: built once through churn,
+    launches counted as replays times the capture's, greedy tokens equal
+    to the eager bodies' bit for bit, sampled tokens equal across a warmed
+    and an unwarmed engine of one seed, the pools back at their start."""
+    import paddle_tpu_torch as pt
+    model = pt.TransformerLM(101, dim=128, num_layers=2, num_heads=2,
+                             ffn_hidden=256, max_len=64, use_flash=True,
+                             generator=gen)
+    prompts = [[int(t) for t in torch.randint(0, 101, (n,), generator=gen,
+                                              device="cuda").cpu()]
+               for n in (3, 17, 40, 9, 25)]
+
+    def engine():
+        args = dict(kw)
+        if "sampling" in args:
+            args["sampling"] = pt.SamplingConfig(**args["sampling"])
+        return pt.DecodeEngine(model, max_slots=3, block_size=8, **args)
+
+    def serve(eng):
+        sched = pt.ContinuousBatchingScheduler(eng)
+        reqs = [sched.submit(p, 12) for p in prompts]
+        sched.run()
+        return [r.tokens for r in reqs]
+
+    eng = engine()
+    free0 = eng.cache.free_blocks
+    assert eng.warmup()["compile_counts"] == {"prefill": 1, "tick": 1}
+    progs = (eng._prefill, eng._tick)
+    before = [p.replays for p in progs]
+    ca.reset_launch_counts()
+    got = serve(eng)
+    counts = ca.launch_counts()
+    reps = [p.replays - b for p, b in zip(progs, before)]
+    assert reps == [eng.prefill_chunks, eng.ticks]
+    assert counts == {k: sum(r * p.captured[k] for r, p in zip(reps, progs))
+                      for k in ca.KERNELS}
+    assert sum(counts.values()) > 0
+    assert eng.compile_counts() == {"prefill": 1, "tick": 1}
+    assert eng.cache.free_blocks == free0 and not eng.cache.allocator._rc
+    if "sampling" in kw:
+        assert serve(engine()) == got              # not warmed
+    else:
+        assert serve(_eager_bodies(engine())) == got
+
+
+def test_engine_graph_replays_run_no_python_and_failures_raise(gen):
+    """After the tick's capture its replays call no Python of the model;
+    a body that cannot be captured (a host read) raises, with no eager
+    path behind it."""
+    import paddle_tpu_torch as pt
+    model = pt.TransformerLM(101, dim=128, num_layers=2, num_heads=2,
+                             ffn_hidden=256, max_len=64, generator=gen)
+    eng = pt.DecodeEngine(model, max_slots=2, block_size=8)
+    eng.warmup()
+    eng.admit(0, [1, 2, 3, 4, 5], reserve_len=12)
+
+    def refuse(*a, **k):
+        raise AssertionError("the model ran eagerly after the capture")
+
+    model.decode_step = refuse
+    try:
+        for _ in range(3):
+            eng.decode_tick()
+    finally:
+        del model.decode_step
+    # a failed capture in a process of its own: it may leave the card's
+    # context unfit for the tests after it
+    code = (
+        "import torch, paddle_tpu_torch as pt\n"
+        "m = pt.TransformerLM(101, dim=128, num_layers=2, num_heads=2, "
+        "ffn_hidden=256, max_len=64)\n"
+        "fn = m.decode_step\n"
+        "m.decode_step = lambda *a, **k: (float(a[0].sum()), "
+        "fn(*a, **k))[1]\n"
+        "eng = pt.DecodeEngine(m, max_slots=2, block_size=8)\n"
+        "try:\n"
+        "    eng.warmup()\n"
+        "except RuntimeError as e:\n"
+        "    print('raised:', type(e).__name__)\n"
+        "    raise SystemExit(3)\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300,
+                         cwd=pathlib.Path(__file__).resolve().parents[1])
+    assert out.returncode == 3, out.stdout + out.stderr
 
 
 def _rel_err(got, want):
