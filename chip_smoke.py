@@ -7,7 +7,9 @@ and check them.
 Phases (any failure exits non-zero before the final line):
 
 0. environment: the card's name and power limit, torch and CUDA versions,
-   TF32 switched off (the kernels and their plain versions are f32).
+   TF32 switched off (the f32 kernels and their plain versions are f32),
+   and cuBLAS's reduced-precision reduction of bf16-output products off
+   (JAX sums them in f32).
 1. build: every CUDA kernel of the path from ``paddle_tpu_torch/csrc``
    with ``nvcc`` for ``sm_90a``, all sources at once; ptxas's registers
    and spills of every ``flash_fwd.cu`` and ``flash_bwd.cu`` instance on
@@ -119,6 +121,29 @@ Phases (any failure exits non-zero before the final line):
    within 4 times the ``"matmul"``-``"conv"`` gap of the ``"matmul"``
    loss, and the same check must fail for ``"pallas"`` with every weight
    gradient 1% too large. Last, 2 profiled steps.
+9. the ``bfloat16_compute`` policy, the JAX benchmarks' own, each part
+   right after its f32 counterpart: (a) phase 5's greedy graph serving
+   of the 16 requests under the policy (captured under it: compile
+   counts, launches under replay, tokens bit-equal to the eager bodies
+   under the policy, steady ticks); (b) ``prep_transformer`` for 8 steps
+   under the policy: step-0 gradients against the same model with the
+   flash kernels' plain versions in their place, within BF16_K of the
+   policy's own effect plus one bf16 ulp of each parameter's largest
+   gradient, 6 launches of each flash kernel a step, a falling loss, ms
+   per step, tokens/s, peak memory and a profiled window; (c)
+   ``conv1x1_dw_bf16`` on bf16 operands at the 15 shapes of a ResNet-50
+   step: five against its plain version (within TOL of max(1, max
+   |plain|)), two runs bit-equal, then timed beside its plain version,
+   ``torch.mm(x.t(), dy, out_dtype=torch.float32)`` and the f32 kernel
+   on the same values, with its bound by bytes and by operations at the
+   data sheet's 989 TFLOP/s and at the card's bf16 ``mma.sync`` rate,
+   measured here by ``tools/mma_bf16_peak.py``; (d) ``prep_resnet50``
+   under the policy and ``"pallas"``: step-0 gradients against
+   ``"matmul"`` and ``"conv"`` under the policy, each of the 36 launches
+   against the plain version, exactly 36 ``conv1x1_dw_bf16`` and no f32
+   launch a step, 8 timed steps beside 3 under ``"conv"``, the loss
+   curves with the kernel's plain version as a second yardstick and a
+   control of BF16_WRONG_DW, 2 profiled steps.
 
 Each serving and training path runs with the launch counts set to 0 just
 before it and read just after; a kernel's ``launches`` in the final list
@@ -127,8 +152,10 @@ is the sum over those paths.
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 ``nvidia-smi``'s name and power limit, and before that one JSON object
 listing every kernel with its launches on the main paths, error and times
-(``conv1x1_dw``'s times and bound summed over the 36 launches of one
-ResNet-50 step; ``bound_ms`` is the bound of the kernel's route,
+(``conv1x1_dw``'s and ``conv1x1_dw_bf16``'s times and bounds summed over
+the 36 launches of one ResNet-50 step, the bf16 entry with the card's
+``mma.sync`` bound and the f32 kernel's time on the same values beside
+its own; ``bound_ms`` is the bound of the kernel's route,
 ``cuda_core_bound_ms`` the f32 CUDA-core one beside it; the paged and
 flash kernels add ``device_ms`` and ``library_device_ms``,
 profiler device time per call; the flash backward's two entries are timed
@@ -136,17 +163,20 @@ at the training shape as the training path launches them, dk/dv storing
 ds and dq reading it back).
 """
 
+import importlib.util
 import json
 import math
 import re
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 # H100 SXM data-sheet peaks the bounds are computed against
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
 TF32_FLOPS_PER_S = 495e12   # tensor cores, dense
+BF16_FLOPS_PER_S = 989e12   # tensor cores, dense
 TOL = 1e-4          # f32, kernel vs plain: summation order differs
 # step-0 gradients, flash path vs plain-attention path, relative to each
 # parameter's largest gradient: both f32, the plain path masks with -1e9
@@ -160,12 +190,20 @@ REPLACES = {"flash_fwd": "paddle_tpu/nn/pallas_attention.py:108",
             "paged_span_int8": "paddle_tpu/nn/pallas_attention.py:711",
             "paged_decode_int8": "paddle_tpu/nn/pallas_attention.py:585",
             "conv1x1_dw": "paddle_tpu/nn/pallas_conv.py:46",
+            "conv1x1_dw_bf16": "paddle_tpu/nn/pallas_conv.py:46",
             "ln_matmul": "paddle_tpu/nn/fused_ln.py:63"}
 # the paged kernels' device rows (partials and merge) in a profile window
 PAGED_ROWS = ("paged::",)
 # top-2 logit gap under which a token that differs between two f32 paths
 # that sum in other orders is a near-tie, not a fault
 GAP_TOL = 1e-3
+# under bfloat16_compute a gradient or loss is held against the policy's
+# own effect on it (the same computation under float32): two paths whose
+# f32 values differ in their last bits round to bf16 one ulp apart where
+# they straddle a rounding boundary, so their difference is a fraction of
+# the policy's rounding, never its size; K as in tests/test_torch_bf16_*.py
+BF16_K = 0.25
+BF16_ULP = 2.0 ** -7     # one bf16 ulp, relative, at the bottom of a binade
 
 
 def log(*args):
@@ -1413,7 +1451,8 @@ def steady_ticks(torch, np, eng, window):
     return out
 
 
-def phase_graph_serving(torch, np, pt, ca, model, prompts, card):
+def phase_graph_serving(torch, np, pt, ca, model, prompts, card,
+                        modes=GRAPH_MODES, tag=""):
     """The serving programs as CUDA graphs at the transformer_decode
     width, in five modes (greedy; speculative=4 with prefill_chunk=128;
     int8 pools with prefill_chunk=128; sampled at temperature 0.8, top-k
@@ -1425,7 +1464,10 @@ def phase_graph_serving(torch, np, pt, ca, model, prompts, card):
     those of the same engine with its programs' bodies run eagerly; the
     sampled tokens equal those of a second seeded engine that was not
     warmed. Then ms per tick, tokens/s, TTFT p50 and the idle share over
-    8 steady ticks, graphs beside the eager bodies."""
+    8 steady ticks, graphs beside the eager bodies. ``modes`` picks the
+    modes; under a dtype policy (the caller's ``use_policy``) the graphs
+    are captured and the eager bodies run under it, ``tag`` naming it in
+    the log."""
     V, L, new = 32000, 6, 32
     counts = {}
     progs = ("prefill", "tick")
@@ -1437,7 +1479,7 @@ def phase_graph_serving(torch, np, pt, ca, model, prompts, card):
         return pt.DecodeEngine(model, max_slots=8, block_size=16,
                                attention="paged", **kw)
 
-    for label, kw, k_prefill, k_tick in GRAPH_MODES:
+    for label, kw, k_prefill, k_tick in modes:
         eng = engine(kw)
         start_free = eng.cache.free_blocks
         warm = eng.warmup()
@@ -1498,7 +1540,7 @@ def phase_graph_serving(torch, np, pt, ca, model, prompts, card):
             torch, np, ref_eng, f"eager bodies, {label}: 8 ticks, 8 active "
             f"slots")
         row["card"] = card
-        log("graph serving", json.dumps(row))
+        log(f"graph serving{tag}", json.dumps(row))
         del eng, ref_eng
     return counts
 
@@ -1579,35 +1621,92 @@ def _worst(grads, ref):
     return worst
 
 
-def check_step0_grads(torch, pt, model, cfg, loss_fn, batch):
-    """Every parameter's gradient on ``batch`` through the kernels against
-    the plain-attention model on the same weights, within GRAD_RTOL of the
-    parameter's largest gradient."""
-    ref = pt.TransformerLM(**cfg, use_flash=False, device="cuda")
-    ref.load_state_dict(model.state_dict())
-    grads = {}
-    for name, m in (("kernel", model), ("plain", ref)):
-        m.zero_grad(set_to_none=True)
-        out = m(batch["x"], train=True)
-        loss_fn(out, batch).mean().backward()
-        grads[name] = {n: p.grad.detach().clone()
-                       for n, p in m.named_parameters()}
+def _worst_of_effect(grads, ref, ref_f32):
+    """(name, excess, err over effect) of the parameter whose gradient
+    differs most from ``ref``'s against the bf16 limit: BF16_K of the
+    policy's own effect on it (``max |ref - ref_f32|``) plus one bf16 ulp
+    of its largest entry (BF16_ULP of max |ref|). A gradient rounded to
+    bf16 (a weight's, through the cast's VJP) lands a whole ulp apart
+    where two paths' f32 sums straddle a rounding boundary, while the
+    policy's effect on an entry is its rounding, half an ulp: hence the
+    second term. An excess of at most 1 passes."""
+    worst = ("", 0.0, 0.0)
+    for n, want in ref.items():
+        err = (grads[n] - want).abs().max().item()
+        effect = (want - ref_f32[n]).abs().max().item()
+        excess = err / (BF16_K * effect + BF16_ULP * want.abs().max().item()
+                        + 1e-30)
+        if not excess <= worst[1]:
+            worst = (n, excess, err / max(effect, 1e-30))
+    return worst
+
+
+def _param_grads(torch, model, loss_fn, batch, pol, pt):
     model.zero_grad(set_to_none=True)
-    worst = _worst(grads["kernel"], grads["plain"])
-    if not worst[1] <= GRAD_RTOL:
+    with pt.use_policy(pol):
+        loss_fn(model(batch["x"], train=True), batch).mean().backward()
+    out = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    return out
+
+
+def check_step0_grads(torch, pt, model, cfg, loss_fn, batch, pol):
+    """Every parameter's gradient on ``batch`` through the kernels under
+    ``pol``. Under float32: against the plain-attention model on the same
+    weights, within GRAD_RTOL of the parameter's largest gradient. Under
+    bfloat16_compute: against the same model with the flash kernels'
+    plain versions (``flash_attention_plain`` under autograd) in their
+    place, within BF16_K of the policy's own effect (those plain versions
+    under float32 against under the policy) plus one bf16 ulp of the
+    parameter's largest gradient (``_worst_of_effect``). The
+    plain-attention model is no yardstick there: as in JAX, its softmax
+    weights are rounded to bf16 before they meet v, which the flash path
+    never does."""
+    from paddle_tpu_torch.nn import attention as attn_mod
+    from paddle_tpu_torch.nn import cuda_attention as ca
+    grads = {"kernel": _param_grads(torch, model, loss_fn, batch, pol, pt)}
+    if pol.compute_dtype == torch.float32:
+        ref = pt.TransformerLM(**cfg, use_flash=False, device="cuda")
+        ref.load_state_dict(model.state_dict())
+        grads["plain"] = _param_grads(torch, ref, loss_fn, batch, pol, pt)
+        worst = _worst(grads["kernel"], grads["plain"])
+        lim = GRAD_RTOL
+    else:
+        kernel = attn_mod.flash_attention
+        attn_mod.flash_attention = \
+            lambda q, k, v, seg, causal: ca.flash_attention_plain(
+                q, k, v, seg, causal)[0]
+        try:
+            grads["plain"] = _param_grads(torch, model, loss_fn, batch, pol,
+                                          pt)
+            grads["plain_f32"] = _param_grads(torch, model, loss_fn, batch,
+                                              pt.float32, pt)
+        finally:
+            attn_mod.flash_attention = kernel
+        worst = _worst_of_effect(grads["kernel"], grads["plain"],
+                                 grads["plain_f32"])
+        lim = 1.0
+    if not worst[1] <= lim:
         raise RuntimeError(f"step-0 gradient of {worst[0]}: kernel vs plain "
-                           f"attention differ by {worst[1]} of its max")
+                           f"attention differ by {worst[1]} (limit {lim})")
     wq = grads["kernel"]["blocks.0.attn.wq"].abs().max().item()
     if not wq > 0:
         raise RuntimeError("blocks.0.attn.wq got no gradient through the "
                            "flash backward")
-    return {"params": len(grads["plain"]), "worst_param": worst[0],
-            "worst_rel_err": worst[1], "wq_grad_max": wq}
+    out = {"params": len(grads["plain"]), "worst_param": worst[0],
+           "wq_grad_max": wq}
+    if pol.compute_dtype == torch.float32:
+        out["worst_rel_err"] = worst[1]
+    else:
+        out.update(worst_excess_of_bf16_limit=worst[1],
+                   worst_err_over_policy_effect=worst[2])
+    return out
 
 
-def phase_train(torch, np, pt):
+def phase_train(torch, np, pt, pol):
     """The prep_transformer configuration trained for 8 steps through the
-    flash forward and backward kernels."""
+    flash forward and backward kernels under the dtype policy ``pol``
+    (float32, or bfloat16_compute as the JAX benchmark runs it)."""
     from paddle_tpu_torch.nn import cuda_attention as ca
     V, L, B, T, steps = 32000, 6, 8, 2048, 8
     cfg = dict(vocab=V, dim=512, num_layers=L, num_heads=4, ffn_hidden=2048,
@@ -1623,8 +1722,10 @@ def phase_train(torch, np, pt):
 
     small = {"x": torch.as_tensor(inp[:2], device="cuda"),
              "y": torch.as_tensor(tgt[:2], device="cuda")}
-    grad_check = check_step0_grads(torch, pt, model, cfg, loss_fn, small)
-    log("train step-0 gradients", json.dumps(grad_check))
+    tag = "" if pol.compute_dtype == torch.float32 else " bf16"
+    grad_check = check_step0_grads(torch, pt, model, cfg, loss_fn, small,
+                                   pol)
+    log(f"train{tag} step-0 gradients", json.dumps(grad_check))
 
     trainer = pt.Trainer(model, loss_fn, pt.adam(1e-4), device="cuda")
     trainer.init()
@@ -1641,8 +1742,9 @@ def phase_train(torch, np, pt):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ca.reset_launch_counts()
-    trainer.train(lambda: iter([batch] * steps), event_handler=handler,
-                  log_period=0)
+    with pt.use_policy(pol):
+        trainer.train(lambda: iter([batch] * steps), event_handler=handler,
+                      log_period=0)
     torch.cuda.synchronize()
     counts = ca.launch_counts()
     peak = torch.cuda.max_memory_allocated()
@@ -1663,20 +1765,22 @@ def phase_train(torch, np, pt):
     steady = step_ms[1:]
     ms = sum(steady) / len(steady)
     stats = {"config": "prep_transformer: vocab 32000, dim 512, 6 layers, "
-                       "4 heads, ffn 2048, batch 8 x 2048, adam(1e-4), f32",
+                       "4 heads, ffn 2048, batch 8 x 2048, adam(1e-4), "
+                       + ("f32" if not tag else "bfloat16_compute"),
              "steps": steps, "ms_per_step": ms, "step_ms": step_ms,
              "tokens_per_s": B * T / (ms / 1e3), "losses": losses,
              "loss_floor": loss_floor, "launches": counts,
              "peak_mem_gib": peak / 2 ** 30}
-    log("train", json.dumps(stats))
-    phase_train_profile(torch, trainer, batch)
+    log(f"train{tag}", json.dumps(stats))
+    with pt.use_policy(pol):
+        phase_train_profile(torch, trainer, batch, tag)
     return counts
 
 
-def phase_train_profile(torch, trainer, batch):
+def phase_train_profile(torch, trainer, batch, tag=""):
     """Device busy share and time by kernel over 2 training steps, with
     the flash backward kernels' device time and share."""
-    log("train profile", json.dumps(profile_window(
+    log(f"train{tag} profile", json.dumps(profile_window(
         torch, lambda: trainer.train(lambda: iter([batch] * 2),
                                      log_period=0), "2 training steps",
         kernels=("flash_bwd",))))
@@ -1961,19 +2065,21 @@ CURVE_K, LOSS_RTOL = 4.0, 1e-6
 WRONG_DW = 1.01
 
 
-def curve_excess(p, m, c):
+def curve_excess(p, m, *cs):
     """The largest, over the first RESNET_STEPS steps, of ``|p - m|``
-    over its limit: CURVE_K times the running largest ``|c - m|`` plus
-    LOSS_RTOL of ``m``. At most 1 passes."""
+    over its limit: CURVE_K times the running largest ``|c - m|`` over
+    the yardstick curves ``cs`` plus LOSS_RTOL of ``m``. At most 1
+    passes."""
     gap, worst = 0.0, 0.0
     for i in range(RESNET_STEPS):
-        gap = max(gap, abs(c[i] - m[i]))
+        gap = max([gap] + [abs(c[i] - m[i]) for c in cs])
         worst = max(worst, abs(p[i] - m[i])
                     / (CURVE_K * gap + LOSS_RTOL * abs(m[i])))
     return worst
 
 
-def resnet_curves(torch, pt, cc, model, start, loss_fn, batch):
+def resnet_curves(torch, pt, cc, model, start, loss_fn, batch, pol,
+                  wrong_dw=(WRONG_DW,)):
     """Loss curves from the same weights and BN state (``start``), cuDNN
     deterministic (``conv1x1_dw`` is already: its split of M depends on
     the shapes only), so that no curve carries cuDNN's run-to-run noise:
@@ -1988,11 +2094,23 @@ def resnet_curves(torch, pt, cc, model, start, loss_fn, batch):
     RESNET_STEPS steps the "pallas" loss lies within CURVE_K times that
     gap (its running largest) of the "matmul" loss, plus LOSS_RTOL of the
     loss (``curve_excess`` at most 1); the same check fails for "pallas"
-    with every weight gradient scaled by WRONG_DW; the last "pallas" loss
-    lies below its first."""
+    with every weight gradient scaled by the last of ``wrong_dw`` (the
+    controls run in order until one fails the check); the last "pallas"
+    loss lies below its first. All under the dtype policy ``pol``.
+
+    Under bfloat16_compute the gap is taken over a second yardstick too:
+    "plain", the "pallas" lowering with the kernel's plain version
+    (``conv1x1_dw_plain``: cuBLAS's f32 product of the widened operands)
+    in its place. cuBLAS's and cuDNN's bf16 weight gradients round the
+    same f32 sums to bf16 in nearly the same order, so "matmul" and
+    "conv" agree far more closely with each other than either does with
+    any other sound summation order; a dW summed in another order (the
+    kernel's, or its plain version's) lands one bf16 ulp apart wherever a
+    sum straddles a rounding boundary, and that is the noise the kernel's
+    curve has to be held against."""
     def run(impl, steps):
         return resnet_run(torch, pt, model, start, loss_fn, batch, impl,
-                          steps)[1]
+                          steps, pol)[1]
 
     det, kernel_dw = torch.backends.cudnn.deterministic, cc.conv1x1_dw
     torch.backends.cudnn.deterministic = True
@@ -2000,20 +2118,36 @@ def resnet_curves(torch, pt, cc, model, start, loss_fn, batch):
         curves = {"pallas": run("pallas", RESNET_FALL_STEPS),
                   "matmul": run("matmul", RESNET_STEPS),
                   "conv": run("conv", RESNET_STEPS)}
-        cc.conv1x1_dw = lambda x2d, dy2d: WRONG_DW * kernel_dw(x2d, dy2d)
-        curves["pallas_wrong_dw"] = run("pallas", RESNET_STEPS)
+        yard = ["conv"]
+        if pol.compute_dtype != torch.float32:
+            # the kernel's plain version as a lowering of its own
+            cc.conv1x1_dw = cc.conv1x1_dw_plain
+            curves["plain"] = run("pallas", RESNET_STEPS)
+            yard.append("plain")
+        controls = []
+        for scale in wrong_dw:
+            cc.conv1x1_dw = lambda x2d, dy2d, k=scale: k * kernel_dw(x2d,
+                                                                     dy2d)
+            curves["pallas_wrong_dw"] = run("pallas", RESNET_STEPS)
+            controls.append([scale, curve_excess(
+                curves["pallas_wrong_dw"], curves["matmul"],
+                *(curves[y] for y in yard))])
+            if controls[-1][1] > 1:
+                break
     finally:
         cc.conv1x1_dw = kernel_dw
         torch.backends.cudnn.deterministic = det
-    p, m, c = curves["pallas"], curves["matmul"], curves["conv"]
-    out = {"losses": curves, "excess": curve_excess(p, m, c),
-           "excess_wrong_dw": curve_excess(curves["pallas_wrong_dw"], m, c)}
+    p, m = curves["pallas"], curves["matmul"]
+    out = {"losses": curves, "yardsticks": yard,
+           "excess": curve_excess(p, m, *(curves[y] for y in yard)),
+           "wrong_dw": controls[-1][0], "excess_wrong_dw": controls[-1][1],
+           "controls": controls}
     if not out["excess"] <= 1:
         raise RuntimeError(f"resnet: 'pallas' loss curve off 'matmul' by "
                            f"{out['excess']} of the limit: {out}")
     if not out["excess_wrong_dw"] > 1:
         raise RuntimeError(f"resnet: the curve gate passed a weight "
-                           f"gradient {WRONG_DW}x too large: {out}")
+                           f"gradient {out['wrong_dw']}x too large: {out}")
     if not all(math.isfinite(x) for x in p) or not p[-1] < p[0]:
         raise RuntimeError(f"resnet: 'pallas' loss after "
                            f"{RESNET_FALL_STEPS} steps not below its "
@@ -2021,20 +2155,111 @@ def resnet_curves(torch, pt, cc, model, start, loss_fn, batch):
     return out
 
 
-def resnet_run(torch, pt, model, start, loss_fn, batch, impl, steps):
-    """``steps`` steps under ``impl`` from the weights and BN state
-    ``start``, with a fresh momentum state; returns (ms per step,
-    losses)."""
+def resnet_run(torch, pt, model, start, loss_fn, batch, impl, steps, pol):
+    """``steps`` steps under ``impl`` and the dtype policy ``pol`` from
+    the weights and BN state ``start``, with a fresh momentum state;
+    returns (ms per step, losses)."""
     model.load_state_dict(start)
     pt.set_conv1x1_impl(impl)
     trainer = pt.Trainer(model, loss_fn, pt.momentum(0.1, 0.9),
                          device="cuda")
     trainer.init()
-    return timed_steps(torch, pt, trainer, batch, steps)
+    with pt.use_policy(pol):
+        return timed_steps(torch, pt, trainer, batch, steps)
 
 
-def phase_resnet(torch, np, pt, cc, card):
-    """The prep_resnet50 configuration trained through conv1x1_dw."""
+# the bf16 loss-curve gate's negative control. A bf16 step carries a bf16
+# ulp of rounding in every weight gradient, and BatchNorm after every
+# convolution makes the loss all but blind to the scale of a conv's
+# update, so the curves part by as much for a dW summed in another order
+# as for a dW 2x too large: a scan of 1.01, 1.02, 1.05, 1.1, 1.25, 1.5, 2
+# and 4 on the card (NVIDIA H100 80GB HBM3, 700 W) first failed the gate
+# at 4 (2.42 of its limit; 2 gave 0.48, 1.01 0.34)
+BF16_WRONG_DW = (4.0,)
+
+
+def resnet_step0_grads_bf16(torch, pt, cc, model, loss_fn, batch, pol):
+    """Step-0 gradients under ``pol`` (bfloat16_compute) from the same
+    weights and BN state (restored after each pass), cuDNN deterministic.
+
+    Gates: "pallas" against "matmul" and against "conv", each parameter
+    within BF16_K of the policy's own effect on its gradient ("pallas"
+    under float32 against under the policy) plus one bf16 ulp of its
+    largest entry (``_worst_of_effect``); each of the 36 kernel
+    launches of the "pallas" pass is ``conv1x1_dw_bf16`` (no f32 launch),
+    within TOL of max |plain| of ``conv1x1_dw_plain`` on the same bf16
+    operands, at the shapes of the kernel phase."""
+    state = {n: b.clone() for n, b in model.named_buffers()}
+    kernel_dw, dw_errs, seen = cc.conv1x1_dw, [], {}
+
+    def checked_dw(x2d, dy2d):
+        got = kernel_dw(x2d, dy2d)
+        (M, cin), cout = x2d.shape, dy2d.shape[1]
+        seen[M, cin, cout] = seen.get((M, cin, cout), 0) + 1
+        want = cc.conv1x1_dw_plain(x2d, dy2d)
+        dw_errs.append(((got - want).abs().max()
+                        / want.abs().max().clamp_min(1.0)).item())
+        return got
+
+    def grads(impl, p):
+        pt.set_conv1x1_impl(impl)
+        with torch.no_grad():
+            for n, b in model.named_buffers():
+                b.copy_(state[n])
+        model.zero_grad(set_to_none=True)
+        with pt.use_policy(p):
+            loss_fn(model(batch["x"], train=True), batch).mean().backward()
+        return {n: p.grad.detach().clone()
+                for n, p in model.named_parameters()}
+
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    cc.conv1x1_dw = checked_dw
+    cc.reset_launch_counts()
+    try:
+        g = {"pallas": grads("pallas", pol)}
+        counts = cc.launch_counts()
+    finally:
+        cc.conv1x1_dw = kernel_dw
+    try:
+        g["matmul"] = grads("matmul", pol)
+        g["conv"] = grads("conv", pol)
+        g["pallas_f32"] = grads("pallas", pt.float32)
+    finally:
+        torch.backends.cudnn.deterministic = det
+        pt.set_conv1x1_impl("pallas")
+        model.zero_grad(set_to_none=True)
+        with torch.no_grad():
+            for n, b in model.named_buffers():
+                b.copy_(state[n])
+    out = {"params": len(g["conv"]), "launches": counts}
+    for ref in ("matmul", "conv"):
+        worst = _worst_of_effect(g["pallas"], g[ref], g["pallas_f32"])
+        out[f"pallas_vs_{ref}_worst_excess"] = list(worst)
+        if not worst[1] <= 1:
+            raise RuntimeError(f"bf16 step-0 gradient of {worst[0]}: "
+                               f"pallas vs {ref} at {worst[1]} of the bf16 "
+                               f"limit")
+    if counts != {"conv1x1_dw": 0, "conv1x1_dw_bf16": 36}:
+        raise RuntimeError(f"bf16 step: dW launches {counts}")
+    if seen != RESNET50_DW:
+        raise RuntimeError(f"conv1x1_dw_bf16 shapes of the step {seen} are "
+                           f"not the kernel phase's {RESNET50_DW}")
+    if len(dw_errs) != 36 or not max(dw_errs) <= TOL:
+        raise RuntimeError(f"conv1x1_dw_bf16 vs its plain version on the "
+                           f"path's tensors: {len(dw_errs)} launches, worst "
+                           f"{max(dw_errs, default=None)}")
+    out["kernel_vs_plain_dw_worst"] = max(dw_errs)
+    out["pallas_vs_matmul_worst"] = list(_worst(g["pallas"], g["matmul"]))
+    return out
+
+
+def phase_resnet(torch, np, pt, cc, card, pol):
+    """The prep_resnet50 configuration trained through the 1x1 dW kernel
+    (``conv1x1_dw`` under float32, ``conv1x1_dw_bf16`` under
+    bfloat16_compute) under the dtype policy ``pol``."""
+    bf16 = pol.compute_dtype == torch.bfloat16
+    tag, name = (" bf16", "conv1x1_dw_bf16") if bf16 else ("", "conv1x1_dw")
     B, image, classes, steps = 128, 224, 1000, RESNET_STEPS
     prev = pt.set_conv1x1_impl("pallas")
     try:
@@ -2049,26 +2274,31 @@ def phase_resnet(torch, np, pt, cc, card):
         def loss_fn(out, b):
             return pt.softmax_cross_entropy(out, b["label"])
 
-        grad_check = resnet_step0_grads(torch, pt, cc, model, loss_fn,
-                                        batch)
-        log("resnet step-0 gradients", json.dumps(grad_check))
+        if bf16:
+            grad_check = resnet_step0_grads_bf16(torch, pt, cc, model,
+                                                 loss_fn, batch, pol)
+        else:
+            grad_check = resnet_step0_grads(torch, pt, cc, model, loss_fn,
+                                            batch)
+        log(f"resnet{tag} step-0 gradients", json.dumps(grad_check))
         start = {k: v.clone() for k, v in model.state_dict().items()}
 
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         cc.reset_launch_counts()
         step_ms, losses = resnet_run(torch, pt, model, start, loss_fn,
-                                     batch, "pallas", steps)
+                                     batch, "pallas", steps, pol)
         counts = cc.launch_counts()
         peak = torch.cuda.max_memory_allocated()
         ms = sum(step_ms[1:]) / (steps - 1)
         conv_ms, conv_losses = resnet_run(torch, pt, model, start, loss_fn,
-                                          batch, "conv", 3)
+                                          batch, "conv", 3, pol)
         conv_steady = sum(conv_ms[1:]) / 2
-        log("resnet", json.dumps({
+        log(f"resnet{tag}", json.dumps({
             "config": "prep_resnet50: resnet50(1000), conv7 stem, batch 128 "
-                      "x 224 x 224 x 3, momentum(0.1, 0.9), f32, "
-                      "conv1x1 'pallas'",
+                      "x 224 x 224 x 3, momentum(0.1, 0.9), "
+                      + ("bfloat16_compute" if bf16 else "f32")
+                      + ", conv1x1 'pallas'",
             "steps": steps, "ms_per_step": ms, "step_ms": step_ms,
             "images_per_s": B / (ms / 1e3), "losses": losses,
             "loss_floor": round(math.log(2.0), 4), "launches": counts,
@@ -2079,26 +2309,133 @@ def phase_resnet(torch, np, pt, cc, card):
                         "losses": conv_losses,
                         "pallas_over_conv": ms / conv_steady},
             "card": card}))
-        if counts["conv1x1_dw"] != 36 * steps:
-            raise RuntimeError(f"resnet: conv1x1_dw launched "
-                               f"{counts['conv1x1_dw']} times, expected "
-                               f"{36 * steps} (36 x {steps} steps)")
+        want = {"conv1x1_dw": 0, "conv1x1_dw_bf16": 0, name: 36 * steps}
+        if counts != want:
+            raise RuntimeError(f"resnet{tag}: dW launches {counts}, "
+                               f"expected {want} (36 x {steps} steps)")
         if not all(math.isfinite(x) for x in losses) or len(losses) != steps:
-            raise RuntimeError(f"resnet: losses {losses}")
-        log("resnet curves", json.dumps(resnet_curves(
-            torch, pt, cc, model, start, loss_fn, batch)))
+            raise RuntimeError(f"resnet{tag}: losses {losses}")
+        log(f"resnet{tag} curves", json.dumps(resnet_curves(
+            torch, pt, cc, model, start, loss_fn, batch, pol,
+            BF16_WRONG_DW if bf16 else (WRONG_DW,))))
         pt.set_conv1x1_impl("pallas")
         trainer = pt.Trainer(model, loss_fn, pt.momentum(0.1, 0.9),
                              device="cuda")
         trainer.init()
-        log("resnet profile", json.dumps(profile_window(
-            torch, lambda: trainer.train(lambda: iter([batch] * 2),
-                                         log_period=0),
-            "2 training steps, conv1x1 'pallas'",
-            kernels=("dw_tiles", "dw_reduce"))))
+        with pt.use_policy(pol):
+            log(f"resnet{tag} profile", json.dumps(profile_window(
+                torch, lambda: trainer.train(lambda: iter([batch] * 2),
+                                             log_period=0),
+                "2 training steps, conv1x1 'pallas'",
+                kernels=("dw_tiles", "split_reduce"))))
     finally:
         pt.set_conv1x1_impl(prev)
     return counts
+
+
+def dw_bf16_bytes_flops(M, cin, cout):
+    return 2 * (M * cin + M * cout) + 4 * cin * cout, 2 * M * cin * cout
+
+
+def mma_bf16_rate(torch):
+    """The card's bf16 ``mma.sync`` rate in FLOP/s, the best occupancy of
+    ``tools/mma_bf16_peak.py`` (measured in this run)."""
+    path = Path(__file__).resolve().parent / "tools" / "mma_bf16_peak.py"
+    spec = importlib.util.spec_from_file_location("mma_bf16_peak", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    rows = mod.measure(torch)
+    log("mma_bf16_peak", json.dumps(rows))
+    return max(r["bf16_tflops"] for r in rows) * 1e12
+
+
+def bf16_bounds(row, nbytes, flops, mma_rate):
+    """Adds to a timed row of ``conv1x1_dw_bf16`` its bound (the larger of
+    the bytes at 3.35 TB/s and the operations at the data sheet's 989
+    TFLOP/s of bf16) and, beside it, the bound with the operations at the
+    card's measured ``mma.sync`` rate, the instruction the kernel runs
+    on; its TFLOP/s and share of each."""
+    t_b = nbytes / HBM_BYTES_PER_S * 1e3
+    t_f = flops / BF16_FLOPS_PER_S * 1e3
+    t_m = flops / mma_rate * 1e3
+    row.update(bytes_bound_ms=t_b, bound_ms=max(t_b, t_f),
+               bound_by="bytes" if t_b >= t_f else "operations",
+               mma_sync_bound_ms=max(t_b, t_m),
+               mma_sync_bound_by="bytes" if t_b >= t_m else "operations",
+               tflops=flops / row["kernel_ms"] / 1e9)
+    row["share_of_bound"] = row["bound_ms"] / row["kernel_ms"]
+    row["share_of_mma_sync_bound"] = row["mma_sync_bound_ms"] \
+        / row["kernel_ms"]
+    return row
+
+
+def phase_conv_bf16_kernels(torch, cc, gen, mma_rate):
+    """conv1x1_dw_bf16 on bf16 operands at the 15 distinct shapes of a
+    ResNet-50 step: against its plain version at five of them (within
+    TOL of max(1, max |plain|)), two runs bit-equal; then the kernel, the
+    plain version, the library call (``torch.mm(x.t(), dy,
+    out_dtype=torch.float32)``: cuBLAS, bf16 operands, f32 output) and
+    the f32 kernel ``conv1x1_dw`` on the same values widened, timed at
+    every shape, and summed over the step's 36 launches beside the summed
+    bounds (per launch: the step's sums over 36)."""
+    from paddle_tpu_torch.nn import gemm_bf16
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    keys = ("kernel_ms", "plain_ms", "library_ms", "f32_kernel_ms",
+            "bound_ms", "mma_sync_bound_ms", "bytes_bound_ms")
+    step = {k: 0.0 for k in keys}
+    step.update(bytes=0, flops=0)
+    err = 0.0
+    for shape, n in RESNET50_DW.items():
+        M, cin, cout = shape
+        x = torch.randn(M, cin, generator=gen, device="cuda").bfloat16()
+        dy = torch.randn(M, cout, generator=gen, device="cuda").bfloat16()
+        row = {"shape": list(shape), "launches_per_step": n}
+        if shape in DW_CHECKED:
+            got = cc.conv1x1_dw(x, dy)
+            want = cc.conv1x1_dw_plain(x, dy)
+            again = cc.conv1x1_dw(x, dy)
+            torch.cuda.synchronize()
+            e = check_close(f"conv1x1_dw_bf16 {shape}", got, want, rel=True)
+            if not torch.equal(got, again):
+                raise RuntimeError(f"conv1x1_dw_bf16 {shape}: two runs "
+                                   f"differ")
+            row["max_abs_err"], row["max_plain"] = e, \
+                want.abs().max().item()
+            err = max(err, e)
+            del got, want, again
+        nbytes, flops = dw_bf16_bytes_flops(M, cin, cout)
+        tile, splits = cc._plan(M, cin, cout, sms, gemm_bf16.TILES)
+        xf, dyf = x.float(), dy.float()
+        row.update(
+            kernel_ms=time_ms(torch, lambda: cc.conv1x1_dw(x, dy)),
+            plain_ms=time_ms(torch, lambda: cc.conv1x1_dw_plain(x, dy)),
+            library_ms=time_ms(torch, lambda: torch.mm(
+                x.t(), dy, out_dtype=torch.float32)),
+            f32_kernel_ms=time_ms(torch, lambda: cc.conv1x1_dw(xf, dyf)),
+            tile=list(gemm_bf16.TILES[tile][:2]), splits=splits,
+            copy_width=gemm_bf16.copy_width(x, dy))
+        bf16_bounds(row, nbytes, flops, mma_rate)
+        for k in keys:
+            step[k] += n * row[k]
+        step["bytes"] += n * nbytes
+        step["flops"] += n * flops
+        log("conv1x1_dw_bf16", json.dumps(row))
+        del x, dy, xf, dyf
+    t_b = step["bytes"] / HBM_BYTES_PER_S * 1e3
+    step.update(
+        max_abs_err=err, launches=36,
+        bound_by="operations" if step["flops"] / BF16_FLOPS_PER_S * 1e3
+        >= t_b else "bytes",
+        mma_sync_tflops=mma_rate / 1e12,
+        tflops=step["flops"] / step["kernel_ms"] / 1e9,
+        share_of_bound=step["bound_ms"] / step["kernel_ms"],
+        share_of_mma_sync_bound=step["mma_sync_bound_ms"]
+        / step["kernel_ms"],
+        per_launch={k: step[k] / 36 for k in keys},
+        library="torch.mm(x.t(), dy, out_dtype=torch.float32)",
+        bound_note="sums of the 36 launches' own bounds")
+    log("conv1x1_dw_bf16 step (36 launches)", json.dumps(step))
+    return step
 
 
 def main():
@@ -2122,7 +2459,12 @@ def main():
         f"{sys.version.split()[0]}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    log("tf32: matmul off, cudnn off")
+    # cuBLAS would otherwise reduce bf16-output products in bf16; JAX sums
+    # them in f32
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
+        False
+    log("tf32: matmul off, cudnn off; bf16 reduced-precision reduction: "
+        "off")
 
     t0 = time.perf_counter()
     sources = {**ca.KERNELS, **cc.KERNELS, **fl.KERNELS}
@@ -2148,21 +2490,31 @@ def main():
                                      tokens, card)
     graph_counts = phase_graph_serving(torch, np, pt, ca, model, prompts,
                                        card)
+    with pt.use_policy(pt.bfloat16_compute):
+        graph_bf16_counts = phase_graph_serving(
+            torch, np, pt, ca, model, prompts, card, GRAPH_MODES[:1],
+            " bf16")
     del model, ref
-    train_counts = phase_train(torch, np, pt)
+    train_counts = phase_train(torch, np, pt, pt.float32)
+    train_bf16_counts = phase_train(torch, np, pt, pt.bfloat16_compute)
     dw = phase_conv_kernels(torch, cc, gen)
+    dw_bf16 = phase_conv_bf16_kernels(torch, cc, gen, mma_bf16_rate(torch))
     ln_rows, ln_counts = phase_ln_kernels(torch, F, fl, gen)
-    resnet_counts = phase_resnet(torch, np, pt, cc, card)
-    counts = {n: serve_counts[n] + span_counts[n] + graph_counts[n]
-              + train_counts[n] for n in ca.KERNELS}
-    counts.update(resnet_counts)
-    counts.update(ln_counts)
-    log("launches", json.dumps({"serving": serve_counts,
-                                "span serving": span_counts,
-                                "graph serving": graph_counts,
-                                "training": train_counts,
-                                "resnet training": resnet_counts,
-                                "fused_ln_matmul": ln_counts}))
+    resnet_counts = phase_resnet(torch, np, pt, cc, card, pt.float32)
+    resnet_bf16_counts = phase_resnet(torch, np, pt, cc, card,
+                                      pt.bfloat16_compute)
+    paths = {"serving": serve_counts, "span serving": span_counts,
+             "graph serving": graph_counts,
+             "graph serving bf16": graph_bf16_counts,
+             "training": train_counts, "training bf16": train_bf16_counts,
+             "resnet training": resnet_counts,
+             "resnet training bf16": resnet_bf16_counts,
+             "fused_ln_matmul": ln_counts}
+    counts = {}
+    for path in paths.values():
+        for n, c in path.items():
+            counts[n] = counts.get(n, 0) + c
+    log("launches", json.dumps(paths))
 
     def entry(name, row, err):
         return {"name": name, "route": "cuda",
@@ -2174,7 +2526,8 @@ def main():
                 "cuda_core_bound_ms": row.get("cuda_core_bound_ms",
                                               row["bound_ms"]),
                 "library_ms": row["library_ms"],
-                **{k: row[k] for k in ("device_ms", "library_device_ms")
+                **{k: row[k] for k in ("device_ms", "library_device_ms",
+                                       "mma_sync_bound_ms", "f32_kernel_ms")
                    if k in row}}
 
     kernels = [entry("flash_fwd", flash[0],
@@ -2194,8 +2547,10 @@ def main():
                 for name in ("paged_span", "paged_span_int8")]
     kernels.append(entry("paged_decode_int8", span["paged_decode_int8"],
                          span["paged_decode_int8"]["max_abs_err"]))
-    # conv1x1_dw: summed over one ResNet-50 step's 36 launches
+    # conv1x1_dw and conv1x1_dw_bf16: summed over one ResNet-50 step's 36
+    # launches
     kernels.append(entry("conv1x1_dw", dw, dw["max_abs_err"]))
+    kernels.append(entry("conv1x1_dw_bf16", dw_bf16, dw_bf16["max_abs_err"]))
     # ln_matmul at the wider shape with scale and bias, errors over all
     kernels.append(entry("ln_matmul", ln_rows[2048, True],
                          max(r["max_abs_err"] for r in ln_rows.values())))

@@ -8,7 +8,8 @@ Entry points run on the card (``device="cuda"``) unless the caller passes
 ``device="cpu"``, where every kernel runs its plain PyTorch version.
 """
 
-from .core import Policy, current_policy, resolve_device, use_policy
+from .core import (Policy, bfloat16_compute, canonicalize, current_policy,
+                   float32, resolve_device, use_policy)
 from .models import (ResNet, TransformerBlock, TransformerLM, resnet50,
                      resnet_cifar)
 from .nn.costs import softmax_cross_entropy
@@ -24,8 +25,9 @@ from .utils.bridge import (export_jax_opt_state, export_jax_params,
 
 __all__ = ["ContinuousBatchingScheduler", "DecodeEngine", "Policy",
            "Request", "ResNet", "SamplingConfig", "Trainer",
-           "TransformerBlock", "TransformerLM", "adam", "chain", "clip_by_global_norm",
-           "current_policy", "export_jax_opt_state", "export_jax_params",
+           "TransformerBlock", "TransformerLM", "adam", "bfloat16_compute",
+           "canonicalize", "chain", "clip_by_global_norm", "current_policy",
+           "float32", "export_jax_opt_state", "export_jax_params",
            "fused_ln_matmul", "load_jax_opt_state", "load_jax_params",
            "momentum", "resnet50", "resnet_cifar", "resolve_device",
            "set_conv1x1_impl", "sgd", "softmax_cross_entropy", "use_policy",

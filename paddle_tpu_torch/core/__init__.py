@@ -1,5 +1,6 @@
 from .device import resolve_device
-from .dtypes import Policy, current_policy, float32, use_policy
+from .dtypes import (Policy, bfloat16_compute, canonicalize, current_policy,
+                     float32, use_policy)
 
-__all__ = ["Policy", "current_policy", "float32", "resolve_device",
-           "use_policy"]
+__all__ = ["Policy", "bfloat16_compute", "canonicalize", "current_policy",
+           "float32", "resolve_device", "use_policy"]

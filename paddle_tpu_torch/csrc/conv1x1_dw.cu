@@ -26,9 +26,10 @@
 // resident blocks) and the copy width (16 bytes when both operands' rows
 // and base pointers allow it, else 4). With
 // more than one split the partial tiles go to a workspace
-// [splits, Cin, Cout] and a second pass sums them in a fixed order: no
-// atomics, so two runs are bit-equal. M, Cin and Cout need not be
-// multiples of anything: rows and columns past the edge load as zeros.
+// [splits, Cin, Cout] and a second pass (split_reduce, gemm_f32.cuh)
+// sums them in a fixed order: no atomics, so two runs are bit-equal. M,
+// Cin and Cout need not be multiples of anything: rows and columns past
+// the edge load as zeros.
 //
 // Next step (the mainloop runs at about half the mma.sync rate; every
 // warp re-splits each fragment value it loads): split each value once as
@@ -92,30 +93,6 @@ dw_tiles(const float* __restrict__ x, const float* __restrict__ dy,
                 ld.ci0, ld.co0);
 }
 
-constexpr int RED_PARTS = 8;   // rows of threads summing one column
-
-// out[i] = sum over s of part[s][i]: thread row p sums splits
-// [p * splits / 8, (p + 1) * splits / 8) in increasing order, then row 0
-// adds the eight partial sums in increasing p. Fixed by n and splits.
-__global__ void __launch_bounds__(32 * RED_PARTS)
-dw_reduce(const float* __restrict__ part, float* __restrict__ out, int n,
-          int splits) {
-  __shared__ float partial[RED_PARTS][32];
-  const int i = blockIdx.x * 32 + threadIdx.x, p = threadIdx.y;
-  float sum = 0.f;
-  if (i < n) {
-    const int s1 = (int)((long long)(p + 1) * splits / RED_PARTS);
-    for (int s = (int)((long long)p * splits / RED_PARTS); s < s1; ++s)
-      sum += part[(size_t)s * n + i];
-  }
-  partial[p][threadIdx.x] = sum;
-  __syncthreads();
-  if (p != 0 || i >= n) return;
-#pragma unroll
-  for (int q = 1; q < RED_PARTS; ++q) sum += partial[q][threadIdx.x];
-  out[i] = sum;
-}
-
 template <class C, int VEC>
 cudaError_t launch_tiles(const float* x, const float* dy, float* tiles, int M,
                          int Cin, int Cout, int splits, cudaStream_t st) {
@@ -160,7 +137,6 @@ extern "C" int conv1x1_dw_f32(const void* x, const void* dy, void* out,
                    : launch_tiles<Small<true>, 1>(xf, df, tiles, M, Cin, Cout,
                                                   splits, st);
   if (err != cudaSuccess || splits == 1) return (int)err;
-  dw_reduce<<<(n + 31) / 32, dim3(32, RED_PARTS), 0, st>>>(
-      tiles, static_cast<float*>(out), n, splits);
-  return (int)cudaGetLastError();
+  return (int)launch_split_reduce(tiles, static_cast<float*>(out), n,
+                                  splits, st);
 }

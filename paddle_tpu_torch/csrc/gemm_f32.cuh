@@ -206,6 +206,39 @@ __device__ __forceinline__ void store(const float (&acc)[C::MI][C::NI][4],
   }
 }
 
+constexpr int RED_PARTS = 8;   // rows of threads summing one column
+
+// The second pass of a product split over its contraction (conv1x1_dw.cu,
+// conv1x1_dw_bf16.cu): out[i] = sum over s of part[s][i]. Thread row p
+// sums splits [p * splits / 8, (p + 1) * splits / 8) in increasing order,
+// then row 0 adds the eight partial sums in increasing p. Fixed by n and
+// splits, so two runs are bit-equal.
+__global__ void __launch_bounds__(32 * RED_PARTS)
+split_reduce(const float* __restrict__ part, float* __restrict__ out, int n,
+             int splits) {
+  __shared__ float partial[RED_PARTS][32];
+  const int i = blockIdx.x * 32 + threadIdx.x, p = threadIdx.y;
+  float sum = 0.f;
+  if (i < n) {
+    const int s1 = (int)((long long)(p + 1) * splits / RED_PARTS);
+    for (int s = (int)((long long)p * splits / RED_PARTS); s < s1; ++s)
+      sum += part[(size_t)s * n + i];
+  }
+  partial[p][threadIdx.x] = sum;
+  __syncthreads();
+  if (p != 0 || i >= n) return;
+#pragma unroll
+  for (int q = 1; q < RED_PARTS; ++q) sum += partial[q][threadIdx.x];
+  out[i] = sum;
+}
+
+inline cudaError_t launch_split_reduce(const float* part, float* out, int n,
+                                       int splits, cudaStream_t st) {
+  split_reduce<<<(n + 31) / 32, dim3(32, RED_PARTS), 0, st>>>(part, out, n,
+                                                              splits);
+  return cudaGetLastError();
+}
+
 // Raises kernel's dynamic shared-memory limit to C::SMEM_BYTES.
 template <class C, class Kernel>
 cudaError_t allow_smem(Kernel kernel) {

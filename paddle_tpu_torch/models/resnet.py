@@ -29,6 +29,26 @@ __all__ = ["BasicBlock", "Bottleneck", "ConvBN", "ResNet", "ResNetCifar",
            "resnet101", "resnet152", "resnet_cifar"]
 
 
+class _ResidualRelu(torch.autograd.Function):
+    """``max(s, 0)`` of a residual sum ``s``, as the JAX blocks'
+    ``jnp.maximum(h + x, 0.0)``: the forward is ``torch.relu``, and the
+    gradient at a tie (``s == 0``, frequent in bf16) is 1/2, as
+    ``lax.max``'s is, where ``torch.relu``'s is 0. It saves ``sign(s)``
+    as int8 (one byte an element, where keeping ``s`` would hold a
+    second activation-sized tensor beside the output), and the gradient
+    is ``g * (sign + 1) / 2``."""
+
+    @staticmethod
+    def forward(ctx, s):
+        ctx.save_for_backward(s.sign().to(torch.int8))
+        return torch.relu(s)
+
+    @staticmethod
+    def backward(ctx, g):
+        (sign,) = ctx.saved_tensors
+        return (g * sign).add_(g).mul_(0.5)
+
+
 class ConvBN(nn.Module):
     """conv (SAME, no bias) + batchnorm + activation."""
 
@@ -64,7 +84,7 @@ class BasicBlock(nn.Module):
         h = self.c2(self.c1(x, train=train), train=train)
         if self.shortcut is not None:
             x = self.shortcut(x, train=train)
-        return torch.relu(h + x)
+        return _ResidualRelu.apply(h + x)
 
 
 class Bottleneck(nn.Module):
@@ -90,7 +110,7 @@ class Bottleneck(nn.Module):
                     train=train)
         if self.shortcut is not None:
             x = self.shortcut(x, train=train)
-        return torch.relu(h + x)
+        return _ResidualRelu.apply(h + x)
 
 
 class SpaceToDepthStem(nn.Module):

@@ -4,10 +4,15 @@
 multi-token ``decode_span`` (speculative verify, chunked prefill), over
 plain or int8 pools.
 
-The q/k/v/o projections have no bias and return the policy's accumulate
-dtype (f32), so both kernels see f32 operands on this path. Masking
-constants follow the JAX package: the materialized path masks with
-``-1e9``; the kernels start their running max at ``-1e30``.
+The q/k/v/o projections have no bias and are the policy's product
+(:func:`~.policy_dot.policy_dot`): bf16 operands under
+``bfloat16_compute``, an f32 result under every policy, so the flash and
+paged kernels see f32 operands and f32 pools. The context is cast to the
+compute dtype after attention, as in JAX; on the ``"xla"`` path the
+compute-dtype softmax weights are widened to f32 before they meet the f32
+``v``, which is what ``jnp``'s promotion does. Masking constants follow
+the JAX package: the materialized path masks with ``-1e9``; the kernels
+start their running max at ``-1e30``.
 """
 
 from __future__ import annotations
@@ -21,6 +26,7 @@ from ..core.dtypes import current_policy
 from .cuda_attention import (flash_attention, paged_decode_attention,
                              paged_span_attention)
 from .layers import xavier_uniform_
+from .policy_dot import policy_dot
 
 __all__ = ["MultiHeadAttention"]
 
@@ -46,14 +52,8 @@ class MultiHeadAttention(nn.Module):
             xavier_uniform_(p, generator)
             setattr(self, name, p)
 
-    @staticmethod
-    def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-        pol = current_policy()
-        return (pol.cast_compute(x) @ pol.cast_compute(w)).to(
-            pol.accum_dtype)
-
     def _heads(self, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-        return self._proj(x, w).reshape(*x.shape[:2], self.num_heads,
+        return policy_dot(x, w).reshape(*x.shape[:2], self.num_heads,
                                         self.head_dim)
 
     def forward(self, q_in, kv_in=None, mask=None, causal: bool = False,
@@ -96,9 +96,9 @@ class MultiHeadAttention(nn.Module):
             if mask is not None:
                 logits = logits.masked_fill(~(mask[:, None] > 0), -1e9)
             w = torch.softmax(logits, dim=-1).to(pol.compute_dtype)
-            ctx = torch.einsum("bhqk,bkhd->bqhd", w, v)
+            ctx = torch.einsum("bhqk,bkhd->bqhd", w.to(v.dtype), v)
         ctx = ctx.reshape(*q_in.shape[:2], self.num_heads * hd)
-        out = self._proj(ctx, self.wo)
+        out = policy_dot(ctx, self.wo)
         if return_kv:
             return out, (k, v)
         return out
@@ -137,7 +137,7 @@ class MultiHeadAttention(nn.Module):
             raise ValueError(f"decode impl must be 'paged'|'xla', "
                              f"got {impl!r}")
         ctx = ctx.to(pol.compute_dtype).reshape(S, 1, -1)
-        return self._proj(ctx, self.wo), pages_k, pages_v
+        return policy_dot(ctx, self.wo), pages_k, pages_v
 
     def decode_span(self, q_in, pages_k, pages_v, tables, start, n, active,
                     impl: str = "xla", write_from=None):
@@ -182,7 +182,7 @@ class MultiHeadAttention(nn.Module):
                                            self.head_dim))
             ctx = torch.stack(rows, dim=1)
         ctx = ctx.to(pol.compute_dtype).reshape(S, Q, -1)
-        return self._proj(ctx, self.wo), pages_k, pages_v
+        return policy_dot(ctx, self.wo), pages_k, pages_v
 
     @staticmethod
     def _sdpa_row(q, kg, vg, eff_len, hd):
@@ -197,6 +197,6 @@ class MultiHeadAttention(nn.Module):
         live = torch.arange(W, device=q.device)[None] < eff_len[:, None]
         logits = logits.masked_fill(~live[:, None], -1e9)
         w = torch.softmax(logits, dim=-1).to(pol.compute_dtype)
-        ctx = torch.einsum("shw,swhd->shd", w, vg)
+        ctx = torch.einsum("shw,swhd->shd", w.to(vg.dtype), vg)
         return torch.where((eff_len > 0)[:, None, None], ctx,
                            torch.zeros_like(ctx))

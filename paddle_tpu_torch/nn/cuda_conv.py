@@ -7,14 +7,24 @@ A 1x1 stride-1 convolution over NHWC activations is the product
 ``dy2d @ w^T`` stay plain ``torch.matmul`` products, as the JAX package
 leaves them to XLA; the weight gradient ``dW = x2d^T @ dy2d``, a reduction
 over a huge M into a tiny ``[Cin, Cout]``, is the ``conv1x1_dw`` kernel
-(``csrc/conv1x1_dw.cu``, the port of ``_dw_kernel``).
+(``csrc/conv1x1_dw.cu``, the port of ``_dw_kernel``) on float32
+operands and ``conv1x1_dw_bf16`` (``csrc/conv1x1_dw_bf16.cu``) on the
+bf16 operands of the ``bfloat16_compute`` policy, each summing in f32.
 :func:`conv1x1_strided` is the stride-s shortcut: slice, then
 :func:`conv1x1`.
 
+Under ``bfloat16_compute`` the layer hands this module bf16 ``x`` and
+``w``, as the JAX layer hands ``conv1x1``: the forward and ``dx`` are bf16
+products (cuBLAS sums them in f32 and rounds the result to bf16, given
+``torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction =
+False``), and ``dW`` is the f32 sum of the kernel rounded to ``w``'s
+bf16, as ``pallas_conv.py`` casts ``dw_pallas``'s output.
+
 :func:`conv1x1_dw` is the wrapper: the plain version
-:func:`conv1x1_dw_plain` for CPU tensors, the kernel for CUDA tensors
-(device, dtype, shape and contiguity checked, the launch checked and
-counted in :func:`launch_counts`; no fallback). The kernel takes float32.
+:func:`conv1x1_dw_plain` for CPU tensors, a kernel for CUDA tensors
+picked by the operands' dtype (float32 or bf16; mixed or other dtypes
+raise), with device, shape and contiguity checked, the launch checked and
+counted in :func:`launch_counts` under the kernel's name; no fallback.
 """
 
 from __future__ import annotations
@@ -26,6 +36,7 @@ import torch
 
 from ..utils import cuda_build
 from ..utils.cuda_build import check_cuda, check_dtype, stream_ptr
+from . import gemm_bf16
 from .gemm_f32 import TILES, copy_width, pick_tile
 
 __all__ = ["Conv1x1Function", "conv1x1", "conv1x1_dw", "conv1x1_dw_plain",
@@ -33,7 +44,7 @@ __all__ = ["Conv1x1Function", "conv1x1", "conv1x1_dw", "conv1x1_dw_plain",
            "KERNELS"]
 
 # kernel name -> csrc source stem
-KERNELS = {"conv1x1_dw": "conv1x1_dw"}
+KERNELS = {"conv1x1_dw": "conv1x1_dw", "conv1x1_dw_bf16": "conv1x1_dw_bf16"}
 
 _launches: Dict[str, int] = {name: 0 for name in KERNELS}
 
@@ -52,38 +63,56 @@ def reset_launch_counts() -> None:
 
 def conv1x1_dw_plain(x2d: torch.Tensor, dy2d: torch.Tensor) -> torch.Tensor:
     """``x2d^T @ dy2d`` in float32, ``[Cin, Cout]`` — the oracle of the JAX
-    package's tests for ``dw_pallas``."""
+    package's tests for ``dw_pallas``. bf16 operands widen exactly, and
+    their products are exact in f32, as in ``dw_pallas``."""
     return x2d.float().T @ dy2d.float()
 
 
-def _plan(m: int, cin: int, cout: int, sms: int) -> Tuple[int, int]:
-    """``(tile, splits)`` of the kernel's launch: the tile instance for a
+def _plan(m: int, cin: int, cout: int, sms: int,
+          tiles=TILES) -> Tuple[int, int]:
+    """``(tile, splits)`` of a kernel's launch: the tile instance for a
     ``[cin, cout]`` output (:func:`~.gemm_f32.pick_tile`) and
-    :func:`_splits`. A function of the shapes and the SM count only, so a
-    run is repeatable bit for bit."""
+    :func:`_splits`, from the kernel's table of instances (``tiles``: the
+    f32 kernel's :data:`~.gemm_f32.TILES` or the bf16 kernel's
+    :data:`~.gemm_bf16.TILES`). A function of the shapes and the SM count
+    only, so a run is repeatable bit for bit."""
     tile = pick_tile(cin, cout)
-    return tile, _splits(m, cin, cout, sms, tile)
+    return tile, _splits(m, cin, cout, sms, tile, tiles)
 
 
-def _splits(m: int, cin: int, cout: int, sms: int, tile: int) -> int:
+def _splits(m: int, cin: int, cout: int, sms: int, tile: int,
+            tiles=TILES) -> int:
     """The splits of M: as many as fill one wave of resident blocks
     (output tiles times splits up to ``blocks_per_sm * sms``), at least
     one, none shorter than ``_MIN_SPLIT_ROWS`` rows, at most 65535 (the
     grid's z limit)."""
-    t = TILES[tile]
+    t = tiles[tile]
     tiles = -(-cin // t.rows) * -(-cout // t.cols)
     return max(1, min(t.blocks_per_sm * sms // tiles, m // _MIN_SPLIT_ROWS,
                       65535))
 
 
+# operand dtype -> (kernel name, tile table, copy width)
+_BY_DTYPE = {
+    torch.float32: ("conv1x1_dw", TILES, copy_width),
+    torch.bfloat16: ("conv1x1_dw_bf16", gemm_bf16.TILES,
+                     gemm_bf16.copy_width)}
+
+
 def conv1x1_dw(x2d: torch.Tensor, dy2d: torch.Tensor) -> torch.Tensor:
     """``dW = x2d^T @ dy2d`` with f32 accumulation: ``x2d [M, Cin]``,
-    ``dy2d [M, Cout]`` give ``[Cin, Cout]`` f32. CPU tensors run
-    :func:`conv1x1_dw_plain`; CUDA tensors launch ``conv1x1_dw`` (one
-    launch, counted once, whatever the split of M)."""
+    ``dy2d [M, Cout]``, both float32 or both bf16, give ``[Cin, Cout]``
+    f32. The dtypes are checked first (mixed or other dtypes raise, on
+    any device); then CPU tensors run :func:`conv1x1_dw_plain` and CUDA
+    tensors launch ``conv1x1_dw`` (float32) or ``conv1x1_dw_bf16`` (bf16),
+    one launch counted once under that name, whatever the split of M."""
+    if x2d.dtype not in _BY_DTYPE:
+        raise ValueError(f"conv1x1_dw: x2d has dtype {x2d.dtype}; the "
+                         f"kernels take float32 or bfloat16")
+    name, tiles, width = _BY_DTYPE[x2d.dtype]
+    check_dtype(name, x2d.dtype, dy2d=dy2d)
     if x2d.device.type == "cpu" and dy2d.device.type == "cpu":
         return conv1x1_dw_plain(x2d, dy2d)
-    name = "conv1x1_dw"
     dev = x2d.device
     if dev.type != "cuda":
         raise ValueError(f"{name}: no kernel for x2d on {dev}")
@@ -91,7 +120,6 @@ def conv1x1_dw(x2d: torch.Tensor, dy2d: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"{name}: x2d {tuple(x2d.shape)} and dy2d "
                          f"{tuple(dy2d.shape)} must be [M, Cin] and "
                          f"[M, Cout]")
-    check_dtype(name, torch.float32, x2d=x2d, dy2d=dy2d)
     check_cuda(name, dev, x2d=x2d, dy2d=dy2d)
     m, cin = x2d.shape
     cout = dy2d.shape[1]
@@ -100,14 +128,14 @@ def conv1x1_dw(x2d: torch.Tensor, dy2d: torch.Tensor) -> torch.Tensor:
                          f"the kernel's 32-bit sizes")
     out = torch.empty(cin, cout, dtype=torch.float32, device=dev)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    tile, splits = _plan(m, cin, cout, sms)
+    tile, splits = _plan(m, cin, cout, sms, tiles)
     work = torch.empty(splits, cin, cout, dtype=torch.float32, device=dev) \
         if splits > 1 else None
     with torch.cuda.device(dev):
         cuda_build.launch(_launches, name, KERNELS[name], _ARGTYPES,
                           x2d.data_ptr(), dy2d.data_ptr(), out.data_ptr(),
                           None if work is None else work.data_ptr(), m, cin,
-                          cout, splits, tile, copy_width(x2d, dy2d),
+                          cout, splits, tile, width(x2d, dy2d),
                           stream_ptr(x2d))
     return out
 

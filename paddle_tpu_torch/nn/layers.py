@@ -24,6 +24,7 @@ from torch import nn
 
 from ..core.dtypes import current_policy
 from . import activations
+from .policy_dot import policy_dot
 
 __all__ = ["Linear", "Embedding", "LayerNorm", "Dropout", "Conv2D",
            "Pool2D", "GlobalPool", "BatchNorm", "set_conv1x1_impl",
@@ -61,7 +62,8 @@ def msra_normal_(t: torch.Tensor, generator=None) -> torch.Tensor:
 
 class Linear(nn.Module):
     """``act(x @ w + b)`` with ``w`` ``[in, out]``; the product runs in
-    the policy's compute dtype and is returned in its accumulate dtype."""
+    the policy's compute dtype and is returned in its accumulate dtype
+    (:func:`~.policy_dot.policy_dot`), and the f32 bias is added there."""
 
     def __init__(self, in_features: int, features: int, act="",
                  device=None, generator=None):
@@ -73,10 +75,7 @@ class Linear(nn.Module):
         self.b = nn.Parameter(torch.zeros(features, device=device))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        pol = current_policy()
-        y = (pol.cast_compute(x) @ pol.cast_compute(self.w)).to(
-            pol.accum_dtype)
-        return self.act(y + self.b)
+        return self.act(policy_dot(x, self.w) + self.b)
 
 
 class Embedding(nn.Module):
@@ -99,6 +98,8 @@ class Embedding(nn.Module):
         return out * valid.unsqueeze(-1).to(out.dtype)
 
     def attend(self, x: torch.Tensor) -> torch.Tensor:
+        """``x @ w.T`` in ``x``'s dtype whatever the policy, as in JAX (the
+        transformer's readout takes f32 activations)."""
         return x @ self.w.T
 
 
@@ -220,7 +221,10 @@ class Conv2D(nn.Module):
     takes the product path that :func:`set_conv1x1_impl` selects; every
     other convolution is ``F.conv2d`` after an explicit ``lax``-rule pad.
     The JAX layer's space-to-depth rewrite of the 7x7/2 stem is the same
-    math to f32 roundoff, so the plain convolution stands in for it.
+    math to f32 roundoff (under ``bfloat16_compute`` to one bf16 ulp of
+    the output), so the plain convolution stands in for it. Every branch
+    casts ``x`` and ``w`` to the policy's compute dtype and returns it, as
+    the JAX layer does (a bf16 convolution sums in f32 and rounds once).
     ``in_channels`` is given here; JAX infers it at init."""
 
     def __init__(self, in_channels: int, features: int, kernel: Pair,

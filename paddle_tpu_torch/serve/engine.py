@@ -114,6 +114,15 @@ class DecodeEngine:
         and f32 row scales, dequantized by the consumer).
       device: where the pools live (default ``"cuda"``); must match the
         model's parameters.
+
+    Dtype policy: the programs run under the policy current when they are
+    built, as the JAX engine's jitted programs keep the policy they were
+    traced under. On the card that is the capture, at :meth:`warmup` or
+    first use: an engine warmed under ``float32`` replays f32 programs
+    inside a later ``use_policy(bfloat16_compute)``, and the reverse. So
+    warm (or first serve) inside the policy the engine is to run. On the
+    CPU the bodies run eagerly and read the policy at every call. The
+    pools hold f32 under either policy (the projections return f32).
     """
 
     def __init__(self, model, *, max_slots: int = 4, block_size: int = 16,

@@ -13,6 +13,11 @@ host buffer without blocking; :meth:`Program.fetch` waits for that copy,
 so host work placed between :meth:`Program.launch` and
 :meth:`Program.fetch` runs while the device works.
 
+A captured graph keeps the dtypes of its capture: the dtype policy (and
+the 1x1-conv lowering) current at capture is the one every replay runs,
+whatever the policy at the replay, as a jitted JAX function keeps what it
+was traced under.
+
 There is no eager path on the card: a capture or replay that fails
 raises. The kernel wrappers count launches in Python, which a replay does
 not run, so a capture records the launches it saw

@@ -12,6 +12,13 @@ Not ported yet, and so not accepted as arguments: ``steps_per_call``,
 ``grad_accum``, ``grad_sync``, ``pipeline_depth``, telemetry, tracer,
 anomaly detection, faults, evaluators, ``param_sharding`` and
 checkpoints. PyTorch runs eagerly, so there is no compiled step to build.
+
+Dtype policy: a step runs under the caller's policy, as the JAX Trainer
+traces its step under it (``bench.py`` wraps init and training in
+``use_policy(bfloat16_compute)``): ``with use_policy(bfloat16_compute):
+trainer.train(...)``. The forward reads the policy; the backward does
+not (it may run on autograd's device thread). Parameters, gradients,
+optimizer state and BatchNorm statistics stay f32 under every policy.
 """
 
 from __future__ import annotations

@@ -21,6 +21,10 @@ Paths map to parameter names mechanically: ``block{i}/...`` is
 ``blocks.{i}...`` and the rest of the path is kept, so ``block0/attn/wq``
 fills ``blocks.0.attn.wq``, and back. Layouts already agree
 (``Linear.w`` is ``[in, out]`` on both sides), so nothing is transposed.
+
+Parameters made by the JAX package under ``bfloat16_compute`` are f32
+(the policy keeps parameters in f32 and casts only compute), so they load
+as they are under either policy.
 """
 
 from __future__ import annotations

@@ -25,7 +25,14 @@ plan's shared memory against the kernel's own; for the serving programs
 as CUDA graphs, five engine modes (greedy, speculation with chunked
 prefill, int8, sampled with and without speculation) against the eager
 bodies or an unwarmed engine, launch counts under replay, replays that
-run no Python and a capture that fails. Every test needs an
+run no Python and a capture that fails; for the bf16 weight gradient
+``conv1x1_dw_bf16``, M and channels off every tile, split and copy
+width, each tile instance with 16- and 4-byte copies and the plain
+2-byte loads of views at an odd element offset, M = 0, reruns bit-equal,
+the refusal of mixed dtypes, and a small ResNet trained through it under
+``bfloat16_compute``; and the policy product (cuBLAS, bf16 operands, an
+f32 output, the cotangent split in two bf16 halves) against its CPU
+version. Every test needs an
 NVIDIA GPU (marker ``cuda``) and skips without one; run them on the card
 with ``python -m pytest --noconftest -q tests/test_torch_cuda_kernels.py``
 (the JAX harness in ``tests/conftest.py`` is not needed there).
@@ -939,6 +946,149 @@ def test_resnet_trains_through_conv1x1_dw_on_card(gen):
                  if isinstance(e, pt.train.EndIteration) else None,
                  log_period=0)
         assert cc.launch_counts()["conv1x1_dw"] == 12 * 3
+        assert losses[-1] < losses[0]
+    finally:
+        pt.set_conv1x1_impl(prev)
+
+
+# -- conv1x1_dw_bf16: bf16 operands, f32 sums (the bfloat16_compute path) --
+
+def _bf16_operand(gen, rows, cols, layout):
+    """A contiguous ``[rows, cols]`` bf16 operand on the card: fresh, the
+    view ``t[1:]`` of a tensor one row longer, or a view of a flat buffer
+    one value in (its base pointer 2 bytes off 4)."""
+    if layout == "x[1:]":
+        return torch.randn(rows + 1, cols, generator=gen,
+                           device="cuda").bfloat16()[1:]
+    if layout == "flat+1":
+        buf = torch.randn(rows * cols + 1, generator=gen,
+                          device="cuda").bfloat16()
+        return buf[1:].view(rows, cols)
+    return torch.randn(rows, cols, generator=gen, device="cuda").bfloat16()
+
+
+def _check_bf16_dw(x, dy):
+    before = cc.launch_counts()
+    got = cc.conv1x1_dw(x, dy)
+    after = cc.launch_counts()
+    assert after["conv1x1_dw_bf16"] == before["conv1x1_dw_bf16"] + 1
+    assert after["conv1x1_dw"] == before["conv1x1_dw"]
+    want = cc.conv1x1_dw_plain(x, dy)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and got.dtype == torch.float32
+    assert _rel_err(got, want) <= ATOL
+    assert torch.equal(cc.conv1x1_dw(x, dy), got)      # no atomics
+
+
+@pytest.mark.parametrize("M,cin,cout", [
+    (1, 3, 10), (34, 8, 8), (34, 3, 10), (160, 64, 24), (6144, 10, 3),
+    (5000, 130, 70), (100352, 64, 64), (3000, 300, 1000), (0, 8, 16)])
+def test_conv1x1_dw_bf16_kernel_matches_plain(gen, M, cin, cout):
+    """M off every tile and split size, channels off every copy width:
+    within ATOL of the plain version (f32 sums of exact products in
+    another order), bit-equal reruns, one counted bf16 launch."""
+    _check_bf16_dw(_bf16_operand(gen, M, cin, ""),
+                   _bf16_operand(gen, M, cout, ""))
+
+
+@pytest.mark.parametrize("M,cin,cout,xl,dyl,tile,vec", [
+    (3000, 256, 256, "", "", LARGE, 8),
+    (2000, 130, 134, "", "", LARGE, 2),
+    (2001, 129, 128, "", "", LARGE, 1),
+    (1000, 64, 64, "", "", SMALL, 8),
+    (777, 6, 70, "", "", SMALL, 2),
+    (777, 7, 70, "", "", SMALL, 1),
+    (1001, 128, 128, "x[1:]", "x[1:]", LARGE, 8),
+    (1001, 6, 64, "x[1:]", "", SMALL, 2),
+    (900, 128, 192, "flat+1", "", LARGE, 1),
+    (900, 64, 64, "", "flat+1", SMALL, 1)])
+def test_conv1x1_dw_bf16_each_tile_and_copy_width(gen, M, cin, cout, xl, dyl,
+                                                  tile, vec):
+    """Every (tile, copy width) instance: 16- and 4-byte ``cp.async`` and
+    the plain 2-byte loads that views at an odd element offset and odd
+    channel counts take, M off the 32-row k-tile."""
+    from paddle_tpu_torch.nn import gemm_bf16
+    x = _bf16_operand(gen, M, cin, xl)
+    dy = _bf16_operand(gen, M, cout, dyl)
+    assert x.is_contiguous() and dy.is_contiguous()
+    assert cc._plan(M, cin, cout, _sms(), gemm_bf16.TILES)[0] == tile
+    assert gemm_bf16.copy_width(x, dy) == vec
+    _check_bf16_dw(x, dy)
+
+
+def test_conv1x1_dw_bf16_wrapper_refuses_mixed_dtypes(gen):
+    x = torch.randn(64, 8, generator=gen, device="cuda")
+    dy = torch.randn(64, 16, generator=gen, device="cuda")
+    before = cc.launch_counts()
+    for bad in [(x.bfloat16(), dy), (x, dy.bfloat16()),
+                (x.bfloat16(), dy.half()), (x.bfloat16().cpu(), dy.bfloat16()),
+                (x.bfloat16(), dy.bfloat16()[:32]),
+                (x.bfloat16().T.contiguous().T, dy.bfloat16())]:
+        with pytest.raises(ValueError):
+            cc.conv1x1_dw(*bad)
+    assert cc.launch_counts() == before
+
+
+def test_policy_product_on_card_matches_cpu(gen):
+    """The policy product on the card (cuBLAS, bf16 operands, f32 output;
+    the f32 cotangent split into two bf16 halves) against its CPU
+    version: the forward to f32 summation order; each gradient, which
+    both round to bf16 as JAX's VJP does, to one bf16 ulp plus what the
+    split leaves out before that rounding (``g - hi - lo`` is at most
+    2^-18 of ``|g|``, and the f32 sums add their own rounding: 2^-15 of
+    the sum of the terms' magnitudes, where a sum cancels)."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.nn.policy_dot import policy_dot
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    x = torch.randn(4, 64, 96, generator=gen, device="cuda",
+                    requires_grad=True)
+    w = torch.randn(96, 80, generator=gen, device="cuda", requires_grad=True)
+    gy = torch.randn(4, 64, 80, generator=gen, device="cuda")
+    xc = x.detach().cpu().requires_grad_()
+    wc = w.detach().cpu().requires_grad_()
+    with pt.use_policy(pt.bfloat16_compute):
+        y = policy_dot(x, w)
+        yc = policy_dot(xc, wc)
+    y.backward(gy)
+    yc.backward(gy.cpu())
+    assert y.dtype == torch.float32
+    assert _rel_err(y.cpu(), yc) <= 1e-6
+    xb, wb, g = xc.detach().bfloat16().float(), \
+        wc.detach().bfloat16().float(), gy.cpu()
+    mags = ((x.grad.cpu(), xc.grad, g.abs() @ wb.abs().T),
+            (w.grad.cpu(), wc.grad, (xb.abs().reshape(-1, 96).T
+                                     @ g.abs().reshape(-1, 80))))
+    for got, want, mag in mags:
+        assert torch.equal(want, want.bfloat16().float())
+        assert ((got - want).abs()
+                <= 2 ** -7 * want.abs() + 2 ** -15 * mag).all()
+
+
+def test_resnet_trains_through_conv1x1_dw_bf16_on_card(gen):
+    """A small Bottleneck ResNet under bfloat16_compute and "pallas": 12
+    bf16 dW launches a step and no f32 one, f32 parameters, and three
+    momentum steps that lower the loss."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.models import Bottleneck, ResNet
+    torch.backends.cudnn.allow_tf32 = False
+    model = ResNet(Bottleneck, [1, 1, 1, 1], 10, generator=gen)
+    x = torch.randn(8, 32, 32, 3, generator=gen, device="cuda")
+    y = torch.randint(0, 10, (8,), generator=gen, device="cuda")
+    prev = pt.set_conv1x1_impl("pallas")
+    try:
+        tr = pt.Trainer(model, lambda out, b: pt.softmax_cross_entropy(
+            out, b["y"]), pt.momentum(0.1, 0.9))
+        tr.init()
+        cc.reset_launch_counts()
+        losses = []
+        with pt.use_policy(pt.bfloat16_compute):
+            tr.train(lambda: iter([{"x": x, "y": y}] * 3),
+                     event_handler=lambda e: losses.append(e.cost)
+                     if isinstance(e, pt.train.EndIteration) else None,
+                     log_period=0)
+        assert cc.launch_counts() == {"conv1x1_dw": 0,
+                                      "conv1x1_dw_bf16": 12 * 3}
+        assert all(p.dtype == torch.float32 for p in model.parameters())
         assert losses[-1] < losses[0]
     finally:
         pt.set_conv1x1_impl(prev)

@@ -9,7 +9,10 @@ are pure Python, so they run here without a card:
   minimum, at most one wave of resident blocks, at most 65535 splits;
 - the copy width (16- or 4-byte ``cp.async``) for aligned, odd-width and
   storage-offset operands;
-- the size of ``ln_matmul``'s statistics workspace.
+- the size of ``ln_matmul``'s statistics workspace;
+- the same for ``conv1x1_dw_bf16`` (``csrc/conv1x1_dw_bf16.cu``, bf16
+  operands): its tile table, its split of M, and its copy width in bf16
+  values (16-byte, 4-byte or plain 2-byte copies).
 """
 
 import pytest
@@ -17,6 +20,7 @@ import torch
 
 from paddle_tpu_torch.nn import cuda_conv as cc
 from paddle_tpu_torch.nn import fused_ln as fl
+from paddle_tpu_torch.nn import gemm_bf16
 from paddle_tpu_torch.nn.gemm_f32 import (LARGE, SMALL, TILES, copy_width,
                                           pick_tile)
 
@@ -120,3 +124,50 @@ def test_copy_width_of_all_operands():
 def test_ln_matmul_stats_workspace(M):
     # each row's mean, then each row's 1 / sqrt(var + eps)
     assert fl._stats_numel(M) == 2 * M
+
+
+# -- conv1x1_dw_bf16 (csrc/conv1x1_dw_bf16.cu) --------------------------------
+
+def test_bf16_tile_table_matches_the_kernel_instances():
+    # csrc/conv1x1_dw_bf16.cu: Large = 128 x 128, 1 block an SM; Small =
+    # 64 x 64, 4 blocks an SM; the same indices as the f32 table
+    assert gemm_bf16.TILES[LARGE] == (128, 128, 1)
+    assert gemm_bf16.TILES[SMALL] == (64, 64, 4)
+
+
+@pytest.mark.parametrize("m,cin,cout", RESNET50_DW + [(1, 3, 10), (0, 8, 8),
+                                                      (5000, 130, 70)])
+def test_conv1x1_dw_bf16_splits_cover_m_in_one_wave(m, cin, cout):
+    tile, splits = cc._plan(m, cin, cout, H100_SMS, gemm_bf16.TILES)
+    assert tile == cc._plan(m, cin, cout, H100_SMS)[0]
+    assert 1 <= splits <= 65535
+    if splits > 1:
+        assert m // splits >= cc._MIN_SPLIT_ROWS
+    t = gemm_bf16.TILES[tile]
+    tiles = -(-cin // t.rows) * -(-cout // t.cols)
+    assert tiles * splits <= max(tiles, t.blocks_per_sm * H100_SMS)
+
+
+@pytest.mark.parametrize("shape,offset,want", [
+    ((64, 64), 0, 8), ((64, 8), 0, 8), ((64, 6), 0, 2), ((64, 66), 0, 2),
+    ((64, 7), 0, 1), ((1, 1), 0, 1), ((64, 64), 1, 1), ((64, 64), 2, 2),
+    ((64, 64), 4, 2), ((64, 64), 8, 8), ((64, 64), 64, 8)])
+def test_bf16_copy_width(shape, offset, want):
+    rows, cols = shape
+    buf = torch.zeros(rows * cols + offset, dtype=torch.bfloat16)
+    t = buf[offset:].view(rows, cols)
+    assert t.is_contiguous()
+    assert gemm_bf16.copy_width(t) == want
+
+
+def test_bf16_copy_width_of_both_operands():
+    x = torch.zeros(33, 64, dtype=torch.bfloat16)
+    dy = torch.zeros(33, 128, dtype=torch.bfloat16)
+    assert gemm_bf16.copy_width(x, dy) == 8
+    assert gemm_bf16.copy_width(x[1:], dy[1:]) == 8     # 128-byte rows in
+    assert gemm_bf16.copy_width(x, torch.zeros(33, 130,
+                                               dtype=torch.bfloat16)) == 2
+    assert gemm_bf16.copy_width(torch.zeros(34, 6, dtype=torch.bfloat16)[1:],
+                                dy) == 2                # 12 bytes off 16
+    assert gemm_bf16.copy_width(x, torch.zeros(33, 3,
+                                               dtype=torch.bfloat16)) == 1

@@ -54,46 +54,63 @@ extern "C" int run(void* out, int blocks, int threads, int iters,
 """
 
 
-def main():
-    import torch
-    if not torch.cuda.is_available():
-        print("mma_tf32_peak: no CUDA device visible", file=sys.stderr)
-        return 2
+def occupancy_rows(torch, src, mma_flops):
+    """Builds ``src`` (a kernel ``run(out, blocks, threads, iters,
+    stream)`` in which each warp issues 16 independent ``mma.sync`` of
+    ``mma_flops`` operations per iteration) and times it at 2, 4 and 8
+    warps an SM sub-partition, two blocks an SM: one row per occupancy,
+    ``{"warps_per_sub_partition", "ms", "tflops"}``."""
     sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
     from paddle_tpu_torch.utils.cuda_build import NVCC_FLAGS, _nvcc
     with tempfile.TemporaryDirectory() as d:
-        src, lib = Path(d) / "mma_peak.cu", Path(d) / "libmma_peak.so"
-        src.write_text(SRC)
-        subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(lib), str(src)],
+        cu, lib = Path(d) / "mma_peak.cu", Path(d) / "libmma_peak.so"
+        cu.write_text(src)
+        subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(lib), str(cu)],
                        check=True, capture_output=True)
         fn = ctypes.CDLL(str(lib)).run
     fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    props = torch.cuda.get_device_properties(0)
-    sms, iters = props.multi_processor_count, 4096
-    name = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True,
-        text=True).stdout.strip()
-    print(name)
+    sms, iters = torch.cuda.get_device_properties(0).multi_processor_count, \
+        4096
     stream = torch.cuda.current_stream().cuda_stream
+    rows = []
     for warps_per_smsp in (2, 4, 8):
         threads = 128 * warps_per_smsp // 2      # two blocks an SM
         blocks = 2 * sms
         out = torch.empty(blocks * threads, device="cuda")
         for _ in range(2):                       # warm-up
-            assert fn(out.data_ptr(), blocks, threads, iters, stream) == 0
+            if fn(out.data_ptr(), blocks, threads, iters, stream) != 0:
+                raise RuntimeError("mma peak: launch failed")
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        assert fn(out.data_ptr(), blocks, threads, iters, stream) == 0
+        if fn(out.data_ptr(), blocks, threads, iters, stream) != 0:
+            raise RuntimeError("mma peak: launch failed")
         b.record()
         torch.cuda.synchronize()
         ms = a.elapsed_time(b)
-        flops = blocks * threads // 32 * iters * 16 * 2 * 16 * 8 * 8
-        tf = flops / ms / 1e9
-        print(json.dumps({"warps_per_sub_partition": warps_per_smsp,
-                          "ms": ms, "tf32_tflops": tf,
+        flops = blocks * threads // 32 * iters * 16 * mma_flops
+        rows.append({"warps_per_sub_partition": warps_per_smsp, "ms": ms,
+                     "tflops": flops / ms / 1e9})
+    return rows
+
+
+def card_line():
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True,
+        text=True).stdout.strip()
+
+
+def main():
+    import torch
+    if not torch.cuda.is_available():
+        print("mma_tf32_peak: no CUDA device visible", file=sys.stderr)
+        return 2
+    print(card_line())
+    for row in occupancy_rows(torch, SRC, 2 * 16 * 8 * 8):
+        tf = row.pop("tflops")
+        print(json.dumps({**row, "tf32_tflops": tf,
                           "share_of_495": tf / 495,
                           "f32_accurate_tflops_3x": tf / 3}))
     return 0
