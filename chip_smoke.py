@@ -651,6 +651,35 @@ def fwd_registers(ca, log_text):
             for D, tiles in ca._FWD_TILES.items() for t in tiles]
 
 
+# ptxas's -v report of a conv1x1_dw_bf16.cu instance: the wgmma route's
+# WgCfg (rows, columns, stages, blocks an SM) and the mma.sync route's Cfg
+# (rows, columns, blocks an SM) with its copy width
+DW_WGMMA_INSTANCE = re.compile(r"dw_wgmmaINS_5WgCfgILi(\d+)ELi(\d+)ELi(\d+)"
+                               r"ELi(\d+)E")
+DW_MMA_INSTANCE = re.compile(r"dw_tiles_bf16INS_3CfgILi(\d+)ELi(\d+)ELi\d+"
+                             r"ELi\d+ELi\d+ELi(\d+)EEELi(\d+)E")
+
+
+def dw_bf16_registers(log_text):
+    """Registers and spills of every conv1x1_dw_bf16.cu instance the plan
+    can pick, from the build's ptxas report; a spill, or an instance the
+    report lacks, fails the run."""
+    from paddle_tpu_torch.nn import gemm_bf16
+    wg = ptxas_entries(DW_WGMMA_INSTANCE, log_text)
+    mma = ptxas_entries(DW_MMA_INSTANCE, log_text)
+    out = []
+    for t in gemm_bf16.WGMMA_TILES:
+        key = next((k for k in wg if (k[0], k[1], k[3]) == tuple(t)), None)
+        out.append({"route": "wgmma", "tile": list(t[:2]), "stages":
+                    key and key[2], "vec": 8,
+                    **checked_entry(wg, key, "conv1x1_dw_bf16")})
+    out += [{"route": "mma_sync", "tile": list(t[:2]), "vec": vec,
+             **checked_entry(mma, (t.rows, t.cols, t.blocks_per_sm, vec),
+                             "conv1x1_dw_bf16")}
+            for t in gemm_bf16.MMA_TILES for vec in (2, 1)]
+    return out
+
+
 def check_rerun(torch, name, out, fn):
     """A rerun of ``fn`` must equal ``out`` bit for bit (no atomics)."""
     again = fn()
@@ -2289,6 +2318,7 @@ def phase_resnet(torch, np, pt, cc, card, pol):
         step_ms, losses = resnet_run(torch, pt, model, start, loss_fn,
                                      batch, "pallas", steps, pol)
         counts = cc.launch_counts()
+        routes = cc.route_counts()
         peak = torch.cuda.max_memory_allocated()
         ms = sum(step_ms[1:]) / (steps - 1)
         conv_ms, conv_losses = resnet_run(torch, pt, model, start, loss_fn,
@@ -2302,6 +2332,7 @@ def phase_resnet(torch, np, pt, cc, card, pol):
             "steps": steps, "ms_per_step": ms, "step_ms": step_ms,
             "images_per_s": B / (ms / 1e3), "losses": losses,
             "loss_floor": round(math.log(2.0), 4), "launches": counts,
+            "conv1x1_dw_bf16_routes": routes,
             "peak_mem_gib": peak / 2 ** 30,
             "conv_ab": {"impl": "conv", "step_ms": conv_ms,
                         "ms_per_step": conv_steady,
@@ -2313,6 +2344,10 @@ def phase_resnet(torch, np, pt, cc, card, pol):
         if counts != want:
             raise RuntimeError(f"resnet{tag}: dW launches {counts}, "
                                f"expected {want} (36 x {steps} steps)")
+        want_routes = {"wgmma": 36 * steps if bf16 else 0, "mma_sync": 0}
+        if routes != want_routes:
+            raise RuntimeError(f"resnet{tag}: conv1x1_dw_bf16 routes "
+                               f"{routes}, expected {want_routes}")
         if not all(math.isfinite(x) for x in losses) or len(losses) != steps:
             raise RuntimeError(f"resnet{tag}: losses {losses}")
         log(f"resnet{tag} curves", json.dumps(resnet_curves(
@@ -2327,10 +2362,14 @@ def phase_resnet(torch, np, pt, cc, card, pol):
                 torch, lambda: trainer.train(lambda: iter([batch] * 2),
                                              log_period=0),
                 "2 training steps, conv1x1 'pallas'",
-                kernels=("dw_tiles", "split_reduce"))))
+                kernels=("dw_tiles", "dw_wgmma", "split_reduce"))))
     finally:
         pt.set_conv1x1_impl(prev)
     return counts
+
+
+# conv1x1_dw_bf16.cu's instances by route and tile index
+INSTANCES = {"wgmma": ("WgLarge", "WgSmall"), "mma_sync": ("Large", "Small")}
 
 
 def dw_bf16_bytes_flops(M, cin, cout):
@@ -2352,9 +2391,10 @@ def mma_bf16_rate(torch):
 def bf16_bounds(row, nbytes, flops, mma_rate):
     """Adds to a timed row of ``conv1x1_dw_bf16`` its bound (the larger of
     the bytes at 3.35 TB/s and the operations at the data sheet's 989
-    TFLOP/s of bf16) and, beside it, the bound with the operations at the
-    card's measured ``mma.sync`` rate, the instruction the kernel runs
-    on; its TFLOP/s and share of each."""
+    TFLOP/s of bf16, which the wgmma route can reach) and, beside it, the
+    bound with the operations at the card's measured ``mma.sync`` rate,
+    the instruction of the route for unaligned views; its TFLOP/s and
+    share of each."""
     t_b = nbytes / HBM_BYTES_PER_S * 1e3
     t_f = flops / BF16_FLOPS_PER_S * 1e3
     t_m = flops / mma_rate * 1e3
@@ -2371,13 +2411,16 @@ def bf16_bounds(row, nbytes, flops, mma_rate):
 
 def phase_conv_bf16_kernels(torch, cc, gen, mma_rate):
     """conv1x1_dw_bf16 on bf16 operands at the 15 distinct shapes of a
-    ResNet-50 step: against its plain version at five of them (within
-    TOL of max(1, max |plain|)), two runs bit-equal; then the kernel, the
+    ResNet-50 step: against its plain version at every one (within TOL of
+    max(1, max |plain|)), two runs bit-equal, each shape's route and
+    instance logged (the operands are fresh, so 16-byte aligned: the
+    wgmma route, which the run requires); then the kernel, the
     plain version, the library call (``torch.mm(x.t(), dy,
     out_dtype=torch.float32)``: cuBLAS, bf16 operands, f32 output) and
     the f32 kernel ``conv1x1_dw`` on the same values widened, timed at
     every shape, and summed over the step's 36 launches beside the summed
-    bounds (per launch: the step's sums over 36)."""
+    bounds (per launch: the step's sums over 36). The kernels' device time
+    alone, beside cuBLAS's: ``tools/dw_bf16_compare.py``."""
     from paddle_tpu_torch.nn import gemm_bf16
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     keys = ("kernel_ms", "plain_ms", "library_ms", "f32_kernel_ms",
@@ -2389,31 +2432,34 @@ def phase_conv_bf16_kernels(torch, cc, gen, mma_rate):
         M, cin, cout = shape
         x = torch.randn(M, cin, generator=gen, device="cuda").bfloat16()
         dy = torch.randn(M, cout, generator=gen, device="cuda").bfloat16()
-        row = {"shape": list(shape), "launches_per_step": n}
-        if shape in DW_CHECKED:
-            got = cc.conv1x1_dw(x, dy)
-            want = cc.conv1x1_dw_plain(x, dy)
-            again = cc.conv1x1_dw(x, dy)
-            torch.cuda.synchronize()
-            e = check_close(f"conv1x1_dw_bf16 {shape}", got, want, rel=True)
-            if not torch.equal(got, again):
-                raise RuntimeError(f"conv1x1_dw_bf16 {shape}: two runs "
-                                   f"differ")
-            row["max_abs_err"], row["max_plain"] = e, \
-                want.abs().max().item()
-            err = max(err, e)
-            del got, want, again
+        tile, splits, vec = cc._launch_plan(x, dy, sms)
+        route = gemm_bf16.route(vec)
+        row = {"shape": list(shape), "launches_per_step": n,
+               "route": route, "instance": INSTANCES[route][tile],
+               "tile": list(gemm_bf16.tiles(vec)[tile][:2]),
+               "splits": splits, "copy_width": vec}
+        if route != "wgmma":
+            raise RuntimeError(f"conv1x1_dw_bf16 {shape}: fresh operands "
+                               f"took the {route} route")
+        got = cc.conv1x1_dw(x, dy)
+        want = cc.conv1x1_dw_plain(x, dy)
+        again = cc.conv1x1_dw(x, dy)
+        torch.cuda.synchronize()
+        e = check_close(f"conv1x1_dw_bf16 {shape}", got, want, rel=True)
+        if not torch.equal(got, again):
+            raise RuntimeError(f"conv1x1_dw_bf16 {shape}: two runs differ")
+        row["max_abs_err"], row["max_plain"] = e, want.abs().max().item()
+        row["err_over_max_plain"] = e / max(1.0, row["max_plain"])
+        err = max(err, e)
+        del got, want, again
         nbytes, flops = dw_bf16_bytes_flops(M, cin, cout)
-        tile, splits = cc._plan(M, cin, cout, sms, gemm_bf16.TILES)
         xf, dyf = x.float(), dy.float()
         row.update(
             kernel_ms=time_ms(torch, lambda: cc.conv1x1_dw(x, dy)),
             plain_ms=time_ms(torch, lambda: cc.conv1x1_dw_plain(x, dy)),
             library_ms=time_ms(torch, lambda: torch.mm(
                 x.t(), dy, out_dtype=torch.float32)),
-            f32_kernel_ms=time_ms(torch, lambda: cc.conv1x1_dw(xf, dyf)),
-            tile=list(gemm_bf16.TILES[tile][:2]), splits=splits,
-            copy_width=gemm_bf16.copy_width(x, dy))
+            f32_kernel_ms=time_ms(torch, lambda: cc.conv1x1_dw(xf, dyf)))
         bf16_bounds(row, nbytes, flops, mma_rate)
         for k in keys:
             step[k] += n * row[k]
@@ -2479,6 +2525,8 @@ def main():
         ca, str(report["flash_fwd"]["log"]))))
     log("flash_bwd ptxas", json.dumps(bwd_registers(
         ca, str(report["flash_bwd"]["log"]))))
+    log("conv1x1_dw_bf16 ptxas", json.dumps(dw_bf16_registers(
+        str(report["conv1x1_dw_bf16"]["log"]))))
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     flash = phase_flash(torch, F, ca, gen)

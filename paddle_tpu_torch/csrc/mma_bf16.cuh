@@ -1,5 +1,5 @@
-// bf16 fragment arithmetic and byte-sized cp.async staging for sm_90a,
-// used by conv1x1_dw_bf16.cu.
+// bf16 fragment arithmetic and 4-byte cp.async staging for sm_90a, used
+// by conv1x1_dw_bf16.cu's mma.sync route.
 //
 // mma.sync.m16n8k16 takes bf16 operands and adds their products into f32
 // accumulators. The operands come from shared memory through ldmatrix: an
@@ -22,22 +22,15 @@
 
 namespace bf16mma {
 
-// BYTES (16 or 4) from gmem to smem, zero-filled when !pred (gmem must
-// still be a valid address then; the caller passes its base pointer).
-template <int BYTES>
-__device__ __forceinline__ void cp_async(void* smem, const void* gmem,
-                                         bool pred) {
+// 4 bytes from gmem to smem, zero-filled when !pred (gmem must still be a
+// valid address then; the caller passes its base pointer). 16-byte
+// operands take the wgmma route's TMA copies instead.
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem,
+                                          bool pred) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  if constexpr (BYTES == 16) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-                 "l"(gmem), "r"(pred ? 16 : 0)
-                 : "memory");
-  } else {
-    static_assert(BYTES == 4, "4- or 16-byte copies");
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
-                 "l"(gmem), "r"(pred ? 4 : 0)
-                 : "memory");
-  }
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(pred ? 4 : 0)
+               : "memory");
 }
 
 // Four 8 x 8 matrices of 16-bit values, transposed: lanes 8i..8i+7 give

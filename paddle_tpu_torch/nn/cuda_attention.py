@@ -119,6 +119,14 @@ def _scores(q, k, segments, causal: bool, scale: float) -> torch.Tensor:
     return s.masked_fill(~vis, float("-inf"))
 
 
+def _rounded(p: torch.Tensor, dtype) -> torch.Tensor:
+    """``p`` rounded to ``dtype`` and widened back to f32, as the JAX
+    kernels cast p and ds to the other operand's dtype before their second
+    product (``p.astype(v.dtype)``); f32 leaves ``p`` as it is, bit for
+    bit."""
+    return p if dtype == torch.float32 else p.to(dtype).float()
+
+
 def _probs(q, k, segments, lse, causal, scale) -> torch.Tensor:
     """``p = exp(q.k^T * scale - LSE)`` with masked pairs at 0, f32."""
     return torch.exp(_scores(q, k, segments, causal, scale) - lse[..., None])
@@ -130,13 +138,16 @@ def flash_attention_plain(q, k, v, segments=None, causal: bool = False,
     """``(O [B, H, T, D], LSE [B, H, T] f32)`` with the kernel's
     conventions: masked scores are ``-inf``, the row max is floored at
     ``-1e30`` and the row sum clamped at ``1e-30``, so a row with no
-    visible key (segment id 0) gives zeros and an LSE of about ``-1e30``."""
+    visible key (segment id 0) gives zeros and an LSE of about ``-1e30``.
+    As in JAX's ``_attn_kernel``, the row sum takes the f32 p and the
+    product with v takes p rounded to v's dtype."""
     scale = q.shape[-1] ** -0.5 if scale is None else scale
     s = _scores(q, k, segments, causal, scale)
     m = s.amax(-1, keepdim=True).clamp_min(_NEG)
     p = torch.exp(s - m)
     l = p.sum(-1, keepdim=True).clamp_min(1e-30)
-    out = torch.einsum("bhqk,bhkd->bhqd", p, v.float()) / l
+    out = torch.einsum("bhqk,bhkd->bhqd", _rounded(p, v.dtype),
+                       v.float()) / l
     return out.to(q.dtype), (m + torch.log(l))[..., 0]
 
 
@@ -144,26 +155,30 @@ def flash_bwd_dq_plain(q, k, v, segments, do, lse, delta,
                        causal: bool = False,
                        scale: Optional[float] = None) -> torch.Tensor:
     """``dq = scale * (p * (dO.v^T - delta)) . k`` — the ``flash_bwd_dq``
-    kernel's function, from whole tensors."""
+    kernel's function, from whole tensors; ds rounded to k's dtype before
+    the product, as in JAX's ``_dq_kernel``."""
     scale = q.shape[-1] ** -0.5 if scale is None else scale
     p = _probs(q, k, segments, lse, causal, scale)
     dp = torch.einsum("bhqd,bhkd->bhqk", do.float(), v.float())
     ds = p * (dp - delta[..., None])
-    return (torch.einsum("bhqk,bhkd->bhqd", ds, k.float()) * scale
-            ).to(q.dtype)
+    return (torch.einsum("bhqk,bhkd->bhqd", _rounded(ds, k.dtype), k.float())
+            * scale).to(q.dtype)
 
 
 def flash_bwd_dkv_plain(q, k, v, segments, do, lse, delta,
                         causal: bool = False, scale: Optional[float] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(dk, dv)`` with ``dk = scale * ds^T . q`` and ``dv = p^T . dO`` —
-    the ``flash_bwd_dkv`` kernel's function, from whole tensors."""
+    the ``flash_bwd_dkv`` kernel's function, from whole tensors; ds
+    rounded to q's dtype and p to dO's before the products, as in JAX's
+    ``_dkv_kernel``."""
     scale = q.shape[-1] ** -0.5 if scale is None else scale
     p = _probs(q, k, segments, lse, causal, scale)
     dp = torch.einsum("bhqd,bhkd->bhqk", do.float(), v.float())
     ds = p * (dp - delta[..., None])
-    dk = torch.einsum("bhqk,bhqd->bhkd", ds, q.float()) * scale
-    dv = torch.einsum("bhqk,bhqd->bhkd", p, do.float())
+    dk = torch.einsum("bhqk,bhqd->bhkd", _rounded(ds, q.dtype),
+                      q.float()) * scale
+    dv = torch.einsum("bhqk,bhqd->bhkd", _rounded(p, do.dtype), do.float())
     return dk.to(k.dtype), dv.to(v.dtype)
 
 
@@ -628,16 +643,25 @@ def _gathered(pages, tables) -> torch.Tensor:
     return gather_pages(pages, tables).float()
 
 
-def _masked_softmax_pv(s, v, vis, eq: str) -> torch.Tensor:
+def _masked_softmax_pv(s, v, vis, eq: str, v_dtype) -> torch.Tensor:
     """``softmax(s) . v`` over the last axis of the scores ``s`` with the
     kernels' conventions: pairs outside ``vis`` at ``-inf``, the row max
     floored at ``-1e30`` and the sum clamped at ``1e-30``, so a row with
-    nothing visible gives zeros."""
+    nothing visible gives zeros. p enters the product rounded to
+    ``v_dtype``, V's dtype as JAX's paged kernels see it
+    (:func:`_v_dtype`)."""
     s = s.masked_fill(~vis, float("-inf"))
     m = s.amax(-1, keepdim=True).clamp_min(_NEG)
     p = torch.exp(s - m)
     l = p.sum(-1, keepdim=True).clamp_min(1e-30)
-    return torch.einsum(eq, p, v) / l
+    return torch.einsum(eq, _rounded(p, v_dtype), v) / l
+
+
+def _v_dtype(pages_v):
+    """The dtype of V in the paged kernels' ``p . V``: a plain pool's, or
+    f32 for an int8 pool, which JAX dequantizes to f32 first."""
+    values, scales = _unpack_pages(pages_v)
+    return values.dtype if scales is None else torch.float32
 
 
 def paged_decode_plain(q, pages_k, pages_v, tables, lengths,
@@ -651,8 +675,8 @@ def paged_decode_plain(q, pages_k, pages_v, tables, lengths,
     v = _gathered(pages_v, tables)
     s = torch.einsum("shd,swhd->shw", q.float(), k) * scale
     live = torch.arange(k.shape[1], device=q.device)[None] < lengths[:, None]
-    return _masked_softmax_pv(s, v, live[:, None, :],
-                              "shw,swhd->shd").to(q.dtype)
+    return _masked_softmax_pv(s, v, live[:, None, :], "shw,swhd->shd",
+                              _v_dtype(pages_v)).to(q.dtype)
 
 
 def paged_span_plain(q, pages_k, pages_v, tables, start, n,
@@ -672,8 +696,8 @@ def paged_span_plain(q, pages_k, pages_v, tables, start, n,
     vis = torch.arange(k.shape[1], device=q.device)[None, None] \
         <= pos[..., None]                                 # [S, Q, W]
     vis = vis & (n > 0)[:, None, None]
-    return _masked_softmax_pv(s, v, vis[:, :, None, :],
-                              "sqhw,swhd->sqhd").to(q.dtype)
+    return _masked_softmax_pv(s, v, vis[:, :, None, :], "sqhw,swhd->sqhd",
+                              _v_dtype(pages_v)).to(q.dtype)
 
 
 def _check_paged(name: str, q, pages_k, pages_v, tables, Q: int,

@@ -41,12 +41,14 @@ from .gemm_f32 import TILES, copy_width, pick_tile
 
 __all__ = ["Conv1x1Function", "conv1x1", "conv1x1_dw", "conv1x1_dw_plain",
            "conv1x1_strided", "launch_counts", "reset_launch_counts",
-           "KERNELS"]
+           "route_counts", "KERNELS"]
 
 # kernel name -> csrc source stem
 KERNELS = {"conv1x1_dw": "conv1x1_dw", "conv1x1_dw_bf16": "conv1x1_dw_bf16"}
 
 _launches: Dict[str, int] = {name: 0 for name in KERNELS}
+# conv1x1_dw_bf16's launches by route (gemm_bf16.route)
+_routes: Dict[str, int] = {"wgmma": 0, "mma_sync": 0}
 
 _MIN_SPLIT_ROWS = 256  # no split of M shorter than this: 8 k-tiles of 32
 
@@ -56,9 +58,17 @@ def launch_counts() -> Dict[str, int]:
     return dict(_launches)
 
 
+def route_counts() -> Dict[str, int]:
+    """``conv1x1_dw_bf16``'s launches since the last
+    :func:`reset_launch_counts`, by route: ``"wgmma"`` or
+    ``"mma_sync"``."""
+    return dict(_routes)
+
+
 def reset_launch_counts() -> None:
-    for name in _launches:
-        _launches[name] = 0
+    for counts in (_launches, _routes):
+        for name in counts:
+            counts[name] = 0
 
 
 def conv1x1_dw_plain(x2d: torch.Tensor, dy2d: torch.Tensor) -> torch.Tensor:
@@ -73,8 +83,8 @@ def _plan(m: int, cin: int, cout: int, sms: int,
     """``(tile, splits)`` of a kernel's launch: the tile instance for a
     ``[cin, cout]`` output (:func:`~.gemm_f32.pick_tile`) and
     :func:`_splits`, from the kernel's table of instances (``tiles``: the
-    f32 kernel's :data:`~.gemm_f32.TILES` or the bf16 kernel's
-    :data:`~.gemm_bf16.TILES`). A function of the shapes and the SM count
+    f32 kernel's :data:`~.gemm_f32.TILES` or a table of the bf16 kernel's,
+    :func:`~.gemm_bf16.tiles`). A function of the shapes and the SM count
     only, so a run is repeatable bit for bit."""
     tile = pick_tile(cin, cout)
     return tile, _splits(m, cin, cout, sms, tile, tiles)
@@ -92,11 +102,25 @@ def _splits(m: int, cin: int, cout: int, sms: int, tile: int,
                       65535))
 
 
-# operand dtype -> (kernel name, tile table, copy width)
-_BY_DTYPE = {
-    torch.float32: ("conv1x1_dw", TILES, copy_width),
-    torch.bfloat16: ("conv1x1_dw_bf16", gemm_bf16.TILES,
-                     gemm_bf16.copy_width)}
+def _launch_plan(x2d: torch.Tensor, dy2d: torch.Tensor,
+                 sms: int) -> Tuple[int, int, int]:
+    """``(tile, splits, vec)`` of a launch on ``x2d``'s dtype: the copy
+    width from the operands' pointers and rows, then the tile and the
+    splits of M from the table of the instances that width reaches (for
+    bf16 also the route: ``vec`` 8 is the wgmma route,
+    :func:`~.gemm_bf16.route`). A function of shapes, pointers and the
+    SM count only."""
+    (m, cin), cout = x2d.shape, dy2d.shape[1]
+    if x2d.dtype == torch.bfloat16:
+        vec = gemm_bf16.copy_width(x2d, dy2d)
+        tiles = gemm_bf16.tiles(vec)
+    else:
+        vec, tiles = copy_width(x2d, dy2d), TILES
+    return (*_plan(m, cin, cout, sms, tiles), vec)
+
+
+# operand dtype -> kernel name
+_BY_DTYPE = {torch.float32: "conv1x1_dw", torch.bfloat16: "conv1x1_dw_bf16"}
 
 
 def conv1x1_dw(x2d: torch.Tensor, dy2d: torch.Tensor) -> torch.Tensor:
@@ -109,7 +133,7 @@ def conv1x1_dw(x2d: torch.Tensor, dy2d: torch.Tensor) -> torch.Tensor:
     if x2d.dtype not in _BY_DTYPE:
         raise ValueError(f"conv1x1_dw: x2d has dtype {x2d.dtype}; the "
                          f"kernels take float32 or bfloat16")
-    name, tiles, width = _BY_DTYPE[x2d.dtype]
+    name = _BY_DTYPE[x2d.dtype]
     check_dtype(name, x2d.dtype, dy2d=dy2d)
     if x2d.device.type == "cpu" and dy2d.device.type == "cpu":
         return conv1x1_dw_plain(x2d, dy2d)
@@ -128,15 +152,16 @@ def conv1x1_dw(x2d: torch.Tensor, dy2d: torch.Tensor) -> torch.Tensor:
                          f"the kernel's 32-bit sizes")
     out = torch.empty(cin, cout, dtype=torch.float32, device=dev)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    tile, splits = _plan(m, cin, cout, sms, tiles)
+    tile, splits, vec = _launch_plan(x2d, dy2d, sms)
     work = torch.empty(splits, cin, cout, dtype=torch.float32, device=dev) \
         if splits > 1 else None
     with torch.cuda.device(dev):
         cuda_build.launch(_launches, name, KERNELS[name], _ARGTYPES,
                           x2d.data_ptr(), dy2d.data_ptr(), out.data_ptr(),
                           None if work is None else work.data_ptr(), m, cin,
-                          cout, splits, tile, width(x2d, dy2d),
-                          stream_ptr(x2d))
+                          cout, splits, tile, vec, stream_ptr(x2d))
+    if name == "conv1x1_dw_bf16":
+        _routes[gemm_bf16.route(vec)] += 1
     return out
 
 

@@ -27,10 +27,13 @@ prefill, int8, sampled with and without speculation) against the eager
 bodies or an unwarmed engine, launch counts under replay, replays that
 run no Python and a capture that fails; for the bf16 weight gradient
 ``conv1x1_dw_bf16``, M and channels off every tile, split and copy
-width, each tile instance with 16- and 4-byte copies and the plain
-2-byte loads of views at an odd element offset, M = 0, reruns bit-equal,
-the refusal of mixed dtypes, and a small ResNet trained through it under
-``bfloat16_compute``; and the policy product (cuBLAS, bf16 operands, an
+width, each instance of its two routes (wgmma on 16-byte copies;
+mma.sync on 4-byte copies and the plain 2-byte loads of views at an odd
+element offset) at the largest M of a ResNet-50 step, at a ragged M and
+ragged channels and on a view off its allocation, M = 0, reruns
+bit-equal, the refusal of mixed dtypes, and a small ResNet trained
+through it under ``bfloat16_compute`` (every launch on the wgmma route);
+and the policy product (cuBLAS, bf16 operands, an
 f32 output, the cotangent split in two bf16 halves) against its CPU
 version. Every test needs an
 NVIDIA GPU (marker ``cuda``) and skips without one; run them on the card
@@ -956,23 +959,30 @@ def test_resnet_trains_through_conv1x1_dw_on_card(gen):
 def _bf16_operand(gen, rows, cols, layout):
     """A contiguous ``[rows, cols]`` bf16 operand on the card: fresh, the
     view ``t[1:]`` of a tensor one row longer, or a view of a flat buffer
-    one value in (its base pointer 2 bytes off 4)."""
+    ``k`` values in (``"flat+k"``: its base pointer 2k bytes off the
+    buffer's: 2 bytes off 4 for k = 1, 4 off 16 for k = 2, 16-byte aligned
+    for k = 8)."""
     if layout == "x[1:]":
         return torch.randn(rows + 1, cols, generator=gen,
                            device="cuda").bfloat16()[1:]
-    if layout == "flat+1":
-        buf = torch.randn(rows * cols + 1, generator=gen,
+    if layout.startswith("flat+"):
+        k = int(layout[5:])
+        buf = torch.randn(rows * cols + k, generator=gen,
                           device="cuda").bfloat16()
-        return buf[1:].view(rows, cols)
+        return buf[k:].view(rows, cols)
     return torch.randn(rows, cols, generator=gen, device="cuda").bfloat16()
 
 
 def _check_bf16_dw(x, dy):
-    before = cc.launch_counts()
+    from paddle_tpu_torch.nn import gemm_bf16
+    before, routes = cc.launch_counts(), cc.route_counts()
     got = cc.conv1x1_dw(x, dy)
     after = cc.launch_counts()
     assert after["conv1x1_dw_bf16"] == before["conv1x1_dw_bf16"] + 1
     assert after["conv1x1_dw"] == before["conv1x1_dw"]
+    route = gemm_bf16.route(gemm_bf16.copy_width(x, dy))
+    routes[route] += 1
+    assert cc.route_counts() == routes
     want = cc.conv1x1_dw_plain(x, dy)
     torch.cuda.synchronize()
     assert got.shape == want.shape and got.dtype == torch.float32
@@ -1004,15 +1014,49 @@ def test_conv1x1_dw_bf16_kernel_matches_plain(gen, M, cin, cout):
     (900, 64, 64, "", "flat+1", SMALL, 1)])
 def test_conv1x1_dw_bf16_each_tile_and_copy_width(gen, M, cin, cout, xl, dyl,
                                                   tile, vec):
-    """Every (tile, copy width) instance: 16- and 4-byte ``cp.async`` and
-    the plain 2-byte loads that views at an odd element offset and odd
-    channel counts take, M off the 32-row k-tile."""
-    from paddle_tpu_torch.nn import gemm_bf16
+    """Every (tile, copy width) instance: the wgmma route's 16-byte copies
+    and the mma.sync route's 4-byte ``cp.async`` and plain 2-byte loads
+    that views at an odd element offset and odd channel counts take, M
+    off the 32-row and the 64-row k-tile."""
     x = _bf16_operand(gen, M, cin, xl)
     dy = _bf16_operand(gen, M, cout, dyl)
     assert x.is_contiguous() and dy.is_contiguous()
-    assert cc._plan(M, cin, cout, _sms(), gemm_bf16.TILES)[0] == tile
-    assert gemm_bf16.copy_width(x, dy) == vec
+    plan = cc._launch_plan(x, dy, _sms())
+    assert (plan[0], plan[2]) == (tile, vec)
+    _check_bf16_dw(x, dy)
+
+
+@pytest.mark.parametrize("route,tile,vec,M,cin,cout,xl,dyl", [
+    ("wgmma", LARGE, 8, 401408, 256, 128, "", ""),
+    ("wgmma", LARGE, 8, 4097, 136, 200, "", ""),
+    ("wgmma", LARGE, 8, 1001, 128, 192, "flat+8", "x[1:]"),
+    ("wgmma", SMALL, 8, 401408, 64, 64, "", ""),
+    ("wgmma", SMALL, 8, 4099, 72, 56, "", ""),
+    ("wgmma", SMALL, 8, 999, 64, 8, "x[1:]", "flat+8"),
+    ("mma_sync", LARGE, 2, 401408, 130, 134, "", ""),
+    ("mma_sync", LARGE, 2, 2001, 130, 138, "", ""),
+    ("mma_sync", LARGE, 2, 1001, 128, 192, "flat+2", ""),
+    ("mma_sync", LARGE, 1, 401408, 129, 128, "", ""),
+    ("mma_sync", LARGE, 1, 2001, 131, 133, "", ""),
+    ("mma_sync", LARGE, 1, 900, 128, 192, "flat+1", ""),
+    ("mma_sync", SMALL, 2, 401408, 66, 70, "", ""),
+    ("mma_sync", SMALL, 2, 777, 6, 70, "", ""),
+    ("mma_sync", SMALL, 2, 1001, 64, 64, "flat+2", ""),
+    ("mma_sync", SMALL, 1, 401408, 63, 64, "", ""),
+    ("mma_sync", SMALL, 1, 777, 7, 71, "", ""),
+    ("mma_sync", SMALL, 1, 900, 64, 64, "", "flat+1")])
+def test_conv1x1_dw_bf16_each_route_and_instance(gen, route, tile, vec, M,
+                                                 cin, cout, xl, dyl):
+    """Each instance of each route at the largest M of a ResNet-50 step
+    (401,408 rows), at a ragged M with ragged channel counts, and on a
+    view off the allocation (16 bytes for wgmma, 4 or 2 for mma.sync):
+    the plan's pick from shapes and pointers, within ATOL of the plain
+    version, bit-equal reruns, one launch counted under its route."""
+    from paddle_tpu_torch.nn import gemm_bf16
+    x = _bf16_operand(gen, M, cin, xl)
+    dy = _bf16_operand(gen, M, cout, dyl)
+    plan = cc._launch_plan(x, dy, _sms())
+    assert (gemm_bf16.route(plan[2]), plan[0], plan[2]) == (route, tile, vec)
     _check_bf16_dw(x, dy)
 
 
@@ -1088,6 +1132,7 @@ def test_resnet_trains_through_conv1x1_dw_bf16_on_card(gen):
                      log_period=0)
         assert cc.launch_counts() == {"conv1x1_dw": 0,
                                       "conv1x1_dw_bf16": 12 * 3}
+        assert cc.route_counts() == {"wgmma": 12 * 3, "mma_sync": 0}
         assert all(p.dtype == torch.float32 for p in model.parameters())
         assert losses[-1] < losses[0]
     finally:

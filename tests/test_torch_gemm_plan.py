@@ -11,9 +11,17 @@ are pure Python, so they run here without a card:
   storage-offset operands;
 - the size of ``ln_matmul``'s statistics workspace;
 - the same for ``conv1x1_dw_bf16`` (``csrc/conv1x1_dw_bf16.cu``, bf16
-  operands): its tile table, its split of M, and its copy width in bf16
-  values (16-byte, 4-byte or plain 2-byte copies).
+  operands): its two routes' tile tables against the instances the
+  source defines, its split of M (64-row k-blocks on the wgmma route,
+  rows on the mma.sync route), its copy width in bf16 values (16-byte,
+  4-byte or plain 2-byte copies), and the route each layout takes: every
+  shape of a ResNet-50 step on 16-byte-aligned operands the wgmma route,
+  views at a 2- or 4-byte offset and odd channel counts the mma.sync
+  route.
 """
+
+import re
+from pathlib import Path
 
 import pytest
 import torch
@@ -129,23 +137,125 @@ def test_ln_matmul_stats_workspace(M):
 # -- conv1x1_dw_bf16 (csrc/conv1x1_dw_bf16.cu) --------------------------------
 
 def test_bf16_tile_table_matches_the_kernel_instances():
-    # csrc/conv1x1_dw_bf16.cu: Large = 128 x 128, 1 block an SM; Small =
-    # 64 x 64, 4 blocks an SM; the same indices as the f32 table
-    assert gemm_bf16.TILES[LARGE] == (128, 128, 1)
-    assert gemm_bf16.TILES[SMALL] == (64, 64, 4)
+    # csrc/conv1x1_dw_bf16.cu: WgLarge = 128 x 128, 1 block an SM;
+    # WgSmall = 64 x 64, 3 blocks an SM (wgmma); Large and Small the same
+    # (mma.sync); the same indices as the f32 table
+    assert gemm_bf16.WGMMA_TILES[LARGE] == (128, 128, 1)
+    assert gemm_bf16.WGMMA_TILES[SMALL] == (64, 64, 3)
+    assert gemm_bf16.MMA_TILES[LARGE] == (128, 128, 1)
+    assert gemm_bf16.MMA_TILES[SMALL] == (64, 64, 3)
+    assert gemm_bf16.tiles(8) is gemm_bf16.WGMMA_TILES
+    assert gemm_bf16.tiles(2) is gemm_bf16.tiles(1) is gemm_bf16.MMA_TILES
+
+
+SOURCE = (Path(__file__).resolve().parents[1] / "paddle_tpu_torch" / "csrc"
+          / "conv1x1_dw_bf16.cu")
+
+
+def test_bf16_tile_tables_match_the_source():
+    """The tables against the instances the C entry point launches: tile
+    0 is the route's ``*Large``, tile 1 its ``*Small``; the wgmma
+    instances' k-block is the plan's :data:`WGMMA_ROWS`."""
+    src = SOURCE.read_text()
+    wg = {n: tuple(map(int, a)) for n, *a in re.findall(
+        r"using (Wg\w+) = WgCfg<(\d+), (\d+), \d+, (\d+)>;", src)}
+    mma = {n: tuple(map(int, a)) for n, *a in re.findall(
+        r"using (\w+) = Cfg<(\d+), (\d+), \d+, \d+, \d+, (\d+)>;", src)}
+    assert (wg["WgLarge"], wg["WgSmall"]) == gemm_bf16.WGMMA_TILES
+    assert (mma["Large"], mma["Small"]) == gemm_bf16.MMA_TILES
+    assert re.search(r"launch_wgmma<WgLarge>.*\n.*launch_wgmma<WgSmall>", src)
+    assert re.search(r"BK = (\d+);\n  static constexpr int STAGES = STAGES_",
+                     src)[1] == str(gemm_bf16.WGMMA_ROWS)
 
 
 @pytest.mark.parametrize("m,cin,cout", RESNET50_DW + [(1, 3, 10), (0, 8, 8),
                                                       (5000, 130, 70)])
 def test_conv1x1_dw_bf16_splits_cover_m_in_one_wave(m, cin, cout):
-    tile, splits = cc._plan(m, cin, cout, H100_SMS, gemm_bf16.TILES)
-    assert tile == cc._plan(m, cin, cout, H100_SMS)[0]
-    assert 1 <= splits <= 65535
-    if splits > 1:
-        assert m // splits >= cc._MIN_SPLIT_ROWS
-    t = gemm_bf16.TILES[tile]
-    tiles = -(-cin // t.rows) * -(-cout // t.cols)
-    assert tiles * splits <= max(tiles, t.blocks_per_sm * H100_SMS)
+    for width in (8, 2, 1):
+        tiles = gemm_bf16.tiles(width)
+        tile, splits = cc._plan(m, cin, cout, H100_SMS, tiles)
+        assert tile == cc._plan(m, cin, cout, H100_SMS)[0]
+        assert 1 <= splits <= 65535
+        if splits > 1:
+            assert m // splits >= cc._MIN_SPLIT_ROWS
+        t = tiles[tile]
+        n = -(-cin // t.rows) * -(-cout // t.cols)
+        assert n * splits <= max(n, t.blocks_per_sm * H100_SMS)
+
+
+@pytest.mark.parametrize("m,splits", [
+    (401408, 396), (401408, 66), (100352, 33), (6272, 2), (6272, 1),
+    (1000, 3), (1, 1), (65, 1), (257 * 64 + 5, 64), (2 ** 31 - 1, 65535)])
+@pytest.mark.parametrize("width", [8, 2])
+def test_bf16_split_rows_cover_m(m, splits, width):
+    """The rows each split covers, as the kernel computes them
+    (``split_kblocks`` on the wgmma route, ``s * M / splits`` on the
+    mma.sync one), tile M exactly in order; on the wgmma route every split
+    is whole 64-row k-blocks but the last, and at least
+    ``_MIN_SPLIT_ROWS`` rows of k-blocks where the plan splits."""
+    if width == 8:
+        kbs = -(-m // gemm_bf16.WGMMA_ROWS)
+        rows = [(min(m, s * kbs // splits * gemm_bf16.WGMMA_ROWS),
+                 min(m, (s + 1) * kbs // splits * gemm_bf16.WGMMA_ROWS))
+                for s in range(splits)]
+    else:
+        rows = [(s * m // splits, (s + 1) * m // splits)
+                for s in range(splits)]
+    assert len(rows) == splits and rows[0][0] == 0 and rows[-1][1] == m
+    assert all(a[1] == b[0] for a, b in zip(rows, rows[1:]))
+    assert all(b <= e for b, e in rows)
+    if width == 8:
+        kb = gemm_bf16.WGMMA_ROWS
+        assert all(b % kb == 0 for b, _ in rows)
+        if splits > 1 and splits <= m // cc._MIN_SPLIT_ROWS:
+            assert min(-(-(e - b) // kb) for b, e in rows) \
+                >= cc._MIN_SPLIT_ROWS // kb
+
+
+def _bf16(rows, cols, offset=0):
+    buf = torch.empty(rows * cols + offset, dtype=torch.bfloat16)
+    return buf[offset:].view(rows, cols)
+
+
+@pytest.mark.parametrize("m,cin,cout", RESNET50_DW)
+def test_resnet50_shapes_take_the_wgmma_route(m, cin, cout):
+    # a ResNet-50 step's operands are fresh tensors: 16-byte aligned rows
+    # of 64-2048 channels; the plan reads shapes and pointers, no values
+    x = torch.empty(m, cin, dtype=torch.bfloat16)
+    dy = torch.empty(m, cout, dtype=torch.bfloat16)
+    tile, splits, vec = cc._launch_plan(x, dy, H100_SMS)
+    assert gemm_bf16.route(vec) == "wgmma" and vec == 8
+    assert tile == (SMALL if min(cin, cout) < 128 else LARGE)
+    assert (tile, splits) == cc._plan(m, cin, cout, H100_SMS,
+                                      gemm_bf16.WGMMA_TILES)
+
+
+@pytest.mark.parametrize("x,dy,width", [
+    (_bf16(100, 64, 1), _bf16(100, 64), 1),      # 2 bytes off 4
+    (_bf16(100, 64), _bf16(100, 64, 1), 1),
+    (_bf16(100, 64, 2), _bf16(100, 64), 2),      # 4 bytes off 16
+    (_bf16(100, 64), _bf16(100, 64, 6), 2),      # 12 bytes off 16
+    (_bf16(100, 63), _bf16(100, 64), 1),         # an odd channel count
+    (_bf16(100, 64), _bf16(100, 129), 1),
+    (_bf16(100, 66), _bf16(100, 64), 2),         # even, not a multiple of 8
+    (_bf16(100, 64, 8), _bf16(100, 64, 16), 8)])  # 16 and 32 bytes off
+def test_views_and_odd_channels_take_mma_sync(x, dy, width):
+    tile, splits, vec = cc._launch_plan(x, dy, H100_SMS)
+    assert vec == width
+    assert gemm_bf16.route(vec) == ("wgmma" if width == 8 else "mma_sync")
+    assert (tile, splits) == cc._plan(x.shape[0], x.shape[1], dy.shape[1],
+                                      H100_SMS, gemm_bf16.tiles(width))
+
+
+def test_bf16_plan_is_a_function_of_shapes_layout_and_sms():
+    # two allocations of the same shapes and alignment plan alike; a
+    # different SM count may split differently, never the route or tile
+    a = cc._launch_plan(_bf16(401408, 64), _bf16(401408, 256), H100_SMS)
+    b = cc._launch_plan(_bf16(401408, 64, 8), _bf16(401408, 256, 64),
+                        H100_SMS)
+    assert a == b == (SMALL, 99, 8)
+    c = cc._launch_plan(_bf16(401408, 64), _bf16(401408, 256), 16)
+    assert (c[0], c[2]) == (a[0], a[2]) and c[1] == 12
 
 
 @pytest.mark.parametrize("shape,offset,want", [
