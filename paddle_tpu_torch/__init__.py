@@ -18,7 +18,7 @@ from .nn.layers import set_conv1x1_impl
 from .optim import (adam, chain, clip_by_global_norm, momentum, sgd,
                     weight_decay)
 from .serve import (ContinuousBatchingScheduler, DecodeEngine, Request,
-                    SamplingConfig)
+                    SamplingConfig, blobs_to_pages, pages_to_blobs)
 from .train import Trainer
 from .utils.bridge import (export_jax_opt_state, export_jax_params,
                            load_jax_opt_state, load_jax_params)
@@ -29,6 +29,7 @@ __all__ = ["ContinuousBatchingScheduler", "DecodeEngine", "Policy",
            "canonicalize", "chain", "clip_by_global_norm", "current_policy",
            "float32", "export_jax_opt_state", "export_jax_params",
            "fused_ln_matmul", "load_jax_opt_state", "load_jax_params",
-           "momentum", "resnet50", "resnet_cifar", "resolve_device",
+           "momentum", "blobs_to_pages", "pages_to_blobs", "resnet50",
+           "resnet_cifar", "resolve_device",
            "set_conv1x1_impl", "sgd", "softmax_cross_entropy", "use_policy",
            "weight_decay"]

@@ -1,23 +1,26 @@
-// Paged attention rows over a paged KV pool, float32, for sm_90a, as
-// split-context ("flash-decoding") kernels: the body behind paged_decode.cu
-// (one query row per slot) and paged_span.cu (Q consecutive query rows per
-// slot, causal within the span).
+// Paged attention rows over a paged KV pool, for sm_90a, as split-context
+// ("flash-decoding") kernels: the body behind paged_decode.cu (one query
+// row per slot) and paged_span.cu (Q consecutive query rows per slot,
+// causal within the span). Queries, scores, the softmax state and the
+// output are float32; the pool holds float32, bfloat16, or int8 values
+// with f32 row scales (the Pool kind, a template parameter).
 //
 // Replaces the shared body of paddle_tpu/nn/pallas_attention.py's
-// _paged_decode_kernel and _paged_span_kernel, plain and int8 ("quant")
-// pools alike. Row j of slot s is the query at position pos = start[s] + j;
-// it sees the pool positions <= pos of the blocks the slot's table row
+// _paged_decode_kernel and _paged_span_kernel, over each pool dtype they
+// take. Row j of slot s is the query at position pos = start[s] + j; it
+// sees the pool positions <= pos of the blocks the slot's table row
 // names. Rows j >= n[s] are padding and a slot with n == 0 is inactive:
 // both get zeros. Decode is the span with Q = 1, start = length - 1 and
 // n = (length > 0).
 //
 // What bounds it on the H100: bytes. Each key and value row is used for
 // 2 * D flops per query row, far below the card's operations-per-byte
-// balance, so the floor is the K/V bytes the spans cover (int8: 1 byte per
-// element plus one f32 scale per row) over 3.35 TB/s. At serving sizes the
-// real enemy is latency: a few hundred KB spread over a few slots.
+// balance, so the floor is the K/V bytes the spans cover (bf16: 2 bytes
+// per element; int8: 1 byte plus one f32 scale per row) over 3.35 TB/s.
+// At serving sizes the real enemy is latency: a few hundred KB spread
+// over a few slots.
 //
-// Design, two launches per call:
+// Design, two launches per call (three for bf16 pools):
 // 1. partials_kernel: the context is cut into fixed partitions of P
 //    positions (the wrapper's plan: P a whole number of pool blocks, from
 //    bs alone; 128 at bs 16). One block of 128 threads per (slot, tile of R
@@ -28,19 +31,34 @@
 //    rows' last position returns without writing, so the host reads no
 //    per-slot value. The block reads its span and its partition's table
 //    entries in one round trip, then starts the partition's rows as
-//    cp.async copies into a two-stage ring: K (16-byte copies; an int8 pool
-//    lands raw with its f32 scales by 4-byte copies, scales being strided
-//    by H, and is dequantized in shared memory with __fmul_rn(float(q),
-//    s)), then V. The scores and the softmax run while V is in flight. Each
-//    (row, key) score is one fmaf chain over D; each row's max and sum are
-//    one warp's shuffles; p = exp(s - m) is computed once into shared
-//    memory for both the sum and the PV product, which a thread per (row,
-//    float4 column chunk) accumulates over the keys in order. A span's R
-//    rows share each staged partition, so a chunk of Q rows reads the
-//    context ceil(Q / R) times.
+//    cp.async copies into a two-stage ring: K, then V, by 16-byte copies.
+//    An int8 or bf16 pool lands raw and is widened to f32 in shared memory
+//    (int8: __fmul_rn(float(q), s), its f32 scales landing by 4-byte
+//    copies, strided by H; bf16: __bfloat162float, exact). The scores and
+//    the softmax run while V is in flight. Each (row, key) score is one
+//    fmaf chain over D; each row's max and sum are one warp's shuffles; p
+//    = exp(s - m) is computed once into shared memory for both the sum and
+//    the PV product, which a thread per (row, float4 column chunk)
+//    accumulates over the keys in order. A span's R rows share each staged
+//    partition, so a chunk of Q rows reads the context ceil(Q / R) times.
 // 2. merge_kernel: each row merges its ceil((min(pos, W - 1) + 1) / P)
 //    partials in the fixed order k = 0, 1, ... and divides by max(l,
 //    1e-30), a warp per (row, head). No atomics: reruns are bit-equal.
+//
+// bf16 pools. JAX rounds p to V's dtype before p.V (p.astype(vb.dtype),
+// pallas_attention.py:631, 763) and sums l over the unrounded p, and so
+// do this kernel and the plain version. Rounding is not linear, so p must
+// be rounded against the max the yardstick rounds against, the row's own
+// max over every position it sees (paged_decode_plain): rounding
+// exp(s - m_k) against each partition's max and rescaling at the merge
+// moved the output by up to 4e-4 from the plain version (a CPU model of
+// the two orders at 8 heads, D 64, lengths to 1024). So a bf16 call
+// first runs partials_kernel as a max pass over K alone, which writes
+// each row's partition max into the record's first pad float; the main
+// pass takes M = max of the row's partition maxima (exact in any order),
+// p = exp(s - M), l += p, and rounds p to bf16 for the fmaf chain of p.V.
+// Every record then carries m = M, so the merge's factors exp(m_k - M)
+// are exactly 1 and the merge is the plain in-order sum. K is read twice.
 //
 // Bit-equality contract: row j of a span equals the decode kernel at
 // length start + j + 1 bit for bit. The partition boundaries are a
@@ -55,10 +73,12 @@
 // (m, l, acc) = (-1e30, 0, 0) would add exactly 0.
 //
 // Left for later work: tensor cores for the span's QK^T and PV (a span row
-// and a decode row would have to take the same mma route), and TMA loads.
+// and a decode row would have to take the same mma route), TMA loads, and
+// a bf16 branch that reads K once (storing the scores of the max pass).
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <cmath>
 #include <cstddef>
@@ -69,6 +89,16 @@ constexpr int NT = 128;               // threads per block, both kernels
 constexpr int NW = NT / 32;
 constexpr int MAX_BLOCKS = NT;        // pool blocks a partition may span
 constexpr float NEG = -1e30f;
+
+// the pool's element kind; the codes are the wrappers'
+// (paddle_tpu_torch/nn/cuda_attention.py: POOL_F32, POOL_INT8, POOL_BF16)
+enum Pool : int { F32 = 0, INT8 = 1, BF16 = 2 };
+
+// bytes of one element of a pool that lands raw in shared memory before
+// it is widened (an f32 pool lands in place)
+__host__ __device__ constexpr int raw_bytes(int pool) {
+  return pool == INT8 ? 1 : pool == BF16 ? 2 : 0;
+}
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
@@ -98,42 +128,48 @@ __device__ __forceinline__ void cp_async_wait() {
 struct Layout {
   int ks, vs, qs, ss, st, kraw, vraw, ksc, vsc, total;
   static __host__ __device__ int up16(int b) { return (b + 15) / 16 * 16; }
-  __host__ __device__ Layout(int D, int R, int P, bool quant) {
+  __host__ __device__ Layout(int D, int R, int P, int pool) {
+    const int eb = raw_bytes(pool);
+    const bool quant = pool == INT8;
     ks = 0;                                   // [P][D + 4] f32 (padded)
     vs = ks + 4 * P * (D + 4);                // [P][D] f32
     qs = vs + 4 * P * D;                      // [R][D] f32
     ss = qs + 4 * R * D;                      // [R][P] scores, then p
     st = up16(ss + 4 * R * P);                // [2][R] m, l, then
     kraw = up16(st + 8 * R + 4 * MAX_BLOCKS);  // [P / bs] pool blocks
-    // int8 only: [P][D] raw K, [P][D] raw V, [P] K and [P] V scales
-    vraw = kraw + (quant ? P * D : 0);
-    ksc = vraw + (quant ? P * D : 0);
+    // int8 and bf16: [P][D] raw K, [P][D] raw V; int8: [P] K and [P] V
+    // scales
+    vraw = kraw + eb * P * D;
+    ksc = vraw + eb * P * D;
     vsc = up16(ksc + (quant ? 4 * P : 0));
     total = up16(vsc + (quant ? 4 * P : 0));
   }
 };
 
 // Start this thread's cp.async copies of the partition's rows [p0, p1) of
-// one pool (and, int8, its scales) into shared memory.
-template <int D, bool INT8>
+// one pool (and, int8, its scales) into shared memory: an f32 pool into
+// the padded f32 rows (pitch floats apart), an int8 or bf16 pool raw, D
+// elements a row.
+template <int D, int KIND>
 __device__ __forceinline__ void stage_rows(const void* pool,
                                            const float* scales, void* rows,
                                            float* srows, const int* blk_sm,
                                            int p0, int p1, int bs, int H,
                                            int h, int pitch) {
-  constexpr int CP = INT8 ? D / 16 : D / 4;   // 16-byte pieces of a row
+  constexpr int EB = KIND == F32 ? 4 : raw_bytes(KIND);
+  constexpr int CP = D * EB / 16;     // 16-byte pieces of a row
   for (int i = threadIdx.x; i < (p1 - p0) * CP; i += NT) {
     const int li = i / CP, cc = i % CP, pos = p0 + li;
     const size_t row =
         ((size_t)blk_sm[li / bs] * bs + pos % bs) * H + h;
-    if constexpr (INT8)
-      cp_async16(static_cast<char*>(rows) + li * D + cc * 16,
-                 static_cast<const char*>(pool) + row * D + cc * 16);
-    else
+    if constexpr (KIND == F32)
       cp_async16(static_cast<float*>(rows) + li * pitch + cc * 4,
                  static_cast<const float*>(pool) + row * D + cc * 4);
+    else
+      cp_async16(static_cast<char*>(rows) + li * D * EB + cc * 16,
+                 static_cast<const char*>(pool) + row * D * EB + cc * 16);
   }
-  if constexpr (INT8) {
+  if constexpr (KIND == INT8) {
     for (int li = threadIdx.x; li < p1 - p0; li += NT) {
       const int pos = p0 + li;
       cp_async4(srows + li,
@@ -143,22 +179,35 @@ __device__ __forceinline__ void stage_rows(const void* pool,
   cp_async_commit();
 }
 
-// An int8 partition's landed rows as f32: __fmul_rn(float(q), s).
-template <int D>
-__device__ __forceinline__ void dequant_rows(const signed char* raw,
-                                             const float* sc, float* out,
-                                             int n, int pitch) {
+// A partition's landed raw rows as f32: int8 __fmul_rn(float(q), s), bf16
+// __bfloat162float (exact).
+template <int D, int KIND>
+__device__ __forceinline__ void widen_rows(const void* raw, const float* sc,
+                                           float* out, int n, int pitch) {
   for (int i = threadIdx.x; i < n * D; i += NT) {
     const int li = i / D, d = i % D;
-    out[li * pitch + d] = __fmul_rn(static_cast<float>(raw[li * D + d]),
-                                    sc[li]);
+    if constexpr (KIND == INT8)
+      out[li * pitch + d] = __fmul_rn(
+          static_cast<float>(static_cast<const signed char*>(raw)[li * D + d]),
+          sc[li]);
+    else
+      out[li * pitch + d] = __bfloat162float(
+          static_cast<const __nv_bfloat16*>(raw)[li * D + d]);
   }
+}
+
+// p as JAX's p.astype(bfloat16) then widened back for the product
+__device__ __forceinline__ float round_bf16(float p) {
+  return __bfloat162float(__float2bfloat16_rn(p));
 }
 
 // One (slot, row tile, head, partition) block: each live row's softmax
 // partial over the partition's positions, written to the workspace
-// record [row][h][k] = (acc[D], m, l, -, -).
-template <int D, int R, bool INT8>
+// record [row][h][k] = (acc[D], m, l, max, -). With MAXPASS (bf16 pools'
+// first launch) it stages K alone and writes only each row's max over the
+// partition, into the record's third float past acc; the main pass of a
+// bf16 pool then takes the row's max over all its partitions from there.
+template <int D, int R, int KIND, bool MAXPASS>
 __global__ void __launch_bounds__(NT)
 partials_kernel(const float* __restrict__ q, const void* __restrict__ pk,
                 const void* __restrict__ pv, const float* __restrict__ sk,
@@ -170,10 +219,12 @@ partials_kernel(const float* __restrict__ q, const void* __restrict__ pk,
   constexpr int RP = NT / C;        // rows a PV pass covers
   constexpr int RPT = (R + RP - 1) / RP;   // PV rows per thread
   constexpr int RB = R < 4 ? R : 4;        // rows per score task
+  constexpr bool RAW = KIND != F32;        // lands raw, widened in smem
   const int tiles = (Q + R - 1) / R;
   const int s = blockIdx.x / tiles, r0 = (blockIdx.x % tiles) * R;
   const int h = blockIdx.y, k = blockIdx.z;
   const int tid = threadIdx.x;
+  const int parts = gridDim.z;
   const int* tbl = tables + (size_t)s * MB;
   // the partition's table entries, loaded beside the slot's span so the
   // two reads share one round trip (P is a whole number of pool blocks)
@@ -197,7 +248,7 @@ partials_kernel(const float* __restrict__ q, const void* __restrict__ pk,
   const int p1 = min(p0 + P, last + 1), nk = p1 - p0;
 
   extern __shared__ __align__(16) unsigned char smem[];
-  const Layout lay(D, R, P, INT8);
+  const Layout lay(D, R, P, KIND);
   float* Ks = reinterpret_cast<float*>(smem + lay.ks);
   float* Vs = reinterpret_cast<float*>(smem + lay.vs);
   float4* Qs4 = reinterpret_cast<float4*>(smem + lay.qs);
@@ -212,10 +263,11 @@ partials_kernel(const float* __restrict__ q, const void* __restrict__ pk,
 
   // the two-stage ring: K (and its scales) lands first, V second; the
   // scores and the softmax run while V is still in flight
-  stage_rows<D, INT8>(pk, sk, INT8 ? (void*)(smem + lay.kraw) : (void*)Ks,
+  stage_rows<D, KIND>(pk, sk, RAW ? (void*)(smem + lay.kraw) : (void*)Ks,
                       ksc, blk_sm, p0, p1, bs, H, h, D + 4);
-  stage_rows<D, INT8>(pv, sv, INT8 ? (void*)(smem + lay.vraw) : (void*)Vs,
-                      vsc, blk_sm, p0, p1, bs, H, h, D);
+  if constexpr (!MAXPASS)
+    stage_rows<D, KIND>(pv, sv, RAW ? (void*)(smem + lay.vraw) : (void*)Vs,
+                        vsc, blk_sm, p0, p1, bs, H, h, D);
 
   // the tile's query rows (zeros past the live rows)
   const size_t qrow = (size_t)s * Q + r0;       // first row of [S * Q]
@@ -224,11 +276,13 @@ partials_kernel(const float* __restrict__ q, const void* __restrict__ pk,
     Qs4[i] = i / C < rows ? q4[((qrow + i / C) * H + h) * C + i % C]
                           : make_float4(0.f, 0.f, 0.f, 0.f);
 
-  cp_async_wait<1>();               // this thread's K copies
+  if constexpr (MAXPASS)
+    cp_async_wait<0>();             // this thread's K copies (no V)
+  else
+    cp_async_wait<1>();             // this thread's K copies
   __syncthreads();                  // everyone's
-  if constexpr (INT8) {
-    dequant_rows<D>(reinterpret_cast<const signed char*>(smem + lay.kraw),
-                    ksc, Ks, nk, D + 4);
+  if constexpr (RAW) {
+    widen_rows<D, KIND>(smem + lay.kraw, ksc, Ks, nk, D + 4);
     __syncthreads();
   }
 
@@ -270,15 +324,27 @@ partials_kernel(const float* __restrict__ q, const void* __restrict__ pk,
   const int warp = tid / 32, lane = tid % 32;
   for (int r = warp; r < rows; r += NW) {
     float* sr = Ss + r * P;
+    float* rec = ws + ((qrow + r) * H + h) * (size_t)parts * (D + 4);
     float mx = NEG;
-    for (int i = lane; i < nk; i += 32) mx = fmaxf(mx, sr[i]);
+    if (KIND == BF16 && !MAXPASS) {
+      // the row's max over all its partitions, from the max pass
+      const int K = min(st + r0 + r, W - 1) / P + 1;
+      for (int kk = lane; kk < K; kk += 32)
+        mx = fmaxf(mx, rec[kk * (D + 4) + D + 2]);
+    } else {
+      for (int i = lane; i < nk; i += 32) mx = fmaxf(mx, sr[i]);
+    }
     for (int off = 16; off; off >>= 1)
       mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+    if constexpr (MAXPASS) {
+      if (lane == 0) rec[k * (D + 4) + D + 2] = mx;
+      continue;
+    }
     float rs = 0.f;
     for (int i = lane; i < nk; i += 32) {
       const float p = expf(sr[i] - mx);
-      sr[i] = p;
       rs += p;
+      sr[i] = KIND == BF16 ? round_bf16(p) : p;
     }
     for (int off = 16; off; off >>= 1)
       rs += __shfl_xor_sync(0xffffffffu, rs, off);
@@ -287,19 +353,18 @@ partials_kernel(const float* __restrict__ q, const void* __restrict__ pk,
       l_sm[r] = rs;
     }
   }
+  if constexpr (MAXPASS) return;
 
   cp_async_wait<0>();               // this thread's V copies
   __syncthreads();                  // everyone's, and the p rows
-  if constexpr (INT8) {
-    dequant_rows<D>(reinterpret_cast<const signed char*>(smem + lay.vraw),
-                    vsc, Vs, nk, D);
+  if constexpr (RAW) {
+    widen_rows<D, KIND>(smem + lay.vraw, vsc, Vs, nk, D);
     __syncthreads();
   }
 
   // PV: a thread per (row, column chunk), keys in order
   const int c = tid % C, rr = tid / C;
   const float4* V4 = reinterpret_cast<const float4*>(Vs);
-  const int parts = gridDim.z;
 #pragma unroll
   for (int u = 0; u < RPT; ++u) {
     const int r = rr + u * RP;
@@ -387,7 +452,27 @@ merge_kernel(const float* __restrict__ ws, const int* __restrict__ start,
   for (int v = 0; v < V; ++v) o[v] = a[v] / lf;
 }
 
-template <int D, int R, bool INT8>
+// Launch one instance of partials_kernel on the call's grid, opting into
+// its dynamic shared memory first.
+template <int D, int R, int KIND, bool MAXPASS>
+cudaError_t launch_partials(dim3 grid, int smem, const float* q,
+                            const void* pk, const void* pv, const float* sk,
+                            const float* sv, const int* tables,
+                            const int* start, const int* count, float* ws,
+                            int N, int bs, int H, int MB, int Q, int P,
+                            float scale, cudaStream_t stream) {
+  auto kern = partials_kernel<D, R, KIND, MAXPASS>;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+  }
+  kern<<<grid, NT, smem, stream>>>(q, pk, pv, sk, sv, tables, start, count,
+                                   ws, N, bs, H, MB, Q, P, scale);
+  return cudaGetLastError();
+}
+
+template <int D, int R, int KIND>
 cudaError_t launch(const float* q, const void* pk, const void* pv,
                    const float* sk, const float* sv, const int* tables,
                    const int* start, const int* count, float* out, float* ws,
@@ -398,19 +483,18 @@ cudaError_t launch(const float* q, const void* pk, const void* pv,
   if (P <= 0 || P % bs || P / bs > MAX_BLOCKS || parts > 65535
       || H > 65535)
     return cudaErrorInvalidValue;
-  const Layout lay(D, R, P, INT8);
-  auto kern = partials_kernel<D, R, INT8>;
-  if (lay.total > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, lay.total);
-    if (e != cudaSuccess) return e;
-  }
+  const Layout lay(D, R, P, KIND);
   if (parts > 0) {
     const dim3 grid((unsigned)S * ((Q + R - 1) / R), H, parts);
-    kern<<<grid, NT, lay.total, stream>>>(q, pk, pv, sk, sv, tables, start,
-                                          count, ws, N, bs, H, MB, Q, P,
-                                          scale);
-    const cudaError_t e = cudaGetLastError();
+    if constexpr (KIND == BF16) {
+      const cudaError_t e = launch_partials<D, R, KIND, true>(
+          grid, lay.total, q, pk, pv, sk, sv, tables, start, count, ws, N,
+          bs, H, MB, Q, P, scale, stream);
+      if (e != cudaSuccess) return e;
+    }
+    const cudaError_t e = launch_partials<D, R, KIND, false>(
+        grid, lay.total, q, pk, pv, sk, sv, tables, start, count, ws, N, bs,
+        H, MB, Q, P, scale, stream);
     if (e != cudaSuccess) return e;
   }
   const unsigned rows_h = (unsigned)S * Q * H;   // one merge warp each
@@ -421,7 +505,7 @@ cudaError_t launch(const float* q, const void* pk, const void* pv,
 
 // The head-dim and row-tile dispatch both sources export through: R = 1
 // for Q = 1, else R = RMAX; a head dim other than 64 or 128 is refused.
-template <int RMAX, bool INT8>
+template <int RMAX, int KIND>
 int dispatch(int D, const void* q, const void* pk, const void* pv,
              const void* sk, const void* sv, const void* tables,
              const void* start, const void* count, void* out, void* ws,
@@ -437,7 +521,7 @@ int dispatch(int D, const void* q, const void* pk, const void* pv,
   float* wf = static_cast<float*>(ws);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define PAGED_LAUNCH(DD, RR)                                                 \
-  launch<DD, RR, INT8>(qf, pk, pv, skf, svf, tb, stp, cnp, of, wf, S, Q, H, \
+  launch<DD, RR, KIND>(qf, pk, pv, skf, svf, tb, stp, cnp, of, wf, S, Q, H, \
                        N, bs, MB, P, scale, st)
   if (Q == 1 || RMAX == 1) {
     if (D == 64) return PAGED_LAUNCH(64, 1);

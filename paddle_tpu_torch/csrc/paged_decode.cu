@@ -1,13 +1,16 @@
-// Paged decode attention (one query token per slot), float32, for sm_90a.
+// Paged decode attention (one query token per slot), float32 queries and
+// output, for sm_90a.
 //
 // Replaces paddle_tpu/nn/pallas_attention.py:_paged_decode_kernel
-// (launched by paged_decode_attention), plain and int8 pools: for each
-// (slot, head) the single new-token query attends the pool blocks that the
-// slot's row of the block table names, with an online softmax over the
-// slot's ragged length; positions at or past the length are masked and a
-// length-0 slot writes zeros. An int8 pool's rows are dequantized with
-// their f32 scales in shared memory, never in HBM. A table entry outside
-// [0, N) is clamped, as XLA's gather clamps.
+// (launched by paged_decode_attention), over f32, bf16 and int8 pools: for
+// each (slot, head) the single new-token query attends the pool blocks
+// that the slot's row of the block table names, with an online softmax
+// over the slot's ragged length; positions at or past the length are
+// masked and a length-0 slot writes zeros. An int8 pool's rows are
+// dequantized with their f32 scales in shared memory, never in HBM; a bf16
+// pool's rows are widened there, and p is rounded to bf16 before p.V as
+// JAX rounds it. A table entry outside [0, N) is clamped, as XLA's gather
+// clamps.
 //
 // The body is paged_attention.cuh's split-context pair (partials over
 // fixed partitions of the context, then an in-order merge) with one row
@@ -26,7 +29,7 @@ extern "C" int paged_decode_f32(const void* q, const void* pk, const void* pv,
                                 void* out, void* ws, int S, int H, int D,
                                 int N, int bs, int MB, int part, float scale,
                                 void* stream) {
-  return paged::dispatch<1, false>(D, q, pk, pv, nullptr, nullptr, tables,
+  return paged::dispatch<1, paged::F32>(D, q, pk, pv, nullptr, nullptr, tables,
                                    lengths, nullptr, out, ws, S, 1, H, N, bs,
                                    MB, part, scale, stream);
 }
@@ -40,7 +43,20 @@ extern "C" int paged_decode_int8_f32(const void* q, const void* pk,
                                      void* ws, int S, int H, int D, int N,
                                      int bs, int MB, int part, float scale,
                                      void* stream) {
-  return paged::dispatch<1, true>(D, q, pk, pv, sk, sv, tables, lengths,
+  return paged::dispatch<1, paged::INT8>(D, q, pk, pv, sk, sv, tables, lengths,
                                   nullptr, out, ws, S, 1, H, N, bs, MB, part,
                                   scale, stream);
+}
+
+// As paged_decode_f32 with bf16 pools pk, pv [N, bs, H, D].
+extern "C" int paged_decode_bf16_f32(const void* q, const void* pk,
+                                     const void* pv, const void* tables,
+                                     const void* lengths, void* out,
+                                     void* ws, int S, int H, int D, int N,
+                                     int bs, int MB, int part, float scale,
+                                     void* stream) {
+  return paged::dispatch<1, paged::BF16>(D, q, pk, pv, nullptr, nullptr,
+                                         tables, lengths, nullptr, out, ws,
+                                         S, 1, H, N, bs, MB, part, scale,
+                                         stream);
 }

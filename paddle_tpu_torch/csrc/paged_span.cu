@@ -1,11 +1,11 @@
 // Paged span attention (Q consecutive query tokens per slot, causal within
-// the span), float32, for sm_90a.
+// the span), float32 queries and output, for sm_90a.
 //
 // Replaces paddle_tpu/nn/pallas_attention.py:_paged_span_kernel (launched
-// by paged_span_attention), plain and int8 pools: the speculative verify
-// tick (Q = 1 + k) and chunked prefill (Q = chunk) attend the slot's own
-// pool pages, row j of slot s at position start[s] + j seeing positions
-// <= start[s] + j. n[s] == 0 writes zeros on every row; rows >= n[s] are
+// by paged_span_attention), over f32, bf16 and int8 pools: the speculative
+// verify tick (Q = 1 + k) and chunked prefill (Q = chunk) attend the
+// slot's own pool pages, row j of slot s at position start[s] + j seeing
+// positions <= start[s] + j. n[s] == 0 writes zeros on every row; rows >= n[s] are
 // padding and get zeros. Blocks of R = 16 query rows (one row at Q = 1)
 // share each staged K/V partition, so a chunk of Q rows reads the slot's
 // K/V ceil(Q / 16) times (the TPU kernel keeps all Q rows in one block; 16
@@ -32,7 +32,7 @@ extern "C" int paged_span_f32(const void* q, const void* pk, const void* pv,
                               const void* n, void* out, void* ws, int S,
                               int Q, int H, int D, int N, int bs, int MB,
                               int part, float scale, void* stream) {
-  return paged::dispatch<kRows, false>(D, q, pk, pv, nullptr, nullptr, tables,
+  return paged::dispatch<kRows, paged::F32>(D, q, pk, pv, nullptr, nullptr, tables,
                                        start, n, out, ws, S, Q, H, N, bs, MB,
                                        part, scale, stream);
 }
@@ -46,14 +46,27 @@ extern "C" int paged_span_int8_f32(const void* q, const void* pk,
                                    void* out, void* ws, int S, int Q, int H,
                                    int D, int N, int bs, int MB, int part,
                                    float scale, void* stream) {
-  return paged::dispatch<kRows, true>(D, q, pk, pv, sk, sv, tables, start, n,
+  return paged::dispatch<kRows, paged::INT8>(D, q, pk, pv, sk, sv, tables, start, n,
                                       out, ws, S, Q, H, N, bs, MB, part, scale,
                                       stream);
 }
 
+// As paged_span_f32 with bf16 pools pk, pv [N, bs, H, D].
+extern "C" int paged_span_bf16_f32(const void* q, const void* pk,
+                                   const void* pv, const void* tables,
+                                   const void* start, const void* n,
+                                   void* out, void* ws, int S, int Q, int H,
+                                   int D, int N, int bs, int MB, int part,
+                                   float scale, void* stream) {
+  return paged::dispatch<kRows, paged::BF16>(D, q, pk, pv, nullptr, nullptr,
+                                             tables, start, n, out, ws, S, Q,
+                                             H, N, bs, MB, part, scale,
+                                             stream);
+}
+
 // The partials kernel's dynamic shared memory in bytes for head dim D, row
-// tile R, partition size part, int8 pools or not: the figure the wrapper's
-// plan must reproduce.
-extern "C" int paged_smem_bytes(int D, int R, int part, int quant) {
-  return paged::Layout(D, R, part, quant != 0).total;
+// tile R, partition size part and pool kind (0 f32, 1 int8, 2 bf16): the
+// figure the wrapper's plan must reproduce.
+extern "C" int paged_smem_bytes(int D, int R, int part, int pool) {
+  return paged::Layout(D, R, part, pool).total;
 }

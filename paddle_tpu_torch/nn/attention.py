@@ -2,15 +2,18 @@
 ``paddle_tpu/nn/attention.py``: the ``"xla"`` (materialized scores) and
 ``"flash"`` (fused kernel) forward, the paged-KV ``decode`` step and the
 multi-token ``decode_span`` (speculative verify, chunked prefill), over
-plain or int8 pools.
+f32, bf16 or int8 pools.
 
 The q/k/v/o projections have no bias and are the policy's product
 (:func:`~.policy_dot.policy_dot`): bf16 operands under
 ``bfloat16_compute``, an f32 result under every policy, so the flash and
-paged kernels see f32 operands and f32 pools. The context is cast to the
-compute dtype after attention, as in JAX; on the ``"xla"`` path the
-compute-dtype softmax weights are widened to f32 before they meet the f32
-``v``, which is what ``jnp``'s promotion does. Masking constants follow
+paged kernels see f32 operands; the pools hold the engine's KV dtype (f32,
+bf16, or int8 with scales). The context is cast to the compute dtype after
+attention, as in JAX; on the ``"xla"`` path each product runs in the dtype
+``jnp`` promotes its operands to: f32 q against a bf16 pool's K in f32,
+the compute-dtype softmax weights against an f32 ``v`` in f32, and bf16
+against bf16 only under ``bfloat16_compute`` over a bf16 pool. Masking
+constants follow
 the JAX package: the materialized path masks with ``-1e9``; the kernels
 start their running max at ``-1e30``.
 """
@@ -192,11 +195,17 @@ class MultiHeadAttention(nn.Module):
         average stale pages)."""
         pol = current_policy()
         W = kg.shape[1]
-        logits = torch.einsum("shd,swhd->shw", q, kg) / math.sqrt(hd)
+        # each product in the dtype jnp promotes its operands to: f32 q
+        # against a bf16 pool's K in f32; the compute-dtype weights
+        # against V in the wider of the two (bf16 only when both are)
+        dt = torch.promote_types(q.dtype, kg.dtype)
+        logits = torch.einsum("shd,swhd->shw", q.to(dt), kg.to(dt)) \
+            / math.sqrt(hd)
         logits = logits.float()
         live = torch.arange(W, device=q.device)[None] < eff_len[:, None]
         logits = logits.masked_fill(~live[:, None], -1e9)
         w = torch.softmax(logits, dim=-1).to(pol.compute_dtype)
-        ctx = torch.einsum("shw,swhd->shd", w.to(vg.dtype), vg)
+        dt = torch.promote_types(w.dtype, vg.dtype)
+        ctx = torch.einsum("shw,swhd->shd", w.to(dt), vg.to(dt))
         return torch.where((eff_len > 0)[:, None, None], ctx,
                            torch.zeros_like(ctx))

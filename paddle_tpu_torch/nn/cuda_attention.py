@@ -1,6 +1,6 @@
 """Attention kernels of the port — the port of
 ``paddle_tpu/nn/pallas_attention.py``'s flash forward and backward and its
-paged decode and paged span, over plain and int8 pools.
+paged decode and paged span, over f32, bf16 and int8 pools.
 
 Each kernel comes as three pieces:
 
@@ -26,10 +26,14 @@ Layouts are the JAX package's: ``[B, H, T, D]`` for flash, LSE and delta
 and ``start``/``n`` ``[S]`` for paged span. A quantized pool is the tuple
 ``(int8 values [N, bs, H, D], f32 scales [N, bs, H])``; the kernels
 dequantize it on chip and count their launches apart
-(``paged_decode_int8``, ``paged_span_int8``). The paged kernels split
-the context into fixed partitions (:func:`paged_plan`) and merge the
-partials in a second launch. The kernels take float32 queries (the path's
-projections accumulate in f32) and ``D`` in {64, 128}.
+(``paged_decode_int8``, ``paged_span_int8``). A bf16 pool (both pools
+``torch.bfloat16``) is widened on chip, and p is rounded to bf16 before
+``p . V`` as JAX's kernels round it (``paged_decode_bf16``,
+``paged_span_bf16``). The paged kernels split the context into fixed
+partitions (:func:`paged_plan`) and merge the partials in a second launch
+(a bf16 call runs a max pass over K first). The kernels take float32
+queries (the path's projections accumulate in f32) and ``D`` in {64,
+128}.
 """
 
 from __future__ import annotations
@@ -52,8 +56,10 @@ __all__ = ["FlashAttentionFunction", "FlashBwdPlan", "FlashFwdPlan",
            "flash_bwd_plan", "flash_fwd_plan",
            "paged_decode_attention", "paged_decode_plain",
            "paged_span_attention", "paged_span_plain", "paged_plan",
-           "PagedPlan", "launch_counts", "reset_launch_counts",
-           "capturing_launches", "count_replay", "KERNELS", "SPAN_MAX_Q"]
+           "paged_rounding_slack",
+           "PagedPlan", "POOL_BF16", "POOL_F32", "POOL_INT8",
+           "launch_counts", "reset_launch_counts", "capturing_launches",
+           "count_replay", "KERNELS", "SPAN_MAX_Q"]
 
 _NEG = -1e30
 _HEAD_DIMS = (64, 128)
@@ -62,7 +68,9 @@ _HEAD_DIMS = (64, 128)
 KERNELS = {"flash_fwd": "flash_fwd", "paged_decode": "paged_decode",
            "flash_bwd_dq": "flash_bwd", "flash_bwd_dkv": "flash_bwd",
            "paged_span": "paged_span", "paged_span_int8": "paged_span",
-           "paged_decode_int8": "paged_decode"}
+           "paged_decode_int8": "paged_decode",
+           "paged_decode_bf16": "paged_decode",
+           "paged_span_bf16": "paged_span"}
 
 _launches: Dict[str, int] = {name: 0 for name in KERNELS}
 # where _launch counts: _launches, or a capture's own tally while a CUDA
@@ -555,8 +563,10 @@ _ARGTYPES = {
     # workspace; then S (Q) H D N bs MB part, scale, stream
     "paged_decode": [_P] * 7 + [_I] * 7 + [_F, _P],
     "paged_decode_int8": [_P] * 9 + [_I] * 7 + [_F, _P],
+    "paged_decode_bf16": [_P] * 7 + [_I] * 7 + [_F, _P],
     "paged_span": [_P] * 8 + [_I] * 8 + [_F, _P],
     "paged_span_int8": [_P] * 10 + [_I] * 8 + [_F, _P],
+    "paged_span_bf16": [_P] * 8 + [_I] * 8 + [_F, _P],
 }
 
 
@@ -569,6 +579,11 @@ _SPAN_ROWS = 16      # query rows a block at Q > 1 (csrc/paged_span.cu)
 _PART_POSITIONS = 128  # least positions a partition holds
 _MAX_SMEM = 232448   # dynamic shared memory a block may opt into (227 KB)
 _MAX_BLOCKS = 128    # pool blocks a partition may span (one per thread)
+# the pool kinds of the paged kernels (csrc/paged_attention.cuh: Pool); a
+# bool ``quant`` reads as f32 (False) or int8 (True)
+POOL_F32, POOL_INT8, POOL_BF16 = 0, 1, 2
+_RAW_BYTES = {POOL_F32: 0, POOL_INT8: 1, POOL_BF16: 2}
+_POOL_SUFFIX = {POOL_F32: "", POOL_INT8: "_int8", POOL_BF16: "_bf16"}
 
 
 class PagedPlan(NamedTuple):
@@ -600,25 +615,29 @@ def _align16(b: int) -> int:
     return -(-b // 16) * 16
 
 
-def paged_smem_bytes(D: int, rows: int, part: int, quant: bool) -> int:
-    """``paged::Layout``'s total: padded K and V of a partition, the
-    query tile, the scores, the row state and the partition's pool
-    blocks and, for int8 pools, the raw rows and their scales."""
+def paged_smem_bytes(D: int, rows: int, part: int, pool: int) -> int:
+    """``paged::Layout``'s total for pool kind ``pool`` (:data:`POOL_F32`,
+    :data:`POOL_INT8` or :data:`POOL_BF16`): padded K and V of a
+    partition, the query tile, the scores, the row state and the
+    partition's pool blocks and, for int8 and bf16 pools, the raw K and V
+    rows (and int8's scales)."""
     b = 4 * part * (D + 4) + 4 * part * D + 4 * rows * D + 4 * rows * part
     b = _align16(_align16(b) + 8 * rows + 4 * _MAX_BLOCKS)
-    if quant:
-        b = _align16(b + 2 * part * D + 4 * part) + 4 * part
+    b += 2 * _RAW_BYTES[int(pool)] * part * D
+    if pool == POOL_INT8:
+        b = _align16(b + 4 * part) + 4 * part
     return _align16(b)
 
 
 def paged_plan(MB: int, bs: int, D: int, Q: int,
-               quant: bool = False) -> PagedPlan:
-    """The split of the paged kernels for one launch; pure Python."""
+               pool: int = POOL_F32) -> PagedPlan:
+    """The split of the paged kernels for one launch over a pool of kind
+    ``pool``; pure Python."""
     part = bs * -(-_PART_POSITIONS // bs)
     parts = -(-(MB * bs) // part)
     rows = 1 if Q == 1 else _SPAN_ROWS
     return PagedPlan(part, parts, rows, -(-Q // rows),
-                     paged_smem_bytes(D, rows, part, quant), Q, D + 4)
+                     paged_smem_bytes(D, rows, part, pool), Q, D + 4)
 
 
 def _unpack_pages(pages):
@@ -700,15 +719,78 @@ def paged_span_plain(q, pages_k, pages_v, tables, start, n,
                               _v_dtype(pages_v)).to(q.dtype)
 
 
+def paged_rounding_slack(q, pages_k, pages_v, tables, start, n,
+                         scale: Optional[float] = None) -> torch.Tensor:
+    """``[S, Q, H, D]``: how far a correct kernel may lie from
+    :func:`paged_span_plain` beyond summation order, for the span ``q [S,
+    Q, H, D]`` (decode: ``q[:, None]``, ``start = lengths - 1``, ``n =
+    (lengths > 0)``). Zero unless the pools are bf16. Over a bf16 pool p
+    is rounded to bf16 before ``p . V``, and a kernel's f32 p differs from
+    the plain version's by the rounding of the scores (other summation
+    orders) and of ``exp``; where a p lies that close to a midpoint of two
+    bf16 values, the two may round it one bf16 ulp apart. The slack is the
+    sum of ``ulp(p) * |v| / l`` over the keys whose p lies within ``(4
+    sqrt(D) 2^-24 (a + a_max) + 2^-23 |s - m| + 2^-21) p`` of a midpoint,
+    with ``a = scale * sum_d |q_d k_d|`` the dot's magnitude and ``a_max``
+    the row's largest: four times the typical f32 error of two D-term
+    chains, plus the subtraction and two ``exp`` ulps. In a CPU model of
+    the kernel's chains against ``einsum`` (D 64 and 128, 327,680 keys)
+    every p that rounded differently lay within half that window. A kernel
+    that did not round p at all lies ~2^-9 of each p off, everywhere:
+    hold the mean error too (``chip_smoke.py``)."""
+    S, Q, H, D = q.shape
+    values, _ = _unpack_pages(pages_v)
+    if values.dtype != torch.bfloat16:
+        return torch.zeros_like(q, dtype=torch.float32)
+    scale = D ** -0.5 if scale is None else scale
+    k = _gathered(pages_k, tables)
+    v = _gathered(pages_v, tables)
+    s = torch.einsum("sqhd,swhd->sqhw", q.float(), k) * scale
+    a = torch.einsum("sqhd,swhd->sqhw", q.float().abs(), k.abs()) * abs(scale)
+    pos = start.long()[:, None] + torch.arange(Q, device=q.device)[None]
+    vis = (torch.arange(k.shape[1], device=q.device)[None, None]
+           <= pos[..., None]) & (n > 0)[:, None, None]
+    vis = vis[:, :, None, :]
+    s = s.masked_fill(~vis, float("-inf"))
+    m = s.amax(-1, keepdim=True).clamp_min(_NEG)
+    p = torch.exp(s - m)
+    l = p.sum(-1, keepdim=True).clamp_min(1e-30)
+    a = a.masked_fill(~vis, 0.0)
+    eta = 4 * D ** 0.5 * 2.0 ** -24 * (a + a.amax(-1, keepdim=True)) \
+        + 2.0 ** -23 * (s - m).abs().nan_to_num(0.0) + 2.0 ** -21
+    ulp = torch.ldexp(torch.ones_like(p), torch.frexp(p)[1] - 8)
+    frac = p / ulp - torch.floor(p / ulp)
+    near = ((frac - 0.5).abs() * ulp <= eta * p) & vis
+    return torch.einsum("sqhw,swhd->sqhd", torch.where(near, ulp, 0.0),
+                        v.abs()) / l
+
+
+def _pool_kind(name: str, kv, vv, quant: bool) -> int:
+    """The pool kind of a K/V pair: int8 tuples, both bf16, or both f32;
+    a mixed pair or another dtype is refused."""
+    if quant:
+        check_dtype(name, torch.int8, pages_k=kv, pages_v=vv)
+        return POOL_INT8
+    if kv.dtype != vv.dtype:
+        raise ValueError(f"{name}: mixed pools, K {kv.dtype} and V "
+                         f"{vv.dtype}; the kernels take both f32 or both "
+                         f"bf16")
+    if kv.dtype == torch.bfloat16:
+        return POOL_BF16
+    check_dtype(name, torch.float32, pages_k=kv, pages_v=vv)
+    return POOL_F32
+
+
 def _check_paged(name: str, q, pages_k, pages_v, tables, Q: int,
-                 **per_slot) -> Tuple[bool, list, int, int, PagedPlan]:
+                 **per_slot) -> Tuple[int, list, int, int, PagedPlan]:
     """Validate the paged kernels' operands for a launch on ``q``'s card:
-    ``q [S, (Q,) H, D]`` f32 with ``D`` in {64, 128}; both pools plain f32
-    ``[N, bs, H, D]`` or both ``(int8 [N, bs, H, D], f32 scales [N, bs,
-    H])``; ``tables [S, MB]`` and each ``per_slot`` vector ``[S]`` int32;
-    all contiguous on one device; the plan's shared memory within what a
-    block may use. Reads no tensor's values. Returns ``(quant, pool
-    pointers, N, bs, plan)``."""
+    ``q [S, (Q,) H, D]`` f32 with ``D`` in {64, 128}; both pools f32 or
+    both bf16 ``[N, bs, H, D]``, or both ``(int8 [N, bs, H, D], f32 scales
+    [N, bs, H])``; ``tables [S, MB]`` and each ``per_slot`` vector ``[S]``
+    int32; all contiguous on one device, the pools and ``q`` 16-byte
+    aligned; the plan's shared memory within what a block may use. Reads
+    no tensor's values. Returns ``(pool kind, pool pointers, N, bs,
+    plan)``."""
     if q.device.type != "cuda":
         raise ValueError(f"{name}: no kernel for {q.device}")
     kv, ks = _unpack_pages(pages_k)
@@ -728,25 +810,23 @@ def _check_paged(name: str, q, pages_k, pages_v, tables, Q: int,
                          + ", ".join(f"{k} {tuple(t.shape)}"
                                      for k, t in per_slot.items())
                          + f" do not match S={S}")
-    plan = paged_plan(tables.shape[1], bs, D, Q, quant)
+    check_dtype(name, torch.float32, q=q)
+    kind = _pool_kind(name, kv, vv, quant)
+    plan = paged_plan(tables.shape[1], bs, D, Q, kind)
     if plan.smem > _MAX_SMEM:
         raise ValueError(f"{name}: block size {bs} too large for head dim "
                          f"{D}: {plan.smem} bytes of shared memory")
     if H > 65535 or plan.parts > 65535 or S * Q * H >= 2 ** 31:
         raise ValueError(f"{name}: H and the partition count must be <= "
                          f"65535 and S*Q*H below 2**31")
-    check_dtype(name, torch.float32, q=q)
     pools = {"pages_k": kv, "pages_v": vv}
     if quant:
-        check_dtype(name, torch.int8, pages_k=kv, pages_v=vv)
         pools.update(scales_k=ks, scales_v=vs)
         for key in ("scales_k", "scales_v"):
             if tuple(pools[key].shape) != (N, bs, H):
                 raise ValueError(f"{name}: {key} {tuple(pools[key].shape)} "
                                  f"must be {(N, bs, H)}")
         check_dtype(name, torch.float32, scales_k=ks, scales_v=vs)
-    else:
-        check_dtype(name, torch.float32, pages_k=kv, pages_v=vv)
     check_dtype(name, torch.int32, tables=tables, **per_slot)
     check_cuda(name, q.device, q=q, tables=tables, **pools, **per_slot)
     # 16-byte loads and cp.async copies, 4-byte copies of the scales
@@ -754,19 +834,20 @@ def _check_paged(name: str, q, pages_k, pages_v, tables, Q: int,
         align = 4 if key.startswith("scales") else 16
         if t.data_ptr() % align:
             raise ValueError(f"{name}: {key} is not {align}-byte aligned")
-    return quant, [t.data_ptr() for t in pools.values()], N, bs, plan
+    return kind, [t.data_ptr() for t in pools.values()], N, bs, plan
 
 
 def paged_decode_attention(q, pages_k, pages_v, tables, lengths,
                            scale: Optional[float] = None) -> torch.Tensor:
     """Decode-shaped (q_len = 1) attention over one layer's paged KV pool,
-    plain or the quantized ``(int8 values, scales)`` tuple (dequantized in
-    the kernel). ``q [S, H, D]``; ``lengths`` counts the valid tokens
-    including the one just scattered; 0 marks an inactive slot (zero
-    output). CUDA tensors launch ``paged_decode`` (``paged_decode_int8``
-    for int8 pools): two launches, partials over fixed partitions of the
-    context and their merge, counted as one; the wrapper reads no
-    per-slot value on the host."""
+    f32, bf16 or the quantized ``(int8 values, scales)`` tuple (widened or
+    dequantized in the kernel). ``q [S, H, D]``; ``lengths`` counts the
+    valid tokens including the one just scattered; 0 marks an inactive
+    slot (zero output). CUDA tensors launch ``paged_decode``
+    (``paged_decode_bf16`` for bf16 pools, ``paged_decode_int8`` for int8
+    ones): partials over fixed partitions of the context and their merge
+    (a bf16 pool's max pass before them), counted as one launch; the
+    wrapper reads no per-slot value on the host."""
     _check_pool_pair("paged_decode_attention", pages_k, pages_v)
     if q.device.type == "cpu":
         return paged_decode_plain(q, pages_k, pages_v, tables, lengths,
@@ -774,7 +855,7 @@ def paged_decode_attention(q, pages_k, pages_v, tables, lengths,
     if q.dim() != 3:
         raise ValueError(f"paged_decode_attention: q {tuple(q.shape)} must "
                          f"be [S, H, D]")
-    quant, pools, N, bs, plan = _check_paged(
+    kind, pools, N, bs, plan = _check_paged(
         "paged_decode_attention", q, pages_k, pages_v, tables, 1,
         lengths=lengths)
     S, H, D = q.shape
@@ -783,7 +864,7 @@ def paged_decode_attention(q, pages_k, pages_v, tables, lengths,
     ws = torch.empty(plan.workspace_shape(S, H), dtype=torch.float32,
                      device=q.device)
     with torch.cuda.device(q.device):          # launch on q's card
-        _launch("paged_decode_int8" if quant else "paged_decode",
+        _launch("paged_decode" + _POOL_SUFFIX[kind],
                 q.data_ptr(), *pools, tables.data_ptr(), lengths.data_ptr(),
                 out.data_ptr(), ws.data_ptr(), S, H, D, N, bs,
                 tables.shape[1], plan.part, scale, stream_ptr(q))
@@ -798,11 +879,11 @@ def paged_span_attention(q, pages_k, pages_v, tables, start, n,
     H, D]``; ``start``/``n`` ``[S]`` int32 — rows ``>= n[s]`` are padding
     (the kernel writes zeros there, the plain version attends them; the
     caller ignores them), ``n == 0`` marks an inactive slot (zeros). Pools
-    plain or ``(int8 values, scales)``. CUDA tensors launch ``paged_span``
-    (``paged_span_int8``: two launches, partials and merge, counted as
-    one), whose row ``j`` is bit-equal to
-    :func:`paged_decode_attention` at length ``start + j + 1``; ``Q`` is at
-    most :data:`SPAN_MAX_Q`."""
+    f32, bf16 or ``(int8 values, scales)``. CUDA tensors launch
+    ``paged_span`` (``paged_span_bf16``, ``paged_span_int8``: partials and
+    merge, and a bf16 pool's max pass, counted as one), whose row ``j`` is
+    bit-equal to :func:`paged_decode_attention` at length ``start + j +
+    1``; ``Q`` is at most :data:`SPAN_MAX_Q`."""
     _check_pool_pair("paged_span_attention", pages_k, pages_v)
     if q.device.type == "cpu":
         return paged_span_plain(q, pages_k, pages_v, tables, start, n, scale)
@@ -813,7 +894,7 @@ def paged_span_attention(q, pages_k, pages_v, tables, start, n,
     if not 1 <= Q <= SPAN_MAX_Q:
         raise ValueError(f"paged_span_attention: a span of {Q} query rows; "
                          f"the kernel takes 1 to {SPAN_MAX_Q}")
-    quant, pools, N, bs, plan = _check_paged(
+    kind, pools, N, bs, plan = _check_paged(
         "paged_span_attention", q, pages_k, pages_v, tables, Q,
         start=start, n=n)
     scale = D ** -0.5 if scale is None else float(scale)
@@ -821,7 +902,7 @@ def paged_span_attention(q, pages_k, pages_v, tables, start, n,
     ws = torch.empty(plan.workspace_shape(S, H), dtype=torch.float32,
                      device=q.device)
     with torch.cuda.device(q.device):
-        _launch("paged_span_int8" if quant else "paged_span", q.data_ptr(),
+        _launch("paged_span" + _POOL_SUFFIX[kind], q.data_ptr(),
                 *pools, tables.data_ptr(), start.data_ptr(), n.data_ptr(),
                 out.data_ptr(), ws.data_ptr(), S, Q, H, D, N, bs,
                 tables.shape[1], plan.part, scale, stream_ptr(q))

@@ -2,8 +2,9 @@
 
 from .engine import AdmitProbe, DecodeEngine
 from .kv_cache import (NULL_BLOCK, BlockAllocator, PagedKVCache, PrefixCache,
-                       PrefixMatch, dequantize_rows, gather_pages,
-                       quantize_rows, scatter_prefill, scatter_prefill_pages,
+                       PrefixMatch, blobs_to_pages, dequantize_rows,
+                       gather_pages, pages_to_blobs, quantize_rows,
+                       scatter_prefill, scatter_prefill_pages,
                        scatter_span, scatter_span_pages, scatter_token,
                        scatter_token_pages)
 from .sampling import SamplingConfig
@@ -12,7 +13,8 @@ from .scheduler import ORDERS, ContinuousBatchingScheduler, Request
 __all__ = ["AdmitProbe", "BlockAllocator", "ContinuousBatchingScheduler",
            "DecodeEngine", "NULL_BLOCK", "PagedKVCache", "PrefixCache",
            "ORDERS", "PrefixMatch", "Request", "SamplingConfig",
-           "dequantize_rows", "gather_pages",
-           "quantize_rows", "scatter_prefill", "scatter_prefill_pages",
+           "blobs_to_pages", "dequantize_rows", "gather_pages",
+           "pages_to_blobs", "quantize_rows", "scatter_prefill",
+           "scatter_prefill_pages",
            "scatter_span", "scatter_span_pages", "scatter_token",
            "scatter_token_pages"]

@@ -41,8 +41,16 @@ every resident full-block prefix hit into the slot's table by reference;
 an exact-duplicate prompt also shares its partial boundary block and forks
 it (one-block device copy, scale pages included, outside any graph)
 before the first write there. With ``retain_prefix`` the evicted
-registered blocks park in a retained LRU. ``kv_dtype="int8"`` keeps the
-pools as int8 values with f32 row scales.
+registered blocks park in a retained LRU. ``dtype=torch.bfloat16`` keeps
+the pools in bf16 (half the bytes a token of f32), ``kv_dtype="int8"`` as
+int8 values with f32 row scales.
+
+Prefill/decode disaggregation: :meth:`DecodeEngine.export_slot` packages a
+just-prefilled slot (its pages in the pool's dtype, its length and block
+count) and :meth:`DecodeEngine.adopt_slot` adopts it into another
+engine's free slot, rebuilding the pending token, history, drafter maps
+and prefix registration, so the adopting engine's first tick is the one a
+colocated engine would run.
 
 :meth:`launch_counts` reads the kernel wrappers' launch counters, which a
 replay advances by the launches its capture saw.
@@ -110,8 +118,12 @@ class DecodeEngine:
         span calls.
       sampling: a :class:`SamplingConfig` for seeded stochastic decoding
         (None = greedy).
-      kv_dtype: ``None``/``"f32"`` (f32 pools) or ``"int8"`` (int8 values
-        and f32 row scales, dequantized by the consumer).
+      dtype: the pools' dtype, ``torch.float32`` (default) or
+        ``torch.bfloat16`` (the scatters round the f32 projections; the
+        paged kernels' bf16 branches read them).
+      kv_dtype: ``None``/``"f32"`` (pools at ``dtype``) or ``"int8"``
+        (int8 values and f32 row scales, dequantized by the consumer;
+        ``dtype`` is not used).
       device: where the pools live (default ``"cuda"``); must match the
         model's parameters.
 
@@ -122,7 +134,8 @@ class DecodeEngine:
     inside a later ``use_policy(bfloat16_compute)``, and the reverse. So
     warm (or first serve) inside the policy the engine is to run. On the
     CPU the bodies run eagerly and read the policy at every call. The
-    pools hold f32 under either policy (the projections return f32).
+    pools hold ``dtype`` under either policy (the projections return f32
+    and the scatters round them to the pool's dtype).
     """
 
     def __init__(self, model, *, max_slots: int = 4, block_size: int = 16,
@@ -132,7 +145,8 @@ class DecodeEngine:
                  retain_prefix: bool = True, speculative: int = 0,
                  prefill_chunk: Optional[int] = None,
                  sampling: Optional[SamplingConfig] = None,
-                 kv_dtype: Optional[str] = None, device="cuda"):
+                 dtype=torch.float32, kv_dtype: Optional[str] = None,
+                 device="cuda"):
         want = resolve_device(device)
         self.device = next(model.parameters()).device
         if self.device.type != want.type:
@@ -165,7 +179,7 @@ class DecodeEngine:
         self.cache = PagedKVCache(
             len(model.blocks), attn.num_heads, attn.head_dim, num_blocks,
             block_size, max_slots=max_slots,
-            max_blocks_per_seq=max_blocks_per_seq,
+            max_blocks_per_seq=max_blocks_per_seq, dtype=dtype,
             share_prefix=share_prefix, kv_dtype=kv_dtype,
             retain_prefix=retain_prefix, device=self.device)
         self.max_slots = max_slots
@@ -219,16 +233,17 @@ class DecodeEngine:
     @staticmethod
     def launch_counts() -> Dict[str, int]:
         """Hand-written kernel launches (flash prefill, paged decode,
-        paged span, plain and int8) since the counters were last reset,
-        those of graph replays included."""
+        paged span, over f32, bf16 and int8 pools) since the counters were
+        last reset, those of graph replays included."""
         return cuda_attention.launch_counts()
 
     def compile_counts(self) -> Dict[str, int]:
         """Programs built per entry point: CUDA graphs captured on the
         card, first uses on the CPU. Both 1 after :meth:`warmup` (or the
         first prefill and tick) and for the engine's lifetime after:
-        admissions, evictions, speculation, chunking, sharing and int8
-        change only the contents of the programs' buffers."""
+        admissions, evictions, adoptions, speculation, chunking, sharing
+        and the pool dtype change only the contents of the programs'
+        buffers."""
         return {"prefill": self._prefill.builds, "tick": self._tick.builds}
 
     # -- the programs' bodies ----------------------------------------------
@@ -533,6 +548,56 @@ class DecodeEngine:
         self._bigram_idx[slot] = {}
         self._unigram_idx[slot] = {}
         self._prefilling.pop(slot, None)
+
+    # -- prefill/decode disaggregation --------------------------------------
+
+    def export_slot(self, slot: int):
+        """Package the live ``slot`` for a hand-off to another engine:
+        ``(meta, kpages, vpages)``, meta with the KV ``length``, the
+        ``blocks`` that cover it and the pool's ``quant`` dtype, the pages
+        as :meth:`PagedKVCache.export_pages` gives them. Exported once the
+        first token exists and before any tick, the pages cover exactly
+        the prompt; the pending token's K/V is written by the adopting
+        engine's first tick."""
+        assert self.active[slot], f"slot {slot} is not live"
+        length = int(self.cache.lengths[slot])
+        ids, kpages, vpages = self.cache.export_pages(slot)
+        meta = {"length": length, "blocks": len(ids),
+                "quant": self.cache.quant_dtype}
+        return meta, kpages, vpages
+
+    def adopt_slot(self, slot: int, prompt: List[int], first_token: int,
+                   kpages, vpages,
+                   reserve_len: Optional[int] = None) -> bool:
+        """Adopt a handed-off sequence into the free ``slot``: import its
+        pages at this pool's own blocks, then rebuild the host state a
+        finished prefill leaves (the pending token, the history of prompt
+        and first token, the drafter's maps, the prefix registration, the
+        slot's stats), so the first tick here is the one a colocated
+        engine would run. False, and nothing changed, when the pool cannot
+        supply the blocks."""
+        assert not self.active[slot], f"slot {slot} is occupied"
+        assert slot not in self._prefilling, f"slot {slot} is prefilling"
+        P = len(prompt)
+        if not 0 < P <= self._W:
+            raise ValueError(f"prompt length {P} not in [1, {self._W}]")
+        if not self.cache.import_pages(slot, kpages, vpages, P,
+                                       reserve_len=reserve_len):
+            return False
+        tok = int(first_token)
+        self.active[slot] = True
+        self.tokens[slot] = tok
+        self.history[slot] = []
+        self._bigram_idx[slot] = {}
+        self._unigram_idx[slot] = {}
+        self._history_append(slot, list(prompt) + [tok])
+        self.cache.register_prefix(slot, prompt)
+        self.slot_stats[slot] = {
+            "prefix_hit_blocks": 0, "shared_len": 0,
+            "blocks_reserved": self.cache.owned_count(slot),
+            "cow_forks": 0, "prefill_chunks": 0,
+            "draft_proposed": 0, "draft_accepted": 0}
+        return True
 
     # -- speculation -------------------------------------------------------
 

@@ -1,5 +1,5 @@
 """Paged KV cache — the port of ``paddle_tpu/serve/kv_cache.py`` on one
-device, with plain or int8 pools.
+device, with f32, bf16 or int8 pools.
 
 The cache is one pool of fixed-size blocks per layer (``[L, N, bs, H,
 hd]``) and each sequence holds an ordered block table of pool indices;
@@ -17,6 +17,11 @@ allocation is block-granular and freed blocks are reusable at once.
   and lengths). Admission and eviction edit these small numpy arrays
   between decode ticks.
 
+**bf16 pools** (``dtype=torch.bfloat16``): the scatters round the f32
+projections to bf16 (half the bytes per token of f32); the paged kernels
+widen the rows on chip and the ``"xla"`` path reads them as JAX promotes
+them.
+
 **Int8 pools** (``kv_dtype="int8"``): each pool is the tuple ``(int8
 values [L, N, bs, H, hd], f32 scales [L, N, bs, H])``, one symmetric scale
 per token row per head, so a later token landing in the same block never
@@ -27,6 +32,15 @@ path in :func:`gather_pages`.
 Block 0 is the **null block**: unallocated table entries and masked-off
 scatter rows point at it, so every scatter is total; its contents are
 finite garbage, always masked by the length before use.
+
+**Hand-off** (prefill/decode disaggregation): :meth:`PagedKVCache.
+export_pages` reads a slot's pages out in table order, in the pool's own
+dtype, :func:`pages_to_blobs` packs them into one ``bytes`` blob per
+block, byte for byte the JAX package's layout (K leaves then V leaves,
+each C-contiguous; int8 values then f32 scales; bf16 as its raw 16-bit
+words), :func:`blobs_to_pages` unpacks them on the receiving side, and
+:meth:`PagedKVCache.import_pages` adopts them at the receiver's own block
+ids.
 """
 
 from __future__ import annotations
@@ -45,7 +59,7 @@ __all__ = ["BlockAllocator", "PagedKVCache", "PrefixCache", "PrefixMatch",
            "gather_pages", "scatter_prefill", "scatter_token",
            "scatter_span", "scatter_prefill_pages", "scatter_token_pages",
            "scatter_span_pages", "quantize_rows", "dequantize_rows",
-           "layer_pool", "NULL_BLOCK"]
+           "layer_pool", "pages_to_blobs", "blobs_to_pages", "NULL_BLOCK"]
 
 NULL_BLOCK = 0
 
@@ -177,6 +191,81 @@ def scatter_span_pages(pages, kv, table, start, n, write_from=None):
         return (scatter_span(pages[0], q, table, start, n, write_from),
                 scatter_span(pages[1], s, table, start, n, write_from))
     return scatter_span(pages, kv, table, start, n, write_from)
+
+
+# ---------------------------------------------------------------------------
+# the hand-off's wire format
+# ---------------------------------------------------------------------------
+
+# each pool dtype as numpy carries it over the wire: bf16 as its raw 16-bit
+# words (numpy has no bfloat16)
+_WIRE = {torch.float32: np.float32, torch.bfloat16: np.int16,
+         torch.int8: np.int8}
+
+
+def _wire(t: torch.Tensor) -> np.ndarray:
+    """A CPU tensor as the numpy array of its wire bytes."""
+    if t.dtype == torch.bfloat16:
+        t = t.view(torch.int16)
+    return t.numpy()
+
+
+def pages_to_blobs(kpages, vpages) -> List[bytes]:
+    """Pack exported pages (CPU tensors ``[L, nb, bs, H, hd]`` in the
+    pool's dtype, or ``(int8 values, f32 scales [L, nb, bs, H])`` tuples)
+    into one ``bytes`` blob per block: K leaves then V leaves, each
+    C-contiguous, the JAX package's ``pages_to_blobs`` byte for byte.
+    Each blob is exactly the pool's ``bytes_per_block`` long."""
+    leaves = [*(kpages if isinstance(kpages, tuple) else (kpages,)),
+              *(vpages if isinstance(vpages, tuple) else (vpages,))]
+    arrays = [_wire(t.cpu()) for t in leaves]
+    return [b"".join(np.ascontiguousarray(a[:, j]).tobytes()
+                     for a in arrays)
+            for j in range(arrays[0].shape[1])]
+
+
+def blobs_to_pages(blobs: List[bytes], *, num_layers: int,
+                   block_size: int, num_heads: int, head_dim: int,
+                   quantized: bool, dtype=torch.float32):
+    """Rebuild ``(kpages, vpages)`` (CPU tensors, as
+    :meth:`PagedKVCache.export_pages` gives them) from per-block blobs,
+    given the receiving pool's own geometry and dtype. A blob of another
+    length means the two pools disagree and is refused (ValueError), as
+    is an empty hand-off."""
+    if not blobs:
+        raise ValueError("handoff carries zero page blobs")
+    L, bs, H, hd = num_layers, block_size, num_heads, head_dim
+    specs = ([((L, bs, H, hd), torch.int8), ((L, bs, H), torch.float32)]
+             if quantized else [((L, bs, H, hd), dtype)])
+    if any(d not in _WIRE for _, d in specs):
+        raise ValueError(f"no wire format for pool dtype {dtype}")
+    sizes = [int(np.prod(shape)) * np.dtype(_WIRE[d]).itemsize
+             for shape, d in specs]
+    per_blob = 2 * sum(sizes)
+    cols: List[List[np.ndarray]] = [[] for _ in range(2 * len(specs))]
+    for blob in blobs:
+        if len(blob) != per_blob:
+            raise ValueError(
+                f"handoff blob is {len(blob)} bytes but this pool's "
+                f"geometry expects {per_blob} — replica pool shapes "
+                f"disagree")
+        off = 0
+        for i, col in enumerate(cols):
+            shape, d = specs[i % len(specs)]
+            col.append(np.frombuffer(blob, dtype=_WIRE[d],
+                                     count=int(np.prod(shape)),
+                                     offset=off).reshape(shape))
+            off += sizes[i % len(specs)]
+
+    def leaf(i):
+        t = torch.from_numpy(np.stack(cols[i], axis=1))
+        return t.view(torch.bfloat16) if specs[i % len(specs)][1] \
+            == torch.bfloat16 else t
+
+    n = len(specs)
+    k = tuple(leaf(i) for i in range(n))
+    v = tuple(leaf(n + i) for i in range(n))
+    return (k, v) if quantized else (k[0], v[0])
 
 
 # ---------------------------------------------------------------------------
@@ -367,8 +456,9 @@ class PagedKVCache:
     """Device pools ``k``/``v`` plus the host tables ``[max_slots,
     max_blocks_per_seq]`` and lengths ``[max_slots]`` for up to
     ``max_slots`` sequences. With ``kv_dtype`` ``None``/``"f32"`` each
-    pool is ``[L, N, bs, H, hd]`` at ``dtype``; with ``"int8"`` it is the
-    tuple ``(int8 [L, N, bs, H, hd], f32 scales [L, N, bs, H])``. The
+    pool is ``[L, N, bs, H, hd]`` at ``dtype`` (``torch.float32`` or
+    ``torch.bfloat16``); with ``"int8"`` it is the tuple ``(int8 [L, N,
+    bs, H, hd], f32 scales [L, N, bs, H])`` and ``dtype`` is not used. The
     pools live on ``device``, the card unless the caller passes
     ``"cpu"`` (:func:`~paddle_tpu_torch.core.device.resolve_device`)."""
 
@@ -380,6 +470,10 @@ class PagedKVCache:
         if kv_dtype not in (None, "f32", "float32", "int8"):
             raise ValueError(f"kv_dtype must be None|'f32'|'int8', "
                              f"got {kv_dtype!r}")
+        if kv_dtype != "int8" and dtype not in (torch.float32,
+                                                torch.bfloat16):
+            raise ValueError(f"pool dtype must be torch.float32 or "
+                             f"torch.bfloat16, got {dtype}")
         self.num_layers = num_layers
         self.num_heads = num_heads
         self.head_dim = head_dim
@@ -443,6 +537,50 @@ class PagedKVCache:
         """Device bytes one pool block costs (both pools, scales
         included)."""
         return self.kv_bytes_per_token * self.block_size
+
+    def export_pages(self, slot: int):
+        """Read out the pages covering ``slot``'s length for a hand-off:
+        ``(block_ids, kpages, vpages)``, the pages CPU tensors ``[L, nb,
+        bs, H, hd]`` in the pool's dtype (``(values, scales)`` tuples for
+        int8 pools) in table order. Block ids do not travel: the receiver
+        places the pages at its own blocks. A shared block exports like
+        any other (a read); the reservation past the length does not."""
+        nb = self.blocks_needed(int(self.lengths[slot]))
+        ids = [int(b) for b in self.tables[slot, :nb]]
+        sel = torch.tensor(ids, dtype=torch.long, device=self.device)
+
+        def take(pool):
+            if isinstance(pool, tuple):
+                return tuple(t[:, sel].cpu() for t in pool)
+            return pool[:, sel].cpu()
+
+        return ids, take(self.k), take(self.v)
+
+    def import_pages(self, slot: int, kpages, vpages, length: int,
+                     reserve_len: Optional[int] = None) -> bool:
+        """Adopt handed-off pages into the empty ``slot``: allocate blocks
+        for ``max(length, reserve_len)`` tokens (the whole decode
+        reservation), write the pages at this pool's own block ids (cast
+        to the pool's dtype, as JAX's ``jnp.asarray(pages, dtype)``) and
+        set the length. False, and nothing changed, when the pool cannot
+        supply the blocks."""
+        assert not self._owned[slot], "import_pages on a non-empty slot"
+        target = max(int(length), int(reserve_len or 0))
+        if not self.ensure_capacity(slot, target):
+            return False
+        nb = self.blocks_needed(int(length))
+        sel = torch.tensor(self._owned[slot][:nb], dtype=torch.long,
+                           device=self.device)
+
+        def put(pool, pages):
+            for t, p in zip(pool if isinstance(pool, tuple) else (pool,),
+                            pages if isinstance(pages, tuple) else (pages,)):
+                t[:, sel] = p.to(device=t.device, dtype=t.dtype)
+
+        put(self.k, kpages)
+        put(self.v, vpages)
+        self.lengths[slot] = int(length)
+        return True
 
     def copy_block(self, src: int, dst: int) -> None:
         """Copy pool block ``src`` to ``dst`` in every layer of both pools,

@@ -1,6 +1,7 @@
 """Iteration-level (continuous-batching) request scheduling — the port of
 ``Request`` and ``ContinuousBatchingScheduler`` from
-``paddle_tpu/serve/scheduler.py`` for colocated serving.
+``paddle_tpu/serve/scheduler.py``, colocated or split between a prefill
+and a decode scheduler.
 
 Scheduling decisions happen between decode ticks: a queued request takes
 a slot the moment one frees, and a finished request is evicted the moment
@@ -26,6 +27,19 @@ one chunk per :meth:`~ContinuousBatchingScheduler.step`, between decode
 ticks, so a long prompt does not stall the running slots. A speculative
 tick may retire several tokens per slot; they pass the finish rules one
 at a time, so eos and length stop exactly where the plain engine stops.
+
+Prefill/decode disaggregation: a ``role="prefill"`` scheduler admits and
+prefills only; the moment a request's first token lands (and the request
+is not already finished) it exports the slot (``engine.export_slot``)
+into :meth:`~ContinuousBatchingScheduler.pop_handoffs` and frees it. A
+``role="decode"`` scheduler takes such a hand-off with
+:meth:`~ContinuousBatchingScheduler.adopt` (``engine.adopt_slot``) and
+decodes it to the end, its record keeping the original submission and
+first-token times. ``role="both"`` (the default) is colocated serving.
+The pages travel in the pool's own dtype; between processes they cross as
+``kv_cache.pages_to_blobs`` / ``blobs_to_pages``. The JAX scheduler's
+tracer, telemetry and metrics hooks are not ported (their ``None`` path
+is the port's only path).
 """
 
 from __future__ import annotations
@@ -49,8 +63,8 @@ class Request:
     ``deadline_s`` from submission passed) or ``"shed"`` (rejected at
     submission). ``priority`` is the tier the ``"priority"`` order admits
     by, ``seq`` the scheduler's arrival index the orders break ties on;
-    ``retries`` counts resubmissions of the request (0 here: the port has
-    no fleet to resubmit it yet)."""
+    ``retries`` counts resubmissions of the request (given at
+    ``submit``)."""
     rid: int
     prompt: List[int]
     max_new_tokens: int
@@ -102,20 +116,26 @@ class ContinuousBatchingScheduler:
     ``"static"`` (the gang baseline); ``order`` one of :data:`ORDERS`;
     ``shed=True`` turns on submit-time shedding, with ``est_tick_s`` the
     prior tick time (no estimate and no observation: nothing is shed);
-    ``clock`` the wall clock (default ``time.perf_counter``)."""
+    ``clock`` the wall clock (default ``time.perf_counter``); ``role``
+    ``"both"`` (colocated), ``"prefill"`` (hands each prefilled request
+    off) or ``"decode"`` (also adopts hand-offs)."""
 
     def __init__(self, engine, policy: str = "continuous",
                  order: str = "fcfs", shed: bool = False,
                  est_tick_s: Optional[float] = None,
-                 clock=time.perf_counter):
+                 clock=time.perf_counter, role: str = "both"):
         if policy not in ("continuous", "static"):
             raise ValueError(f"policy must be 'continuous'|'static', "
                              f"got {policy!r}")
         if order not in ORDERS:
             raise ValueError(f"order must be one of {ORDERS}, got {order!r}")
+        if role not in ("both", "prefill", "decode"):
+            raise ValueError(f"role must be 'both'|'prefill'|'decode', "
+                             f"got {role!r}")
         self.engine = engine
         self.policy = policy
         self.order = order
+        self.role = role
         self.shed = shed
         self.est_tick_s = est_tick_s
         self._clock = clock
@@ -124,6 +144,9 @@ class ContinuousBatchingScheduler:
         self.prefilling: Dict[int, Request] = {}     # slot -> request
         self.completed: List[Request] = []
         self.last_backpressure: Optional[str] = None
+        # prefilled requests awaiting transfer: (request, meta, kpages,
+        # vpages), drained by pop_handoffs()
+        self.handoffs: List[tuple] = []
         self._rid = itertools.count()
         self._seq = itertools.count()
         self._last_step_ts: Optional[float] = None
@@ -172,17 +195,26 @@ class ContinuousBatchingScheduler:
     def submit(self, prompt: List[int], max_new_tokens: int,
                eos_id: Optional[int] = None,
                deadline_s: Optional[float] = None,
-               priority: int = 0) -> Request:
+               priority: int = 0, rid: Optional[int] = None,
+               submit_ts: Optional[float] = None,
+               retries: int = 0) -> Request:
         """Queue one request; the padded prefill array is staged now, off
-        the tick loop. A shed request comes back finished."""
+        the tick loop. A shed request comes back finished. ``rid``,
+        ``submit_ts`` and ``retries`` are for a resubmitted request: it
+        keeps its id (the caller keeps ids unique) and its original
+        submission time, so TTFT, wall time and the deadline run from the
+        first submission."""
         if max_new_tokens < 1:
             raise ValueError("max_new_tokens must be >= 1")
         if deadline_s is not None and deadline_s < 0:
             raise ValueError("deadline_s must be >= 0")
-        req = Request(rid=next(self._rid), prompt=list(prompt),
+        now = self._clock()
+        req = Request(rid=next(self._rid) if rid is None else rid,
+                      prompt=list(prompt),
                       max_new_tokens=max_new_tokens, eos_id=eos_id,
                       deadline_s=deadline_s, priority=priority,
-                      seq=next(self._seq), submit_ts=self._clock())
+                      retries=retries, seq=next(self._seq),
+                      submit_ts=now if submit_ts is None else submit_ts)
         if len(req.prompt) + max_new_tokens > self.engine.context_width:
             raise ValueError(
                 f"prompt {len(req.prompt)} + max_new_tokens "
@@ -190,7 +222,8 @@ class ContinuousBatchingScheduler:
                 f"{self.engine.context_width}")
         if self.shed and deadline_s is not None:
             est = self.predicted_completion_s(max_new_tokens)
-            if est is not None and est > deadline_s:
+            waited = max(0.0, now - req.submit_ts)
+            if est is not None and waited + est > deadline_s:
                 self._finish(req, "shed")     # no slot, no blocks
                 return req
         req._staged = self.engine.stage_prompt(req.prompt)
@@ -292,6 +325,78 @@ class ContinuousBatchingScheduler:
         req.first_token_ts = self._clock()
         self.running[slot] = req
         self._maybe_finish(slot, tok)
+        if self.role == "prefill" and not req.done:
+            # the prompt's pages and the pending first token leave for a
+            # decode scheduler; a request finished at its first token
+            # (eos, max_new_tokens 1) ends here
+            self._hand_off(slot, req)
+
+    def _hand_off(self, slot: int, req: Request) -> None:
+        """Export a just-prefilled slot and free it here. The request
+        leaves without a completed record: the adopting scheduler writes
+        it, with the original submission and first-token times. The
+        prefill side's stats (prefix hits, chunks) ride the meta into the
+        decode slot's."""
+        meta, kpages, vpages = self.engine.export_slot(slot)
+        st = self.engine.slot_stats[slot]
+        meta.update({
+            "rid": req.rid, "prompt": list(req.prompt),
+            "max_new_tokens": req.max_new_tokens,
+            "eos_id": req.eos_id, "deadline_s": req.deadline_s,
+            "priority": req.priority, "retries": req.retries,
+            "submit_ts": req.submit_ts, "first_token": req.tokens[0],
+            "first_token_ts": req.first_token_ts,
+            "prefill_stats": {key: st.get(key, 0) for key in (
+                "prefix_hit_blocks", "shared_len", "cow_forks",
+                "prefill_chunks")}})
+        del self.running[slot]
+        self.engine.evict(slot)
+        req.slot = None
+        self.handoffs.append((req, meta, kpages, vpages))
+
+    def pop_handoffs(self) -> List[tuple]:
+        """Drain the prefilled requests awaiting transfer: ``(request,
+        meta, kpages, vpages)`` tuples."""
+        out, self.handoffs = self.handoffs, []
+        return out
+
+    def adopt(self, meta: Dict[str, Any], kpages,
+              vpages) -> Optional[Request]:
+        """Take a hand-off: check capacity, import its pages into a free
+        slot and enter the request in ``running`` with its first token.
+        None, and nothing changed, when no slot is free or the pool cannot
+        hold the request's whole reservation (``last_backpressure`` says
+        which)."""
+        free = self.engine.free_slots()
+        if not free:
+            self.last_backpressure = "slots"
+            return None
+        prompt = [int(t) for t in meta["prompt"]]
+        max_new = int(meta["max_new_tokens"])
+        target = max(len(prompt) + max_new - 1, len(prompt))
+        probe = self.engine.admit_probe(target, include_slots=False)
+        if not probe.ok:
+            self.last_backpressure = probe.reason
+            return None
+        req = Request(
+            rid=int(meta["rid"]), prompt=prompt, max_new_tokens=max_new,
+            eos_id=meta.get("eos_id"), deadline_s=meta.get("deadline_s"),
+            priority=int(meta.get("priority") or 0),
+            retries=int(meta.get("retries") or 0), seq=next(self._seq),
+            submit_ts=meta["submit_ts"])
+        slot = free[0]
+        if not self.engine.adopt_slot(slot, prompt, int(meta["first_token"]),
+                                      kpages, vpages, reserve_len=target):
+            self.last_backpressure = "blocks"
+            return None
+        req.slot = slot
+        req.tokens = [int(meta["first_token"])]
+        req.first_token_ts = meta.get("first_token_ts")
+        self.running[slot] = req
+        # the decode slot's stats start from the prefill side's
+        self.engine.slot_stats[slot].update(meta.get("prefill_stats") or {})
+        self.last_backpressure = None
+        return req
 
     def step(self) -> bool:
         """Expire deadlines, advance every prefilling slot by one chunk,

@@ -8,7 +8,10 @@ plain forward); for the split-context paged kernels, lengths and spans
 on and across partition boundaries at block sizes 8/16/32, a slot whose
 span fills the table, reruns bit-equal for all four entries, the span's
 Q = 1 and per-row bit-equality with the paged decode (across a boundary
-too), the int8 branches of both, no host synchronisation inside an entry
+too), the int8 and bf16 branches of both (bf16: within ATOL plus the
+rounding slack of ``paged_rounding_slack``, p rounded as the plain
+version rounds it, the refusal of mixed pools, bf16 queries and pools off
+a 16-byte boundary), no host synchronisation inside an entry
 and the plan's shared memory against the kernel's own; for the 1x1-conv
 weight gradient and the fused LayerNorm-matmul, ragged edge shapes, the
 wrappers' refusals, bit-equal reruns and a small ResNet trained through
@@ -555,6 +558,108 @@ def test_paged_decode_int8_kernel_matches_plain(gen, D, bs):
     assert torch.equal(out, again)             # no atomics
 
 
+def _bf16_close(out, ref, unrounded, slack):
+    """A bf16-pool kernel against its plain version: within ATOL beyond
+    each entry's rounding slack, and rounding p as the plain version does
+    (its mean distance to it under a tenth of the plain version's own
+    distance to the unrounded function)."""
+    diff = (out - ref).abs()
+    assert (diff - slack).max().item() <= ATOL
+    assert diff.mean().item() <= 0.1 * (unrounded - ref).abs().mean().item()
+
+
+@pytest.mark.parametrize("D,bs", [(64, 16), (128, 8), (64, 8), (128, 32)])
+def test_paged_decode_bf16_kernel_matches_plain(gen, D, bs):
+    """bf16 pools: lengths on and across partition boundaries, a slot
+    filling the table; reruns bit-equal."""
+    H, MB = 3, 320 // bs
+    lengths = _boundary_lengths(bs, MB)
+    S = lengths.numel()
+    pk, pv, tables = _span_case(gen, S, H, D, bs, MB, False)
+    pk, pv = pk.bfloat16(), pv.bfloat16()
+    q = torch.randn(S, H, D, generator=gen, device="cuda")
+    before = ca.launch_counts()["paged_decode_bf16"]
+    out = ca.paged_decode_attention(q, pk, pv, tables, lengths)
+    assert ca.launch_counts()["paged_decode_bf16"] == before + 1
+    ref = ca.paged_decode_plain(q, pk, pv, tables, lengths)
+    slack = ca.paged_rounding_slack(q[:, None], pk, pv, tables,
+                                    (lengths - 1).clamp(min=0),
+                                    (lengths > 0).int())[:, 0]
+    _bf16_close(out, ref, ca.paged_decode_plain(q, pk.float(), pv.float(),
+                                                tables, lengths), slack)
+    assert out[0].abs().max().item() == 0.0
+    assert torch.equal(out, ca.paged_decode_attention(q, pk, pv, tables,
+                                                      lengths))
+
+
+@pytest.mark.parametrize("Q,D", [(1, 64), (5, 64), (128, 64), (5, 128),
+                                 (128, 128)])
+def test_paged_span_bf16_kernel_matches_plain_and_decode_rows(gen, Q, D):
+    """bf16 pools at bs 8, 16 and 32, the spans of the f32 test: live rows
+    against the plain version, reruns bit-equal, each row bit-equal to
+    ``paged_decode_bf16`` at ``start + j + 1``, across the partition
+    boundary too."""
+    S, H = 6, 3
+    for bs in (8, 16, 32):
+        MB = 384 // bs
+        P = ca.paged_plan(MB, bs, D, Q, ca.POOL_BF16).part
+        pk, pv, tables = _span_case(gen, S, H, D, bs, MB, False)
+        pk, pv = pk.bfloat16(), pv.bfloat16()
+        cap = MB * bs
+        start = torch.tensor([3, 32, 0, cap - Q, 17, P - 2],
+                             dtype=torch.int32, device="cuda") \
+            .clamp(0, cap - Q)
+        n = torch.tensor([Q, max(1, Q - 2), Q, Q, 0, Q], dtype=torch.int32,
+                         device="cuda")
+        q = torch.randn(S, Q, H, D, generator=gen, device="cuda")
+        before = ca.launch_counts()["paged_span_bf16"]
+        out = ca.paged_span_attention(q, pk, pv, tables, start, n)
+        assert ca.launch_counts()["paged_span_bf16"] == before + 1
+        ref = ca.paged_span_plain(q, pk, pv, tables, start, n)
+        live = torch.arange(Q, device="cuda")[None] < n[:, None]
+        _bf16_close(out[live], ref[live], ca.paged_span_plain(
+            q, pk.float(), pv.float(), tables, start, n)[live],
+            ca.paged_rounding_slack(q, pk, pv, tables, start, n)[live])
+        assert out[4].abs().max().item() == 0.0       # n == 0
+        assert torch.equal(out, ca.paged_span_attention(q, pk, pv, tables,
+                                                        start, n))
+        for j in range(Q):
+            lengths = torch.where(n > j, start + j + 1, 0).to(torch.int32)
+            single = ca.paged_decode_attention(q[:, j].contiguous(), pk, pv,
+                                               tables, lengths)
+            rows = n > j
+            assert torch.equal(out[rows, j], single[rows]), \
+                f"bs {bs} row {j}"
+
+
+def test_bf16_paged_wrappers_refuse_what_the_kernels_do_not_take(gen):
+    """Mixed pools (one bf16, one f32), bf16 queries and a bf16 pool off a
+    16-byte boundary are refused before any launch."""
+    pk, pv, tables = _span_case(gen, 2, 2, 64, 16, 4, False)
+    hk, hv = pk.bfloat16(), pv.bfloat16()
+    q1 = torch.randn(2, 2, 64, generator=gen, device="cuda")
+    q5 = torch.randn(2, 5, 2, 64, generator=gen, device="cuda")
+    lengths = torch.tensor([5, 30], dtype=torch.int32, device="cuda")
+    start = torch.zeros(2, dtype=torch.int32, device="cuda")
+    n = torch.full((2,), 5, dtype=torch.int32, device="cuda")
+    before = ca.launch_counts()
+    with pytest.raises(ValueError, match="mixed pools"):
+        ca.paged_decode_attention(q1, hk, pv, tables, lengths)
+    with pytest.raises(ValueError, match="mixed pools"):
+        ca.paged_span_attention(q5, pk, hv, tables, start, n)
+    with pytest.raises(ValueError, match="dtype"):
+        ca.paged_decode_attention(q1.bfloat16(), hk, hv, tables, lengths)
+    with pytest.raises(ValueError, match="dtype"):
+        ca.paged_span_attention(q5.bfloat16(), hk, hv, tables, start, n)
+    raw = torch.zeros(hk.numel() + 4, dtype=torch.bfloat16, device="cuda")
+    off = raw[4:].view(hk.shape)                  # 8 bytes off 16
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        ca.paged_decode_attention(q1, off, off, tables, lengths)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        ca.paged_span_attention(q5, off, off, tables, start, n)
+    assert ca.launch_counts() == before
+
+
 def test_paged_plan_shared_memory_is_the_kernels(gen):
     """The plan's shared-memory figure is the kernel's own layout."""
     from paddle_tpu_torch.utils import cuda_build
@@ -565,39 +670,39 @@ def test_paged_plan_shared_memory_is_the_kernels(gen):
     for D in (64, 128):
         for bs in (8, 12, 16, 32, 128):
             for Q in (1, 5, 128):
-                for quant in (False, True):
-                    plan = ca.paged_plan(64, bs, D, Q, quant)
-                    assert fn(D, plan.rows, plan.part,
-                              int(quant)) == plan.smem
+                for pool in (ca.POOL_F32, ca.POOL_INT8, ca.POOL_BF16):
+                    plan = ca.paged_plan(64, bs, D, Q, pool)
+                    assert fn(D, plan.rows, plan.part, pool) == plan.smem
 
 
 def test_paged_entries_do_not_synchronise(gen):
-    """The four entries read no per-slot value on the host: under
+    """The six entries read no per-slot value on the host: under
     ``set_sync_debug_mode("error")`` a synchronising call would raise."""
     S, H, D, bs, MB = 4, 2, 64, 16, 16
     plain = _span_case(gen, S, H, D, bs, MB, False)
     quant = _span_case(gen, S, H, D, bs, MB, True)
+    half = (plain[0].bfloat16(), plain[1].bfloat16(), plain[2])
     lengths = torch.tensor([0, 5, 200, 256], dtype=torch.int32,
                            device="cuda")
     start = torch.tensor([0, 120, 250, 7], dtype=torch.int32, device="cuda")
     n = torch.tensor([5, 5, 5, 0], dtype=torch.int32, device="cuda")
     q1 = torch.randn(S, H, D, generator=gen, device="cuda")
     q5 = torch.randn(S, 5, H, D, generator=gen, device="cuda")
-    for pk, pv, tables in (plain, quant):      # build outside the check
+    for pk, pv, tables in (plain, quant, half):   # build outside the check
         ca.paged_decode_attention(q1, pk, pv, tables, lengths)
         ca.paged_span_attention(q5, pk, pv, tables, start, n)
     torch.cuda.synchronize()
     before = ca.launch_counts()
     torch.cuda.set_sync_debug_mode("error")
     try:
-        for pk, pv, tables in (plain, quant):
+        for pk, pv, tables in (plain, quant, half):
             ca.paged_decode_attention(q1, pk, pv, tables, lengths)
             ca.paged_span_attention(q5, pk, pv, tables, start, n)
     finally:
         torch.cuda.set_sync_debug_mode(0)
     after = ca.launch_counts()
-    for name in ("paged_decode", "paged_decode_int8", "paged_span",
-                 "paged_span_int8"):
+    for name in ("paged_decode", "paged_decode_int8", "paged_decode_bf16",
+                 "paged_span", "paged_span_int8", "paged_span_bf16"):
         assert after[name] == before[name] + 1
 
 

@@ -15,7 +15,15 @@ and PyTorch on the CPU:
   merged in order against the JAX ``paged_decode_attention`` and
   ``paged_span_attention`` (Pallas interpret mode) at lengths 0, 1,
   ``P - 1``, ``P``, ``P + 1`` and ``MB * bs``, and a partition wholly past
-  a row adding exactly 0.
+  a row adding exactly 0;
+- the bf16 pools' rule (a max pass, every partition's p taken against the
+  row's max and rounded to bf16 before ``p . V``, the partitions merged
+  with factors of exactly 1) against ``paged_decode_plain`` and
+  ``paged_span_plain`` on bf16 pools, which round p against the row's max
+  as well;
+- the bf16 pools' shared memory: ``paged_smem_bytes`` and ``paged_plan``
+  at D 64 and 128, R 1 and 16, pinned to the header's ``Layout``
+  arithmetic (written out here) and within a block's 227 KB.
 
 Tolerance of the merge against JAX: 2e-6 (f32 on both sides, summed in
 other orders over at most 192 positions), as ``tests/test_torch_span.py``.
@@ -112,19 +120,31 @@ def test_workspace_shape(S, Q, H, D, MB, bs):
 # the merge rule
 # ---------------------------------------------------------------------------
 
-def _partials(q, k, v, pos, P, parts, scale):
+def _partials(q, k, v, pos, P, parts, scale, bf16=False):
     """Per-partition ``(m, l, acc)`` of each row: ``q [R, D]``, ``k, v
     [R, W, D]`` (each row's context in position order), ``pos [R]``; the
-    kernel's conventions (running max from -1e30, -inf past the row)."""
+    kernel's conventions (running max from -1e30, -inf past the row).
+    With ``bf16`` the bf16 pools' two passes: a max pass gives each row's
+    partition maxima, every partition takes m = their max over the
+    partitions the row reaches, and p enters ``p . V`` rounded to bf16
+    (l sums the unrounded p)."""
     W = k.shape[1]
     s = torch.einsum("rd,rwd->rw", q, k) * scale
     s = s.masked_fill(torch.arange(W)[None] > pos[:, None], float("-inf"))
+    maxima = [s[:, kk * P:(kk + 1) * P].amax(-1).clamp_min(-1e30)
+              for kk in range(parts)]
+    if bf16:
+        K = torch.clamp(pos, max=W - 1) // P + 1
+        M = torch.full_like(maxima[0], -1e30)
+        for kk, mk in enumerate(maxima):
+            M = torch.where(kk < K, torch.maximum(M, mk), M)
     out = []
     for kk in range(parts):
         sl = slice(kk * P, min((kk + 1) * P, W))
-        m = s[:, sl].amax(-1).clamp_min(-1e30)
+        m = M if bf16 else maxima[kk]
         p = torch.exp(s[:, sl] - m[:, None])
-        out.append((m, p.sum(-1), torch.einsum("rw,rwd->rd", p, v[:, sl])))
+        pr = p.bfloat16().float() if bf16 else p
+        out.append((m, p.sum(-1), torch.einsum("rw,rwd->rd", pr, v[:, sl])))
     return out
 
 
@@ -145,13 +165,15 @@ def _merge(partials, K):
 
 
 def _split_attention(q, pk, pv, tables, pos, live, P):
-    """``[S, Q, H, D]`` by the kernels' two passes: ``q [S, Q, H, D]``,
-    ``pos [S, Q]`` each row's position, ``live [S, Q]``."""
+    """``[S, Q, H, D]`` by the kernels' two launches (three over bf16
+    pools): ``q [S, Q, H, D]``, ``pos [S, Q]`` each row's position,
+    ``live [S, Q]``."""
     S, Q, H, D = q.shape
     bs = pk.shape[1]
     W = tables.shape[1] * bs
-    k = pk[tables.long()].reshape(S, W, H, D)
-    v = pv[tables.long()].reshape(S, W, H, D)
+    bf16 = pk.dtype == torch.bfloat16
+    k = pk[tables.long()].reshape(S, W, H, D).float()
+    v = pv[tables.long()].reshape(S, W, H, D).float()
     parts = -(-W // P)
     rq = q.permute(0, 2, 1, 3).reshape(-1, D)                 # [S*H*Q, D]
     rk = k.permute(0, 2, 1, 3)[:, :, None].expand(S, H, Q, W, D) \
@@ -159,7 +181,7 @@ def _split_attention(q, pk, pv, tables, pos, live, P):
     rv = v.permute(0, 2, 1, 3)[:, :, None].expand(S, H, Q, W, D) \
         .reshape(-1, W, D)
     rpos = pos[:, None].expand(S, H, Q).reshape(-1)
-    partials = _partials(rq, rk, rv, rpos, P, parts, D ** -0.5)
+    partials = _partials(rq, rk, rv, rpos, P, parts, D ** -0.5, bf16)
     K = torch.clamp(rpos, max=W - 1) // P + 1
     out = _merge(partials, K)
     # a partition wholly past a row adds exactly 0
@@ -218,3 +240,71 @@ def test_split_merge_matches_jax_paged_span():
         np.testing.assert_allclose(got[s, :n[s]].numpy(), want[s, :n[s]],
                                    atol=ATOL, rtol=0)
     assert not got[4].any()
+
+
+# ---------------------------------------------------------------------------
+# bf16 pools
+# ---------------------------------------------------------------------------
+
+def _layout_total(D, R, P, pool):
+    """``paged::Layout(D, R, P, pool).total`` of csrc/paged_attention.cuh,
+    field by field."""
+    up16 = lambda b: -(-b // 16) * 16                      # noqa: E731
+    eb = {ca.POOL_F32: 0, ca.POOL_INT8: 1, ca.POOL_BF16: 2}[pool]
+    quant = pool == ca.POOL_INT8
+    vs = 4 * P * (D + 4)
+    qs = vs + 4 * P * D
+    ss = qs + 4 * R * D
+    st = up16(ss + 4 * R * P)
+    kraw = up16(st + 8 * R + 4 * 128)
+    ksc = kraw + 2 * eb * P * D
+    vsc = up16(ksc + (4 * P if quant else 0))
+    return up16(vsc + (4 * P if quant else 0))
+
+
+@pytest.mark.parametrize("D,R,want", [(64, 1, 101648), (64, 16, 113280),
+                                      (128, 1, 200208), (128, 16, 215680)])
+def test_bf16_pool_shared_memory(D, R, want):
+    """Both raw bf16 partitions staged beside the f32 layout: 2 * 2 * P *
+    D bytes more (65,536 at D 128), within the 232,448 a block may use."""
+    Q = 1 if R == 1 else 5
+    plan = ca.paged_plan(64, 16, D, Q, ca.POOL_BF16)
+    assert plan.rows == R and plan.part == 128
+    assert plan.smem == ca.paged_smem_bytes(D, R, 128, ca.POOL_BF16) \
+        == _layout_total(D, R, 128, ca.POOL_BF16) == want
+    assert want <= SMEM_LIMIT
+    assert want - ca.paged_plan(64, 16, D, Q).smem == 4 * 128 * D
+    for pool in (ca.POOL_F32, ca.POOL_INT8):
+        assert ca.paged_smem_bytes(D, R, 128, pool) == \
+            _layout_total(D, R, 128, pool)
+
+
+def test_bf16_plan_refuses_what_does_not_fit():
+    # bs 100 puts 200 positions in a partition: fits f32 at D 128, not bf16
+    assert ca.paged_plan(4, 100, 128, 1).smem <= SMEM_LIMIT
+    assert ca.paged_plan(4, 100, 128, 1, ca.POOL_BF16).smem > SMEM_LIMIT
+
+
+def test_bf16_two_pass_rule_matches_the_plain_versions():
+    S, H, D, bs, MB, Q = 6, 2, 16, 16, 12, 5
+    P = ca.paged_plan(MB, bs, D, 1, ca.POOL_BF16).part
+    rng = np.random.RandomState(2)
+    pk, pv, tables = _pools(rng, S, H, D, bs, MB)
+    t = torch.from_numpy
+    pk, pv, tables = t(pk).bfloat16(), t(pv).bfloat16(), t(tables)
+    lengths = t(np.array([0, 1, P - 1, P, P + 1, MB * bs], np.int32))
+    q = t(rng.randn(S, Q, H, D).astype(np.float32))
+    got = _split_attention(q[:, :1], pk, pv, tables,
+                           lengths[:, None].long() - 1,
+                           lengths[:, None] > 0, P)[:, 0]
+    want = ca.paged_decode_plain(q[:, 0].contiguous(), pk, pv, tables,
+                                 lengths)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=ATOL, rtol=0)
+    start = t(np.array([P - Q, P, P - 2, MB * bs - Q, 7, 0], np.int32))
+    n = t(np.array([Q, Q, Q, Q, 0, 3], np.int32))
+    pos = start[:, None].long() + torch.arange(Q)[None]
+    live = torch.arange(Q)[None] < n[:, None]
+    got = _split_attention(q, pk, pv, tables, pos, live, P)
+    want = ca.paged_span_plain(q, pk, pv, tables, start, n)
+    np.testing.assert_allclose(got[live].numpy(), want[live].numpy(),
+                               atol=ATOL, rtol=0)
