@@ -163,6 +163,31 @@ Phases (any failure exits non-zero before the final line):
     with its own engine, the pages crossing as per-block blobs (each
     exactly ``bytes_per_block``) into ``adopt``, for f32, bf16 and int8
     pools; the greedy tokens bit-equal to a colocated engine's.
+11. bf16 operands of the flash kernels and of ``ln_matmul`` (run after
+    phase 2, and after phase 7's ``ln_matmul``), as the JAX kernels take
+    them: (a) ``flash_fwd_bf16``, ``flash_bwd_dq_bf16`` and
+    ``flash_bwd_dkv_bf16`` at ``[8,4,2048,128]`` causal, ``[1,8,1024,64]``
+    causal and ``[2,8,512,128]`` with segments, and ``ln_matmul_bf16`` at
+    x ``[16384,512]`` with w ``[512,512]`` and ``[512,2048]``, with and
+    without scale and bias, each against its plain version under the
+    bf16 gate (every entry within one bf16 ulp of the largest |plain|
+    entry, at most BF16_SHARE of the entries above BF16_NOISE of it off;
+    the LSE within LSE_TOL), with the plain version that leaves p, ds or
+    y unrounded as a control that must fail the gate, reruns bit-equal,
+    their ptxas reports free of spills, and the wrappers' refusals (mixed
+    dtypes, bf16 views 2 bytes off 4, a stored ds of another dtype); (b)
+    the path: bf16 leaf q, k, v at ``[8,4,2048,128]`` causal through
+    ``flash_attention``, a loss and ``.backward()``: exactly one launch
+    of each of the three kernels, bf16 gradients within the gate of the
+    plain backward on the forward's saved O and LSE, and within
+    BF16_PATH_SHARE of the plain versions' autograd end to end; (c) each
+    kernel timed by events and by the
+    profiler's device time beside its plain version, SDPA on the same
+    bf16 inputs (forward, backward, and forward plus backward) or
+    ``F.layer_norm`` plus ``torch.mm`` in bf16, and its bounds: bytes at
+    3.35 TB/s, operations at 989 TFLOP/s and at the card's bf16
+    ``mma.sync`` rate (``tools/mma_bf16_peak.py``, measured once in the
+    run for this phase and phase 9 (c)).
 
 Each serving and training path runs with the launch counts set to 0 just
 before it and read just after; a kernel's ``launches`` in the final list
@@ -179,7 +204,9 @@ its own; ``bound_ms`` is the bound of the kernel's route,
 flash kernels add ``device_ms`` and ``library_device_ms``,
 profiler device time per call; the flash backward's two entries are timed
 at the training shape as the training path launches them, dk/dv storing
-ds and dq reading it back).
+ds and dq reading it back; the bf16 flash entries likewise at the
+training shape, ``ln_matmul_bf16`` at w ``[512,2048]`` with scale and
+bias, each with ``mma_sync_bound_ms``).
 """
 
 import importlib.util
@@ -217,7 +244,11 @@ REPLACES = {"flash_fwd": "paddle_tpu/nn/pallas_attention.py:108",
             "paged_span_bf16": "paddle_tpu/nn/pallas_attention.py:711",
             "conv1x1_dw": "paddle_tpu/nn/pallas_conv.py:46",
             "conv1x1_dw_bf16": "paddle_tpu/nn/pallas_conv.py:46",
-            "ln_matmul": "paddle_tpu/nn/fused_ln.py:63"}
+            "ln_matmul": "paddle_tpu/nn/fused_ln.py:63",
+            "flash_fwd_bf16": "paddle_tpu/nn/pallas_attention.py:108",
+            "flash_bwd_dq_bf16": "paddle_tpu/nn/pallas_attention.py:162",
+            "flash_bwd_dkv_bf16": "paddle_tpu/nn/pallas_attention.py:207",
+            "ln_matmul_bf16": "paddle_tpu/nn/fused_ln.py:63"}
 # the paged kernels' device rows (partials and merge) in a profile window
 PAGED_ROWS = ("paged::",)
 # top-2 logit gap under which a token that differs between two f32 paths
@@ -286,10 +317,19 @@ def device_ms(torch, fn, iters=20, warmup=3):
         fn()
     torch.cuda.synchronize()
     # the profiler now and then returns a window without its device rows,
-    # or with only some of the calls' (a row counted other than a whole
-    # number of times a call); such a window is taken again, up to three
-    # times
-    for _ in range(3):
+    # or with only some of the calls' (half of them, once); such a window
+    # is taken again, up to five times. It also drops a few records of
+    # short launches now and then (19 of 20 ln_stats launches, 39 and 38
+    # of 40 copies of 512 values, through five retakes in a row): a row
+    # within a tenth of a whole number of launches a call is kept, its
+    # time a call taken from the records it has (its mean launch times
+    # its launches a call)
+    def per_call(count):
+        n = round(count / iters)
+        return n if n >= 1 and abs(count - n * iters) <= max(
+            1, n * iters // 10) else 0
+
+    for _ in range(5):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 dst.copy_(src)
@@ -299,13 +339,13 @@ def device_ms(torch, fn, iters=20, warmup=3):
                 for e in prof.key_averages()
                 if str(e.device_type).endswith("CUDA")
                 and not e.key.startswith("Memcpy")]
-        if rows and all(c % iters == 0 for _, _, c in rows):
+        if rows and all(per_call(c) for _, _, c in rows):
             break
     else:
         raise RuntimeError(f"device_ms: the profiler recorded no device "
                            f"time, or not every call's: {rows}")
-    return (sum(t for _, t, _ in rows) / 1e3 / iters,
-            sorted([n[:60], t / 1e3 / iters] for n, t, _ in rows))
+    ms = [(n, t / 1e3 / c * per_call(c)) for n, t, c in rows]
+    return sum(t for _, t in ms), sorted([n[:60], t] for n, t in ms)
 
 
 def paged_device_times(torch, fn, lib_fn):
@@ -707,6 +747,42 @@ DW_WGMMA_INSTANCE = re.compile(r"dw_wgmmaINS_5WgCfgILi(\d+)ELi(\d+)ELi(\d+)"
                                r"ELi(\d+)E")
 DW_MMA_INSTANCE = re.compile(r"dw_tiles_bf16INS_3CfgILi(\d+)ELi(\d+)ELi\d+"
                              r"ELi\d+ELi\d+ELi(\d+)EEELi(\d+)E")
+
+
+# the bf16 instances of flash_fwd.cu (D, row groups, key tile, stages),
+# flash_bwd.cu (kernel, D, warps, streamed tile, stages) and ln_matmul.cu
+# (tile rows, tile columns, copy width)
+FWD_BF16_INSTANCE = re.compile(r"flash_fwd_bf16_kernel\w*?CfgBILi(\d+)ELi(\d+)"
+                               r"ELi(\d+)ELi(\d+)ELi\d+E")
+BWD_BF16_INSTANCE = re.compile(r"flash_bwd_(dq|dkv|dq_ds)_bf16_kernel\w*?"
+                               r"CfgBILi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)ELi\d+E")
+LN_BF16_INSTANCE = re.compile(r"ln_gemm_bf16INS_4BCfgILi(\d+)ELi(\d+)ELi\d+"
+                              r"ELi\d+ELi\d+ELi\d+EEELi(\d+)E")
+
+
+def bf16_registers(ca, report):
+    """Registers and spills of every bf16 flash and ln_matmul instance
+    the plans can pick, from the build's ptxas reports; a spill, or an
+    instance a report lacks, fails the run."""
+    from paddle_tpu_torch.nn.gemm_f32 import TILES
+    fwd = ptxas_entries(FWD_BF16_INSTANCE, str(report["flash_fwd"]["log"]))
+    bwd = ptxas_entries(BWD_BF16_INSTANCE, str(report["flash_bwd"]["log"]))
+    ln = ptxas_entries(LN_BF16_INSTANCE, str(report["ln_matmul"]["log"]))
+    out = [{"kernel": "flash_fwd_bf16", "D": D, "rows": t.rows,
+            "stream_rows": t.stream_rows,
+            **checked_entry(fwd, (D, t.rows // 16, t.stream_rows, t.stages),
+                            "flash_fwd_bf16")}
+           for D, tiles in ca._FWD_TILES_BF16.items() for t in tiles]
+    out += [{"kernel": f"flash_bwd_{k}_bf16", "D": D, "rows": t.rows,
+             "stream_rows": t.stream_rows,
+             **checked_entry(bwd, (k, D, t.rows // 8, t.stream_rows,
+                                   t.stages), "flash_bwd_bf16")}
+            for D, tiles in ca._BWD_TILES_BF16.items() for t in tiles
+            for k in ("dq", "dkv", "dq_ds")]
+    out += [{"kernel": "ln_matmul_bf16", "tile": list(t[:2]), "vec": vec,
+             **checked_entry(ln, (t.rows, t.cols, vec), "ln_matmul_bf16")}
+            for t in TILES for vec in (8, 2, 1)]
+    return out
 
 
 def dw_bf16_registers(log_text):
@@ -2806,6 +2882,392 @@ def phase_conv_bf16_kernels(torch, cc, gen, mma_rate):
     return step
 
 
+# ---------------------------------------------------------------------------
+# bf16 operands of the flash kernels and of ln_matmul (phase 11)
+# ---------------------------------------------------------------------------
+
+# the bf16 flash cases: PERF.md section 6's rows 1, 3 and 4 (the training
+# shape, the serving slice's prefill shape, the segments shape)
+FLASH_BF16_CASES = [
+    ("training [8,4,2048,128] causal", (8, 4, 2048, 128), True, None),
+    ("slice [1,8,1024,64] causal", (1, 8, 1024, 64), True, None),
+    ("[2,8,512,128] segments", (2, 8, 512, 128), False, SEG_ROWS)]
+# The bf16 gate, in bf16 ulps: every entry within one ulp of the tensor's
+# largest |plain| entry, and at most BF16_SHARE of the entries above
+# BF16_NOISE of the largest off at all. Kernel and plain version sum the
+# same exact bf16 products in f32 in other orders and their exponentials
+# differ in the last bits, so a p, ds, y or output that straddles a bf16
+# rounding boundary may land one ulp apart. Entries under the floor are
+# f32 rounding noise (a query row that sees one key has dp - delta = 0 up
+# to the order of two sums: its ds and dq are noise about 1e-8 of the
+# largest dq). Set from the card: at these shapes 0.03-0.27% of the
+# entries were off, and the control (p, ds or y left unrounded) put 38-42%
+# off; the CPU parity tests against JAX hold 1% too.
+BF16_SHARE = 0.01
+BF16_NOISE = 2.0 ** -16
+# the bf16 path's gradients against the plain versions' autograd end to
+# end (plain forward, then the plain backward on its O and LSE): two
+# rounding points in series, the forward's O (0.26% of its entries an
+# ulp apart at the training shape) feeding delta = rowsum(dO * O) and so
+# every ds of its row. The first reading on the card put 1.14% of dk's
+# entries off (the backward alone on the same saved O: 0.20%); the
+# control still puts 40% off
+BF16_PATH_SHARE = 0.02
+LSE_TOL = 1e-4
+
+
+def bf16_gate(torch, name, got, want, control=None, share=BF16_SHARE):
+    """``got`` (bf16) against its plain version ``want`` (bf16) under the
+    bf16 gate (at most ``share`` of the entries above the noise floor
+    off); with ``control`` (the plain version with p, ds or y left
+    unrounded, rounded to bf16 at the end) also shows that the gate sees
+    the rounding point: the control must fail it. Returns the figures."""
+    if got.dtype != torch.bfloat16 or want.dtype != torch.bfloat16:
+        raise RuntimeError(f"{name}: dtypes {got.dtype}, {want.dtype}")
+
+    def figures(t):
+        w = want.float()
+        d = (t.float() - w).abs()
+        top = w.abs().max().item()
+        ulp = 2.0 ** (math.frexp(top)[1] - 8) if top else 0.0
+        off = d > 0
+        return {"max_abs_err": d.max().item(), "ulp_of_max": ulp,
+                "max_err_ulps": d.max().item() / ulp if ulp else 0.0,
+                "share_off": off.float().mean().item(),
+                "share_off_above_noise": (off & (w.abs() > BF16_NOISE * top))
+                .float().mean().item()}
+
+    def passes(f):
+        return f["max_abs_err"] <= f["ulp_of_max"] \
+            and f["share_off_above_noise"] <= share
+
+    row = figures(got)
+    if not passes(row):                 # also catches NaN
+        raise RuntimeError(f"{name}: outside the bf16 gate: {row}")
+    if control is not None:
+        c = figures(control)
+        row["control_share_off"] = c["share_off_above_noise"]
+        row["control_max_err_ulps"] = c["max_err_ulps"]
+        if passes(c):
+            raise RuntimeError(f"{name}: the unrounded control passes the "
+                               f"bf16 gate ({c}): the gate does not see "
+                               f"where p is rounded")
+    return row
+
+
+def refuse(name, fn, counts_fn):
+    """``fn`` must raise ValueError and launch nothing."""
+    before = counts_fn()
+    try:
+        fn()
+    except ValueError as e:
+        if counts_fn() != before:
+            raise RuntimeError(f"{name}: a refused call launched a kernel")
+        return str(e)[:80]
+    raise RuntimeError(f"{name}: not refused")
+
+
+def phase_flash_bf16(torch, F, ca, gen, mma_rate):
+    """The bf16 branches of the flash kernels (``flash_fwd_bf16``,
+    ``flash_bwd_dq_bf16``, ``flash_bwd_dkv_bf16``) at FLASH_BF16_CASES:
+    O and each gradient held to its plain version under the bf16 gate,
+    with the unrounded control failing it, the LSE within LSE_TOL, reruns
+    bit-equal, each case's plans on a line of their own; then each kernel
+    timed (events; at the training shape, the kernels line's, also the
+    profiler's device time) beside its plain version, SDPA on the same
+    bf16 inputs (forward, backward and forward+backward; an explicit mask
+    for segments) and its bounds (bytes at 3.35 TB/s, operations at 989
+    TFLOP/s and at the card's bf16 mma.sync rate). The backward's two kernels are timed as
+    ``flash_attention_bwd`` launches them (dk/dv storing ds where the plan
+    stores it, dq from it). Last, the wrappers' refusals: mixed dtypes,
+    bf16 views 2 bytes off 4, a stored ds of the wrong dtype."""
+    bf = torch.bfloat16
+    rows = {}
+    for label, shape, causal, seg_rows in FLASH_BF16_CASES:
+        # profiler windows only where the kernels line reads them: each
+        # is a chance for the profiler to drop part of a window
+        profiled = label == FLASH_BF16_CASES[0][0]
+
+        def dev(fn, profiled=profiled):
+            return device_ms(torch, fn) if profiled else (None, None)
+
+        B, H, T, D = shape
+        fplan = ca.flash_fwd_plan(B, H, T, D, causal, bf)
+        bplan = ca.flash_bwd_plan(B, H, T, D, causal, bf)
+        log("flash bf16 plans", json.dumps({
+            "case": label, "fwd": fplan._asdict(), "bwd": bplan._asdict()}))
+        q, k, v, do = (torch.randn(shape, generator=gen, device="cuda")
+                       .to(bf) for _ in range(4))
+        seg = None if seg_rows is None else torch.tensor(
+            seg_rows, dtype=torch.int32, device="cuda")
+        if seg is not None:
+            do = do * (seg > 0)[:, None, :, None].to(bf)
+        fwd = lambda: ca.flash_attention_fwd(q, k, v, seg, causal)  # noqa
+        before = ca.launch_counts()
+        o, lse = fwd()
+        bwd = lambda: ca.flash_attention_bwd(  # noqa: E731
+            q, k, v, seg, o, lse, do, causal)
+        grads = bwd()
+        after = ca.launch_counts()
+        if {n: after[n] - before[n] for n in after if after[n] != before[n]} \
+                != {"flash_fwd_bf16": 1, "flash_bwd_dq_bf16": 1,
+                    "flash_bwd_dkv_bf16": 1}:
+            raise RuntimeError(f"flash bf16 {label}: launches {before} -> "
+                               f"{after}")
+        qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
+        o_ref, lse_ref = ca.flash_attention_plain(q, k, v, seg, causal)
+        errs = {"O": bf16_gate(
+            torch, f"flash_fwd_bf16 {label} O", o, o_ref,
+            ca.flash_attention_plain(qf, kf, vf, seg, causal)[0].to(bf))}
+        lse_err = (lse - lse_ref).abs().max().item()
+        if not lse_err <= LSE_TOL:
+            raise RuntimeError(f"flash_fwd_bf16 {label}: LSE off by "
+                               f"{lse_err}")
+        errs["LSE"] = lse_err
+        del o_ref, lse_ref
+        want = ca.flash_attention_bwd_plain(q, k, v, seg, o, lse, do, causal)
+        unrounded = ca.flash_attention_bwd_plain(qf, kf, vf, seg, o.float(),
+                                                 lse, dof, causal)
+        for x, g, w, u in zip(("dq", "dk", "dv"), grads, want, unrounded):
+            errs[x] = bf16_gate(torch, f"flash bf16 {label} {x}", g, w,
+                                u.to(bf))
+        del want, unrounded, qf, kf, vf, dof
+        check_rerun(torch, f"flash_fwd_bf16 {label} O", o, lambda: fwd()[0])
+        check_rerun(torch, f"flash_fwd_bf16 {label} LSE", lse,
+                    lambda: fwd()[1])
+        again = bwd()
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(grads, again)):
+            raise RuntimeError(f"flash bf16 {label}: backward reruns differ")
+        del grads, again
+        log("flash bf16 gate", json.dumps({"case": label, **errs}))
+
+        # timing
+        vis, pairs = visible_pairs(torch, B, T, causal, seg)
+        mask = None if seg is None else vis[:, None]
+        td = 2 * B * H * T * D               # a bf16 [B, H, T, D] tensor
+        rowb = 4 * B * H * T
+        segb = 0 if seg is None else 4 * B * T
+        delta = (do.float() * o.float()).sum(-1)
+        args = (q, k, v, seg, do, lse, delta, causal)
+        ds = torch.empty((B * H, T, T), dtype=bf, device="cuda") \
+            if bplan.stored_ds else None
+        dsb = 2 * H * pairs if ds is not None else 0
+        calls = {
+            "flash_fwd_bf16": (fwd, lambda: ca.flash_attention_plain(
+                q, k, v, seg, causal), 4 * td + rowb + segb,
+                4 * D * H * pairs),
+            "flash_bwd_dkv_bf16": (
+                lambda: ca.flash_bwd_dkv(*args, ds=ds),
+                lambda: ca.flash_bwd_dkv_plain(*args),
+                6 * td + 2 * rowb + segb + dsb, 8 * D * H * pairs),
+            "flash_bwd_dq_bf16": (
+                lambda: ca.flash_bwd_dq(*args, ds=ds),
+                lambda: ca.flash_bwd_dq_plain(*args),
+                (2 * td + dsb if ds is not None else 5 * td + 2 * rowb)
+                + segb, (2 if ds is not None else 6) * D * H * pairs),
+            "flash_attention_bwd bf16": (
+                bwd, lambda: ca.flash_attention_bwd_plain(
+                    q, k, v, seg, o, lse, do, causal),
+                8 * td + rowb + segb, 10 * D * H * pairs)}
+        if ds is not None:
+            ca.flash_bwd_dkv(*args, ds=ds)     # dq below reads this ds
+        qs, ks, vs = (t.detach().clone().requires_grad_() for t in (q, k, v))
+
+        def sdpa_fwd():
+            return F.scaled_dot_product_attention(
+                qs, ks, vs, attn_mask=mask, is_causal=causal and mask is None)
+
+        sdpa_out = sdpa_fwd()
+
+        def sdpa_bwd():
+            return torch.autograd.grad(sdpa_out, (qs, ks, vs), do,
+                                       retain_graph=True)
+
+        def sdpa_both():
+            return torch.autograd.grad(sdpa_fwd(), (qs, ks, vs), do)
+
+        lib = {"fwd": (time_ms(torch, sdpa_fwd), dev(sdpa_fwd)[0]),
+               "bwd": (time_ms(torch, sdpa_bwd), dev(sdpa_bwd)[0]),
+               "both": (time_ms(torch, sdpa_both), dev(sdpa_both)[0])}
+        del sdpa_out
+        for name, (fn, plain, nbytes, flops) in calls.items():
+            dev_t, dev_rows = dev(fn)
+            key = "fwd" if name == "flash_fwd_bf16" else "bwd"
+            row = {"case": label, "kernel_ms": time_ms(torch, fn),
+                   "device_ms": dev_t, "device_rows": dev_rows,
+                   "plain_ms": time_ms(torch, plain, iters=5),
+                   "library_ms": lib[key][0],
+                   "library_device_ms": lib[key][1],
+                   "library_note": "SDPA on the bf16 inputs, "
+                   + ("forward" if key == "fwd" else "backward: dq, dk, dv")
+                   + (" (explicit mask)" if mask is not None else ""),
+                   "sdpa_fwd_bwd_ms": lib["both"][0],
+                   "sdpa_fwd_bwd_device_ms": lib["both"][1],
+                   "pairs_per_head": pairs, "stored_ds": ds is not None,
+                   "max_abs_err": max(
+                       errs[x]["max_abs_err"] for x in
+                       (("O",) if key == "fwd" else ("dq", "dk", "dv")))}
+            if name == "flash_fwd_bf16":
+                row["note"] = ("bound of 4 D a visible pair; the kernel runs "
+                               "6 D (a max pass over K, then the main pass)")
+                row["kernel_flops"] = 6 * D * H * pairs
+            row.update(bytes=nbytes, flops=flops)
+            rows[name, label] = bf16_bounds(row, nbytes, flops, mma_rate)
+            log(name, json.dumps(row))
+        del vis, mask, ds, qs, ks, vs
+    # refusals
+    q = torch.randn(1, 2, 64, 64, generator=gen, device="cuda").to(bf)
+    o, lse = ca.flash_attention_fwd(q, q, q)
+    odd = torch.randn(2 * 64 * 64 + 1, generator=gen,
+                      device="cuda").to(bf)[1:].view(1, 2, 64, 64)
+    refused = {
+        "mixed q/k": refuse("flash bf16 mixed", lambda: ca.flash_attention_fwd(
+            q, q.float(), q), ca.launch_counts),
+        "mixed dO": refuse("flash bf16 mixed dO",
+                           lambda: ca.flash_attention_bwd(
+                               q, q, q, None, o, lse, o.float()),
+                           ca.launch_counts),
+        "2 bytes off 4": refuse("flash bf16 view", lambda:
+                                ca.flash_attention_fwd(odd, q, q),
+                                ca.launch_counts),
+        "f32 ds": refuse("flash bf16 ds", lambda: ca.flash_bwd_dq(
+            q, q, q, None, q, lse, lse,
+            ds=torch.empty(2, 64, 64, device="cuda")), ca.launch_counts)}
+    log("flash bf16 refusals", json.dumps(refused))
+    return rows
+
+
+def phase_flash_bf16_path(torch, ca, gen):
+    """The bf16 path through the entry point a user calls: bf16 leaf q, k,
+    v with ``requires_grad`` at the training shape ``[8,4,2048,128]``
+    causal through ``flash_attention`` (``FlashAttentionFunction``), a
+    loss and ``.backward()``, the launch counts set to 0 just before and
+    read just after: exactly one ``flash_fwd_bf16``, one
+    ``flash_bwd_dkv_bf16`` and one ``flash_bwd_dq_bf16``, no other kernel;
+    bf16 gradients within the bf16 gate of the plain backward on the O and
+    LSE the forward saved, and within BF16_PATH_SHARE of the plain
+    versions' autograd end to end (plain forward, plain backward); O
+    within the gate of the plain forward; the unrounded control failing
+    each. Every figure is logged before any gate fails the run."""
+    bf = torch.bfloat16
+    B, H, T, D = 8, 4, 2048, 128
+    base = [torch.randn(B, H, T, D, generator=gen, device="cuda").to(bf)
+            for _ in range(4)]
+    q, k, v = (t.clone().requires_grad_() for t in base[:3])
+    do = base[3]
+    torch.cuda.synchronize()
+    ca.reset_launch_counts()
+    out = ca.flash_attention(q, k, v, None, True)
+    saved_o, saved_lse = out.grad_fn.saved_tensors[4:6]
+    loss = (out.float() * do.float()).sum()
+    loss.backward()
+    torch.cuda.synchronize()
+    counts = ca.launch_counts()
+    want = {"flash_fwd_bf16": 1, "flash_bwd_dq_bf16": 1,
+            "flash_bwd_dkv_bf16": 1}
+    if {n: c for n, c in counts.items() if c} != want:
+        raise RuntimeError(f"flash bf16 path: launches {counts}, expected "
+                           f"{want}")
+    if type(out.grad_fn).__name__ != "FlashAttentionFunctionBackward":
+        raise RuntimeError(f"flash bf16 path: grad_fn {out.grad_fn}")
+    f = [t.float() for t in base]
+    o_ref, lse_ref = ca.flash_attention_plain(*base[:3], None, True)
+    o_un, lse_un = ca.flash_attention_plain(*f[:3], None, True)
+    checks = [("O", out.detach(), o_ref, o_un.to(bf), BF16_SHARE)]
+    # the backward on what the forward saved, then end to end
+    for tag, (o, lse), (ou, lu), share in (
+            ("", (saved_o, saved_lse), (saved_o.float(), saved_lse),
+             BF16_SHARE),
+            (" end to end", (o_ref, lse_ref), (o_un, lse_un),
+             BF16_PATH_SHARE)):
+        ref = ca.flash_attention_bwd_plain(*base[:3], None, o, lse, do, True)
+        un = ca.flash_attention_bwd_plain(*f[:3], None, ou, lu, f[3], True)
+        checks += [(x + tag, t.grad, w, u.to(bf), share)
+                   for x, t, w, u in zip(("dq", "dk", "dv"), (q, k, v), ref,
+                                         un)]
+        del ref, un
+    res = {"launches": counts, "loss": loss.item(),
+           "grad_dtypes": [str(t.grad.dtype) for t in (q, k, v)]}
+    failed = []
+    for x, got, want, control, share in checks:
+        try:
+            res[x] = bf16_gate(torch, f"flash bf16 path {x}", got, want,
+                               control, share)
+        except RuntimeError as e:
+            failed.append(str(e))
+    log("flash bf16 path", json.dumps(res))
+    if failed or any(t.grad.dtype != bf for t in (q, k, v)):
+        raise RuntimeError(f"flash bf16 path: {failed or res['grad_dtypes']}")
+    return counts
+
+
+def phase_ln_bf16_kernels(torch, F, fl, gen, mma_rate):
+    """``ln_matmul_bf16`` through ``fused_ln_matmul`` at the transformer
+    width on bf16 x ``[16384, 512]`` and w ``[512, 512]``, ``[512, 2048]``,
+    with and without bf16 scale and bias: the entry point's launches (its
+    only caller, counts set to 0 before and read after), each against the
+    plain version under the bf16 gate with the unrounded control (y not
+    rounded to bf16) failing it, reruns bit-equal, timed beside the plain
+    version and ``F.layer_norm(x, ...) @ w`` in bf16 (the profiler's
+    device time too for the kernels line's case, w ``[512, 2048]`` with
+    scale and bias), with its bounds."""
+    from paddle_tpu_torch.nn import gemm_bf16
+    from paddle_tpu_torch.nn.gemm_f32 import TILES
+    bf = torch.bfloat16
+    M, K = 16384, 512
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    x = (torch.randn(M, K, generator=gen, device="cuda") * 2 + 0.5).to(bf)
+    sc = (1 + 0.1 * torch.randn(K, generator=gen, device="cuda")).to(bf)
+    bi = (0.1 * torch.randn(K, generator=gen, device="cuda")).to(bf)
+    cases = [(N, aff) for N in (512, 2048) for aff in (False, True)]
+    ws = {N: (torch.randn(K, N, generator=gen, device="cuda") / K ** 0.5)
+          .to(bf) for N in (512, 2048)}
+    torch.cuda.synchronize()
+    fl.reset_launch_counts()
+    outs = [fl.fused_ln_matmul(x, ws[N], *((sc, bi) if aff else ()))
+            for N, aff in cases]
+    torch.cuda.synchronize()
+    counts = fl.launch_counts()
+    if counts != {"ln_matmul": 0, "ln_matmul_bf16": len(cases)}:
+        raise RuntimeError(f"ln_matmul_bf16: launches {counts}")
+    rows = {}
+    for (N, aff), got in zip(cases, outs):
+        w = ws[N]
+        s, b = (sc, bi) if aff else (None, None)
+        want = fl.ln_matmul_reference(x, w, s, b)
+        unrounded = fl.ln_matmul_reference(
+            x.float(), w.float(), None if s is None else s.float(),
+            None if b is None else b.float()).to(bf)
+        label = f"x [{M},{K}] w [{K},{N}]" + (" scale+bias" if aff else "")
+        err = bf16_gate(torch, f"ln_matmul_bf16 {label}", got, want,
+                        unrounded)
+        check_rerun(torch, f"ln_matmul_bf16 {label}", got,
+                    lambda: fl.fused_ln_matmul(x, w, s, b))
+        del want, unrounded
+        fn = lambda: fl.fused_ln_matmul(x, w, s, b)  # noqa: E731
+        lib = lambda: F.layer_norm(x, (K,), s, b, 1e-6) @ w  # noqa: E731
+        profiled = (N, aff) == (2048, True)
+        row = {"case": label, **err, "kernel_ms": time_ms(torch, fn),
+               "device_ms": device_ms(torch, fn)[0] if profiled else None,
+               "plain_ms": time_ms(torch, lambda: fl.ln_matmul_reference(
+                   x, w, s, b)),
+               "library_ms": time_ms(torch, lib),
+               "library_device_ms": device_ms(torch, lib)[0] if profiled
+               else None,
+               "library_note": "F.layer_norm + torch.mm, bf16",
+               "tile": list(TILES[fl._plan(M, N, sms)][:2]),
+               "copy_width": gemm_bf16.copy_width(x, w)}
+        nbytes = 2 * (M * K + K * N + M * N) + (4 * K if aff else 0)
+        row.update(bytes=nbytes, flops=2 * M * K * N)
+        rows[N, aff] = bf16_bounds(row, nbytes, 2 * M * K * N, mma_rate)
+        log("ln_matmul_bf16", json.dumps(row))
+    refused = {"mixed x/w": refuse("ln bf16 mixed", lambda: fl.fused_ln_matmul(
+        x, ws[512].float()), fl.launch_counts)}
+    log("ln_matmul_bf16 refusals", json.dumps(refused))
+    return rows, counts
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2849,6 +3311,7 @@ def main():
         ca, str(report["flash_bwd"]["log"]))))
     log("conv1x1_dw_bf16 ptxas", json.dumps(dw_bf16_registers(
         str(report["conv1x1_dw_bf16"]["log"]))))
+    log("bf16 flash and ln ptxas", json.dumps(bf16_registers(ca, report)))
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     clock = [time.perf_counter()]
@@ -2863,6 +3326,14 @@ def main():
     lap("flash")
     bwd = phase_flash_bwd(torch, F, ca, gen)
     lap("flash_bwd")
+    mma_rate = mma_bf16_rate(torch)
+    # the bf16 phases draw from their own generator: the other phases'
+    # inputs stay what they were
+    gen16 = torch.Generator(device="cuda").manual_seed(14)
+    flash16 = phase_flash_bf16(torch, F, ca, gen16, mma_rate)
+    lap("flash bf16 kernels")
+    flash16_counts = phase_flash_bf16_path(torch, ca, gen16)
+    lap("flash bf16 path")
     paged = phase_paged(torch, F, ca, gen)
     lap("paged")
     span = phase_span_kernels(torch, F, ca, kvc, gen, card)
@@ -2893,10 +3364,13 @@ def main():
     lap("training bf16")
     dw = phase_conv_kernels(torch, cc, gen)
     lap("conv kernels")
-    dw_bf16 = phase_conv_bf16_kernels(torch, cc, gen, mma_bf16_rate(torch))
+    dw_bf16 = phase_conv_bf16_kernels(torch, cc, gen, mma_rate)
     lap("conv bf16 kernels")
     ln_rows, ln_counts = phase_ln_kernels(torch, F, fl, gen)
     lap("ln kernels")
+    ln16_rows, ln16_counts = phase_ln_bf16_kernels(torch, F, fl, gen16,
+                                                   mma_rate)
+    lap("ln bf16 kernels")
     resnet_counts = phase_resnet(torch, np, pt, cc, card, pt.float32)
     lap("resnet")
     resnet_bf16_counts = phase_resnet(torch, np, pt, cc, card,
@@ -2909,7 +3383,9 @@ def main():
              "training": train_counts, "training bf16": train_bf16_counts,
              "resnet training": resnet_counts,
              "resnet training bf16": resnet_bf16_counts,
-             "fused_ln_matmul": ln_counts}
+             "fused_ln_matmul": ln_counts,
+             "flash_attention bf16": flash16_counts,
+             "fused_ln_matmul bf16": ln16_counts}
     counts = {}
     for path in paths.values():
         for n, c in path.items():
@@ -2963,6 +3439,16 @@ def main():
     # ln_matmul at the wider shape with scale and bias, errors over all
     kernels.append(entry("ln_matmul", ln_rows[2048, True],
                          max(r["max_abs_err"] for r in ln_rows.values())))
+    # the bf16 branches: the flash kernels at the training shape (the
+    # backward's two as flash_attention_bwd launches them), ln_matmul_bf16
+    # at the wider shape with scale and bias; errors over every case
+    train16 = FLASH_BF16_CASES[0][0]
+    kernels += [entry(name, flash16[name, train16], max(
+        r["max_abs_err"] for (n, _), r in flash16.items() if n == name))
+        for name in ("flash_fwd_bf16", "flash_bwd_dq_bf16",
+                     "flash_bwd_dkv_bf16")]
+    kernels.append(entry("ln_matmul_bf16", ln16_rows[2048, True],
+                         max(r["max_abs_err"] for r in ln16_rows.values())))
     for k in kernels:
         if k["launches"] < 1:
             raise RuntimeError(f"{k['name']} never launched on the path")

@@ -1,5 +1,6 @@
-// Flash-attention backward, float32, for sm_90a: two kernels on the
-// tensor cores in split TF32.
+// Flash-attention backward for sm_90a: two kernels on the tensor cores,
+// over float32 operands in split TF32 and over bfloat16 operands on bf16
+// mma.sync (at the end of the file).
 //
 // Replaces paddle_tpu/nn/pallas_attention.py:_dq_kernel and _dkv_kernel
 // (launched by _flash_backward). Given q, k, v [B, H, T, D], the upstream
@@ -506,8 +507,8 @@ flash_bwd_dq_ds_kernel(const Args a) {
   store_rows<C>(acc, a.dq + base + half * (C::D / 2), q0 + wrow, T, sc, g, t);
 }
 
-template <class C, class Kernel>
-cudaError_t launch_kernel(Kernel kernel, const Args& a, cudaStream_t stream) {
+template <class C, class Kernel, class A>
+cudaError_t launch_kernel(Kernel kernel, const A& a, cudaStream_t stream) {
   // above 48 KB a block's shared memory must be opted into per kernel
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM_BYTES);
@@ -545,6 +546,421 @@ int run(const Args& a, int D, int tile, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (D == 64) return static_cast<int>(dispatch<DKV, 64>(a, tile, st));
   if (D == 128) return static_cast<int>(dispatch<DKV, 128>(a, tile, st));
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// ---------------------------------------------------------------------------
+// bfloat16 operands (flash_bwd_dq_bf16, flash_bwd_dkv_bf16)
+// ---------------------------------------------------------------------------
+//
+// _dq_kernel and _dkv_kernel on bf16 q, k, v and dO, with the f32 LSE and
+// delta: p = exp(s - LSE) and ds = p * (dp - delta) in f32 as above; p is
+// rounded to bf16 before dv += p^T . dO, ds before dk += ds^T . q and
+// dq += ds . k (pallas_attention.py:199, 243, 249), every sum in f32; the
+// scale is applied once, at the write, and dq, dk and dv are written in
+// bf16. The design is the f32 kernels' (warp pairs, one forming s and p,
+// the other dp - delta, swapping their f32 tiles; each accumulating half
+// of D; the same skips, masks and order), with bf16 operands:
+//   - each warp's resident A fragments (Q or dO in dq, K or V in dk/dv:
+//     one operand a warp) load from global memory once, into registers;
+//     there are no resident planes;
+//   - streamed tiles land raw by 16- or 4-byte cp.async and feed the
+//     scores by ldmatrix and the accumulating products by ldmatrix.trans;
+//   - every product is one bf16 mma.sync.m16n8k16 into f32 (flash_tiles.cuh:
+//     scores_bf16, accumulate_bf16), the scores in partials of 32 of D,
+//     the accumulators one fresh partial a tile, added by FADD;
+//   - p and ds pack from the score accumulators into A fragments, rounded
+//     to nearest even.
+// The stored ds is bf16, ds[q][k] as dk/dv rounds it for its own product:
+// ds.astype(k.dtype) and ds.astype(q.dtype) are the same rounding, so dq
+// from the stored ds multiplies what it would have formed itself, at half
+// the f32 buffer's bytes; its rows are read 16 bytes at a time, so the
+// plan stores it only where T % 8 == 0. No atomics: reruns are bit-equal.
+
+template <int D_, int WARPS_, int BS_, int STAGES_, int MIN_BLOCKS_>
+struct CfgB {
+  static constexpr int D = D_, WARPS = WARPS_, BS = BS_, STAGES = STAGES_;
+  static constexpr int MIN_BLOCKS = MIN_BLOCKS_;
+  static constexpr int ROWS = 8 * WARPS, NT = 32 * WARPS;  // 16 rows a pair
+  static constexpr int NJ = BS / 8;   // score n-tiles
+  static constexpr int ND = D / 16;   // accumulator n-tiles: half of D
+  static constexpr int LD = D + 8;    // row pitch in bf16 values
+  static constexpr int TILE = BS * LD;  // a streamed matrix, bf16 values
+  // a stage in floats: two bf16 matrices, then LSE, delta and segment ids
+  static constexpr int STAGE = TILE + 3 * BS;
+  static constexpr int XCHG = WARPS * NJ * 128;  // the pairs' exchange
+  static constexpr int SMEM_BYTES = 4 * (STAGES * STAGE + XCHG);
+  static_assert(WARPS % 2 == 0 && WARPS <= 8, "pairs of warps");
+  static_assert(BS % 16 == 0 && BS <= 32, "k-steps of 16 rows");
+  static_assert(SMEM_BYTES <= 232448, "shared memory a block may use");
+};
+
+// The instances (nn/cuda_attention.py: _BWD_TILES_BF16, by index): Large,
+// 8 warps over 64 resident rows and streamed tiles of 32, one block an SM;
+// Small, 4 warps over 32 rows and tiles of 16, two an SM. At D = 128 51
+// and 23 KB of shared memory (the dq-from-ds kernel's four stages: 56
+// and 24 KB).
+template <int D>
+using LargeB = CfgB<D, 8, 32, 2, 1>;
+template <int D>
+using SmallB = CfgB<D, 4, 16, 2, 2>;
+
+struct ArgsB {
+  const bf16 *q, *k, *v;
+  const int* seg;
+  const bf16* dout;
+  const float *lse, *delta;
+  bf16 *dq, *dk, *dv;
+  bf16* ds;     // [B * H, T, T]: dk/dv writes its ds there, dq reads it
+  int B, H, T;
+  float scale;
+  int causal;
+  int vec;      // 8: 16-byte copies (q, k, v, dout 16-byte aligned), or 2
+};
+
+template <class C>
+__global__ void __launch_bounds__(C::NT, C::MIN_BLOCKS)
+flash_bwd_dq_bf16_kernel(const ArgsB a) {
+  extern __shared__ __align__(16) float smem[];
+  float* ring = smem;
+  float* xchg = ring + C::STAGES * C::STAGE;
+  const int T = a.T, BH = a.B * a.H;
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const int half = threadIdx.x / 32 % 2;       // 0: s, 1: dp; half of D
+  const int wrow = 16 * (threadIdx.x / 64);
+  const int bh = blockIdx.x % BH, rank = blockIdx.x / BH;
+  const int n_rt = (T + C::ROWS - 1) / C::ROWS;
+  const int q0 = (a.causal ? n_rt - 1 - rank : rank) * C::ROWS;
+  const size_t base = (size_t)bh * T * C::D;
+  const int* seg = a.seg ? a.seg + (size_t)(bh / a.H) * T : nullptr;
+
+  const int n_st = (T + C::BS - 1) / C::BS;
+  const int end = a.causal ? min((q0 + C::ROWS - 1) / C::BS + 1, n_st) : n_st;
+  const int2 own = seg ? seg_range(seg, q0, C::ROWS, T) : make_int2(0, 0);
+  const auto load = [&](float* st, int kt) {
+    bf16* kv = reinterpret_cast<bf16*>(st);
+    by_width<8, 2>(a, [&](auto vec) {
+      stage_rows<C, decltype(vec)::value>(kv, a.k + base, kt * C::BS, T);
+      stage_rows<C, decltype(vec)::value>(kv + C::TILE, a.v + base,
+                                          kt * C::BS, T);
+    });
+    if (seg)
+      stage_vec<C>(st + C::TILE + 2 * C::BS,
+                   reinterpret_cast<const float*>(seg), kt * C::BS, T);
+  };
+
+  unsigned af[C::D / 16][4];                   // Q, or dO
+  a_rows<C::D>(af, (half ? a.dout : a.q) + base, q0 + wrow, T, g, t);
+  float acc[C::ND][4];
+#pragma unroll
+  for (int n = 0; n < C::ND; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  const float sl2e = a.scale * LOG2E;
+  int qrow[2], qseg[2];
+  float lse_r[2], delta_r[2];                  // LSE as -lse * log2 e
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = q0 + wrow + g + 8 * h;
+    const bool live = row < T;
+    qrow[h] = row;
+    lse_r[h] = live ? -a.lse[(size_t)bh * T + row] * LOG2E : 0.f;
+    delta_r[h] = live ? a.delta[(size_t)bh * T + row] : 0.f;
+    qseg[h] = seg && live ? seg[row] : 0;
+  }
+  stream<C>(ring, seg, own, 0, end, T, [] {}, load, [&](const float* st,
+                                                          int kt) {
+    const int k0 = kt * C::BS;
+    if (q0 + wrow >= T || (a.causal && k0 > q0 + wrow + 15)) return;
+    const bf16* kv = reinterpret_cast<const bf16*>(st);
+    // s = Q . K^T in one warp of the pair, dp = dO . V^T in the other
+    float x[C::NJ][4], y[C::NJ][4];
+    scores_bf16<C>(x, af, kv + half * C::TILE);
+    const int* kseg = reinterpret_cast<const int*>(st + C::TILE + 2 * C::BS);
+    const bool inside = !seg && k0 + C::BS <= T && q0 + wrow + 16 <= T &&
+                        (!a.causal || k0 + C::BS - 1 <= q0 + wrow);
+    if (half) {                                     // dp - delta
+#pragma unroll
+      for (int j = 0; j < C::NJ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) x[j][e] -= delta_r[e >> 1];
+    } else {                                        // p
+#pragma unroll
+      for (int j = 0; j < C::NJ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int h = e >> 1, col = 8 * j + 2 * t + (e & 1);
+          const int kj = k0 + col;
+          bool vis = true;
+          if (!inside) {
+            vis = qrow[h] < T && kj < T;
+            if (a.causal) vis = vis && kj <= qrow[h];
+            if (seg) vis = vis && kseg[col] == qseg[h] && qseg[h] > 0;
+          }
+          x[j][e] =
+              exp2_ftz(vis ? fmaf(x[j][e], sl2e, lse_r[h]) : -INFINITY);
+        }
+    }
+    swap_pair<C>(xchg, x, y);
+#pragma unroll
+    for (int j = 0; j < C::NJ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) x[j][e] *= y[j][e];  // ds = p * (dp - d)
+    accumulate_bf16<C, C::ND>(acc, x, kv, half * (C::D / 2));  // += ds . K
+  });
+  const float sc[2] = {a.scale, a.scale};
+  store_rows_bf16<C::ND>(acc, a.dq + base + half * (C::D / 2), q0 + wrow, T,
+                         C::D, sc, g, t);
+}
+
+template <class C>
+__global__ void __launch_bounds__(C::NT, C::MIN_BLOCKS)
+flash_bwd_dkv_bf16_kernel(const ArgsB a) {
+  extern __shared__ __align__(16) float smem[];
+  float* ring = smem;
+  float* xchg = ring + C::STAGES * C::STAGE;
+  const int T = a.T, BH = a.B * a.H;
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const int half = threadIdx.x / 32 % 2;       // 0: s^T, 1: dp^T; half of D
+  const int wrow = 16 * (threadIdx.x / 64);
+  const int bh = blockIdx.x % BH;
+  const int k0 = blockIdx.x / BH * C::ROWS;
+  const size_t base = (size_t)bh * T * C::D;
+  const int* seg = a.seg ? a.seg + (size_t)(bh / a.H) * T : nullptr;
+
+  const int end = (T + C::BS - 1) / C::BS;
+  const int first = a.causal ? k0 / C::BS : 0;
+  const int2 own = seg ? seg_range(seg, k0, C::ROWS, T) : make_int2(0, 0);
+  const float* lse = a.lse + (size_t)bh * T;
+  const float* delta = a.delta + (size_t)bh * T;
+  const auto load = [&](float* st, int qt) {
+    const int r0 = qt * C::BS;
+    bf16* qd = reinterpret_cast<bf16*>(st);
+    by_width<8, 2>(a, [&](auto vec) {
+      stage_rows<C, decltype(vec)::value>(qd, a.q + base, r0, T);
+      stage_rows<C, decltype(vec)::value>(qd + C::TILE, a.dout + base, r0,
+                                          T);
+    });
+    stage_vec<C>(st + C::TILE, lse, r0, T);
+    stage_vec<C>(st + C::TILE + C::BS, delta, r0, T);
+    if (seg)
+      stage_vec<C>(st + C::TILE + 2 * C::BS,
+                   reinterpret_cast<const float*>(seg), r0, T);
+  };
+
+  unsigned af[C::D / 16][4];                   // K, or V
+  a_rows<C::D>(af, (half ? a.v : a.k) + base, k0 + wrow, T, g, t);
+  float dk[C::ND][4], dv[C::ND][4];
+#pragma unroll
+  for (int n = 0; n < C::ND; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
+  const float sl2e = a.scale * LOG2E;
+  int krow[2], kseg[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    krow[h] = k0 + wrow + g + 8 * h;
+    kseg[h] = seg && krow[h] < T ? seg[krow[h]] : 0;
+  }
+  const int col0 = half * (C::D / 2);
+  stream<C>(ring, seg, own, first, end, T, [] {}, load, [&](const float* st,
+                                                              int qt) {
+    const int q0 = qt * C::BS;
+    if (k0 + wrow >= T || (a.causal && q0 + C::BS - 1 < k0 + wrow)) return;
+    const bf16* qd = reinterpret_cast<const bf16*>(st);
+    const float* Ls = st + C::TILE;
+    const float* Dl = Ls + C::BS;
+    const int* qseg = reinterpret_cast<const int*>(Dl + C::BS);
+    // s^T = K . Q^T in one warp of the pair, dp^T = V . dO^T in the other
+    float x[C::NJ][4], y[C::NJ][4];
+    scores_bf16<C>(x, af, qd + half * C::TILE);
+    const bool inside = !seg && q0 + C::BS <= T && k0 + wrow + 16 <= T &&
+                        (!a.causal || k0 + wrow + 15 <= q0);
+    if (half) {                                     // dp - delta
+#pragma unroll
+      for (int j = 0; j < C::NJ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) x[j][e] -= Dl[8 * j + 2 * t + (e & 1)];
+    } else {                                        // p
+#pragma unroll
+      for (int j = 0; j < C::NJ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int h = e >> 1, col = 8 * j + 2 * t + (e & 1);
+          const int qi = q0 + col;
+          bool vis = true;
+          if (!inside) {
+            vis = krow[h] < T && qi < T;
+            if (a.causal) vis = vis && krow[h] <= qi;
+            if (seg) vis = vis && qseg[col] == kseg[h] && kseg[h] > 0;
+          }
+          x[j][e] = exp2_ftz(vis ? fmaf(x[j][e], sl2e, -Ls[col] * LOG2E)
+                                 : -INFINITY);
+        }
+    }
+    swap_pair<C>(xchg, x, y);
+    float p[C::NJ][4];
+#pragma unroll
+    for (int j = 0; j < C::NJ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        p[j][e] = half ? y[j][e] : x[j][e];
+        x[j][e] *= y[j][e];                         // ds = p * (dp - delta)
+      }
+    if (a.ds && half) {   // bf16 ds[q][k] for dq's own product
+      bf16* out = a.ds + (size_t)bh * T * T;
+#pragma unroll
+      for (int j = 0; j < C::NJ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int qi = q0 + 8 * j + 2 * t + (e & 1), kj = krow[e >> 1];
+          if (qi < T && kj < T)
+            out[(size_t)qi * T + kj] = __float2bfloat16_rn(x[j][e]);
+        }
+    }
+    accumulate_bf16<C, C::ND>(dv, p, qd + C::TILE, col0);  // += p^T . dO
+    accumulate_bf16<C, C::ND>(dk, x, qd, col0);            // += ds^T . Q
+  });
+  const float sc[2] = {a.scale, a.scale}, one[2] = {1.f, 1.f};
+  store_rows_bf16<C::ND>(dk, a.dk + base + col0, k0 + wrow, T, C::D, sc, g,
+                         t);
+  store_rows_bf16<C::ND>(dv, a.dv + base + col0, k0 + wrow, T, C::D, one, g,
+                         t);
+}
+
+// flash_bwd_dq_bf16 from the bf16 ds that flash_bwd_dkv_bf16 stored: a
+// stage holds a K tile and the block's [ROWS x BS] tile of ds, whose
+// 4-byte words are dq's A fragments as they stand (masked by visibility,
+// so entries dk/dv did not write are never used); only dq += ds . K runs.
+template <class C>
+struct FromDsB : C {
+  // four stages: the kernel reads ds and K and runs one product, so it
+  // waits on memory; more tiles in flight hide that
+  static constexpr int STAGES = 4;
+  // ds rows: 16-byte pitch, and 4-byte fragment loads free of bank
+  // conflicts (pitch = 20 or 12 words)
+  static constexpr int LDDS = C::BS + 8;
+  static constexpr int STAGE = C::TILE / 2 + C::ROWS * LDDS / 2 + C::BS;
+  static constexpr int SMEM_BYTES = 4 * STAGES * STAGE;
+};
+
+template <class C>
+__global__ void __launch_bounds__(C::NT, C::MIN_BLOCKS)
+flash_bwd_dq_ds_bf16_kernel(const ArgsB a) {
+  extern __shared__ __align__(16) float smem[];
+  const int T = a.T, BH = a.B * a.H;
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const int half = threadIdx.x / 32 % 2;       // half of D
+  const int wrow = 16 * (threadIdx.x / 64);
+  const int bh = blockIdx.x % BH, rank = blockIdx.x / BH;
+  const int n_rt = (T + C::ROWS - 1) / C::ROWS;
+  const int q0 = (a.causal ? n_rt - 1 - rank : rank) * C::ROWS;
+  const size_t base = (size_t)bh * T * C::D;
+  const bf16* ds = a.ds + (size_t)bh * T * T;
+  const int* seg = a.seg ? a.seg + (size_t)(bh / a.H) * T : nullptr;
+
+  const int n_st = (T + C::BS - 1) / C::BS;
+  const int end = a.causal ? min((q0 + C::ROWS - 1) / C::BS + 1, n_st) : n_st;
+  const int2 own = seg ? seg_range(seg, q0, C::ROWS, T) : make_int2(0, 0);
+  // a stage: K at bf16 0, ds at bf16 TILE, segment ids at float
+  // TILE / 2 + ROWS * LDDS / 2
+  const auto load = [&](float* st, int kt) {
+    const int k0 = kt * C::BS;
+    bf16* kt_s = reinterpret_cast<bf16*>(st);
+    by_width<8, 2>(a, [&](auto vec) {
+      constexpr int VEC = decltype(vec)::value;
+      stage_rows<C, VEC>(kt_s, a.k + base, k0, T);
+      constexpr int PER_ROW = C::BS / VEC;       // ds rows (T % 8 == 0)
+      for (int i = threadIdx.x; i < C::ROWS * PER_ROW; i += C::NT) {
+        const int r = i / PER_ROW, c = i % PER_ROW * VEC;
+        const bool live = q0 + r < T && k0 + c < T;
+        cp_async_bytes<2 * VEC>(
+            kt_s + C::TILE + r * C::LDDS + c,
+            live ? ds + (size_t)(q0 + r) * T + k0 + c : ds, live);
+      }
+    });
+    if (seg)
+      stage_vec<C>(st + C::TILE / 2 + C::ROWS * C::LDDS / 2,
+                   reinterpret_cast<const float*>(seg), k0, T);
+  };
+
+  float acc[C::ND][4];
+#pragma unroll
+  for (int n = 0; n < C::ND; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  int qrow[2], qseg[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    qrow[h] = q0 + wrow + g + 8 * h;
+    qseg[h] = seg && qrow[h] < T ? seg[qrow[h]] : 0;
+  }
+  stream<C>(smem, seg, own, 0, end, T, [] {}, load, [&](const float* st,
+                                                          int kt) {
+    const int k0 = kt * C::BS;
+    if (q0 + wrow >= T || (a.causal && k0 > q0 + wrow + 15)) return;
+    const bf16* kt_s = reinterpret_cast<const bf16*>(st);
+    const bf16* dsS = kt_s + C::TILE;
+    const int* kseg = reinterpret_cast<const int*>(
+        st + C::TILE / 2 + C::ROWS * C::LDDS / 2);
+    const bool inside = !seg && k0 + C::BS <= T && q0 + wrow + 16 <= T &&
+                        (!a.causal || k0 + C::BS - 1 <= q0 + wrow);
+    // ds's A fragments: word r of a[kc] holds row g + 8 (r & 1), columns
+    // 16 kc + 8 (r >> 1) + 2t and the next
+    unsigned af[C::NJ / 2][4];
+#pragma unroll
+    for (int kc = 0; kc < C::NJ / 2; ++kc)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int h = r & 1, col = 16 * kc + 8 * (r >> 1) + 2 * t;
+        unsigned w = *reinterpret_cast<const unsigned*>(
+            dsS + (wrow + g + 8 * h) * C::LDDS + col);
+        if (!inside) {
+          unsigned keep = 0u;
+#pragma unroll
+          for (int b = 0; b < 2; ++b) {
+            const int kj = k0 + col + b;
+            bool vis = qrow[h] < T && kj < T;
+            if (a.causal) vis = vis && kj <= qrow[h];
+            if (seg) vis = vis && kseg[col + b] == qseg[h] && qseg[h] > 0;
+            keep |= vis ? 0xffffu << (16 * b) : 0u;
+          }
+          w &= keep;
+        }
+        af[kc][r] = w;
+      }
+    accumulate_frags<C, C::ND>(acc, af, kt_s, half * (C::D / 2));  // += ds.K
+  });
+  const float sc[2] = {a.scale, a.scale};
+  store_rows_bf16<C::ND>(acc, a.dq + base + half * (C::D / 2), q0 + wrow, T,
+                         C::D, sc, g, t);
+}
+
+template <bool DKV, class C>
+cudaError_t launch_bf16(const ArgsB& a, cudaStream_t stream) {
+  if constexpr (DKV) {
+    return launch_kernel<C>(flash_bwd_dkv_bf16_kernel<C>, a, stream);
+  } else {
+    if (a.ds)
+      return launch_kernel<FromDsB<C>>(flash_bwd_dq_ds_bf16_kernel<FromDsB<C>>,
+                                       a, stream);
+    return launch_kernel<C>(flash_bwd_dq_bf16_kernel<C>, a, stream);
+  }
+}
+
+template <bool DKV, int D>
+cudaError_t dispatch_bf16(const ArgsB& a, int tile, cudaStream_t stream) {
+  if (a.vec != 8 && a.vec != 2) return cudaErrorInvalidValue;
+  if (tile == 0) return launch_bf16<DKV, LargeB<D>>(a, stream);
+  if (tile == 1) return launch_bf16<DKV, SmallB<D>>(a, stream);
+  return cudaErrorInvalidValue;
+}
+
+template <bool DKV>
+int run_bf16(const ArgsB& a, int D, int tile, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (D == 64) return static_cast<int>(dispatch_bf16<DKV, 64>(a, tile, st));
+  if (D == 128) return static_cast<int>(dispatch_bf16<DKV, 128>(a, tile, st));
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -595,5 +1011,56 @@ extern "C" int flash_bwd_smem_bytes(int D, int tile) {
                                 : tile == 1 ? Small<64>::SMEM_BYTES : -1;
   if (D == 128) return tile == 0 ? Large<128>::SMEM_BYTES
                                  : tile == 1 ? Small<128>::SMEM_BYTES : -1;
+  return -1;
+}
+
+// q, k, v, dout, dq: [B, H, T, D] bfloat16, contiguous. seg: [B, T] int32
+// or null. lse, delta: [B, H, T] float32. ds: null, or [B * H, T, T]
+// bfloat16 that flash_bwd_dkv_bf16_f32 filled on these inputs (then only
+// ds . k runs; T % 8 == 0, 16-byte aligned). tile: 0 (LargeB) or 1
+// (SmallB); vec: 8 (16-byte copies: q, k, v and dout 16-byte aligned) or 2
+// (4-byte aligned). Returns a cudaError_t (0 = launched).
+extern "C" int flash_bwd_dq_bf16_f32(const void* q, const void* k,
+                                     const void* v, const void* seg,
+                                     const void* dout, const void* lse,
+                                     const void* delta, void* dq, void* ds,
+                                     int B, int H, int T, int D, float scale,
+                                     int causal, int tile, int vec,
+                                     void* stream) {
+  const ArgsB a{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                static_cast<const bf16*>(v), static_cast<const int*>(seg),
+                static_cast<const bf16*>(dout), static_cast<const float*>(lse),
+                static_cast<const float*>(delta), static_cast<bf16*>(dq),
+                nullptr, nullptr, static_cast<bf16*>(ds), B, H, T, scale,
+                causal, vec};
+  return run_bf16<false>(a, D, tile, stream);
+}
+
+// As flash_bwd_dq_bf16_f32, writing dk and dv [B, H, T, D] bfloat16, and
+// with a non-null ds [B * H, T, T] bfloat16 also ds[q][k] of every tile it
+// visits.
+extern "C" int flash_bwd_dkv_bf16_f32(const void* q, const void* k,
+                                      const void* v, const void* seg,
+                                      const void* dout, const void* lse,
+                                      const void* delta, void* dk, void* dv,
+                                      void* ds, int B, int H, int T, int D,
+                                      float scale, int causal, int tile,
+                                      int vec, void* stream) {
+  const ArgsB a{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                static_cast<const bf16*>(v), static_cast<const int*>(seg),
+                static_cast<const bf16*>(dout), static_cast<const float*>(lse),
+                static_cast<const float*>(delta), nullptr,
+                static_cast<bf16*>(dk), static_cast<bf16*>(dv),
+                static_cast<bf16*>(ds), B, H, T, scale, causal, vec};
+  return run_bf16<true>(a, D, tile, stream);
+}
+
+// Dynamic shared memory of bf16 instance tile at head dim D (both
+// kernels), or -1.
+extern "C" int flash_bwd_bf16_smem_bytes(int D, int tile) {
+  if (D == 64) return tile == 0 ? LargeB<64>::SMEM_BYTES
+                                : tile == 1 ? SmallB<64>::SMEM_BYTES : -1;
+  if (D == 128) return tile == 0 ? LargeB<128>::SMEM_BYTES
+                                 : tile == 1 ? SmallB<128>::SMEM_BYTES : -1;
   return -1;
 }

@@ -1,5 +1,6 @@
-// Flash-attention forward, float32, for sm_90a, on the tensor cores in
-// split TF32.
+// Flash-attention forward for sm_90a: float32 operands on the tensor cores
+// in split TF32, and bfloat16 operands on bf16 mma.sync (at the end of the
+// file).
 //
 // Replaces paddle_tpu/nn/pallas_attention.py:_attn_kernel (launched by
 // _flash_forward): blockwise online-softmax attention over [B, H, T, D]
@@ -310,6 +311,236 @@ cudaError_t dispatch(const Args& a, int tile, cudaStream_t stream) {
   return cudaErrorInvalidValue;
 }
 
+// ---------------------------------------------------------------------------
+// bfloat16 operands (flash_fwd_bf16)
+// ---------------------------------------------------------------------------
+//
+// _attn_kernel on bf16 q, k, v: the scores are f32 sums of exact bf16
+// products, p = exp(s - m) stays f32 for the row sum l, and p is rounded
+// to bf16 before O += p . V (pallas_attention.py:151); O is written in
+// bf16 and the LSE in f32.
+//
+// Where p is rounded decides what the output is: rounding exp(s - m) with
+// a running max, as a one-pass online softmax over key tiles does, and
+// rescaling later differs from rounding it against the row's final max
+// (flash_attention_plain; JAX at its default blocks, one key block per
+// row up to T = 1024) in 16-28% of the outputs at T = 256 and key tiles of
+// 64. So the kernel makes two passes over the row's keys. The first
+// computes S = Q . K^T alone (no V) and each row's max m over its visible
+// scores; the second computes S again, bit for bit the same, p = 2^(s
+// log2 e - m log2 e) with that final m, l += p, and O += bf16(p) . V with
+// no rescaling at all. The max pass costs 2 D of the 6 D operations a
+// visible pair takes (4 D in one pass).
+//
+// Design: a block of RG warps owns 16 * RG query rows, a warp 16 of them
+// and every key of each streamed tile of BS keys, in steps of SUB = 32
+// keys (a score tile of 16 x 64 and its partials spilled at D = 128).
+// Each warp's Q fragments
+// load from global memory once, into registers (Q is read by nobody
+// else). K (and in the second pass V) tiles land raw by cp.async in the
+// ring of flash_tiles.cuh, 16-byte copies where q, k and v are 16-byte
+// aligned, else 4-byte ones; the fragments come by ldmatrix (K rows as B
+// columns for S; V by ldmatrix.trans for P . V). S contracts over D in
+// partials of 32, P . V in one fresh partial a step per 8 columns, each
+// added by FADD. P is packed from the score accumulators straight into A
+// fragments (mma_bf16.cuh: a_from_acc), so it never passes through shared
+// memory. Masks, the causal cone and segment skips, the -1e30 floor of m,
+// the 1e-30 clamp of l and the epilogue are the f32 kernel's.
+
+// RG warps of 16 query rows each, key tiles of BS rows taken SUB at a
+// time.
+template <int D_, int RG_, int BS_, int STAGES_, int MIN_BLOCKS_>
+struct CfgB {
+  static constexpr int D = D_, RG = RG_, BS = BS_;
+  static constexpr int STAGES = STAGES_, MIN_BLOCKS = MIN_BLOCKS_;
+  static constexpr int NT = 32 * RG, ROWS = 16 * RG;
+  static constexpr int SUB = 32;         // keys a step
+  static constexpr int NJ = SUB / 8;     // score n-tiles of a step
+  static constexpr int ND = D / 8;       // output n-tiles
+  static constexpr int LD = D + 8;       // row pitch in bf16 values
+  static constexpr int TILE = BS * LD;   // a streamed matrix, bf16 values
+  // a stage in floats: K and V (two matrices of bf16), segment ids
+  static constexpr int STAGE = TILE + BS;
+  static constexpr int SMEM_BYTES = 4 * STAGES * STAGE;
+  static_assert(BS % SUB == 0, "whole steps a tile");
+  static_assert(SMEM_BYTES <= 232448, "shared memory a block may use");
+};
+
+// The instances (nn/cuda_attention.py: _FWD_TILES_BF16, by index): Large,
+// 8 warps over 128 rows, key tiles of 64, one block an SM (at D = 128 the
+// Q fragments, the O accumulator and a 32-key step's scores take 255
+// registers a thread, 176 at D = 64); Small, 4 warps over 64 rows, two
+// blocks an SM, for shapes that leave Large under a wave. At D = 128 70
+// KB of shared memory a block, at D = 64 37 KB.
+template <int D>
+using LargeB = CfgB<D, 8, 64, 2, 1>;
+template <int D>
+using SmallB = CfgB<D, 4, 64, 2, 2>;
+
+struct ArgsB {
+  const bf16 *q, *k, *v;
+  const int* seg;
+  bf16* o;
+  float* lse;
+  int B, H, T;
+  float scale;
+  int causal;
+  int vec;      // 8: 16-byte copies (q, k, v 16-byte aligned), or 2
+};
+
+template <class C>
+__global__ void __launch_bounds__(C::NT, C::MIN_BLOCKS)
+flash_fwd_bf16_kernel(const ArgsB a) {
+  extern __shared__ __align__(16) float smem[];
+  float* ring = smem;
+  const int T = a.T, BH = a.B * a.H;
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const int wrow = 16 * (threadIdx.x / 32);
+  const int bh = blockIdx.x % BH, rank = blockIdx.x / BH;
+  const int n_rt = (T + C::ROWS - 1) / C::ROWS;
+  const int q0 = (a.causal ? n_rt - 1 - rank : rank) * C::ROWS;
+  const size_t base = (size_t)bh * T * C::D;
+  const int* seg = a.seg ? a.seg + (size_t)(bh / a.H) * T : nullptr;
+
+  const int n_st = (T + C::BS - 1) / C::BS;
+  const int end = a.causal ? min((q0 + C::ROWS - 1) / C::BS + 1, n_st) : n_st;
+  const int2 own = seg ? seg_range(seg, q0, C::ROWS, T) : make_int2(0, 0);
+  // a stage: K at bf16 0, V at bf16 TILE, segment ids at float TILE
+  const auto load = [&](float* st, int kt, bool with_v) {
+    bf16* kv = reinterpret_cast<bf16*>(st);
+    by_width<8, 2>(a, [&](auto vec) {
+      constexpr int VEC = decltype(vec)::value;
+      stage_rows<C, VEC>(kv, a.k + base, kt * C::BS, T);
+      if (with_v) stage_rows<C, VEC>(kv + C::TILE, a.v + base, kt * C::BS, T);
+    });
+    if (seg)
+      stage_vec<C>(st + C::TILE, reinterpret_cast<const float*>(seg),
+                   kt * C::BS, T);
+  };
+
+  unsigned qf[C::D / 16][4];
+  a_rows<C::D>(qf, a.q + base, q0 + wrow, T, g, t);
+  int qrow[2], qseg[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    qrow[h] = q0 + wrow + g + 8 * h;
+    qseg[h] = seg && qrow[h] < T ? seg[qrow[h]] : 0;
+  }
+  // s = the warp's scaled scores against keys [sub * SUB, + SUB) of tile
+  // kt, -inf where masked; false where the warp's rows lie past T or see
+  // no key of the step
+  const auto tile_scores = [&](const float* st, int kt, int sub,
+                               float (&s)[C::NJ][4]) {
+    const int k0 = kt * C::BS + sub * C::SUB;
+    if (q0 + wrow >= T || k0 >= T || (a.causal && k0 > q0 + wrow + 15))
+      return false;
+    scores_bf16<C>(s, qf,
+                   reinterpret_cast<const bf16*>(st) + sub * C::SUB * C::LD);
+    // every key of the step in T, inside the warp's cone, no segments
+    const bool inside = !seg && k0 + C::SUB <= T &&
+                        (!a.causal || k0 + C::SUB - 1 <= q0 + wrow);
+    const int* kseg =
+        reinterpret_cast<const int*>(st + C::TILE) + sub * C::SUB;
+#pragma unroll
+    for (int j = 0; j < C::NJ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int h = e >> 1, col = 8 * j + 2 * t + (e & 1);
+        bool vis = true;
+        if (!inside) {
+          vis = k0 + col < T;
+          if (a.causal) vis = vis && k0 + col <= qrow[h];
+          if (seg) vis = vis && kseg[col] == qseg[h] && qseg[h] > 0;
+        }
+        s[j][e] = vis ? s[j][e] * a.scale : -INFINITY;
+      }
+    return true;
+  };
+
+  // pass 1: each row's max over its visible scores
+  float m[2] = {NEG, NEG};
+  stream<C>(ring, seg, own, 0, end, T, [] {},
+            [&](float* st, int kt) { load(st, kt, false); },
+            [&](const float* st, int kt) {
+#pragma unroll 1  // steps one after the other: interleaved, they spill
+              for (int sub = 0; sub < C::BS / C::SUB; ++sub) {
+                float s[C::NJ][4];
+                if (!tile_scores(st, kt, sub, s)) continue;
+#pragma unroll
+                for (int h = 0; h < 2; ++h) {
+                  float mx = -INFINITY;
+#pragma unroll
+                  for (int j = 0; j < C::NJ; ++j)
+                    mx = fmaxf(mx, fmaxf(s[j][2 * h], s[j][2 * h + 1]));
+                  mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+                  mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+                  m[h] = fmaxf(m[h], mx);
+                }
+              }
+            });
+  __syncthreads();           // every warp is done with the ring
+  // pass 2: p = exp(s - m) against the final m, l += p, O += bf16(p) . V
+  float mneg[2], l[2] = {0.f, 0.f};          // l: this lane's columns
+#pragma unroll
+  for (int h = 0; h < 2; ++h) mneg[h] = -m[h] * LOG2E;
+  float acc[C::ND][4];
+#pragma unroll
+  for (int n = 0; n < C::ND; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  stream<C>(ring, seg, own, 0, end, T, [] {},
+            [&](float* st, int kt) { load(st, kt, true); },
+            [&](const float* st, int kt) {
+#pragma unroll 1  // steps one after the other: interleaved, they spill
+              for (int sub = 0; sub < C::BS / C::SUB; ++sub) {
+                float s[C::NJ][4];
+                if (!tile_scores(st, kt, sub, s)) continue;
+#pragma unroll
+                for (int j = 0; j < C::NJ; ++j)
+#pragma unroll
+                  for (int e = 0; e < 4; ++e) {
+                    s[j][e] = exp2_ftz(fmaf(s[j][e], LOG2E, mneg[e >> 1]));
+                    l[e >> 1] += s[j][e];
+                  }
+                accumulate_bf16<C, C::ND>(
+                    acc, s, reinterpret_cast<const bf16*>(st) + C::TILE
+                                + sub * C::SUB * C::LD, 0);
+              }
+            });
+  float inv[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float lr = l[h] + __shfl_xor_sync(0xffffffffu, l[h], 1);
+    lr += __shfl_xor_sync(0xffffffffu, lr, 2);
+    const float lf = fmaxf(lr, 1e-30f);
+    inv[h] = 1.f / lf;
+    if (t == 0 && qrow[h] < T)
+      a.lse[(size_t)bh * T + qrow[h]] = m[h] + logf(lf);
+  }
+  store_rows_bf16<C::ND>(acc, a.o + base, q0 + wrow, T, C::D, inv, g, t);
+}
+
+template <class C>
+cudaError_t launch_bf16(const ArgsB& a, cudaStream_t stream) {
+  const cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_bf16_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      C::SMEM_BYTES);
+  if (err != cudaSuccess) return err;
+  const long long blocks =
+      (long long)a.B * a.H * ((a.T + C::ROWS - 1) / C::ROWS);
+  flash_fwd_bf16_kernel<C>
+      <<<(unsigned)blocks, C::NT, C::SMEM_BYTES, stream>>>(a);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t dispatch_bf16(const ArgsB& a, int tile, cudaStream_t stream) {
+  if (a.vec != 8 && a.vec != 2) return cudaErrorInvalidValue;
+  if (tile == 0) return launch_bf16<LargeB<D>>(a, stream);
+  if (tile == 1) return launch_bf16<SmallB<D>>(a, stream);
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 // q, k, v, o: [B, H, T, D] float32, contiguous. seg: [B, T] int32 or null.
@@ -337,5 +568,33 @@ extern "C" int flash_fwd_smem_bytes(int D, int tile) {
                                 : tile == 1 ? Small<64>::SMEM_BYTES : -1;
   if (D == 128) return tile == 0 ? Large<128>::SMEM_BYTES
                                  : tile == 1 ? Small<128>::SMEM_BYTES : -1;
+  return -1;
+}
+
+// q, k, v, o: [B, H, T, D] bfloat16, contiguous. seg: [B, T] int32 or
+// null. lse: [B, H, T] float32. tile: 0 (LargeB) or 1 (SmallB); vec: 8
+// (16-byte copies: q, k and v 16-byte aligned) or 2 (4-byte aligned).
+// Returns a cudaError_t (0 = launched).
+extern "C" int flash_fwd_bf16_f32(const void* q, const void* k,
+                                  const void* v, const void* seg, void* o,
+                                  void* lse, int B, int H, int T, int D,
+                                  float scale, int causal, int tile, int vec,
+                                  void* stream) {
+  const ArgsB a{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                static_cast<const bf16*>(v), static_cast<const int*>(seg),
+                static_cast<bf16*>(o), static_cast<float*>(lse), B, H, T,
+                scale, causal, vec};
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (D == 64) return static_cast<int>(dispatch_bf16<64>(a, tile, st));
+  if (D == 128) return static_cast<int>(dispatch_bf16<128>(a, tile, st));
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Dynamic shared memory of bf16 instance tile at head dim D, or -1.
+extern "C" int flash_fwd_bf16_smem_bytes(int D, int tile) {
+  if (D == 64) return tile == 0 ? LargeB<64>::SMEM_BYTES
+                                : tile == 1 ? SmallB<64>::SMEM_BYTES : -1;
+  if (D == 128) return tile == 0 ? LargeB<128>::SMEM_BYTES
+                                 : tile == 1 ? SmallB<128>::SMEM_BYTES : -1;
   return -1;
 }

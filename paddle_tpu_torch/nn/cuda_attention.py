@@ -20,6 +20,13 @@ backward is :func:`flash_attention_bwd` (the ``flash_bwd_dq`` and
 ``flash_bwd_dkv`` kernels). Under ``torch.no_grad()`` it launches the
 forward kernel alone and saves nothing.
 
+The flash kernels take q, k, v (and dO, O) all float32 or all bfloat16,
+as the JAX kernels take either: bf16 operands launch ``flash_fwd_bf16``,
+``flash_bwd_dq_bf16`` and ``flash_bwd_dkv_bf16``, which multiply bf16
+values into f32 sums, round p (and ds) to bf16 before the second product
+and write O, dq, dk and dv in bf16; the LSE and delta stay f32. Mixed
+dtypes are refused on the card (JAX would promote them).
+
 Layouts are the JAX package's: ``[B, H, T, D]`` for flash, LSE and delta
 ``[B, H, T]``; ``q [S, H, D]``, one layer's pools ``[N, bs, H, D]``,
 ``tables [S, MB]``, ``lengths [S]`` for paged decode; ``q [S, Q, H, D]``
@@ -31,9 +38,9 @@ dequantize it on chip and count their launches apart
 ``p . V`` as JAX's kernels round it (``paged_decode_bf16``,
 ``paged_span_bf16``). The paged kernels split the context into fixed
 partitions (:func:`paged_plan`) and merge the partials in a second launch
-(a bf16 call runs a max pass over K first). The kernels take float32
-queries (the path's projections accumulate in f32) and ``D`` in {64,
-128}.
+(a bf16 call runs a max pass over K first). The paged kernels take
+float32 queries (the path's projections accumulate in f32); all take
+``D`` in {64, 128}.
 """
 
 from __future__ import annotations
@@ -53,7 +60,7 @@ __all__ = ["FlashAttentionFunction", "FlashBwdPlan", "FlashFwdPlan",
            "flash_attention_bwd", "flash_attention_bwd_plain",
            "flash_attention_fwd", "flash_attention_plain", "flash_bwd_dkv",
            "flash_bwd_dkv_plain", "flash_bwd_dq", "flash_bwd_dq_plain",
-           "flash_bwd_plan", "flash_fwd_plan",
+           "flash_bwd_plan", "flash_fwd_plan", "flash_copy_width",
            "paged_decode_attention", "paged_decode_plain",
            "paged_span_attention", "paged_span_plain", "paged_plan",
            "paged_rounding_slack",
@@ -67,6 +74,8 @@ _HEAD_DIMS = (64, 128)
 # kernel name -> csrc source stem
 KERNELS = {"flash_fwd": "flash_fwd", "paged_decode": "paged_decode",
            "flash_bwd_dq": "flash_bwd", "flash_bwd_dkv": "flash_bwd",
+           "flash_fwd_bf16": "flash_fwd", "flash_bwd_dq_bf16": "flash_bwd",
+           "flash_bwd_dkv_bf16": "flash_bwd",
            "paged_span": "paged_span", "paged_span_int8": "paged_span",
            "paged_decode_int8": "paged_decode",
            "paged_decode_bf16": "paged_decode",
@@ -212,10 +221,36 @@ def flash_attention_bwd_plain(q, k, v, segments, o, lse, do,
     return dq, dk, dv
 
 
+_FLASH_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _kernel_name(name: str, dtype) -> str:
+    """The flash kernel ``name`` for operands of ``dtype``: ``name`` for
+    float32, ``name + "_bf16"`` for bfloat16."""
+    return name + "_bf16" if dtype == torch.bfloat16 else name
+
+
+def flash_copy_width(*operands) -> int:
+    """The copy a flash kernel stages rows with, in values: for float32
+    operands 4 (16-byte ``cp.async``: every base pointer 16-byte aligned)
+    or 1 (4-byte copies); for bf16 ones 8 (16 bytes) or 2 (4 bytes: every
+    base pointer 4-byte aligned), and 0 where a bf16 pointer lies 2 bytes
+    off 4, which no copy of the kernels takes. A row of D in {64, 128}
+    values is a whole number of either copy."""
+    if operands[0].dtype == torch.bfloat16:
+        for width, align in ((8, 16), (2, 4)):
+            if all(t.data_ptr() % align == 0 for t in operands):
+                return width
+        return 0
+    return copy_width(*operands)
+
+
 def _check_flash(name: str, q, k, v, segments, same=None, rows=None):
     """Validate the flash kernels' operands for a launch on ``q``'s card:
-    ``k``, ``v`` and ``same`` shaped like ``q``, ``rows`` ``[B, H, T]``,
-    all f32 and contiguous on one device, ``segments`` ``[B, T]`` int32.
+    ``k``, ``v`` and ``same`` shaped like ``q`` and of its dtype (float32
+    or bf16; a mixed call is refused: JAX would promote it, the kernels
+    take one dtype), bf16 ones at least 4-byte aligned, ``rows`` ``[B, H,
+    T]`` f32, all contiguous on one device, ``segments`` ``[B, T]`` int32.
     Returns the segments pointer (``None`` without segments)."""
     if q.device.type != "cuda":
         raise ValueError(f"{name}: no kernel for {q.device}")
@@ -234,8 +269,20 @@ def _check_flash(name: str, q, k, v, segments, same=None, rows=None):
         raise ValueError(f"{name}: head dim {D} not in {_HEAD_DIMS}")
     if B * H > 65535:
         raise ValueError(f"{name}: B*H = {B * H} exceeds the grid's 65535")
-    check_dtype(name, torch.float32, q=q, **same, **rows)
+    if q.dtype not in _FLASH_DTYPES:
+        raise ValueError(f"{name}: q has dtype {q.dtype}, the kernels take "
+                         f"torch.float32 or torch.bfloat16")
+    mixed = {key: t.dtype for key, t in same.items() if t.dtype != q.dtype}
+    if mixed:
+        raise ValueError(f"{name}: mixed dtypes, q {q.dtype} and "
+                         + ", ".join(f"{key} {d}" for key, d in mixed.items())
+                         + "; the kernels take one dtype")
+    check_dtype(name, torch.float32, **rows)
     check_cuda(name, q.device, q=q, **same, **rows)
+    if flash_copy_width(q, *same.values()) == 0:
+        raise ValueError(f"{name}: a bf16 operand lies 2 bytes off a 4-byte "
+                         f"boundary; the kernels copy 4 or 16 bytes at a "
+                         f"time")
     if segments is None:
         return None
     if tuple(segments.shape) != (B, T):
@@ -261,19 +308,22 @@ def flash_attention_fwd(q, k, v, segments=None, causal: bool = False,
     across heads. Any ``T`` is taken; tiles past ``T`` are masked. CUDA
     tensors launch ``flash_fwd`` on :func:`flash_fwd_plan`'s instance,
     with 16-byte copies where ``q``, ``k`` and ``v`` allow them, else
-    4-byte ones (any contiguous view)."""
+    4-byte ones (any contiguous view); bf16 tensors launch
+    ``flash_fwd_bf16`` (O in bf16, the LSE in f32), on views at any 4-byte
+    offset."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, segments, causal, scale)
     seg_ptr = _check_flash("flash_attention", q, k, v, segments)
     B, H, T, D = q.shape
     scale = D ** -0.5 if scale is None else float(scale)
-    plan = flash_fwd_plan(B, H, T, D, causal)
+    plan = flash_fwd_plan(B, H, T, D, causal, q.dtype)
     out = torch.empty_like(q)
     lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):          # launch on q's card
-        _launch("flash_fwd", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                seg_ptr, out.data_ptr(), lse.data_ptr(), B, H, T, D, scale,
-                int(causal), plan.tile, copy_width(q, k, v), stream_ptr(q))
+        _launch(_kernel_name("flash_fwd", q.dtype), q.data_ptr(),
+                k.data_ptr(), v.data_ptr(), seg_ptr, out.data_ptr(),
+                lse.data_ptr(), B, H, T, D, scale, int(causal), plan.tile,
+                flash_copy_width(q, k, v), stream_ptr(q))
     return out, lse
 
 
@@ -298,6 +348,21 @@ _FWD_TILES = {D: (_FwdTile(128, 32, 2, 1, 1), _FwdTile(32, 32, 2, 2, 2))
               for D in (64, 128)}
 _BWD_TILES = {128: (_BwdTile(64, 32, 2, 1), _BwdTile(32, 16, 2, 2)),
               64: (_BwdTile(64, 32, 2, 1), _BwdTile(32, 16, 2, 3))}
+# the bf16 instances (LargeB, SmallB): the forward's warps each take 16
+# rows and every key of a tile of 64 (no key splits), the backward's the
+# f32 shapes
+_FWD_TILES_BF16 = {D: (_FwdTile(128, 64, 2, 1, 1), _FwdTile(64, 64, 2, 2, 1))
+                   for D in (64, 128)}
+_BWD_TILES_BF16 = {D: (_BwdTile(64, 32, 2, 1), _BwdTile(32, 16, 2, 2))
+                   for D in (64, 128)}
+
+
+def _fwd_tiles(dtype=torch.float32):
+    return _FWD_TILES_BF16 if dtype == torch.bfloat16 else _FWD_TILES
+
+
+def _bwd_tiles(dtype=torch.float32):
+    return _BWD_TILES_BF16 if dtype == torch.bfloat16 else _BWD_TILES
 _SMS = 132           # the H100's SMs: one wave of blocks
 # largest [B*H, T, T] ds buffer the backward stores: the buffer lives for
 # one flash_attention_bwd call, so it raises a step's peak memory by its
@@ -335,32 +400,40 @@ class FlashFwdPlan(NamedTuple):
     grid: int
 
 
-def _fwd_smem(D: int, t: _FwdTile) -> int:
+def _fwd_smem(D: int, t: _FwdTile, dtype=torch.float32) -> int:
     """``Cfg::SMEM_BYTES`` of the forward: Q's hi and lo planes, ``rows x
     (D + 4)`` each, and per stage K and V, ``stream_rows x (D + 4)`` each,
     and their ``stream_rows`` segment ids (the key splits' merge reuses
-    the ring)."""
+    the ring). bf16 (``CfgB``): no Q planes (each warp's Q fragments live
+    in registers); per stage K and V as bf16 rows of pitch ``D + 8`` and
+    the segment ids."""
+    if dtype == torch.bfloat16:
+        return 4 * t.stages * (t.stream_rows * (D + 8) + t.stream_rows)
     ld = D + 4
     return 4 * (2 * t.rows * ld
                 + t.stages * (2 * t.stream_rows * ld + t.stream_rows))
 
 
-def flash_fwd_plan(B: int, H: int, T: int, D: int,
-                   causal: bool = False) -> FlashFwdPlan:
-    """The forward kernel's launch for ``[B, H, T, D]``; pure Python, a
-    function of the shapes alone, so one shape always takes one instance
-    and reruns are bit-equal. The large instance (128 query rows a block,
-    a warp each 16) unless its blocks would fill less than one wave of
-    the card, then the small one (32 rows, two warps each 16, splitting
-    the keys). ``causal`` changes no instance: the kernel only orders its
-    query tiles by it (the longest first)."""
+def flash_fwd_plan(B: int, H: int, T: int, D: int, causal: bool = False,
+                   dtype=torch.float32) -> FlashFwdPlan:
+    """The forward kernel's launch for ``[B, H, T, D]`` operands of
+    ``dtype`` (float32 or bfloat16); pure Python, a function of the shapes
+    and the dtype alone, so one shape always takes one instance and reruns
+    are bit-equal. The large instance (128 query rows a block, a warp each
+    16) unless its blocks would fill less than one wave of the card, then
+    the small one (f32: 32 rows, two warps each 16, splitting the keys;
+    bf16: 64 rows, a warp each 16, key tiles of 64). ``causal`` changes no
+    instance: the kernel only orders its query tiles by it (the longest
+    first)."""
     del causal
-    tile = _pick_tile(_FWD_TILES[D], B, H, T)
-    t = _FWD_TILES[D][tile]
+    tiles = _fwd_tiles(dtype)[D]
+    tile = _pick_tile(tiles, B, H, T)
+    t = tiles[tile]
     n = -(-T // t.rows)
     return FlashFwdPlan(tile, t.rows, t.rows // 16 * t.key_splits,
                         t.key_splits, t.stream_rows, t.stages,
-                        _fwd_smem(D, t), t.blocks_per_sm, n, B * H * n)
+                        _fwd_smem(D, t, dtype), t.blocks_per_sm, n,
+                        B * H * n)
 
 
 class FlashBwdPlan(NamedTuple):
@@ -388,35 +461,50 @@ class FlashBwdPlan(NamedTuple):
     stored_ds: bool
 
 
-def _bwd_smem(D: int, t: _BwdTile) -> int:
+def _bwd_smem(D: int, t: _BwdTile, dtype=torch.float32) -> int:
     """``Cfg::SMEM_BYTES``: four resident ``rows x (D + 4)`` planes (hi and
     lo of two operands), per stage two ``stream_rows x (D + 4)`` matrices
     and three ``stream_rows`` vectors (LSE, delta, segment ids), and the
-    pairs' exchange, a ``16 x stream_rows`` score tile a warp."""
+    pairs' exchange, a ``16 x stream_rows`` score tile a warp. bf16
+    (``CfgB``): no resident planes (each warp's fragments of its resident
+    operand live in registers), the two matrices as bf16 rows of pitch
+    ``D + 8``."""
+    xchg = t.rows // 8 * 16 * t.stream_rows
+    if dtype == torch.bfloat16:
+        return 4 * (t.stages * (t.stream_rows * (D + 8) + 3 * t.stream_rows)
+                    + xchg)
     ld = D + 4
     return 4 * (4 * t.rows * ld
                 + t.stages * (2 * t.stream_rows * ld + 3 * t.stream_rows)
-                + t.rows // 8 * 16 * t.stream_rows)
+                + xchg)
 
 
-def flash_bwd_plan(B: int, H: int, T: int, D: int,
-                   causal: bool = False) -> FlashBwdPlan:
-    """The backward kernels' launch for ``[B, H, T, D]``; pure Python, a
-    function of the shapes alone, so one shape always takes one instance
-    and reruns are bit-equal. The large instance unless its blocks would
-    fill less than one wave of the card (``_SMS`` SMs times the blocks an
-    SM holds), then the small one; ``ds`` stored where ``T`` is a multiple
-    of 4 (16-byte rows) and the buffer takes at most ``_DS_BUDGET`` (1
-    GiB: at ``T = 2048`` and 4 heads, batches up to 16).
-    ``causal`` changes no instance: the kernels only order their tiles by
-    it (the longest first)."""
+# what one stored ds entry takes, and the T it needs (16-byte rows)
+_DS_ITEM = {torch.float32: (4, 4), torch.bfloat16: (2, 8)}
+
+
+def flash_bwd_plan(B: int, H: int, T: int, D: int, causal: bool = False,
+                   dtype=torch.float32) -> FlashBwdPlan:
+    """The backward kernels' launch for ``[B, H, T, D]`` operands of
+    ``dtype`` (float32 or bfloat16); pure Python, a function of the shapes
+    and the dtype alone, so one shape always takes one instance and reruns
+    are bit-equal. The large instance unless its blocks would fill less
+    than one wave of the card (``_SMS`` SMs times the blocks an SM holds),
+    then the small one; ``ds`` stored, in the operands' dtype, where its
+    rows are whole 16-byte pieces (``T`` a multiple of 4 for f32, of 8 for
+    bf16) and the buffer takes at most ``_DS_BUDGET`` (1 GiB: at ``T =
+    2048`` and 4 heads, batches up to 16 in f32, 32 in bf16). ``causal``
+    changes no instance: the kernels only order their tiles by it (the
+    longest first)."""
     del causal
-    tile = _pick_tile(_BWD_TILES[D], B, H, T)
-    t = _BWD_TILES[D][tile]
+    tiles = _bwd_tiles(dtype)[D]
+    tile = _pick_tile(tiles, B, H, T)
+    t = tiles[tile]
     n = -(-T // t.rows)
+    item, mult = _DS_ITEM[dtype]
     return FlashBwdPlan(tile, t.rows, t.rows // 8, t.stream_rows, t.stages,
-                        _bwd_smem(D, t), t.blocks_per_sm, n, B * H * n,
-                        T % 4 == 0 and 4 * B * H * T * T <= _DS_BUDGET)
+                        _bwd_smem(D, t, dtype), t.blocks_per_sm, n, B * H * n,
+                        T % mult == 0 and item * B * H * T * T <= _DS_BUDGET)
 
 
 def _launch_bwd(name: str, q, k, v, seg_ptr, do, lse, delta, outs,
@@ -425,27 +513,29 @@ def _launch_bwd(name: str, q, k, v, seg_ptr, do, lse, delta, outs,
     stored-ds buffer (:attr:`FlashBwdPlan.stored_ds`) or ``None``."""
     B, H, T, D = q.shape
     scale = D ** -0.5 if scale is None else float(scale)
-    plan = flash_bwd_plan(B, H, T, D, causal)
+    plan = flash_bwd_plan(B, H, T, D, causal, q.dtype)
     with torch.cuda.device(q.device):          # launch on q's card
-        _launch(name, q.data_ptr(), k.data_ptr(), v.data_ptr(), seg_ptr,
-                do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-                *(t.data_ptr() for t in outs),
+        _launch(_kernel_name(name, q.dtype), q.data_ptr(), k.data_ptr(),
+                v.data_ptr(), seg_ptr, do.data_ptr(), lse.data_ptr(),
+                delta.data_ptr(), *(t.data_ptr() for t in outs),
                 None if ds is None else ds.data_ptr(), B, H, T, D, scale,
-                int(causal), plan.tile, copy_width(q, k, v, do),
+                int(causal), plan.tile, flash_copy_width(q, k, v, do),
                 stream_ptr(q))
 
 
 def _check_ds(name: str, q, ds) -> None:
-    """A stored-ds buffer: ``[B * H, T, T]`` f32, contiguous on ``q``'s
-    card, 16-byte aligned, ``T`` a multiple of 4 (the kernels copy its
-    rows 16 bytes at a time)."""
+    """A stored-ds buffer: ``[B * H, T, T]`` in q's dtype (f32 or bf16),
+    contiguous on ``q``'s card, 16-byte aligned, its rows whole 16-byte
+    pieces (``T`` a multiple of 4 for f32, of 8 for bf16: the kernels copy
+    its rows 16 bytes at a time)."""
     B, H, T, _ = q.shape
+    mult = _DS_ITEM[q.dtype][1]
     if tuple(ds.shape) != (B * H, T, T):
         raise ValueError(f"{name}: ds {tuple(ds.shape)} != {(B * H, T, T)}")
-    if T % 4 or ds.data_ptr() % 16:
-        raise ValueError(f"{name}: a stored ds needs T % 4 == 0 (T = {T}) "
-                         f"and a 16-byte aligned buffer")
-    check_dtype(name, torch.float32, ds=ds)
+    if T % mult or ds.data_ptr() % 16:
+        raise ValueError(f"{name}: a stored ds needs T % {mult} == 0 (T = "
+                         f"{T}) and a 16-byte aligned buffer")
+    check_dtype(name, q.dtype, ds=ds)
     check_cuda(name, q.device, ds=ds)
 
 
@@ -455,8 +545,9 @@ def flash_bwd_dq(q, k, v, segments, do, lse, delta, causal: bool = False,
     forward's ``LSE`` and ``delta = rowsum(dO * O)``. With ``ds``, the
     ``[B * H, T, T]`` buffer that :func:`flash_bwd_dkv` filled on the same
     operands, the kernel reads ds back and runs only ``ds . k``; without
-    it, it recomputes ``s`` and ``dp``. CPU tensors run the plain version,
-    which needs no buffer and leaves ``ds`` as it is."""
+    it, it recomputes ``s`` and ``dp``. bf16 operands launch
+    ``flash_bwd_dq_bf16`` (dq in bf16; ``ds`` bf16). CPU tensors run the
+    plain version, which needs no buffer and leaves ``ds`` as it is."""
     if q.device.type == "cpu":
         return flash_bwd_dq_plain(q, k, v, segments, do, lse, delta, causal,
                                   scale)
@@ -475,9 +566,11 @@ def flash_bwd_dkv(q, k, v, segments, do, lse, delta, causal: bool = False,
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(dk, dv)`` of the flash forward (the ``flash_bwd_dkv`` kernel),
     given the forward's ``LSE`` and ``delta = rowsum(dO * O)``. With
-    ``ds``, a ``[B * H, T, T]`` f32 buffer, the kernel also stores there
-    ``ds[q][k]`` of every tile it visits, for :func:`flash_bwd_dq`; the
-    entries of skipped tiles stay as they were. CPU tensors run the plain
+    ``ds``, a ``[B * H, T, T]`` buffer in the operands' dtype, the kernel
+    also stores there ``ds[q][k]`` of every tile it visits (bf16: rounded
+    as dq's product rounds it), for :func:`flash_bwd_dq`; the entries of
+    skipped tiles stay as they were. bf16 operands launch
+    ``flash_bwd_dkv_bf16`` (dk and dv in bf16). CPU tensors run the plain
     version and leave ``ds`` as it is."""
     if q.device.type == "cpu":
         return flash_bwd_dkv_plain(q, k, v, segments, do, lse, delta,
@@ -510,8 +603,8 @@ def flash_attention_bwd(q, k, v, segments, o, lse, do, causal: bool = False,
                  {"o": o, "do": do}, {"lse": lse})
     delta = _delta(o, do)
     B, H, T, D = q.shape
-    ds = torch.empty((B * H, T, T), dtype=torch.float32, device=q.device) \
-        if flash_bwd_plan(B, H, T, D, causal).stored_ds else None
+    ds = torch.empty((B * H, T, T), dtype=q.dtype, device=q.device) \
+        if flash_bwd_plan(B, H, T, D, causal, q.dtype).stored_ds else None
     dk, dv = flash_bwd_dkv(q, k, v, segments, do, lse, delta, causal, scale,
                            ds)
     dq = flash_bwd_dq(q, k, v, segments, do, lse, delta, causal, scale, ds)
@@ -559,6 +652,9 @@ _ARGTYPES = {
     "flash_fwd": [_P] * 6 + [_I] * 4 + [_F, _I, _I, _I, _P],
     "flash_bwd_dq": [_P] * 9 + [_I] * 4 + [_F, _I, _I, _I, _P],
     "flash_bwd_dkv": [_P] * 10 + [_I] * 4 + [_F, _I, _I, _I, _P],
+    "flash_fwd_bf16": [_P] * 6 + [_I] * 4 + [_F, _I, _I, _I, _P],
+    "flash_bwd_dq_bf16": [_P] * 9 + [_I] * 4 + [_F, _I, _I, _I, _P],
+    "flash_bwd_dkv_bf16": [_P] * 10 + [_I] * 4 + [_F, _I, _I, _I, _P],
     # q, pools (and scales), tables, lengths or start and n, out,
     # workspace; then S (Q) H D N bs MB part, scale, stream
     "paged_decode": [_P] * 7 + [_I] * 7 + [_F, _P],

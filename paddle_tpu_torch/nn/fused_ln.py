@@ -13,7 +13,12 @@ normalised ``[M, K]`` tensor never reaches device memory; for CPU tensors
 it runs the unfused :func:`ln_matmul_reference`. A CUDA call never falls
 back: the wrapper checks device, dtype, shape and contiguity, raises on a
 refused launch and counts each call (both passes) once in
-:func:`launch_counts`. The kernel takes float32.
+:func:`launch_counts`. ``x`` and ``w`` both float32 launch ``ln_matmul``;
+both bfloat16 launch ``ln_matmul_bf16`` (the same kernel on bf16 operands:
+f32 statistics, the normalised tile rounded to bf16 before a bf16 product
+summed in f32, the output in bf16, as ``_ln_matmul_kernel`` computes it
+on bf16 inputs), with ``scale`` and ``bias`` in bf16 or f32, widened to
+f32; a mixed x/w call is refused on the card.
 
 The JAX function's argument checks are kept, so a call it refuses is
 refused here too: ``K`` of ``x`` and ``w`` must agree, and the output
@@ -32,17 +37,19 @@ import torch
 
 from ..utils import cuda_build
 from ..utils.cuda_build import check_cuda, check_dtype, stream_ptr
+from . import gemm_bf16
 from .gemm_f32 import copy_width, pick_tile
 
 __all__ = ["fused_ln_matmul", "ln_matmul_reference", "launch_counts",
            "reset_launch_counts", "KERNELS"]
 
 # kernel name -> csrc source stem
-KERNELS = {"ln_matmul": "ln_matmul"}
+KERNELS = {"ln_matmul": "ln_matmul", "ln_matmul_bf16": "ln_matmul"}
 
 _launches: Dict[str, int] = {name: 0 for name in KERNELS}
 
-# x, w, scale, bias, out, stats; M K N; eps; tile vec; stream
+# x, w, scale, bias, out, stats; M K N; eps; tile vec; stream (both
+# entries)
 _ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [
     ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 
@@ -88,24 +95,39 @@ def ln_matmul_reference(x, w, scale=None, bias=None, eps: float = 1e-6):
     return (y.float() @ w.float()).to(x.dtype)
 
 
-def _check(x, w, scale, bias) -> None:
-    """Raise unless the kernel takes the operands: f32, contiguous, on x's
-    card, ``scale``/``bias`` ``[K]``, sizes within 32-bit indices."""
+def _check(x, w, scale, bias) -> str:
+    """Raise unless a kernel takes the operands: ``x`` and ``w`` both f32
+    (``ln_matmul``: ``scale``/``bias`` f32 too) or both bf16
+    (``ln_matmul_bf16``: ``scale``/``bias`` bf16 or f32), contiguous, on
+    x's card, ``scale``/``bias`` ``[K]``, sizes within 32-bit indices.
+    Returns the kernel's name."""
     name = "ln_matmul"
     M, K = x.shape
     N = w.shape[1]
-    tensors = {"x": x, "w": w}
+    affine = {}
     for key, t in (("scale", scale), ("bias", bias)):
         if t is not None:
             if tuple(t.shape) != (K,):
                 raise ValueError(f"{name}: {key} {tuple(t.shape)} must be "
                                  f"[{K}]")
-            tensors[key] = t
-    check_dtype(name, torch.float32, **tensors)
-    check_cuda(name, x.device, **tensors)
+            affine[key] = t
+    if x.dtype == torch.bfloat16 or w.dtype == torch.bfloat16:
+        if x.dtype != w.dtype:
+            raise ValueError(f"{name}: mixed dtypes, x {x.dtype} and w "
+                             f"{w.dtype}; the kernels take both f32 or both "
+                             f"bf16")
+        for key, t in affine.items():
+            if t.dtype not in (torch.float32, torch.bfloat16):
+                raise ValueError(f"{name}: {key} has dtype {t.dtype}, the "
+                                 f"bf16 kernel takes bf16 or f32")
+        name = "ln_matmul_bf16"
+    else:
+        check_dtype(name, torch.float32, x=x, w=w, **affine)
+    check_cuda(name, x.device, x=x, w=w, **affine)
     if max(M * K, K * N, M * N, 2 * M) >= 2 ** 31 or -(-M // 64) > 65535:
         raise ValueError(f"{name}: [{M}, {K}] x [{K}, {N}] exceeds the "
                          f"kernel's sizes")
+    return name
 
 
 def _plan(M: int, N: int, sms: int) -> int:
@@ -127,7 +149,7 @@ def fused_ln_matmul(x, w, scale=None, bias=None, *, eps: float = 1e-6,
     ``scale``/``bias`` ``[K]`` (the ``LayerNorm`` module's affine
     parameters), ``eps`` as the module's. ``block_m``/``block_n``: tile
     sizes the JAX kernel would use, which must divide ``M``/``N``; None
-    takes the heuristic's."""
+    takes the heuristic's. The result has x's dtype."""
     if x.dim() != 2 or w.dim() != 2:
         raise ValueError(f"fused_ln_matmul: x {tuple(x.shape)} and w "
                          f"{tuple(w.shape)} must be [M, K] and [K, N]")
@@ -144,17 +166,23 @@ def fused_ln_matmul(x, w, scale=None, bias=None, *, eps: float = 1e-6,
         return ln_matmul_reference(x, w, scale, bias, eps)
     if x.device.type != "cuda":
         raise ValueError(f"ln_matmul: no kernel for x on {x.device}")
-    _check(x, w, scale, bias)
-    out = torch.empty(M, N, dtype=torch.float32, device=x.device)
+    name = _check(x, w, scale, bias)
+    if name == "ln_matmul_bf16":
+        # the kernel reads f32 scale and bias (one [K] widening each)
+        scale, bias = (None if t is None else t.float().contiguous()
+                       for t in (scale, bias))
+        vec = gemm_bf16.copy_width(x, w)
+    else:
+        vec = copy_width(x, w, scale, bias)
+    out = torch.empty(M, N, dtype=x.dtype, device=x.device)
     stats = torch.empty(_stats_numel(M), dtype=torch.float32,
                         device=x.device)
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
     with torch.cuda.device(x.device):
-        cuda_build.launch(_launches, "ln_matmul", KERNELS["ln_matmul"],
-                          _ARGTYPES, x.data_ptr(), w.data_ptr(),
+        cuda_build.launch(_launches, name, KERNELS[name], _ARGTYPES,
+                          x.data_ptr(), w.data_ptr(),
                           None if scale is None else scale.data_ptr(),
                           None if bias is None else bias.data_ptr(),
                           out.data_ptr(), stats.data_ptr(), M, K, N,
-                          float(eps), _plan(M, N, sms),
-                          copy_width(x, w, scale, bias), stream_ptr(x))
+                          float(eps), _plan(M, N, sms), vec, stream_ptr(x))
     return out

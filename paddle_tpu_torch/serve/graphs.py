@@ -27,7 +27,9 @@ every replay adds them to the counters.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional, Tuple
+import contextlib
+import gc
+from typing import Callable, Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -91,6 +93,24 @@ class GraphPool:
             if self.device.type == "cuda" else None
 
 
+@contextlib.contextmanager
+def _no_gc() -> Iterator[None]:
+    """Python's cyclic garbage collection held off inside the block (a
+    CUDA graph capture). A collection there can run a finalizer that
+    frees a CUDA resource of an earlier call, which invalidates the
+    capture (seen on the card: a capture in a test process failed with
+    cudaErrorStreamCaptureInvalidated whenever a collection fell inside
+    it, and passed with the collector off); ``torch.cuda.graph``
+    collects just before the capture begins."""
+    was_on = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if was_on:
+            gc.enable()
+
+
 class Program:
     """A compile-once entry point: ``body()`` reads :attr:`inputs` (and
     whatever other static buffers it closes over) and returns one int32
@@ -120,17 +140,18 @@ class Program:
     def _capture(self) -> None:
         """One eager run of the body on the capture stream (kernels built
         and loaded, library workspaces made, shared-memory limits set:
-        nothing of that may happen inside a capture), then the capture.
-        The eager run computes what the replay will, so it changes no
-        state the replay does not set again; its launches count as
-        launches."""
+        nothing of that may happen inside a capture), then the capture,
+        with Python's cyclic garbage collection held off
+        (:func:`_no_gc`). The eager run computes what the replay will, so
+        it changes no state the replay does not set again; its launches
+        count as launches."""
         stream = self.pool.stream
         stream.wait_stream(torch.cuda.current_stream(self.pool.device))
         with torch.cuda.stream(stream), torch.no_grad():
             self.body()
         torch.cuda.current_stream(self.pool.device).wait_stream(stream)
         graph = torch.cuda.CUDAGraph()
-        with cuda_attention.capturing_launches() as captured, \
+        with _no_gc(), cuda_attention.capturing_launches() as captured, \
                 torch.no_grad(), \
                 torch.cuda.graph(graph, pool=self.pool.handle,
                                  stream=stream):

@@ -38,12 +38,20 @@ bit-equal, the refusal of mixed dtypes, and a small ResNet trained
 through it under ``bfloat16_compute`` (every launch on the wgmma route);
 and the policy product (cuBLAS, bf16 operands, an
 f32 output, the cotangent split in two bf16 halves) against its CPU
-version. Every test needs an
+version; and the bf16 branches of the flash kernels (forward, dq, dk/dv)
+and of ``ln_matmul`` against their plain versions in bf16 ulps (every
+entry within one ulp of the largest, at most ``BF16_SHARE`` of the
+entries off), at T off every tile size, on each instance with 16- and
+4-byte copies (``ln_matmul_bf16`` also plain 2-byte loads), the stored
+bf16 ds over a buffer of NaN, reruns bit-equal, autograd through
+``flash_attention`` on bf16 leaves, the plans' shared memory, and the
+refusals of mixed dtypes and of bf16 views 2 bytes off 4. Every test needs an
 NVIDIA GPU (marker ``cuda``) and skips without one; run them on the card
 with ``python -m pytest --noconftest -q tests/test_torch_cuda_kernels.py``
 (the JAX harness in ``tests/conftest.py`` is not needed there).
 Tolerance: atol 1e-4 — f32 on both sides, summed in different orders."""
 
+import math
 import pathlib
 import subprocess
 import sys
@@ -244,13 +252,13 @@ def test_flash_bwd_kernels_match_plain(gen, B, H, T, D, causal, segs):
     assert all(torch.equal(a, b) for a, b in zip(got, again))  # no atomics
 
 
-def _flat(gen, shape, offset):
-    """A contiguous f32 tensor on the card whose base pointer lies
-    ``offset`` floats past a fresh allocation (16-byte aligned at 0)."""
+def _flat(gen, shape, offset, dtype=torch.float32):
+    """A contiguous tensor on the card whose base pointer lies ``offset``
+    values past a fresh allocation (16-byte aligned at 0)."""
     n = 1
     for d in shape:
         n *= d
-    buf = torch.randn(n + offset, generator=gen, device="cuda")
+    buf = torch.randn(n + offset, generator=gen, device="cuda").to(dtype)
     return buf[offset:].view(shape)
 
 
@@ -1242,3 +1250,293 @@ def test_resnet_trains_through_conv1x1_dw_bf16_on_card(gen):
         assert losses[-1] < losses[0]
     finally:
         pt.set_conv1x1_impl(prev)
+
+
+# ---------------------------------------------------------------------------
+# bf16 operands of the flash kernels and of ln_matmul
+# ---------------------------------------------------------------------------
+
+# Outputs rounded to bf16, held in bf16 ulps: every entry within one ulp
+# of the tensor's largest |plain| entry, and at most BF16_SHARE of the
+# entries above BF16_NOISE of the largest off at all. Kernel and plain
+# version sum the same exact bf16 products in f32 in other orders and
+# their exponentials differ in the last bits, so a value that straddles a
+# rounding boundary (p, ds, y or the output itself) may land one ulp
+# apart; an entry near zero then moves by more than its own ulp, never by
+# more than one of the largest. Entries under BF16_NOISE of the largest
+# are f32 rounding noise: a query row that sees one key has dp - delta = 0
+# up to the order of two D-term sums, so its ds and its dq row are noise
+# about 1e-8 of the largest dq, different in any two programs (on the
+# card, 2-9% of dq at T = 15-96 with segments; none above the floor).
+# Measured on the card at T 256-2048: 0.03-0.27% of the entries off; p
+# left unrounded puts 13-42% off.
+BF16_SHARE = 0.01
+BF16_NOISE = 2.0 ** -16
+
+
+def _bf16_ulp(t):
+    """One bf16 ulp of ``t``'s largest |entry|."""
+    m = t.float().abs().max().item()
+    return 0.0 if m == 0 else 2.0 ** (math.frexp(m)[1] - 8)
+
+
+def _bf16_gate(got, want):
+    assert got.dtype == torch.bfloat16 and want.dtype == torch.bfloat16
+    w = want.float()
+    d = (got.float() - w).abs()
+    assert d.max().item() <= _bf16_ulp(want)
+    above = w.abs() > BF16_NOISE * w.abs().max()
+    assert ((d > 0) & above).float().mean().item() <= BF16_SHARE
+
+
+def _flash_bf16_case(gen, B, H, T, D, causal, segs, scale=None, offset=0):
+    """Forward and backward of the bf16 kernels against the plain versions
+    on the kernels' own O and LSE: one counted launch each, bf16 outputs
+    within the gate, the LSE within ATOL, reruns bit-equal."""
+    q, k, v, do = (_flat(gen, (B, H, T, D), offset, torch.bfloat16) for _ in range(4))
+    seg = _segments(B, T) if segs else None
+    if seg is not None:
+        do.mul_((seg > 0)[:, None, :, None].bfloat16())
+    before = ca.launch_counts()
+    o, lse = ca.flash_attention_fwd(q, k, v, seg, causal, scale)
+    got = ca.flash_attention_bwd(q, k, v, seg, o, lse, do, causal, scale)
+    after = ca.launch_counts()
+    for name in ("flash_fwd_bf16", "flash_bwd_dq_bf16",
+                 "flash_bwd_dkv_bf16"):
+        assert after[name] == before[name] + 1, name
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        assert after[name] == before[name], name
+    o_ref, lse_ref = ca.flash_attention_plain(q, k, v, seg, causal, scale)
+    want = ca.flash_attention_bwd_plain(q, k, v, seg, o, lse, do, causal,
+                                        scale)
+    torch.cuda.synchronize()
+    _bf16_gate(o, o_ref)
+    assert (lse - lse_ref).abs().max().item() <= ATOL
+    for g, w in zip(got, want):
+        _bf16_gate(g, w)
+    again = ca.flash_attention_fwd(q, k, v, seg, causal, scale)
+    assert torch.equal(o, again[0]) and torch.equal(lse, again[1])
+    assert all(torch.equal(a, b) for a, b in zip(
+        got, ca.flash_attention_bwd(q, k, v, seg, o, lse, do, causal,
+                                    scale)))
+    return q, k, v, do, seg, o, lse
+
+
+@pytest.mark.parametrize("B,H,T,D,causal,segs,scale", [
+    (1, 2, 100, 64, True, False, None),       # T not a tile multiple
+    (2, 3, 130, 128, False, True, None),
+    (1, 1, 1, 64, False, False, None),        # one token
+    # T at the tiles of both plans (16, 32, 64, 128) -1, exactly, +1
+    (1, 3, 15, 128, True, True, None), (1, 3, 16, 64, True, False, None),
+    (1, 3, 31, 64, False, True, None), (1, 3, 33, 128, True, False, None),
+    (2, 2, 63, 64, True, True, None), (2, 2, 64, 128, False, False, None),
+    (2, 2, 65, 64, True, True, None), (2, 2, 127, 128, True, False, None),
+    (2, 2, 129, 64, False, True, None),
+    (1, 2, 96, 64, True, True, -0.2),         # a negative scale
+    (1, 2, 64, 128, True, False, 0.3),
+    # T = 2048 causal on the small and the large instances
+    (1, 2, 2048, 128, True, False, None), (5, 8, 2048, 64, True, False, None),
+    (5, 28, 64, 64, True, True, None), (4, 20, 300, 128, True, True, None),
+])
+def test_flash_bf16_kernels_match_plain(gen, B, H, T, D, causal, segs,
+                                        scale):
+    _flash_bf16_case(gen, B, H, T, D, causal, segs, scale)
+
+
+@pytest.mark.parametrize("B,H,T,D,fwd_tile,bwd_tile", [
+    (3, 12, 500, 128, 0, 0), (1, 2, 300, 128, 1, 1),
+    (4, 17, 500, 64, 0, 0), (1, 3, 97, 64, 1, 1)])
+@pytest.mark.parametrize("offset", [0, 2])
+def test_flash_bf16_each_tile_and_copy_width(gen, B, H, T, D, fwd_tile,
+                                             bwd_tile, offset):
+    """Every bf16 instance either plan can pick, with 16-byte copies
+    (aligned operands) and 4-byte ones (views 4 bytes off 16), causal with
+    segments."""
+    bf = torch.bfloat16
+    assert ca.flash_fwd_plan(B, H, T, D, True, bf).tile == fwd_tile
+    assert ca.flash_bwd_plan(B, H, T, D, True, bf).tile == bwd_tile
+    q = _flat(gen, (B, H, T, D), offset, torch.bfloat16)
+    assert ca.flash_copy_width(q) == (2 if offset else 8)
+    _flash_bf16_case(gen, B, H, T, D, True, True, offset=offset)
+
+
+@pytest.mark.parametrize("B,H,T,D,causal", [(2, 3, 200, 64, True),
+                                             (2, 2, 128, 128, False),
+                                             (3, 12, 296, 128, True)])
+def test_flash_bf16_stored_ds_reads_no_unwritten_entry(gen, B, H, T, D,
+                                                       causal):
+    """dk/dv stores its bf16 ds in a buffer of NaN and dq reads it back:
+    unwritten entries (skipped tiles) must not reach dq, which must equal
+    the recomputing dq bit for bit (both multiply ds rounded to bf16) and
+    the whole backward's."""
+    bf = torch.bfloat16
+    assert ca.flash_bwd_plan(B, H, T, D, causal, bf).stored_ds
+    q, k, v, do = (torch.randn(B, H, T, D, generator=gen,
+                               device="cuda").bfloat16() for _ in range(4))
+    seg = _segments(B, T)
+    do = do * (seg > 0)[:, None, :, None].bfloat16()
+    o, lse = ca.flash_attention_fwd(q, k, v, seg, causal)
+    delta = (do.float() * o.float()).sum(-1)
+    args = (q, k, v, seg, do, lse, delta, causal)
+    ds = torch.full((B * H, T, T), float("nan"), device="cuda").bfloat16()
+    dk, dv = ca.flash_bwd_dkv(*args, ds=ds)
+    dq = ca.flash_bwd_dq(*args, ds=ds)
+    alone = ca.flash_bwd_dq(*args)
+    want = ca.flash_attention_bwd_plain(q, k, v, seg, o, lse, do, causal)
+    torch.cuda.synchronize()
+    assert torch.isnan(ds.float()).any()
+    for g, w in zip((dq, dk, dv), want):
+        assert torch.isfinite(g.float()).all()
+        _bf16_gate(g, w)
+    _bf16_gate(dq, alone)
+    whole = ca.flash_attention_bwd(q, k, v, seg, o, lse, do, causal)
+    assert all(torch.equal(a, b) for a, b in zip(whole, (dq, dk, dv)))
+
+
+def test_flash_bf16_plans_shared_memory_is_the_kernels(gen):
+    """The bf16 plans' shared-memory figures are the kernels' own."""
+    from paddle_tpu_torch.utils import cuda_build
+    import ctypes
+    for src, entry, tiles, smem in (
+            ("flash_fwd", "flash_fwd_bf16_smem_bytes", ca._FWD_TILES_BF16,
+             ca._fwd_smem),
+            ("flash_bwd", "flash_bwd_bf16_smem_bytes", ca._BWD_TILES_BF16,
+             ca._bwd_smem)):
+        fn = getattr(cuda_build.load(src), entry)
+        fn.argtypes = [ctypes.c_int] * 2
+        fn.restype = ctypes.c_int
+        for D, ts in tiles.items():
+            for i, t in enumerate(ts):
+                assert fn(D, i) == smem(D, t, torch.bfloat16)
+        assert fn(96, 0) == -1 and fn(128, 2) == -1
+
+
+def test_flash_bf16_wrappers_refuse_what_the_kernels_do_not_take(gen):
+    q = torch.randn(1, 2, 64, 64, generator=gen, device="cuda").bfloat16()
+    o, lse = ca.flash_attention_fwd(q, q, q)
+    before = ca.launch_counts()
+    with pytest.raises(ValueError, match="mixed"):
+        ca.flash_attention_fwd(q, q.float(), q)
+    with pytest.raises(ValueError, match="mixed"):
+        ca.flash_attention_bwd(q, q, q, None, o, lse, o.float())
+    with pytest.raises(ValueError, match="mixed"):
+        ca.flash_bwd_dq(q, q, q.float(), None, q, lse, lse)
+    with pytest.raises(ValueError, match="2 bytes"):
+        odd = _flat(gen, (1, 2, 64, 64), 1, torch.bfloat16)
+        ca.flash_attention_fwd(odd, q, q)
+    with pytest.raises(ValueError, match="dtype"):
+        ca.flash_attention_fwd(q.half(), q.half(), q.half())
+    with pytest.raises(ValueError, match="dtype"):
+        ca.flash_bwd_dkv(q, q, q, None, q, lse.bfloat16(), lse)
+    # a stored ds in q's dtype, its rows whole 16-byte pieces
+    with pytest.raises(ValueError, match="dtype"):
+        ca.flash_bwd_dkv(q, q, q, None, q, lse, lse,
+                         ds=torch.empty(2, 64, 64, device="cuda"))
+    with pytest.raises(ValueError, match="T % 8"):
+        w = torch.randn(1, 2, 60, 64, generator=gen,
+                        device="cuda").bfloat16()
+        r = torch.zeros(1, 2, 60, device="cuda")
+        ca.flash_bwd_dq(w, w, w, None, w, r, r,
+                        ds=torch.empty(2, 60, 60, device="cuda").bfloat16())
+    after = ca.launch_counts()
+    assert after == before
+
+
+@pytest.mark.parametrize("causal,segs", [(True, False), (True, True),
+                                         (False, True)])
+def test_flash_bf16_function_gradients_match_plain(gen, causal, segs):
+    """bf16 leaves through ``flash_attention`` under autograd: one launch
+    of each bf16 kernel, O within the gate of the plain forward, bf16
+    gradients within the gate of the plain backward on the O and LSE the
+    forward saved."""
+    B, H, T, D = 2, 2, 96, 64
+    base = [torch.randn(B, H, T, D, generator=gen, device="cuda").bfloat16()
+            for _ in range(4)]
+    seg = _segments(B, T) if segs else None
+    do = base[3] if seg is None else \
+        base[3] * (seg > 0)[:, None, :, None].bfloat16()
+    q, k, v = (t.clone().requires_grad_() for t in base[:3])
+    ca.reset_launch_counts()
+    out = ca.flash_attention(q, k, v, seg, causal)
+    assert type(out.grad_fn).__name__ == "FlashAttentionFunctionBackward"
+    o, lse = out.grad_fn.saved_tensors[4:6]
+    out.backward(do)
+    counts = ca.launch_counts()
+    assert {n: c for n, c in counts.items() if c} == {
+        "flash_fwd_bf16": 1, "flash_bwd_dq_bf16": 1, "flash_bwd_dkv_bf16": 1}
+    o_ref, _ = ca.flash_attention_plain(*base[:3], seg, causal)
+    want = ca.flash_attention_bwd_plain(*base[:3], seg, o, lse, do, causal)
+    torch.cuda.synchronize()
+    _bf16_gate(out.detach(), o_ref)
+    for t, w in zip((q, k, v), want):
+        _bf16_gate(t.grad, w)
+
+
+def _ln_bf16_case(gen, M, K, N, affine, xl="", affine_dtype=torch.bfloat16):
+    """``affine_dtype``: scale's and bias's dtype, or a (scale, bias)
+    pair of them (the wrapper widens a bf16 one to f32)."""
+    sd, bd = affine_dtype if isinstance(affine_dtype, tuple) \
+        else (affine_dtype, affine_dtype)
+    x = _bf16_operand(gen, M, K, xl)
+    x.mul_(3).add_(1)                   # in place: keeps the view's offset
+    w = (torch.randn(K, N, generator=gen, device="cuda") / K ** 0.5
+         ).bfloat16()
+    scale = (1 + 0.3 * torch.randn(K, generator=gen, device="cuda")).to(
+        sd) if "s" in affine else None
+    bias = (0.3 * torch.randn(K, generator=gen, device="cuda")).to(
+        bd) if "b" in affine else None
+    before = fl.launch_counts()
+    got = fl.fused_ln_matmul(x, w, scale, bias)
+    after = fl.launch_counts()
+    assert after["ln_matmul_bf16"] == before["ln_matmul_bf16"] + 1
+    assert after["ln_matmul"] == before["ln_matmul"]
+    want = fl.ln_matmul_reference(x, w, scale, bias)
+    torch.cuda.synchronize()
+    _bf16_gate(got, want)
+    assert torch.equal(fl.fused_ln_matmul(x, w, scale, bias), got)
+    return x, w
+
+
+@pytest.mark.parametrize("M,K,N,affine,affine_dtype", [
+    (128, 32, 256, "", torch.bfloat16), (128, 32, 256, "sb", torch.bfloat16),
+    (128, 64, 256, "sb", torch.float32), (100, 70, 130, "s", torch.float32),
+    (3, 5, 7, "b", torch.bfloat16), (1, 1, 1, "", torch.bfloat16),
+    (4096, 512, 2048, "sb", torch.bfloat16),
+    (300, 72, 200, "sb", (torch.bfloat16, torch.float32)),
+    (300, 72, 200, "sb", (torch.float32, torch.bfloat16))])
+def test_ln_matmul_bf16_kernel_matches_plain(gen, M, K, N, affine,
+                                             affine_dtype):
+    _ln_bf16_case(gen, M, K, N, affine, affine_dtype=affine_dtype)
+
+
+@pytest.mark.parametrize("M,K,N,affine,xl,tile,vec", [
+    (4096, 96, 2048, "", "", LARGE, 8),
+    (4096, 100, 2048, "sb", "", LARGE, 2),
+    (4096, 70, 2048, "sb", "flat+1", LARGE, 1),
+    (4096, 64, 2048, "s", "flat+2", LARGE, 2),
+    (300, 104, 200, "s", "", SMALL, 8),
+    (130, 70, 129, "b", "", SMALL, 1),
+    (1025, 64, 96, "sb", "x[1:]", SMALL, 8),
+    (257, 64, 96, "sb", "flat+2", SMALL, 2)])
+def test_ln_matmul_bf16_each_tile_and_copy_width(gen, M, K, N, affine, xl,
+                                                 tile, vec):
+    """Every (tile, copy width) instance of the bf16 product: 16-byte,
+    4-byte and plain 2-byte copies (odd rows, views 2 bytes off 4)."""
+    from paddle_tpu_torch.nn import gemm_bf16
+    x, w = _ln_bf16_case(gen, M, K, N, affine, xl)
+    assert fl._plan(M, N, _sms()) == tile
+    assert gemm_bf16.copy_width(x, w) == vec
+
+
+def test_ln_matmul_bf16_wrapper_refuses_mixed_dtypes(gen):
+    x = torch.randn(64, 32, generator=gen, device="cuda")
+    w = torch.randn(32, 48, generator=gen, device="cuda")
+    s = torch.randn(32, generator=gen, device="cuda")
+    before = fl.launch_counts()
+    for args in [(x.bfloat16(), w), (x, w.bfloat16()),
+                 (x.bfloat16(), w.half()), (x, w, s.bfloat16()),
+                 (x.bfloat16(), w.bfloat16(), s.double()),
+                 (x.bfloat16(), w.bfloat16(), s.bfloat16().cpu())]:
+        with pytest.raises(ValueError):
+            fl.fused_ln_matmul(*args)
+    assert fl.launch_counts() == before

@@ -11,13 +11,15 @@ integer ops, three products with ``lo.lo`` dropped, partial sums per
 1e-5, the tolerance of the port's backward against JAX
 (``test_torch_flash_bwd.py``): f32 throughout, sums in other orders. The
 tensor cores' truncating adds cannot be emulated here; the card tests
-hold them."""
+hold them. The bf16 instances (``flash_bwd_dq_bf16``,
+``flash_bwd_dkv_bf16``): their plan and the bf16 ds they store."""
 
 from collections import Counter
 
 import numpy as np
 import jax.numpy as jnp
 import pytest
+import torch
 from hypothesis import given, settings, strategies as st
 
 from paddle_tpu.nn import pallas_attention as jpa
@@ -319,3 +321,69 @@ def test_split_tf32_backward_matches_jax(shape, causal, with_segments):
     for name, g, w in zip("qkv", got, want):
         np.testing.assert_allclose(g, np.asarray(w), atol=ATOL, rtol=0,
                                    err_msg=f"d{name}")
+
+
+# ---------------------------------------------------------------------------
+# the bf16 instances (flash_bwd_dq_bf16, flash_bwd_dkv_bf16)
+# ---------------------------------------------------------------------------
+
+BF16 = torch.bfloat16
+
+
+@pytest.mark.parametrize("D", [64, 128])
+def test_bf16_instances_fit_their_shared_memory(D):
+    """No resident planes (each warp's fragments of its one resident
+    operand live in registers): per stage two bf16 matrices of pitch
+    D + 8 and three f32 vectors, and the pairs' f32 exchange."""
+    for t in ca._BWD_TILES_BF16[D]:
+        smem = ca._bwd_smem(D, t, BF16)
+        assert smem == 4 * (t.stages * (t.stream_rows * (D + 8)
+                                        + 3 * t.stream_rows)
+                            + t.rows // 8 * 16 * t.stream_rows)
+        assert smem <= MAX_SMEM
+        assert t.blocks_per_sm * (smem + 1024) <= SM_SMEM
+        assert t.rows % 16 == 0 and t.stream_rows in (16, 32)
+        assert t.stages >= 2
+    assert ca._bwd_tiles(BF16) is ca._BWD_TILES_BF16
+
+
+@pytest.mark.parametrize("B,H,T,D", [
+    (1, 1, 1, 64), (1, 1, 15, 128), (2, 3, 33, 64), (8, 4, 2048, 128),
+    (2, 8, 512, 128), (1, 8, 1024, 64), (3, 3, 1000, 128), (1, 2, 2047, 64),
+    (7, 5, 4097, 128)])
+def test_bf16_plan_covers_t_and_depends_on_the_shape_alone(B, H, T, D):
+    plan = ca.flash_bwd_plan(B, H, T, D, True, BF16)
+    assert plan.tiles * plan.rows >= T > (plan.tiles - 1) * plan.rows
+    assert plan.grid == B * H * plan.tiles
+    assert plan.warps * 8 == plan.rows
+    t = ca._BWD_TILES_BF16[D][plan.tile]
+    assert (plan.rows, plan.stream_rows, plan.stages, plan.blocks_per_sm) \
+        == tuple(t)
+    assert plan.smem == ca._bwd_smem(D, t, BF16) <= MAX_SMEM
+    assert ca.flash_bwd_plan(B, H, T, D, False, BF16) == plan
+    assert plan.stored_ds == (T % 8 == 0
+                              and 2 * B * H * T * T <= ca._DS_BUDGET)
+
+
+@pytest.mark.parametrize("shape,stored", [
+    ((8, 4, 2048, 128), True),     # the training shape: 256 MiB
+    ((17, 4, 2048, 128), True),    # past the f32 budget, within bf16's
+    ((32, 4, 2048, 128), True),    # the budget exactly: 1 GiB
+    ((33, 4, 2048, 128), False),   # one batch row past it
+    ((8, 4, 2044, 128), False),    # T % 4 == 0 but bf16 rows need T % 8
+    ((8, 4, 2040, 128), True), ((2, 8, 512, 64), True),
+    ((1, 1, 1, 64), False)])
+def test_bf16_stored_ds_is_chosen_by_the_budget(shape, stored):
+    """A bf16 ds entry is 2 bytes, so the budget holds twice the f32
+    batch; its rows are copied 16 bytes (8 values) at a time, so T must
+    be a multiple of 8."""
+    assert ca.flash_bwd_plan(*shape, True, BF16).stored_ds is stored
+
+
+def test_bf16_ds_halves_the_buffer():
+    """At the training shape the bf16 ds buffer takes 268 MB, the f32 one
+    537 MB: the same ``[B * H, T, T]`` entries at 2 bytes."""
+    B, H, T = 8, 4, 2048
+    f32 = ca._DS_ITEM[torch.float32][0] * B * H * T * T
+    bf16 = ca._DS_ITEM[BF16][0] * B * H * T * T
+    assert (f32, bf16) == (536870912, 268435456)

@@ -14,13 +14,16 @@ JAX ``_flash_forward`` in interpret mode. Tolerance of the algebra: atol
 1e-5, the tolerance of the port's forward against JAX
 (``test_torch_attention.py``): f32 throughout, sums in other orders. The
 tensor cores' truncating adds and ``ex2.approx`` cannot be emulated here;
-the card tests hold them."""
+the card tests hold them. The bf16 instances (``flash_fwd_bf16``): their plan, and
+their schedule by the same property, a warp taking each key tile in
+steps of 32 keys (the key splits' parts, one warp walking them all)."""
 
 from collections import Counter
 
 import numpy as np
 import jax.numpy as jnp
 import pytest
+import torch
 from hypothesis import given, settings, strategies as st
 
 from paddle_tpu.nn import pallas_attention as jpa
@@ -387,3 +390,103 @@ def test_split_tf32_forward_matches_jax(shape, causal, with_segments, tile):
     np.testing.assert_allclose(lt[live], lj[live], atol=ATOL, rtol=0)
     assert not ot[~live].any()
     assert (lt[~live] == np.float32(-1e30)).all()
+
+
+# ---------------------------------------------------------------------------
+# the bf16 instances (flash_fwd_bf16)
+# ---------------------------------------------------------------------------
+
+BF16 = torch.bfloat16
+STEP = 32                  # keys a warp takes at a time (CfgB::SUB)
+
+
+@pytest.mark.parametrize("D", [64, 128])
+def test_bf16_instances_fit_their_shared_memory(D):
+    """No Q planes (each warp's Q fragments live in registers): a stage
+    holds K and V as bf16 rows of pitch D + 8 (16-byte rows, ldmatrix free
+    of bank conflicts: D / 2 + 4 words, 4 mod 32) and the segment ids."""
+    for t in ca._FWD_TILES_BF16[D]:
+        smem = ca._fwd_smem(D, t, BF16)
+        assert smem == 4 * t.stages * (t.stream_rows * (D + 8)
+                                       + t.stream_rows)
+        assert smem <= MAX_SMEM
+        assert t.blocks_per_sm * (smem + 1024) <= SM_SMEM
+        assert t.key_splits == 1 and t.stages >= 2 and t.rows % 16 == 0
+        assert t.stream_rows % STEP == 0
+        assert 2 * (D + 8) % 16 == 0 and (D // 2 + 4) % 32 == 4
+    assert ca._fwd_tiles(BF16) is ca._FWD_TILES_BF16
+    assert ca._fwd_tiles(torch.float32) is ca._FWD_TILES
+
+
+@pytest.mark.parametrize("B,H,T,D", [
+    (1, 1, 1, 64), (1, 1, 15, 128), (2, 3, 33, 64), (8, 4, 2048, 128),
+    (2, 8, 512, 128), (1, 8, 1024, 64), (3, 3, 1000, 128), (1, 2, 2047, 64),
+    (7, 5, 4097, 128), (17, 4, 2048, 128)])
+def test_bf16_plan_covers_t_and_depends_on_the_shape_alone(B, H, T, D):
+    plan = ca.flash_fwd_plan(B, H, T, D, True, BF16)
+    assert plan.tiles * plan.rows >= T > (plan.tiles - 1) * plan.rows
+    assert plan.grid == B * H * plan.tiles
+    t = ca._FWD_TILES_BF16[D][plan.tile]
+    assert plan.warps == plan.rows // 16 and plan.key_splits == 1
+    assert (plan.rows, plan.stream_rows, plan.stages, plan.blocks_per_sm,
+            plan.key_splits) == tuple(t)
+    assert plan.smem == ca._fwd_smem(D, t, BF16) <= MAX_SMEM
+    assert ca.flash_fwd_plan(B, H, T, D, False, BF16) == plan
+    large = ca._FWD_TILES_BF16[D][0]
+    n_large = B * H * -(-T // large.rows)
+    assert plan.tile == (0 if n_large >= ca._SMS * large.blocks_per_sm
+                         else 1)
+
+
+@pytest.mark.parametrize("label,shape,causal,tile", [
+    ("training", (8, 4, 2048, 128), True, 0),
+    ("segments", (2, 8, 512, 128), False, 1),
+    ("serving", (1, 8, 1024, 64), True, 1)])
+def test_bf16_main_path_shapes(label, shape, causal, tile):
+    """The training shape takes the large instance (512 blocks of 128
+    rows); the other two would give 64 large blocks and take the small
+    one (128 blocks of 64 rows, a warp each 16)."""
+    plan = ca.flash_fwd_plan(*shape, causal, BF16)
+    assert plan.tile == tile, label
+    assert plan.grid == {0: 512, 1: 128}[tile]
+
+
+@settings(max_examples=40, deadline=None)
+@given(_cases(), st.sampled_from([64, 128]))
+def test_bf16_kernel_visits_every_visible_tile_pair_once(case, D):
+    """The bf16 kernel walks the same tiles in both of its passes (the max
+    pass and the main one); a warp takes each tile in steps of 32 keys
+    with the f32 kernel's skip and no-mask rules per step, which is
+    ``_visits`` with the steps as its parts."""
+    T, causal, seg = case
+    vis = _visible(seg, T, causal)
+    for t in ca._FWD_TILES_BF16[D]:
+        steps = t.stream_rows // STEP
+        visits, skipped, inside = _visits(seg, T, causal, t.rows,
+                                          t.stream_rows, steps)
+        assert max(visits.values(), default=1) == 1
+        for blk, s, w, p in skipped:
+            rows = slice(blk * t.rows + 16 * w, blk * t.rows + 16 * w + 16)
+            k0 = s * t.stream_rows + p * STEP
+            assert not vis[rows, k0:k0 + STEP].any()
+        for blk, s, w, p in inside:
+            rows = slice(blk * t.rows + 16 * w,
+                         min(blk * t.rows + 16 * w + 16, T))
+            k0 = s * t.stream_rows + p * STEP
+            assert k0 + STEP <= T and vis[rows, k0:k0 + STEP].all()
+        for q, k in zip(*np.nonzero(vis)):
+            blk, s = q // t.rows, k // t.stream_rows
+            assert visits[blk, s] == 1
+            assert (blk, s, q % t.rows // 16,
+                    k % t.stream_rows // STEP) not in skipped
+
+
+def test_bf16_kernel_names_and_entry_types():
+    """bf16 operands launch the ``_bf16`` entries of the same sources,
+    with the f32 entries' C signatures (pointers, then B H T D, scale,
+    causal, tile, copy width, stream)."""
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        assert ca._kernel_name(name, BF16) == name + "_bf16"
+        assert ca._kernel_name(name, torch.float32) == name
+        assert ca.KERNELS[name + "_bf16"] == ca.KERNELS[name]
+        assert ca._ARGTYPES[name + "_bf16"] == ca._ARGTYPES[name]

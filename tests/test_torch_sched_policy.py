@@ -6,7 +6,9 @@ say (``tests/test_fleet.py``, ``tests/test_serve.py``), and the same
 finish reasons, tokens and admission order as the JAX scheduler on bridged
 weights. Then the engine's programs run eagerly on their static buffers:
 the greedy streams under admit/evict churn equal the model's own
-token-by-token forward, with every buffer at one address throughout."""
+token-by-token forward, with every buffer at one address throughout; and
+a capture holds Python's cyclic garbage collection off (a collection
+inside a CUDA graph capture can run a finalizer that invalidates it)."""
 
 import numpy as np
 import jax
@@ -325,3 +327,24 @@ def test_static_buffers_give_greedy_streams_under_churn(models, kw):
     else:
         for p, m, r in zip(prompts, new, reqs):
             assert r.tokens == _oracle(tm, p, m)
+
+
+@pytest.mark.parametrize("was_on", [True, False])
+def test_capture_holds_garbage_collection_off(was_on):
+    """``graphs._no_gc`` (around ``Program._capture``'s capture): the
+    collector is off inside, and comes back as it was, also when the
+    block raises."""
+    import gc
+    from paddle_tpu_torch.serve import graphs
+    before = gc.isenabled()
+    try:
+        (gc.enable if was_on else gc.disable)()
+        with graphs._no_gc():
+            assert not gc.isenabled()
+        assert gc.isenabled() == was_on
+        with pytest.raises(RuntimeError):
+            with graphs._no_gc():
+                raise RuntimeError("capture failed")
+        assert gc.isenabled() == was_on
+    finally:
+        (gc.enable if before else gc.disable)()
