@@ -175,10 +175,17 @@ Phases (any failure exits non-zero before the final line):
     the LSE within LSE_TOL), with the plain version that leaves p, ds or
     y unrounded as a control that must fail the gate, reruns bit-equal,
     their ptxas reports free of spills, and the wrappers' refusals (mixed
-    dtypes, bf16 views 2 bytes off 4, a stored ds of another dtype); (b)
+    dtypes, bf16 views 2 bytes off 4, a stored ds of another dtype); each
+    call's route logged (``flash_fwd_bf16`` and ``ln_matmul_bf16`` take
+    16-byte aligned operands on ``wgmma`` fed by TMA, views 4 bytes off
+    16 on ``mma.sync``): the aligned calls must go by ``wgmma``, and the
+    forward at ``[2,8,512,128]`` with segments and ``ln_matmul_bf16`` at
+    w ``[512,512]`` with scale and bias, again on views 4 bytes off 16,
+    by ``mma.sync``, under the same gate; (b)
     the path: bf16 leaf q, k, v at ``[8,4,2048,128]`` causal through
     ``flash_attention``, a loss and ``.backward()``: exactly one launch
-    of each of the three kernels, bf16 gradients within the gate of the
+    of each of the three kernels (the forward by ``wgmma``), bf16
+    gradients within the gate of the
     plain backward on the forward's saved O and LSE, and within
     BF16_PATH_SHARE of the plain versions' autograd end to end; (c) each
     kernel timed by events and by the
@@ -758,30 +765,59 @@ BWD_BF16_INSTANCE = re.compile(r"flash_bwd_(dq|dkv|dq_ds)_bf16_kernel\w*?"
                                r"CfgBILi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)ELi\d+E")
 LN_BF16_INSTANCE = re.compile(r"ln_gemm_bf16INS_4BCfgILi(\d+)ELi(\d+)ELi\d+"
                               r"ELi\d+ELi\d+ELi\d+EEELi(\d+)E")
+# the wgmma instances of flash_fwd.cu (D, consumer warpgroups, key tile,
+# stages: CfgW) and of ln_matmul.cu (strip rows, stages: LnW)
+FWD_WGMMA_INSTANCE = re.compile(r"flash_fwd_wgmma_kernelINS_4CfgWILi(\d+)"
+                                r"ELi(\d+)ELi(\d+)ELi(\d+)E")
+LN_WGMMA_INSTANCE = re.compile(r"ln_gemm_wgmmaINS_3LnWILi(\d+)ELi(\d+)E")
+# ptxas's notes that it serialised a function's wgmma (C7510-C7520:
+# registers, divergent paths, accumulators written inside a group)
+WGMMA_SERIALISED = re.compile(r"C75\d\d\).*wgmma.*serialized")
 
 
 def bf16_registers(ca, report):
     """Registers and spills of every bf16 flash and ln_matmul instance
-    the plans can pick, from the build's ptxas reports; a spill, or an
-    instance a report lacks, fails the run."""
+    the plans can pick, on both routes, from the build's ptxas reports; a
+    spill, or an instance a report lacks, fails the run. ptxas's notes
+    that it serialised the wgmma of a function are counted per source
+    (``wgmma_serialised``), not failed on."""
+    from paddle_tpu_torch.nn import fused_ln as fl
     from paddle_tpu_torch.nn.gemm_f32 import TILES
-    fwd = ptxas_entries(FWD_BF16_INSTANCE, str(report["flash_fwd"]["log"]))
+    fwd_log = str(report["flash_fwd"]["log"])
+    fwd = ptxas_entries(FWD_BF16_INSTANCE, fwd_log)
+    fwd_wg = ptxas_entries(FWD_WGMMA_INSTANCE, fwd_log)
     bwd = ptxas_entries(BWD_BF16_INSTANCE, str(report["flash_bwd"]["log"]))
     ln = ptxas_entries(LN_BF16_INSTANCE, str(report["ln_matmul"]["log"]))
-    out = [{"kernel": "flash_fwd_bf16", "D": D, "rows": t.rows,
-            "stream_rows": t.stream_rows,
+    ln_wg = ptxas_entries(LN_WGMMA_INSTANCE, str(report["ln_matmul"]["log"]))
+    out = [{"kernel": "flash_fwd_bf16", "route": "mma_sync", "D": D,
+            "rows": t.rows, "stream_rows": t.stream_rows,
             **checked_entry(fwd, (D, t.rows // 16, t.stream_rows, t.stages),
                             "flash_fwd_bf16")}
            for D, tiles in ca._FWD_TILES_BF16.items() for t in tiles]
+    out += [{"kernel": "flash_fwd_bf16", "route": "wgmma", "D": D,
+             "rows": t.rows, "stream_rows": t.stream_rows,
+             "stages": t.stages,
+             **checked_entry(fwd_wg, (D, t.rows // 64, t.stream_rows,
+                                      t.stages), "flash_fwd_bf16 wgmma")}
+            for D, tiles in ca._FWD_TILES_WGMMA.items() for t in tiles]
     out += [{"kernel": f"flash_bwd_{k}_bf16", "D": D, "rows": t.rows,
              "stream_rows": t.stream_rows,
              **checked_entry(bwd, (k, D, t.rows // 8, t.stream_rows,
                                    t.stages), "flash_bwd_bf16")}
             for D, tiles in ca._BWD_TILES_BF16.items() for t in tiles
             for k in ("dq", "dkv", "dq_ds")]
-    out += [{"kernel": "ln_matmul_bf16", "tile": list(t[:2]), "vec": vec,
+    out += [{"kernel": "ln_matmul_bf16", "route": "mma_sync",
+             "tile": list(t[:2]), "vec": vec,
              **checked_entry(ln, (t.rows, t.cols, vec), "ln_matmul_bf16")}
-            for t in TILES for vec in (8, 2, 1)]
+            for t in TILES for vec in (2, 1)]
+    out += [{"kernel": "ln_matmul_bf16", "route": "wgmma", "rows": t.rows,
+             "stages": t.stages, "k_max": t.k_max,
+             **checked_entry(ln_wg, (t.rows, t.stages),
+                             "ln_matmul_bf16 wgmma")}
+            for t in fl.WGMMA_LN]
+    out.append({"wgmma_serialised": {
+        src: len(WGMMA_SERIALISED.findall(str(report[src]["log"])))
+        for src in ("flash_fwd", "ln_matmul", "conv1x1_dw_bf16")}})
     return out
 
 
@@ -3003,17 +3039,23 @@ def phase_flash_bf16(torch, F, ca, gen, mma_rate):
         if seg is not None:
             do = do * (seg > 0)[:, None, :, None].to(bf)
         fwd = lambda: ca.flash_attention_fwd(q, k, v, seg, causal)  # noqa
-        before = ca.launch_counts()
+        before, routes = ca.launch_counts(), ca.route_counts()
         o, lse = fwd()
+        route = moved(routes, ca.route_counts())
         bwd = lambda: ca.flash_attention_bwd(  # noqa: E731
             q, k, v, seg, o, lse, do, causal)
         grads = bwd()
         after = ca.launch_counts()
-        if {n: after[n] - before[n] for n in after if after[n] != before[n]} \
-                != {"flash_fwd_bf16": 1, "flash_bwd_dq_bf16": 1,
-                    "flash_bwd_dkv_bf16": 1}:
+        if moved(before, after) != {"flash_fwd_bf16": 1,
+                                    "flash_bwd_dq_bf16": 1,
+                                    "flash_bwd_dkv_bf16": 1}:
             raise RuntimeError(f"flash bf16 {label}: launches {before} -> "
                                f"{after}")
+        log("flash_fwd_bf16 route", json.dumps({"case": label,
+                                                "routes": route}))
+        if route != {"wgmma": 1}:
+            raise RuntimeError(f"flash_fwd_bf16 {label}: aligned operands "
+                               f"went by {route}, not wgmma")
         qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
         o_ref, lse_ref = ca.flash_attention_plain(q, k, v, seg, causal)
         errs = {"O": bf16_gate(
@@ -3116,6 +3158,7 @@ def phase_flash_bf16(torch, F, ca, gen, mma_rate):
             rows[name, label] = bf16_bounds(row, nbytes, flops, mma_rate)
             log(name, json.dumps(row))
         del vis, mask, ds, qs, ks, vs
+    rows.update(flash_bf16_views(torch, ca, gen))
     # refusals
     q = torch.randn(1, 2, 64, 64, generator=gen, device="cuda").to(bf)
     o, lse = ca.flash_attention_fwd(q, q, q)
@@ -3136,6 +3179,61 @@ def phase_flash_bf16(torch, F, ca, gen, mma_rate):
             ds=torch.empty(2, 64, 64, device="cuda")), ca.launch_counts)}
     log("flash bf16 refusals", json.dumps(refused))
     return rows
+
+
+def moved(before, after):
+    """The counts that moved between two snapshots, by how much."""
+    return {n: after[n] - before[n] for n in after if after[n] != before[n]}
+
+
+def bf16_view(torch, gen, shape):
+    """A bf16 ``shape`` of random values whose data starts 4 bytes off a
+    16-byte boundary (a view into a larger buffer): the copy width TMA
+    cannot take, which the mma.sync routes take."""
+    n = math.prod(shape)
+    buf = torch.randn(n + 8, generator=gen, device="cuda").to(
+        torch.bfloat16)
+    t = buf[2:2 + n].view(shape)
+    assert t.data_ptr() % 16 == 4
+    return t
+
+
+def flash_bf16_views(torch, ca, gen):
+    """``flash_fwd_bf16`` at ``[2,8,512,128]`` with segments on q, k, v
+    views 4 bytes off 16: the call must go by ``mma.sync`` (one launch,
+    route counted), O under the bf16 gate with the unrounded control
+    failing it, the LSE within LSE_TOL, a bit-equal rerun; timed."""
+    bf = torch.bfloat16
+    label, shape, causal, seg_rows = FLASH_BF16_CASES[2]
+    label += " on views 4 bytes off 16"
+    q, k, v = (bf16_view(torch, gen, shape) for _ in range(3))
+    seg = torch.tensor(seg_rows, dtype=torch.int32, device="cuda")
+    fwd = lambda: ca.flash_attention_fwd(q, k, v, seg, causal)  # noqa: E731
+    before, routes = ca.launch_counts(), ca.route_counts()
+    o, lse = fwd()
+    route = moved(routes, ca.route_counts())
+    if moved(before, ca.launch_counts()) != {"flash_fwd_bf16": 1} \
+            or route != {"mma_sync": 1}:
+        raise RuntimeError(f"flash_fwd_bf16 {label}: launches "
+                           f"{moved(before, ca.launch_counts())}, routes "
+                           f"{route}; expected one by mma_sync")
+    o_ref, lse_ref = ca.flash_attention_plain(q, k, v, seg, causal)
+    row = {"case": label, "routes": route,
+           "plan": ca.flash_fwd_plan(*shape, causal, bf, ca.flash_copy_width(
+               q, k, v))._asdict(),
+           "O": bf16_gate(torch, f"flash_fwd_bf16 {label} O", o, o_ref,
+                          ca.flash_attention_plain(
+                              q.float(), k.float(), v.float(), seg,
+                              causal)[0].to(bf))}
+    row["max_abs_err"] = row["O"]["max_abs_err"]
+    row["LSE"] = (lse - lse_ref).abs().max().item()
+    if not row["LSE"] <= LSE_TOL:
+        raise RuntimeError(f"flash_fwd_bf16 {label}: LSE off by "
+                           f"{row['LSE']}")
+    check_rerun(torch, f"flash_fwd_bf16 {label} O", o, lambda: fwd()[0])
+    row["kernel_ms"] = time_ms(torch, fwd)
+    log("flash_fwd_bf16 views", json.dumps(row))
+    return {("flash_fwd_bf16", label): row}
 
 
 def phase_flash_bf16_path(torch, ca, gen):
@@ -3169,6 +3267,9 @@ def phase_flash_bf16_path(torch, ca, gen):
     if {n: c for n, c in counts.items() if c} != want:
         raise RuntimeError(f"flash bf16 path: launches {counts}, expected "
                            f"{want}")
+    if ca.route_counts() != {"wgmma": 1, "mma_sync": 0}:
+        raise RuntimeError(f"flash bf16 path: forward routes "
+                           f"{ca.route_counts()}, expected one by wgmma")
     if type(out.grad_fn).__name__ != "FlashAttentionFunctionBackward":
         raise RuntimeError(f"flash bf16 path: grad_fn {out.grad_fn}")
     f = [t.float() for t in base]
@@ -3187,7 +3288,8 @@ def phase_flash_bf16_path(torch, ca, gen):
                    for x, t, w, u in zip(("dq", "dk", "dv"), (q, k, v), ref,
                                          un)]
         del ref, un
-    res = {"launches": counts, "loss": loss.item(),
+    res = {"launches": counts, "routes": ca.route_counts(),
+           "loss": loss.item(),
            "grad_dtypes": [str(t.grad.dtype) for t in (q, k, v)]}
     failed = []
     for x, got, want, control, share in checks:
@@ -3210,10 +3312,13 @@ def phase_ln_bf16_kernels(torch, F, fl, gen, mma_rate):
     plain version under the bf16 gate with the unrounded control (y not
     rounded to bf16) failing it, reruns bit-equal, timed beside the plain
     version and ``F.layer_norm(x, ...) @ w`` in bf16 (the profiler's
-    device time too for the kernels line's case, w ``[512, 2048]`` with
-    scale and bias), with its bounds."""
+    device time and rows too: the statistics pass, the product and, with
+    bf16 scale and bias, their two widening copies; the library's for the
+    kernels line's case, w ``[512, 2048]`` with scale and bias), with its
+    bounds; each call's plan and route logged,
+    all four by ``wgmma``; then x on a view 4 bytes off 16 (w ``[512,
+    512]``, scale and bias) by ``mma.sync``, under the same gate."""
     from paddle_tpu_torch.nn import gemm_bf16
-    from paddle_tpu_torch.nn.gemm_f32 import TILES
     bf = torch.bfloat16
     M, K = 16384, 512
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -3231,6 +3336,10 @@ def phase_ln_bf16_kernels(torch, F, fl, gen, mma_rate):
     counts = fl.launch_counts()
     if counts != {"ln_matmul": 0, "ln_matmul_bf16": len(cases)}:
         raise RuntimeError(f"ln_matmul_bf16: launches {counts}")
+    log("ln_matmul_bf16 routes", json.dumps(fl.route_counts()))
+    if fl.route_counts() != {"wgmma": len(cases), "mma_sync": 0}:
+        raise RuntimeError(f"ln_matmul_bf16: aligned operands went by "
+                           f"{fl.route_counts()}, not all by wgmma")
     rows = {}
     for (N, aff), got in zip(cases, outs):
         w = ws[N]
@@ -3248,20 +3357,45 @@ def phase_ln_bf16_kernels(torch, F, fl, gen, mma_rate):
         fn = lambda: fl.fused_ln_matmul(x, w, s, b)  # noqa: E731
         lib = lambda: F.layer_norm(x, (K,), s, b, 1e-6) @ w  # noqa: E731
         profiled = (N, aff) == (2048, True)
+        dev_ms, dev_rows = device_ms(torch, fn)
         row = {"case": label, **err, "kernel_ms": time_ms(torch, fn),
-               "device_ms": device_ms(torch, fn)[0] if profiled else None,
+               "device_ms": dev_ms, "device_rows": dev_rows,
                "plain_ms": time_ms(torch, lambda: fl.ln_matmul_reference(
                    x, w, s, b)),
                "library_ms": time_ms(torch, lib),
                "library_device_ms": device_ms(torch, lib)[0] if profiled
                else None,
                "library_note": "F.layer_norm + torch.mm, bf16",
-               "tile": list(TILES[fl._plan(M, N, sms)][:2]),
-               "copy_width": gemm_bf16.copy_width(x, w)}
+               "plan": fl.ln_bf16_plan(M, K, N, gemm_bf16.copy_width(x, w),
+                                       sms)._asdict()}
         nbytes = 2 * (M * K + K * N + M * N) + (4 * K if aff else 0)
         row.update(bytes=nbytes, flops=2 * M * K * N)
         rows[N, aff] = bf16_bounds(row, nbytes, 2 * M * K * N, mma_rate)
         log("ln_matmul_bf16", json.dumps(row))
+    # x 4 bytes off 16: the mma.sync route, under the same gate
+    xv = bf16_view(torch, gen, (M, K))
+    xv.mul_(2).add_(0.5)
+    w = ws[512]
+    before, routes = fl.launch_counts(), fl.route_counts()
+    got = fl.fused_ln_matmul(xv, w, sc, bi)
+    route = moved(routes, fl.route_counts())
+    if moved(before, fl.launch_counts()) != {"ln_matmul_bf16": 1} \
+            or route != {"mma_sync": 1}:
+        raise RuntimeError(f"ln_matmul_bf16 on a view: routes {route}, "
+                           f"expected one by mma_sync")
+    label = f"x [{M},{K}] 4 bytes off 16, w [{K},512] scale+bias"
+    row = {"case": label, "routes": route, **bf16_gate(
+        torch, f"ln_matmul_bf16 {label}", got,
+        fl.ln_matmul_reference(xv, w, sc, bi),
+        fl.ln_matmul_reference(xv.float(), w.float(), sc.float(),
+                               bi.float()).to(bf)),
+        "plan": fl.ln_bf16_plan(M, K, 512, gemm_bf16.copy_width(xv, w),
+                                sms)._asdict()}
+    check_rerun(torch, f"ln_matmul_bf16 {label}", got,
+                lambda: fl.fused_ln_matmul(xv, w, sc, bi))
+    row["kernel_ms"] = time_ms(torch, lambda: fl.fused_ln_matmul(xv, w, sc,
+                                                                 bi))
+    log("ln_matmul_bf16 view", json.dumps(row))
     refused = {"mixed x/w": refuse("ln bf16 mixed", lambda: fl.fused_ln_matmul(
         x, ws[512].float()), fl.launch_counts)}
     log("ln_matmul_bf16 refusals", json.dumps(refused))

@@ -286,8 +286,8 @@ __device__ __forceinline__ void wg_product(uint32_t stage, int wg,
                                            float (&part)[C::BN / 2]) {
   const uint64_t da = wgmma::desc_sw128(stage + wg * C::SLAB, C::SLAB, 1024);
   const uint64_t db = wgmma::desc_sw128(stage + C::A_BYTES, C::SLAB, 1024);
-  wgmma::fence();
   wgmma::fence_operand(part);
+  wgmma::fence();
 #pragma unroll
   for (int kk = 0; kk < C::BK / 16; ++kk)     // 2048 bytes a k16 step
     wgmma::mma<C::BN>(part, da + 128 * kk, db + 128 * kk, kk > 0);
@@ -376,58 +376,12 @@ dw_wgmma(const __grid_constant__ CUtensorMap xmap,
               ci0 + 64 * wg, co0);
 }
 
-// cuTensorMapEncodeTiled lives in libcuda; the runtime hands out its
-// address, so the library needs no link against libcuda.
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// The map of a row-major bf16 [rows, cols] (16-byte aligned, cols a
-// multiple of 8) whose boxes are 64 columns by box_rows rows, landing
-// 128-byte-swizzled; reads past the edge fill zeros.
-cudaError_t rows_map(CUtensorMap* map, const bf16* t, int rows, int cols,
-                     int box_rows) {
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return cudaErrorNotSupported;
-  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)cols * sizeof(bf16)};
-  const cuuint32_t box[2] = {64, (cuuint32_t)box_rows};
-  const cuuint32_t step[2] = {1, 1};
-  const CUresult r = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<bf16*>(t), dims,
-      strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
-}
-
 template <class C>
 cudaError_t launch_wgmma(const bf16* x, const bf16* dy, float* tiles, int M,
                          int Cin, int Cout, int splits, cudaStream_t st) {
   CUtensorMap xmap, dymap;
-  cudaError_t err = rows_map(&xmap, x, M, Cin, C::BK);
-  if (err == cudaSuccess) err = rows_map(&dymap, dy, M, Cout, C::BK);
+  cudaError_t err = wgmma::rows_map(&xmap, x, M, Cin, C::BK);
+  if (err == cudaSuccess) err = wgmma::rows_map(&dymap, dy, M, Cout, C::BK);
   if (err == cudaSuccess) err = gemm_f32::allow_smem<C>(dw_wgmma<C>);
   if (err != cudaSuccess) return err;
   const dim3 grid((Cout + C::BN - 1) / C::BN, (Cin + C::BM - 1) / C::BM,

@@ -116,23 +116,27 @@ __device__ __forceinline__ void stage_vec(float* dst,
 }
 
 // (min, max) segment id over rows [row0, row0 + n) below T, in every lane
-// of the calling warp; (INT_MAX, INT_MIN) for no rows.
+// of the calling warp; (INT_MAX, INT_MIN) for no rows. Warp-uniform as
+// ptxas sees it (no branch on a lane's own values; the result broadcast
+// from lane 0): the wgmma forward looks for its next tile while a wgmma
+// group is in flight, and a divergent path there makes ptxas serialise
+// every wgmma.
 __device__ __forceinline__ int2 seg_range(const int* __restrict__ seg,
                                           int row0, int n, int T) {
   int mn = INT_MAX, mx = INT_MIN;
   for (int r = threadIdx.x % 32; r < n; r += 32) {
-    if (row0 + r < T) {
-      const int s = seg[row0 + r];
-      mn = min(mn, s);
-      mx = max(mx, s);
-    }
+    const bool live = row0 + r < T;
+    const int s = __ldg(seg + min(row0 + r, T - 1));
+    mn = live ? min(mn, s) : mn;
+    mx = live ? max(mx, s) : mx;
   }
 #pragma unroll
   for (int off = 16; off; off >>= 1) {
     mn = min(mn, __shfl_xor_sync(0xffffffffu, mn, off));
     mx = max(mx, __shfl_xor_sync(0xffffffffu, mx, off));
   }
-  return make_int2(mn, mx);
+  return make_int2(__shfl_sync(0xffffffffu, mn, 0),
+                   __shfl_sync(0xffffffffu, mx, 0));
 }
 
 // Whether rows with ids in a and rows with ids in b can hold a visible
@@ -141,14 +145,14 @@ __device__ __forceinline__ bool seg_meet(int2 a, int2 b) {
   return a.x <= b.y && a.y >= b.x && a.y > 0 && b.y > 0;
 }
 
-// The first streamed tile in [t, end) whose segment ids meet the block's
-// own range (t itself without segments); end if none.
-template <class C>
+// The first streamed tile of BS rows in [t, end) whose segment ids meet
+// the block's own range (t itself without segments); end if none.
+template <int BS>
 __device__ __forceinline__ int next_tile(const int* __restrict__ seg,
                                          int2 own, int t, int end, int T) {
   if (!seg) return t;
   for (; t < end; ++t)
-    if (seg_meet(own, seg_range(seg, t * C::BS, C::BS, T))) break;
+    if (seg_meet(own, seg_range(seg, t * BS, BS, T))) break;
   return t;
 }
 
@@ -287,13 +291,13 @@ __device__ __forceinline__ void stream(float* ring, const int* seg, int2 own,
                                        const Setup& setup, const Load& load,
                                        const Body& body) {
   int pend[C::STAGES - 1];       // tiles in flight, oldest first
-  int nt = next_tile<C>(seg, own, first, end, T);
+  int nt = next_tile<C::BS>(seg, own, first, end, T);
 #pragma unroll
   for (int s = 0; s < C::STAGES - 1; ++s) {
     pend[s] = nt;
     if (nt < end) {
       load(ring + s * C::STAGE, nt);
-      nt = next_tile<C>(seg, own, nt + 1, end, T);
+      nt = next_tile<C::BS>(seg, own, nt + 1, end, T);
     }
     cp_async_commit();
   }
@@ -308,7 +312,7 @@ __device__ __forceinline__ void stream(float* ring, const int* seg, int2 own,
 #pragma unroll
     for (int s = 0; s + 1 < C::STAGES - 1; ++s) pend[s] = pend[s + 1];
     pend[C::STAGES - 2] = nt;
-    if (nt < end) nt = next_tile<C>(seg, own, nt + 1, end, T);
+    if (nt < end) nt = next_tile<C::BS>(seg, own, nt + 1, end, T);
     body(ring + slot * C::STAGE, cur);
   }
   cp_async_wait<0>();

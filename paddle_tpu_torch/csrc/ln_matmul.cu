@@ -41,7 +41,10 @@
 // bf16 operands (ln_matmul_bf16): _ln_matmul_kernel on bf16 x and w takes
 // the same f32 statistics, rounds the normalised y to x's dtype before the
 // product (fused_ln.py:75) and writes the output in x's dtype. Here the
-// statistics pass reads bf16 rows; the product's A stage is a [BM][64]
+// statistics pass reads bf16 rows. 16-byte aligned operands (K and N
+// multiples of 8, K up to 1280) take the wgmma route described at the end
+// of the file; the views TMA cannot load take mma.sync: the A stage is a
+// [BM][64]
 // tile of raw bf16 x rows, which each thread normalises in f32 where it
 // copied them, two values a 32-bit word, and rounds to bf16 (nearest
 // even) in place before the stage's barrier; A comes by ldmatrix, w's
@@ -52,6 +55,7 @@
 
 #include "gemm_f32.cuh"
 #include "mma_bf16.cuh"
+#include "wgmma_bf16.cuh"
 
 namespace {
 
@@ -241,8 +245,9 @@ using BLarge = BCfg<128, 128, 64, 32, 4, 1>;
 using BSmall = BCfg<64, 64, 32, 32, 3, 3>;
 
 // Copies rows m0.. of x (columns 32 kt..) as As[m][k] and rows 32 kt.. of
-// w (columns n0..) as Bs[k][n], VEC bf16 values a copy: 8 (16-byte
-// cp.async), 2 (4-byte cp.async) or 1 (a plain load and store); fixup
+// w (columns n0..) as Bs[k][n], VEC bf16 values a copy: 2 (4-byte
+// cp.async) or 1 (a plain load and store; 16-byte aligned operands take
+// the wgmma route below); fixup
 // normalises this thread's x pieces in f32 and rounds them to bf16.
 template <class C, int VEC>
 struct LnLoaderB {
@@ -260,9 +265,7 @@ struct LnLoaderB {
 
   __device__ __forceinline__ void copy(bf16* dst, const bf16* src,
                                        bool live) const {
-    if constexpr (VEC == 8)
-      bf16mma::cp_async16(dst, live ? src : x, live);
-    else if constexpr (VEC == 2)
+    if constexpr (VEC == 2)
       bf16mma::cp_async4(dst, live ? src : x, live);
     else
       *dst = live ? *src : __float2bfloat16(0.f);
@@ -325,23 +328,11 @@ struct LnLoaderB {
       if constexpr (VEC == 1) {
         v[0] = __float2bfloat16_rn(y(__bfloat162float(v[0]), 0));
       } else {
-        unsigned w[VEC / 2];                   // one 16- or 4-byte access
-        if constexpr (VEC == 8) {
-          const uint4 u = *reinterpret_cast<const uint4*>(v);
-          w[0] = u.x, w[1] = u.y, w[2] = u.z, w[3] = u.w;
-        } else {
-          w[0] = *reinterpret_cast<const unsigned*>(v);
-        }
-#pragma unroll
-        for (int e = 0; e < VEC; e += 2) {
-          const float2 f = __bfloat1622float2(
-              *reinterpret_cast<const __nv_bfloat162*>(&w[e / 2]));
-          w[e / 2] = bf16mma::pack_bf16x2(y(f.x, e), y(f.y, e + 1));
-        }
-        if constexpr (VEC == 8)
-          *reinterpret_cast<uint4*>(v) = make_uint4(w[0], w[1], w[2], w[3]);
-        else
-          *reinterpret_cast<unsigned*>(v) = w[0];
+        // one 4-byte access, two values
+        const float2 f = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(v));
+        *reinterpret_cast<unsigned*>(v) =
+            bf16mma::pack_bf16x2(y(f.x, 0), y(f.y, 1));
       }
     }
   }
@@ -450,14 +441,7 @@ __device__ __forceinline__ void store_bf16(const float (&acc)[C::MI][C::NI][4],
     if (row >= rows || col >= cols) continue;
     bf16* dst = out + (size_t)row * cols + col;
     const float* src = &smem[r * C::LDC + c];
-    if constexpr (VEC == 8) {
-      uint4 v;
-      v.x = bf16mma::pack_bf16x2(src[0], src[1]);
-      v.y = bf16mma::pack_bf16x2(src[2], src[3]);
-      v.z = bf16mma::pack_bf16x2(src[4], src[5]);
-      v.w = bf16mma::pack_bf16x2(src[6], src[7]);
-      *reinterpret_cast<uint4*>(dst) = v;
-    } else if constexpr (VEC == 2) {
+    if constexpr (VEC == 2) {
       *reinterpret_cast<unsigned*>(dst) = bf16mma::pack_bf16x2(src[0], src[1]);
     } else {
       *dst = __float2bfloat16_rn(*src);
@@ -506,11 +490,301 @@ cudaError_t by_vec_bf16(int vec, const bf16* x, const bf16* w,
                         const float* scale, const float* bias,
                         const float* stats, bf16* out, int M, int K, int N,
                         cudaStream_t st) {
-  if (vec == 8)
-    return launch_gemm_bf16<C, 8>(x, w, scale, bias, stats, out, M, K, N, st);
   if (vec == 2)
     return launch_gemm_bf16<C, 2>(x, w, scale, bias, stats, out, M, K, N, st);
   return launch_gemm_bf16<C, 1>(x, w, scale, bias, stats, out, M, K, N, st);
+}
+
+
+// -- the wgmma route (16-byte aligned x and w) -------------------------------
+//
+// What held the mma.sync kernel above back on the H100: every 128 x 128
+// output block normalised its own [128, 64] x tiles (with N = 2048, each x
+// value 16 times) beside 64 mma.sync a warp, fed by ldmatrix, at about a
+// sixth of the wgmma rate (114 TFLOP/s against 989). Here:
+//   - A block owns a strip of BM rows of x, all of K. Its producer
+//     warpgroup's first thread loads the strip raw by TMA (one box of 64
+//     K values, 128 bytes, by BM rows per 64 of K: K-major slabs with the
+//     128-byte swizzle, rows past M and columns past K zero) and walks w
+//     through a ring of STAGES stages of [64 k, BN n] tiles by TMA (w is
+//     [K, N] with N contiguous: MN-major slabs, as conv1x1_dw_bf16's
+//     operands).
+//   - The consumer warpgroups take each row's statistics from the strip
+//     (two threads a row: the f32 mean, then the mean of squared
+//     deviations from it, as ln_stats computes them for the mma.sync
+//     route; a separate launch over x cost a tenth of the call) and
+//     normalise the strip once, in place: the chunk at position p of row
+//     r holds columns 8 (p ^ (r % 8)) onward of its slab, (x - mean) *
+//     rstd * scale + bias in f32 (scale and bias read as f32 or bf16),
+//     rounded to bf16 nearest even, zero past M and K. Each writer fences
+//     its stores to the async proxy, and a barrier among the consumers
+//     orders them before the first wgmma.
+//   - Then every N tile the block owns: per 64-deep k-block a chain of
+//     four m64nBNk16 wgmma (y K-major, w MN-major) into a fresh partial,
+//     added by FADD (the tensor cores truncate a long chain), k-blocks
+//     two at a time so that the second one's chain is queued while the
+//     first one's is added; stored as bf16 pairs straight from the
+//     accumulators, while the producer already loads the next tile's
+//     stages.
+// Each x value is read and normalised once per block that reads it, and
+// w passes through shared memory once per strip.
+
+template <int BM_, int STAGES_>
+struct LnW {
+  static constexpr int BM = BM_, BN = 128, BK = 64, STAGES = STAGES_;
+  static constexpr int WG = BM / 64, CONSUMERS = 128 * WG;
+  static constexpr int NT = CONSUMERS + 128;       // and the producer
+  static constexpr int X_SLAB = BM * 128;          // bytes: a k-block
+  static constexpr int W_SLAB = BK * 128;          // 64 columns of w
+  static constexpr int W_STAGE = BN / 64 * W_SLAB;
+  // the strip of KB k-blocks and the stages from a 1024-byte boundary,
+  // then 2 STAGES + 1 barriers
+  static constexpr int FIXED = 1024 + STAGES * W_STAGE + 8 * (2 * STAGES + 1);
+  // beside 8 BM bytes of static shared memory (the rows' statistics)
+  static constexpr int KB_MAX = (232448 - 8 * BM - FIXED) / X_SLAB;
+  static constexpr int smem_bytes(int kb) { return FIXED + kb * X_SLAB; }
+  static_assert(BM % 64 == 0 && KB_MAX >= 1, "whole warpgroups, a k-block");
+};
+
+// The instances (nn/fused_ln.py: WGMMA_LN, by index): a strip of 128 rows
+// (two consumer warpgroups) for K up to 10 k-blocks (640), of 64 rows (one)
+// for K up to 20 (1280). Four w stages of 16 KB (three were slower at w
+// [512, 2048]: tools/bf16_compare.py ln_stages3).
+using LnLarge = LnW<128, 4>;
+using LnSmall = LnW<64, 4>;
+
+// scale or bias entry k: f32, or bf16 widened
+__device__ __forceinline__ float affine_at(const void* a, int k, bool bf) {
+  return bf ? __bfloat162float(__ldg(static_cast<const bf16*>(a) + k))
+            : __ldg(static_cast<const float*>(a) + k);
+}
+
+template <class C>
+__global__ void __launch_bounds__(C::NT, 1)
+ln_gemm_wgmma(const __grid_constant__ CUtensorMap xmap,
+              const __grid_constant__ CUtensorMap wmap,
+              const void* __restrict__ scale, const void* __restrict__ bias,
+              int affine_bf16, bf16* __restrict__ out, int M, int K, int N,
+              float eps, int splits) {
+  __shared__ float row_mean[C::BM], row_rstd[C::BM];
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* strip =
+      smem_raw + (1024 - wgmma::smem_addr(smem_raw) % 1024) % 1024;
+  const int KB = (K + C::BK - 1) / C::BK;
+  unsigned char* ring = strip + KB * C::X_SLAB;
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + C::STAGES * C::W_STAGE);
+  uint64_t* empty = full + C::STAGES;
+  uint64_t* xbar = empty + C::STAGES;
+  const int m0 = blockIdx.y * C::BM;
+  // this block's N tiles: an equal share of them
+  const int tiles = (N + C::BN - 1) / C::BN;
+  const int nt0 = (int)((long long)tiles * blockIdx.x / splits);
+  const int nt1 = (int)((long long)tiles * (blockIdx.x + 1) / splits);
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < C::STAGES; ++i) {
+      wgmma::mbar_init(&full[i], 1);
+      wgmma::mbar_init(&empty[i], C::CONSUMERS / 32);
+    }
+    wgmma::mbar_init(xbar, 1);
+    wgmma::mbar_fence_init();
+  }
+  __syncthreads();
+  if (threadIdx.x >= C::CONSUMERS) {
+    wgmma::setmaxnreg_dec<40>();
+    if (threadIdx.x == C::CONSUMERS) {
+      wgmma::mbar_expect_tx(xbar, KB * C::X_SLAB);
+      for (int kb = 0; kb < KB; ++kb)
+        wgmma::tma_load_2d(strip + kb * C::X_SLAB, &xmap, xbar, 64 * kb, m0);
+      int it = 0;
+      for (int nt = nt0; nt < nt1; ++nt)
+        for (int kb = 0; kb < KB; ++kb, ++it) {
+          const int st = it % C::STAGES;
+          if (it >= C::STAGES)
+            wgmma::mbar_wait(&empty[st], (it / C::STAGES - 1) & 1);
+          unsigned char* s = ring + st * C::W_STAGE;
+          wgmma::mbar_expect_tx(&full[st], C::W_STAGE);
+#pragma unroll
+          for (int j = 0; j < C::BN / 64; ++j)
+            wgmma::tma_load_2d(s + j * C::W_SLAB, &wmap, &full[st],
+                               nt * C::BN + 64 * j, 64 * kb);
+        }
+    }
+  } else {
+    wgmma::setmaxnreg_inc<232>();
+    const int ct = threadIdx.x, wg = ct / 128, lane = ct % 32;
+    wgmma::mbar_wait(xbar, 0);
+    // each row's statistics from the strip itself, as ln_stats takes them
+    // (the f32 mean, then the mean of squared deviations from it, and
+    // 1 / sqrt(var + eps)): two threads a row over alternate 16-byte
+    // chunks, combined by a shuffle (K % 8 == 0: a chunk lies wholly
+    // inside K or wholly past it)
+    {
+      static_assert(C::CONSUMERS == 2 * C::BM, "two threads a row");
+      const int r = ct / 2;
+      const auto chunk = [&](int kb, int c, float (&f)[8]) {
+        const uint4 u = *reinterpret_cast<const uint4*>(
+            strip + kb * C::X_SLAB + 128 * r + 16 * (c ^ (r % 8)));
+        const unsigned w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float2 v = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(&w[e]));
+          f[2 * e] = v.x, f[2 * e + 1] = v.y;
+        }
+      };
+      float sum = 0.f;
+      for (int kb = 0; kb < KB; ++kb)
+        for (int c = ct % 2; c < 8; c += 2) {
+          float f[8];
+          chunk(kb, c, f);        // columns past K landed as zeros
+#pragma unroll
+          for (int e = 0; e < 8; ++e) sum += f[e];
+        }
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      const float mean = sum / K;
+      float sq = 0.f;
+      for (int kb = 0; kb < KB; ++kb)
+        for (int c = ct % 2; c < 8; c += 2) {
+          if (64 * kb + 8 * c >= K) continue;
+          float f[8];
+          chunk(kb, c, f);
+#pragma unroll
+          for (int e = 0; e < 8; ++e) {
+            const float d = f[e] - mean;
+            sq = fmaf(d, d, sq);
+          }
+        }
+      sq += __shfl_xor_sync(0xffffffffu, sq, 1);
+      if (ct % 2 == 0) {
+        row_mean[r] = mean;
+        row_rstd[r] = 1.f / sqrtf(sq / K + eps);
+      }
+    }
+    wgmma::bar_sync<1, C::CONSUMERS>();
+    // normalise the strip: thread ct takes column chunk c = ct % 8 of each
+    // k-block, rows ct / 8 + CONSUMERS / 8 * q
+    const int c = ct % 8;
+    const bool bf = affine_bf16 != 0;
+    for (int kb = 0; kb < KB; ++kb) {
+      const int k = 64 * kb + 8 * c;
+      float sc[8], bi[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        sc[e] = scale != nullptr && k + e < K ? affine_at(scale, k + e, bf)
+                                              : 1.f;
+        bi[e] = bias != nullptr && k + e < K ? affine_at(bias, k + e, bf)
+                                             : 0.f;
+      }
+#pragma unroll
+      for (int q = 0; q < 8 * C::BM / C::CONSUMERS; ++q) {
+        const int r = ct / 8 + C::CONSUMERS / 8 * q, m = m0 + r;
+        uint4* v = reinterpret_cast<uint4*>(strip + kb * C::X_SLAB + 128 * r +
+                                            16 * (c ^ (r % 8)));
+        uint4 u = *v;
+        unsigned w[4] = {u.x, u.y, u.z, u.w};
+        const float mu = row_mean[r], rs = row_rstd[r];
+#pragma unroll
+        for (int e = 0; e < 8; e += 2) {
+          const float2 f = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(&w[e / 2]));
+          float y0 = (f.x - mu) * rs, y1 = (f.y - mu) * rs;
+          if (scale != nullptr) y0 *= sc[e], y1 *= sc[e + 1];
+          if (bias != nullptr) y0 += bi[e], y1 += bi[e + 1];
+          w[e / 2] = bf16mma::pack_bf16x2(m < M && k + e < K ? y0 : 0.f,
+                                          m < M && k + e + 1 < K ? y1 : 0.f);
+        }
+        *v = make_uint4(w[0], w[1], w[2], w[3]);
+      }
+    }
+    wgmma::fence_proxy_async();
+    wgmma::bar_sync<1, C::CONSUMERS>();
+    const uint32_t ya = wgmma::smem_addr(strip) + wg * 64 * 128;
+    const int row = m0 + 64 * wg + 16 * (ct % 128 / 32) + lane / 4;
+    // k-block kb of the block's it-th: its stage, then its chain of four
+    // m64nBNk16 (y K-major, w MN-major: 2048 bytes a k16 step) into a
+    // fresh partial, one wgmma group
+    const auto issue = [&](float (&part)[C::BN / 2], int kb, int it) {
+      const int st = it % C::STAGES;
+      wgmma::mbar_wait(&full[st], (it / C::STAGES) & 1);
+      const uint32_t wa = wgmma::smem_addr(ring + st * C::W_STAGE);
+      const uint32_t xa = ya + kb * C::X_SLAB;
+      wgmma::fence_operand(part);    // before wgmma.fence (C7514)
+      wgmma::fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma::mma_ss<C::BN, 0, 1>(
+            part, wgmma::desc_k128(xa + 32 * kk),
+            wgmma::desc_sw128(wa + 2048 * kk, C::W_SLAB, 1024), kk > 0);
+      wgmma::commit();
+    };
+    const auto add = [&](float (&acc)[C::BN / 2], float (&part)[C::BN / 2],
+                         int it) {
+      wgmma::fence_operand(part);
+      wgmma::mbar_arrive_if(&empty[it % C::STAGES], lane == 0);
+#pragma unroll
+      for (int i = 0; i < C::BN / 2; ++i) acc[i] += part[i];
+    };
+    int it = 0;
+    for (int nt = nt0; nt < nt1; ++nt) {
+      float acc[C::BN / 2];
+#pragma unroll
+      for (int i = 0; i < C::BN / 2; ++i) acc[i] = 0.f;
+      // k-blocks two at a time: the second one's chain is issued before
+      // the first one's partial is added, so the tensor cores have work
+      // queued; no group stays in flight from one pair to the next (an
+      // accumulator in flight across a loop's back edge made ptxas
+      // serialise every wgmma)
+      for (int kb = 0; kb < KB; kb += 2) {
+        float p0[C::BN / 2], p1[C::BN / 2];
+        const bool two = kb + 1 < KB;
+        issue(p0, kb, it);
+        if (two) {
+          issue(p1, kb + 1, it + 1);
+          wgmma::wait<1>();
+        } else {
+          wgmma::wait<0>();
+        }
+        add(acc, p0, it++);
+        if (two) {
+          wgmma::wait<0>();
+          add(acc, p1, it++);
+        }
+      }
+      const int col0 = nt * C::BN + 2 * (lane % 4);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        if (row + 8 * h >= M) continue;
+        bf16* dst = out + (size_t)(row + 8 * h) * N;
+#pragma unroll
+        for (int j = 0; j < C::BN / 8; ++j)
+          if (col0 + 8 * j < N)
+            *reinterpret_cast<unsigned*>(dst + col0 + 8 * j) =
+                bf16mma::pack_bf16x2(acc[4 * j + 2 * h],
+                                     acc[4 * j + 2 * h + 1]);
+      }
+    }
+  }
+}
+
+template <class C>
+cudaError_t launch_wgmma(const bf16* x, const bf16* w, const void* scale,
+                         const void* bias, int affine_bf16, bf16* out, int M,
+                         int K, int N, float eps, int splits,
+                         cudaStream_t st) {
+  const int kb = (K + C::BK - 1) / C::BK;
+  if (kb > C::KB_MAX || splits < 1) return cudaErrorInvalidValue;
+  CUtensorMap xmap, wmap;
+  cudaError_t err = wgmma::rows_map(&xmap, x, M, K, C::BM);
+  if (err == cudaSuccess) err = wgmma::rows_map(&wmap, w, K, N, C::BK);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(ln_gemm_wgmma<C>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               C::smem_bytes(kb));
+  if (err != cudaSuccess) return err;
+  const dim3 grid(splits, (M + C::BM - 1) / C::BM);
+  ln_gemm_wgmma<C><<<grid, C::NT, C::smem_bytes(kb), st>>>(
+      xmap, wmap, scale, bias, affine_bf16, out, M, K, N, eps, splits);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -552,32 +826,63 @@ extern "C" int ln_matmul_f32(const void* x, const void* w, const void* scale,
 }
 
 // x: [M, K], w: [K, N], out: [M, N], all bfloat16; scale and bias: [K]
-// float32 or null; stats: a [2, M] float32 workspace; all contiguous.
-// tile: 0 for 128 x 128 output tiles, 1 for 64 x 64; vec: 8 for 16-byte
-// copies (x and w 16-byte aligned, K and N multiples of 8), 2 for 4-byte
-// ones (4-byte aligned, K and N even), else 1. Returns a cudaError_t.
+// or null, float32, or bfloat16 where affine_bf16 (the wgmma route only);
+// stats: a [2, M] float32 workspace (the mma.sync route's; the wgmma route
+// takes each row's statistics from its strip); all contiguous. vec picks
+// the route: 8 for wgmma (x and w 16-byte aligned, K and N multiples of
+// 8), tile 0 (LnLarge, K up to 640) or 1 (LnSmall, K up to 1280), N split
+// into as many shares as fill one wave of the card's SMs with ceil(M /
+// BM) strips; 2 (4-byte copies: 4-byte aligned, K and N even) or 1 (plain
+// loads) for mma.sync, tile 0 for 128 x 128 output tiles, 1 for 64 x 64.
+// Returns a cudaError_t.
 extern "C" int ln_matmul_bf16_f32(const void* x, const void* w,
                                   const void* scale, const void* bias,
                                   void* out, void* stats, int M, int K, int N,
-                                  float eps, int tile, int vec,
-                                  void* stream) {
+                                  float eps, int tile, int vec, void* stream,
+                                  int affine_bf16) {
   if (M == 0 || N == 0) return (int)cudaGetLastError();
-  if ((tile != 0 && tile != 1) || (vec != 1 && vec != 2 && vec != 8))
+  if ((tile != 0 && tile != 1) || (vec != 1 && vec != 2 && vec != 8) ||
+      (affine_bf16 && vec != 8))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bf16* xb = static_cast<const bf16*>(x);
+  const bf16* wb = static_cast<const bf16*>(w);
+  bf16* ob = static_cast<bf16*>(out);
+  if (vec == 8) {
+    int dev = 0, sms = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return (int)err;
+    // nn/fused_ln.py: ln_bf16_plan's splits
+    const int bm = tile == 0 ? LnLarge::BM : LnSmall::BM;
+    const int strips = (M + bm - 1) / bm, tiles = (N + 127) / 128;
+    const int fill = sms / strips;
+    const int splits = fill < 1 ? 1 : fill < tiles ? fill : tiles;
+    return (int)(tile == 0
+                     ? launch_wgmma<LnLarge>(xb, wb, scale, bias, affine_bf16,
+                                             ob, M, K, N, eps, splits, st)
+                     : launch_wgmma<LnSmall>(xb, wb, scale, bias, affine_bf16,
+                                             ob, M, K, N, eps, splits, st));
+  }
   float* sf = static_cast<float*>(stats);
   ln_stats<bf16><<<(M + STATS_WARPS - 1) / STATS_WARPS, 32 * STATS_WARPS,
                    0, st>>>(xb, sf, M, K, eps);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const bf16* wb = static_cast<const bf16*>(w);
   const float* sc = static_cast<const float*>(scale);
   const float* bi = static_cast<const float*>(bias);
-  bf16* ob = static_cast<bf16*>(out);
   return (int)(tile == 0
                    ? by_vec_bf16<BLarge>(vec, xb, wb, sc, bi, sf, ob, M, K,
                                          N, st)
                    : by_vec_bf16<BSmall>(vec, xb, wb, sc, bi, sf, ob, M, K,
                                          N, st));
+}
+
+// Dynamic shared memory of wgmma instance tile for K, or -1 past its K.
+extern "C" int ln_matmul_wgmma_smem_bytes(int K, int tile) {
+  const int kb = (K + 63) / 64;
+  if (tile == 0) return kb <= LnLarge::KB_MAX ? LnLarge::smem_bytes(kb) : -1;
+  if (tile == 1) return kb <= LnSmall::KB_MAX ? LnSmall::smem_bytes(kb) : -1;
+  return -1;
 }

@@ -65,8 +65,8 @@ __all__ = ["FlashAttentionFunction", "FlashBwdPlan", "FlashFwdPlan",
            "paged_span_attention", "paged_span_plain", "paged_plan",
            "paged_rounding_slack",
            "PagedPlan", "POOL_BF16", "POOL_F32", "POOL_INT8",
-           "launch_counts", "reset_launch_counts", "capturing_launches",
-           "count_replay", "KERNELS", "SPAN_MAX_Q"]
+           "launch_counts", "reset_launch_counts", "route_counts",
+           "capturing_launches", "count_replay", "KERNELS", "SPAN_MAX_Q"]
 
 _NEG = -1e30
 _HEAD_DIMS = (64, 128)
@@ -82,6 +82,8 @@ KERNELS = {"flash_fwd": "flash_fwd", "paged_decode": "paged_decode",
            "paged_span_bf16": "paged_span"}
 
 _launches: Dict[str, int] = {name: 0 for name in KERNELS}
+# flash_fwd_bf16's launches by route (FlashFwdPlan.route)
+_routes: Dict[str, int] = {"wgmma": 0, "mma_sync": 0}
 # where _launch counts: _launches, or a capture's own tally while a CUDA
 # graph is being captured (its launches run only when it replays)
 _counter = [_launches]
@@ -93,9 +95,17 @@ def launch_counts() -> Dict[str, int]:
     return dict(_launches)
 
 
+def route_counts() -> Dict[str, int]:
+    """``flash_fwd_bf16``'s launches since the last
+    :func:`reset_launch_counts`, by route: ``"wgmma"`` (16-byte aligned
+    operands) or ``"mma_sync"`` (views 4 bytes off 16)."""
+    return dict(_routes)
+
+
 def reset_launch_counts() -> None:
-    for name in _launches:
-        _launches[name] = 0
+    for counts in (_launches, _routes):
+        for name in counts:
+            counts[name] = 0
 
 
 @contextlib.contextmanager
@@ -310,20 +320,25 @@ def flash_attention_fwd(q, k, v, segments=None, causal: bool = False,
     with 16-byte copies where ``q``, ``k`` and ``v`` allow them, else
     4-byte ones (any contiguous view); bf16 tensors launch
     ``flash_fwd_bf16`` (O in bf16, the LSE in f32), on views at any 4-byte
-    offset."""
+    offset: by ``wgmma`` fed by TMA where ``q``, ``k``, ``v`` and O start
+    on 16-byte boundaries, else by ``mma.sync`` on 4-byte copies
+    (:func:`route_counts`)."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, segments, causal, scale)
     seg_ptr = _check_flash("flash_attention", q, k, v, segments)
     B, H, T, D = q.shape
     scale = D ** -0.5 if scale is None else float(scale)
-    plan = flash_fwd_plan(B, H, T, D, causal, q.dtype)
     out = torch.empty_like(q)
     lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
+    width = flash_copy_width(q, k, v, out)
+    plan = flash_fwd_plan(B, H, T, D, causal, q.dtype, width)
     with torch.cuda.device(q.device):          # launch on q's card
         _launch(_kernel_name("flash_fwd", q.dtype), q.data_ptr(),
                 k.data_ptr(), v.data_ptr(), seg_ptr, out.data_ptr(),
                 lse.data_ptr(), B, H, T, D, scale, int(causal), plan.tile,
-                flash_copy_width(q, k, v), stream_ptr(q))
+                width, stream_ptr(q))
+    if q.dtype == torch.bfloat16:
+        _routes[plan.route] += 1
     return out, lse
 
 
@@ -353,12 +368,19 @@ _BWD_TILES = {128: (_BwdTile(64, 32, 2, 1), _BwdTile(32, 16, 2, 2)),
 # f32 shapes
 _FWD_TILES_BF16 = {D: (_FwdTile(128, 64, 2, 1, 1), _FwdTile(64, 64, 2, 2, 1))
                    for D in (64, 128)}
+# the bf16 wgmma instances (LargeW, SmallW): 128 or 64 query rows, a
+# consumer warpgroup each 64, and a producer warpgroup; key tiles of 64
+# through four TMA stages; one block an SM
+_FWD_TILES_WGMMA = {D: (_FwdTile(128, 64, 4, 1, 1),
+                        _FwdTile(64, 64, 4, 1, 1)) for D in (64, 128)}
 _BWD_TILES_BF16 = {D: (_BwdTile(64, 32, 2, 1), _BwdTile(32, 16, 2, 2))
                    for D in (64, 128)}
 
 
-def _fwd_tiles(dtype=torch.float32):
-    return _FWD_TILES_BF16 if dtype == torch.bfloat16 else _FWD_TILES
+def _fwd_tiles(dtype=torch.float32, route="mma_sync"):
+    if dtype != torch.bfloat16:
+        return _FWD_TILES
+    return _FWD_TILES_WGMMA if route == "wgmma" else _FWD_TILES_BF16
 
 
 def _bwd_tiles(dtype=torch.float32):
@@ -387,7 +409,10 @@ class FlashFwdPlan(NamedTuple):
     which an SM holds ``blocks_per_sm``; each warp of a row group takes
     its ``stream_rows / key_splits`` rows of every tile, and the groups'
     states are merged at the end. ``grid`` blocks cover ``B * H`` heads
-    times ``T`` in ``rows`` (``tiles`` a head)."""
+    times ``T`` in ``rows`` (``tiles`` a head). ``route`` is
+    ``"mma_sync"``, or for bf16 operands on 16-byte boundaries
+    ``"wgmma"``: then ``rows / 64`` consumer warpgroups and a producer
+    warpgroup (``warps``), the stages filled by TMA."""
     tile: int
     rows: int
     warps: int
@@ -398,15 +423,23 @@ class FlashFwdPlan(NamedTuple):
     blocks_per_sm: int
     tiles: int
     grid: int
+    route: str
 
 
-def _fwd_smem(D: int, t: _FwdTile, dtype=torch.float32) -> int:
+def _fwd_smem(D: int, t: _FwdTile, dtype=torch.float32,
+              route: str = "mma_sync") -> int:
     """``Cfg::SMEM_BYTES`` of the forward: Q's hi and lo planes, ``rows x
     (D + 4)`` each, and per stage K and V, ``stream_rows x (D + 4)`` each,
     and their ``stream_rows`` segment ids (the key splits' merge reuses
     the ring). bf16 (``CfgB``): no Q planes (each warp's Q fragments live
     in registers); per stage K and V as bf16 rows of pitch ``D + 8`` and
-    the segment ids."""
+    the segment ids. bf16 on ``wgmma`` (``CfgW``): 1024 bytes to align
+    to the swizzle's period, Q as ``rows x D`` bf16 values, per stage K
+    and V as ``stream_rows x D`` each, and ``2 stages + 1`` mbarriers of
+    8 bytes."""
+    if dtype == torch.bfloat16 and route == "wgmma":
+        return (1024 + 2 * t.rows * D + t.stages * 4 * t.stream_rows * D
+                + 8 * (2 * t.stages + 1))
     if dtype == torch.bfloat16:
         return 4 * t.stages * (t.stream_rows * (D + 8) + t.stream_rows)
     ld = D + 4
@@ -415,25 +448,33 @@ def _fwd_smem(D: int, t: _FwdTile, dtype=torch.float32) -> int:
 
 
 def flash_fwd_plan(B: int, H: int, T: int, D: int, causal: bool = False,
-                   dtype=torch.float32) -> FlashFwdPlan:
+                   dtype=torch.float32,
+                   width: Optional[int] = None) -> FlashFwdPlan:
     """The forward kernel's launch for ``[B, H, T, D]`` operands of
-    ``dtype`` (float32 or bfloat16); pure Python, a function of the shapes
-    and the dtype alone, so one shape always takes one instance and reruns
-    are bit-equal. The large instance (128 query rows a block, a warp each
-    16) unless its blocks would fill less than one wave of the card, then
-    the small one (f32: 32 rows, two warps each 16, splitting the keys;
-    bf16: 64 rows, a warp each 16, key tiles of 64). ``causal`` changes no
+    ``dtype`` (float32 or bfloat16) copied ``width`` values at a time
+    (:func:`flash_copy_width`; None: the widest, 16 bytes); pure Python,
+    a function of the shapes, the dtype and the width alone, so one call
+    always takes one instance and reruns are bit-equal. bf16 operands at
+    width 8 take the ``wgmma`` route, at width 2 ``mma.sync``; f32 ones
+    ``mma.sync`` (split TF32). The large instance (128 query rows a
+    block) unless its blocks would fill less than one wave of the card,
+    then the small one (f32: 32 rows, two warps each 16, splitting the
+    keys; bf16 ``mma.sync``: 64 rows, a warp each 16, key tiles of 64;
+    ``wgmma``: 64 rows, one consumer warpgroup). ``causal`` changes no
     instance: the kernel only orders its query tiles by it (the longest
     first)."""
     del causal
-    tiles = _fwd_tiles(dtype)[D]
+    bf16 = dtype == torch.bfloat16
+    route = "wgmma" if bf16 and width in (None, 8) else "mma_sync"
+    tiles = _fwd_tiles(dtype, route)[D]
     tile = _pick_tile(tiles, B, H, T)
     t = tiles[tile]
     n = -(-T // t.rows)
-    return FlashFwdPlan(tile, t.rows, t.rows // 16 * t.key_splits,
-                        t.key_splits, t.stream_rows, t.stages,
-                        _fwd_smem(D, t, dtype), t.blocks_per_sm, n,
-                        B * H * n)
+    warps = 4 * (t.rows // 64 + 1) if route == "wgmma" \
+        else t.rows // 16 * t.key_splits
+    return FlashFwdPlan(tile, t.rows, warps, t.key_splits, t.stream_rows,
+                        t.stages, _fwd_smem(D, t, dtype, route),
+                        t.blocks_per_sm, n, B * H * n, route)
 
 
 class FlashBwdPlan(NamedTuple):

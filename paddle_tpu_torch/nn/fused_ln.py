@@ -17,8 +17,15 @@ refused launch and counts each call (both passes) once in
 both bfloat16 launch ``ln_matmul_bf16`` (the same kernel on bf16 operands:
 f32 statistics, the normalised tile rounded to bf16 before a bf16 product
 summed in f32, the output in bf16, as ``_ln_matmul_kernel`` computes it
-on bf16 inputs), with ``scale`` and ``bias`` in bf16 or f32, widened to
-f32; a mixed x/w call is refused on the card.
+on bf16 inputs), with ``scale`` and ``bias`` in bf16 or f32; a mixed x/w
+call is refused on the card. ``ln_matmul_bf16`` has two routes
+(:func:`ln_bf16_plan`, counted in :func:`route_counts`): ``wgmma`` fed by
+TMA for 16-byte aligned ``x`` and ``w`` whose rows hold a multiple of 8
+values and ``K`` up to 1280 (a block takes a strip of ``x`` rows, its
+statistics and its normalisation once, and walks every ``N`` tile of
+``w`` over it; it reads bf16 ``scale`` and ``bias`` as they are), and
+``mma.sync`` for the rest (a statistics launch, then the product; scale
+and bias widened to f32 first).
 
 The JAX function's argument checks are kept, so a call it refuses is
 refused here too: ``K`` of ``x`` and ``w`` must agree, and the output
@@ -31,27 +38,31 @@ and the block sizes are only checked.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
 from ..utils import cuda_build
 from ..utils.cuda_build import check_cuda, check_dtype, stream_ptr
 from . import gemm_bf16
-from .gemm_f32 import copy_width, pick_tile
+from .gemm_f32 import TILES, copy_width, pick_tile
 
 __all__ = ["fused_ln_matmul", "ln_matmul_reference", "launch_counts",
-           "reset_launch_counts", "KERNELS"]
+           "reset_launch_counts", "route_counts", "ln_bf16_plan",
+           "LnBf16Plan", "WGMMA_LN", "KERNELS"]
 
 # kernel name -> csrc source stem
 KERNELS = {"ln_matmul": "ln_matmul", "ln_matmul_bf16": "ln_matmul"}
 
 _launches: Dict[str, int] = {name: 0 for name in KERNELS}
+# ln_matmul_bf16's launches by route (LnBf16Plan.route)
+_routes: Dict[str, int] = {"wgmma": 0, "mma_sync": 0}
 
-# x, w, scale, bias, out, stats; M K N; eps; tile vec; stream (both
-# entries)
+# x, w, scale, bias, out, stats; M K N; eps; tile vec; stream; and for the
+# bf16 entry whether scale and bias are bf16
 _ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [
     ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+_ARGTYPES_BF16 = _ARGTYPES + [ctypes.c_int]
 
 
 def launch_counts() -> Dict[str, int]:
@@ -59,9 +70,17 @@ def launch_counts() -> Dict[str, int]:
     return dict(_launches)
 
 
+def route_counts() -> Dict[str, int]:
+    """``ln_matmul_bf16``'s launches since the last
+    :func:`reset_launch_counts`, by route: ``"wgmma"`` or
+    ``"mma_sync"``."""
+    return dict(_routes)
+
+
 def reset_launch_counts() -> None:
-    for name in _launches:
-        _launches[name] = 0
+    for counts in (_launches, _routes):
+        for name in counts:
+            counts[name] = 0
 
 
 def _auto_block(t: int, cap: int) -> int:
@@ -136,6 +155,86 @@ def _plan(M: int, N: int, sms: int) -> int:
     return pick_tile(M, N, min_tiles=sms)
 
 
+class _LnWgTile(NamedTuple):
+    rows: int        # rows of x a block's strip holds
+    stages: int      # TMA stages of w tiles
+    k_max: int       # the largest K whose strip fits shared memory
+
+
+_MAX_SMEM = 232448     # dynamic shared memory a block may opt into
+_LN_BN = 128           # columns of an N tile of the wgmma route
+_LN_STAGE = 64 * _LN_BN * 2   # bytes of a [64, BN] bf16 w tile
+
+
+def _ln_wg_smem(rows: int, stages: int, K: int) -> int:
+    """``LnW::smem_bytes``: 1024 bytes to align to the swizzle's period,
+    the strip (``ceil(K / 64)`` k-blocks of ``rows`` x 64 bf16 values), the
+    w stages and ``2 stages + 1`` mbarriers of 8 bytes."""
+    return (1024 + -(-K // 64) * rows * 128 + stages * _LN_STAGE
+            + 8 * (2 * stages + 1))
+
+
+def _ln_wg_tile(rows: int, stages: int) -> _LnWgTile:
+    # beside 8 bytes a row of static shared memory (its statistics)
+    kb_max = (_MAX_SMEM - 8 * rows - _ln_wg_smem(rows, stages, 0)) // (
+        rows * 128)
+    return _LnWgTile(rows, stages, 64 * kb_max)
+
+
+# the wgmma instances of csrc/ln_matmul.cu (LnLarge, LnSmall) by the index
+# the entry point takes: strips of 128 rows for K up to 640, of 64 rows for
+# K up to 1280 (each beside four w stages)
+WGMMA_LN = (_ln_wg_tile(128, 4), _ln_wg_tile(64, 4))
+
+
+class LnBf16Plan(NamedTuple):
+    """The launch of ``ln_matmul_bf16`` (``csrc/ln_matmul.cu``): ``route``
+    ``"wgmma"`` or ``"mma_sync"``, ``tile`` the instance index and ``vec``
+    the copy width the entry point takes. On ``wgmma`` a block holds a
+    strip of ``rows`` rows of x (all of K; ``smem`` bytes of shared
+    memory with the w stages) and walks its share of the ``ceil(N /
+    cols)`` N tiles, N split ``splits`` ways; on ``mma.sync`` a block owns
+    a ``rows x cols`` output tile (``smem`` 0: the instance's fixed
+    figure, ``splits`` 1). ``grid`` is ``(blocks along N, blocks along
+    M)``."""
+    route: str
+    tile: int
+    vec: int
+    rows: int
+    cols: int
+    smem: int
+    splits: int
+    grid: Tuple[int, int]
+
+
+def ln_bf16_plan(M: int, K: int, N: int, width: int, sms: int) -> LnBf16Plan:
+    """The launch for bf16 ``x [M, K]``, ``w [K, N]`` of copy width
+    ``width`` (:func:`~.gemm_bf16.copy_width`) on a card of ``sms`` SMs;
+    pure Python, a function of these alone. Width 8 with ``K`` within an
+    instance's reach takes ``wgmma``: the 128-row strip where ``K <=
+    WGMMA_LN[0].k_max``, else the 64-row one, and ``N``'s tiles split
+    into as many shares as fill one wave with the strips (at least one
+    share, no more shares than tiles; the kernel computes the same).
+    Otherwise ``mma.sync``
+    with the 128 x 128 tile where the output gives one per SM, else 64 x
+    64 (:func:`_plan`), on 4-byte copies (width 8 past the instances'
+    K, or 2) or plain loads (1)."""
+    if width == 8:
+        for tile, t in enumerate(WGMMA_LN):
+            if K <= t.k_max:
+                strips = -(-M // t.rows)
+                n_tiles = -(-N // _LN_BN)
+                splits = max(1, min(n_tiles, sms // strips))
+                return LnBf16Plan("wgmma", tile, 8, t.rows, _LN_BN,
+                                  _ln_wg_smem(t.rows, t.stages, K), splits,
+                                  (splits, strips))
+    vec = 1 if width == 1 else 2
+    tile = _plan(M, N, sms)
+    t = TILES[tile]
+    return LnBf16Plan("mma_sync", tile, vec, t.rows, t.cols, 0, 1,
+                      (-(-N // t.cols), -(-M // t.rows)))
+
+
 def _stats_numel(M: int) -> int:
     """Floats of the statistics workspace: each row's mean, then each
     row's ``1 / sqrt(var + eps)``."""
@@ -167,22 +266,33 @@ def fused_ln_matmul(x, w, scale=None, bias=None, *, eps: float = 1e-6,
     if x.device.type != "cuda":
         raise ValueError(f"ln_matmul: no kernel for x on {x.device}")
     name = _check(x, w, scale, bias)
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    route, extra = None, ()
     if name == "ln_matmul_bf16":
-        # the kernel reads f32 scale and bias (one [K] widening each)
-        scale, bias = (None if t is None else t.float().contiguous()
-                       for t in (scale, bias))
-        vec = gemm_bf16.copy_width(x, w)
+        plan = ln_bf16_plan(M, K, N, gemm_bf16.copy_width(x, w), sms)
+        route, tile, vec = plan.route, plan.tile, plan.vec
+        affine = [t for t in (scale, bias) if t is not None]
+        # the wgmma route reads bf16 scale and bias where both are bf16;
+        # otherwise the kernel reads f32 (one [K] widening each)
+        bf = bool(affine) and route == "wgmma" and all(
+            t.dtype == torch.bfloat16 for t in affine)
+        if not bf:
+            scale, bias = (None if t is None else t.float().contiguous()
+                           for t in (scale, bias))
+        extra = (int(bf),)
     else:
-        vec = copy_width(x, w, scale, bias)
+        tile, vec = _plan(M, N, sms), copy_width(x, w, scale, bias)
     out = torch.empty(M, N, dtype=x.dtype, device=x.device)
     stats = torch.empty(_stats_numel(M), dtype=torch.float32,
                         device=x.device)
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
     with torch.cuda.device(x.device):
-        cuda_build.launch(_launches, name, KERNELS[name], _ARGTYPES,
+        cuda_build.launch(_launches, name, KERNELS[name],
+                          _ARGTYPES_BF16 if extra else _ARGTYPES,
                           x.data_ptr(), w.data_ptr(),
                           None if scale is None else scale.data_ptr(),
                           None if bias is None else bias.data_ptr(),
                           out.data_ptr(), stats.data_ptr(), M, K, N,
-                          float(eps), _plan(M, N, sms), vec, stream_ptr(x))
+                          float(eps), tile, vec, stream_ptr(x), *extra)
+    if route is not None:
+        _routes[route] += 1
     return out

@@ -20,9 +20,10 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
-from typing import Dict, Iterable, Sequence
+from typing import Dict, Iterable, Optional, Sequence
 
 __all__ = ["build", "check_cuda", "check_dtype", "launch", "load",
            "stream_ptr", "CSRC", "BUILD_DIR", "NVCC_FLAGS"]
@@ -50,18 +51,21 @@ def _nvcc() -> str:
     return found
 
 
-def _target(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
+def _target(name: str, csrc: Optional[Path] = None) -> Path:
+    csrc = CSRC if csrc is None else csrc
+    src = csrc / f"{name}.cu"
     h = hashlib.sha256(src.read_bytes())
-    for header in sorted(CSRC.glob("*.cuh")):    # included by the sources
+    for header in sorted(csrc.glob("*.cuh")):    # included by the sources
         h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
-def build(names: Iterable[str]) -> Dict[str, Dict[str, object]]:
-    """Compile every named source that has no current library, all
-    ``nvcc`` processes at once. Returns per source ``{"seconds", "log"}``
+def build(names: Iterable[str],
+          csrc: Optional[Path] = None) -> Dict[str, Dict[str, object]]:
+    """Compile every named source of ``csrc`` (default :data:`CSRC`) that
+    has no current library, all ``nvcc`` processes at once. Returns per
+    source ``{"seconds", "log"}``
     (the log holds ``ptxas``'s register and spill report, kept beside the
     library; a source that was already built reports 0 seconds and the
     log of its build). Raises with the compiler's output if any build
@@ -71,15 +75,16 @@ def build(names: Iterable[str]) -> Dict[str, Dict[str, object]]:
     procs = {}
     report: Dict[str, Dict[str, object]] = {}
     t0 = time.perf_counter()
+    csrc = CSRC if csrc is None else csrc
     for name in dict.fromkeys(names):
-        out = _target(name)
+        out = _target(name, csrc)
         if out.exists():
             saved = out.with_suffix(".log")
             report[name] = {"seconds": 0.0, "log": saved.read_text()
                             if saved.exists() else ""}
             continue
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(csrc / f"{name}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, out)

@@ -45,7 +45,15 @@ entries off), at T off every tile size, on each instance with 16- and
 4-byte copies (``ln_matmul_bf16`` also plain 2-byte loads), the stored
 bf16 ds over a buffer of NaN, reruns bit-equal, autograd through
 ``flash_attention`` on bf16 leaves, the plans' shared memory, and the
-refusals of mixed dtypes and of bf16 views 2 bytes off 4. Every test needs an
+refusals of mixed dtypes and of bf16 views 2 bytes off 4; the ``wgmma``
+routes of ``flash_fwd_bf16`` (D 64 and 128, causal or not, segments, T
+off the 64-key tiles, both instances; the LSE, the unrounded control
+failing the gate) and of ``ln_matmul_bf16`` (both strip instances, K
+past them on ``mma.sync``, with and without scale and bias), each call's
+route read from the route counters (views 4 bytes off 16 go by
+``mma.sync``), and the two ``wgmma`` forms of ``csrc/wgmma_bf16.cuh``
+the new kernels rest on (K-major operands from shared memory, A from
+registers) against ``torch.mm`` in f32. Every test needs an
 NVIDIA GPU (marker ``cuda``) and skips without one; run them on the card
 with ``python -m pytest --noconftest -q tests/test_torch_cuda_kernels.py``
 (the JAX harness in ``tests/conftest.py`` is not needed there).
@@ -1297,8 +1305,10 @@ def _flash_bf16_case(gen, B, H, T, D, causal, segs, scale=None, offset=0):
     seg = _segments(B, T) if segs else None
     if seg is not None:
         do.mul_((seg > 0)[:, None, :, None].bfloat16())
-    before = ca.launch_counts()
+    before, routes = ca.launch_counts(), ca.route_counts()
     o, lse = ca.flash_attention_fwd(q, k, v, seg, causal, scale)
+    route = "wgmma" if q.data_ptr() % 16 == 0 else "mma_sync"
+    assert ca.route_counts()[route] == routes[route] + 1
     got = ca.flash_attention_bwd(q, k, v, seg, o, lse, do, causal, scale)
     after = ca.launch_counts()
     for name in ("flash_fwd_bf16", "flash_bwd_dq_bf16",
@@ -1357,6 +1367,8 @@ def test_flash_bf16_each_tile_and_copy_width(gen, B, H, T, D, fwd_tile,
     assert ca.flash_bwd_plan(B, H, T, D, True, bf).tile == bwd_tile
     q = _flat(gen, (B, H, T, D), offset, torch.bfloat16)
     assert ca.flash_copy_width(q) == (2 if offset else 8)
+    assert ca.flash_fwd_plan(B, H, T, D, True, bf, ca.flash_copy_width(
+        q)).route == ("mma_sync" if offset else "wgmma")
     _flash_bf16_case(gen, B, H, T, D, True, True, offset=offset)
 
 
@@ -1409,6 +1421,21 @@ def test_flash_bf16_plans_shared_memory_is_the_kernels(gen):
             for i, t in enumerate(ts):
                 assert fn(D, i) == smem(D, t, torch.bfloat16)
         assert fn(96, 0) == -1 and fn(128, 2) == -1
+    fn = cuda_build.load("flash_fwd").flash_fwd_wgmma_smem_bytes
+    fn.argtypes = [ctypes.c_int] * 2
+    fn.restype = ctypes.c_int
+    for D, ts in ca._FWD_TILES_WGMMA.items():
+        for i, t in enumerate(ts):
+            assert fn(D, i) == ca._fwd_smem(D, t, torch.bfloat16, "wgmma")
+    assert fn(96, 0) == -1 and fn(128, 2) == -1
+    fn = cuda_build.load("ln_matmul").ln_matmul_wgmma_smem_bytes
+    fn.argtypes = [ctypes.c_int] * 2
+    fn.restype = ctypes.c_int
+    for i, t in enumerate(fl.WGMMA_LN):
+        for K in (8, 512, t.k_max):
+            assert fn(K, i) == fl._ln_wg_smem(t.rows, t.stages, K)
+        assert fn(t.k_max + 1, i) == -1
+    assert fn(512, 2) == -1
 
 
 def test_flash_bf16_wrappers_refuse_what_the_kernels_do_not_take(gen):
@@ -1524,8 +1551,13 @@ def test_ln_matmul_bf16_each_tile_and_copy_width(gen, M, K, N, affine, xl,
     4-byte and plain 2-byte copies (odd rows, views 2 bytes off 4)."""
     from paddle_tpu_torch.nn import gemm_bf16
     x, w = _ln_bf16_case(gen, M, K, N, affine, xl)
-    assert fl._plan(M, N, _sms()) == tile
     assert gemm_bf16.copy_width(x, w) == vec
+    plan = fl.ln_bf16_plan(M, K, N, vec, _sms())
+    if vec == 8:          # 16-byte copies: the wgmma route, by K
+        assert (plan.route, plan.tile) == ("wgmma", 0)
+    else:                 # the mma.sync instance of this (tile, width)
+        assert (plan.route, plan.tile, plan.vec) == ("mma_sync", tile, vec)
+        assert fl._plan(M, N, _sms()) == tile
 
 
 def test_ln_matmul_bf16_wrapper_refuses_mixed_dtypes(gen):
@@ -1540,3 +1572,168 @@ def test_ln_matmul_bf16_wrapper_refuses_mixed_dtypes(gen):
         with pytest.raises(ValueError):
             fl.fused_ln_matmul(*args)
     assert fl.launch_counts() == before
+
+
+# ---------------------------------------------------------------------------
+# the wgmma routes of flash_fwd_bf16 and ln_matmul_bf16, and the forms of
+# csrc/wgmma_bf16.cuh they are built on
+# ---------------------------------------------------------------------------
+
+def _bf16_gate_and_control(got, want, control):
+    """``got`` within the bf16 gate of ``want``, and ``control`` (the plain
+    version with p or y left unrounded) outside it: the gate sees where
+    the kernel rounds."""
+    _bf16_gate(got, want)
+    with pytest.raises(AssertionError):
+        _bf16_gate(control, want)
+
+
+@pytest.mark.parametrize("B,H,T,D,causal,segs", [
+    (2, 3, 100, 64, True, False),      # T off the 64-key tiles
+    (2, 3, 100, 128, False, True),
+    (1, 4, 257, 128, True, True),
+    (1, 4, 300, 64, False, False),
+    (2, 2, 64, 128, True, False), (2, 2, 65, 64, False, True),
+    (3, 12, 500, 128, True, True),     # the 128-row instance
+    (4, 17, 500, 64, False, False),
+    (1, 2, 2048, 128, True, False),    # the 64-row instance, long
+    (8, 4, 1024, 128, True, False)])
+def test_flash_fwd_bf16_wgmma_matches_plain(gen, B, H, T, D, causal, segs):
+    """16-byte aligned bf16 operands go by the wgmma route (TMA zero-fills
+    the rows past T; the masks hold there): O within the bf16 gate of the
+    plain version with the unrounded control failing it, the LSE within
+    ATOL, a bit-equal rerun, one launch counted on its route."""
+    bf = torch.bfloat16
+    q, k, v = (torch.randn(B, H, T, D, generator=gen, device="cuda").to(bf)
+               for _ in range(3))
+    seg = _segments(B, T) if segs else None
+    ca.reset_launch_counts()
+    o, lse = ca.flash_attention_fwd(q, k, v, seg, causal)
+    assert ca.launch_counts()["flash_fwd_bf16"] == 1
+    assert ca.route_counts() == {"wgmma": 1, "mma_sync": 0}
+    plan = ca.flash_fwd_plan(B, H, T, D, causal, bf)
+    assert plan.route == "wgmma"
+    o_ref, lse_ref = ca.flash_attention_plain(q, k, v, seg, causal)
+    control = ca.flash_attention_plain(q.float(), k.float(), v.float(), seg,
+                                       causal)[0].to(bf)
+    torch.cuda.synchronize()
+    _bf16_gate_and_control(o, o_ref, control)
+    assert (lse - lse_ref).abs().max().item() <= ATOL
+    again = ca.flash_attention_fwd(q, k, v, seg, causal)
+    assert torch.equal(o, again[0]) and torch.equal(lse, again[1])
+
+
+@pytest.mark.parametrize("D", [64, 128])
+def test_flash_fwd_bf16_routes_by_alignment(gen, D):
+    """Aligned q, k, v go by wgmma; any of them 4 bytes off 16 by mma.sync
+    (TMA cannot load it), under the same gate; the launch counter adds one
+    per call on either route."""
+    bf = torch.bfloat16
+    shape = (2, 4, 200, D)
+    aligned = [_flat(gen, shape, 0, bf) for _ in range(3)]
+    for views, route in (((0, 0, 0), "wgmma"), ((2, 0, 0), "mma_sync"),
+                         ((0, 2, 0), "mma_sync"), ((0, 0, 2), "mma_sync"),
+                         ((8, 8, 8), "wgmma")):
+        q, k, v = (_flat(gen, shape, off, bf) if off else t
+                   for off, t in zip(views, aligned))
+        ca.reset_launch_counts()
+        o, lse = ca.flash_attention_fwd(q, k, v, None, True)
+        assert ca.launch_counts()["flash_fwd_bf16"] == 1
+        assert ca.route_counts()[route] == 1, views
+        o_ref, lse_ref = ca.flash_attention_plain(q, k, v, None, True)
+        torch.cuda.synchronize()
+        _bf16_gate(o, o_ref)
+        assert (lse - lse_ref).abs().max().item() <= ATOL
+
+
+@pytest.mark.parametrize("M,K,N,affine,route,tile", [
+    (4096, 512, 2048, "sb", "wgmma", 0),
+    (4096, 512, 512, "", "wgmma", 0),
+    (1000, 640, 296, "s", "wgmma", 0),      # the 128-row strip's last K
+    (2048, 1024, 1024, "sb", "wgmma", 1),   # the 64-row strip
+    (2048, 1024, 1024, "", "wgmma", 1),
+    (700, 1280, 136, "b", "wgmma", 1),
+    (1024, 2048, 512, "sb", "mma_sync", 1),  # past both strips
+    (300, 72, 200, "sb", "wgmma", 0)])
+def test_ln_matmul_bf16_wgmma_matches_plain(gen, M, K, N, affine, route,
+                                            tile):
+    """16-byte aligned x and w whose rows hold multiples of 8 values: the
+    wgmma route while K fits a strip (128 rows up to K 640, 64 rows up to
+    1280), else mma.sync on 4-byte copies; within the bf16 gate with the
+    unrounded control failing it, a bit-equal rerun, one launch on the
+    planned route."""
+    from paddle_tpu_torch.nn import gemm_bf16
+    bf = torch.bfloat16
+    x = (torch.randn(M, K, generator=gen, device="cuda") * 3 + 1).to(bf)
+    w = (torch.randn(K, N, generator=gen, device="cuda") / K ** 0.5).to(bf)
+    scale = (1 + 0.3 * torch.randn(K, generator=gen, device="cuda")).to(
+        bf) if "s" in affine else None
+    bias = (0.3 * torch.randn(K, generator=gen, device="cuda")).to(
+        bf) if "b" in affine else None
+    plan = fl.ln_bf16_plan(M, K, N, gemm_bf16.copy_width(x, w), _sms())
+    assert (plan.route, plan.tile) == (route, tile)
+    fl.reset_launch_counts()
+    got = fl.fused_ln_matmul(x, w, scale, bias)
+    assert fl.launch_counts()["ln_matmul_bf16"] == 1
+    assert fl.route_counts()[route] == 1
+    want = fl.ln_matmul_reference(x, w, scale, bias)
+    control = fl.ln_matmul_reference(
+        x.float(), w.float(), None if scale is None else scale.float(),
+        None if bias is None else bias.float()).to(bf)
+    torch.cuda.synchronize()
+    _bf16_gate_and_control(got, want, control)
+    assert torch.equal(fl.fused_ln_matmul(x, w, scale, bias), got)
+
+
+def test_ln_matmul_bf16_routes_by_alignment(gen):
+    """x or w 4 bytes off 16 goes by mma.sync, aligned ones by wgmma."""
+    K, N = 256, 384
+    for xl, wl, route in (("", "", "wgmma"), ("flat+2", "", "mma_sync"),
+                          ("", "flat+2", "mma_sync"), ("flat+8", "", "wgmma"),
+                          ("x[1:]", "", "wgmma")):
+        x = _bf16_operand(gen, 500, K, xl)
+        w = _bf16_operand(gen, K, N, wl)
+        fl.reset_launch_counts()
+        got = fl.fused_ln_matmul(x, w)
+        assert fl.route_counts()[route] == 1, (xl, wl)
+        torch.cuda.synchronize()
+        _bf16_gate(got, fl.ln_matmul_reference(x, w))
+
+
+def _form(name, a, b, N):
+    import ctypes
+    from paddle_tpu_torch.utils import cuda_build
+    fn = getattr(cuda_build.load("wgmma_forms"), name)
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    d = torch.full((64, N), float("nan"), device="cuda")
+    assert fn(a.data_ptr(), b.data_ptr(), d.data_ptr(), N,
+              torch.cuda.current_stream().cuda_stream) == 0
+    torch.cuda.synchronize()
+    return d
+
+
+@pytest.mark.parametrize("N", [64, 128])
+def test_wgmma_kmajor_ss_form_matches_torch_mm(gen, N):
+    """``mma_ss<N, 0, 0>`` on two K-major operands through ``desc_k128``
+    (k16 steps 32 bytes into the swizzled row): D = A . B^T for A [64, 64]
+    and B [N, 64], against ``torch.mm`` in f32 of the same bf16 values
+    (exact products; the sums of 64 in another order, truncated by the
+    tensor cores: within 1e-5 of the largest entry)."""
+    a = torch.randn(64, 64, generator=gen, device="cuda").bfloat16()
+    b = torch.randn(N, 64, generator=gen, device="cuda").bfloat16()
+    d = _form("wgmma_ss_kmajor_f32", a, b, N)
+    want = a.float() @ b.float().t()
+    assert (d - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+
+
+@pytest.mark.parametrize("N", [64, 128])
+def test_wgmma_register_a_form_matches_torch_mm(gen, N):
+    """``mma_rs<N, 1>``: A [64, 64] from registers in mma.sync's m16n8k16
+    fragment, B [64, N] MN-major through ``desc_sw128``: D = A . B against
+    ``torch.mm`` in f32, within 1e-5 of the largest entry."""
+    a = torch.randn(64, 64, generator=gen, device="cuda").bfloat16()
+    b = torch.randn(64, N, generator=gen, device="cuda").bfloat16()
+    d = _form("wgmma_rs_f32", a, b, N)
+    want = a.float() @ b.float()
+    assert (d - want).abs().max().item() <= 1e-5 * want.abs().max().item()

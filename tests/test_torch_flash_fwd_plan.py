@@ -16,7 +16,10 @@ JAX ``_flash_forward`` in interpret mode. Tolerance of the algebra: atol
 tensor cores' truncating adds and ``ex2.approx`` cannot be emulated here;
 the card tests hold them. The bf16 instances (``flash_fwd_bf16``): their plan, and
 their schedule by the same property, a warp taking each key tile in
-steps of 32 keys (the key splits' parts, one warp walking them all)."""
+steps of 32 keys (the key splits' parts, one warp walking them all);
+the route a bf16 call takes by its operands' alignment (``wgmma`` fed by
+TMA on 16-byte boundaries, else ``mma.sync``), and the ``wgmma``
+instances' plan: shared memory, cover, warpgroups, the wave rule."""
 
 from collections import Counter
 
@@ -423,7 +426,9 @@ def test_bf16_instances_fit_their_shared_memory(D):
     (2, 8, 512, 128), (1, 8, 1024, 64), (3, 3, 1000, 128), (1, 2, 2047, 64),
     (7, 5, 4097, 128), (17, 4, 2048, 128)])
 def test_bf16_plan_covers_t_and_depends_on_the_shape_alone(B, H, T, D):
-    plan = ca.flash_fwd_plan(B, H, T, D, True, BF16)
+    """The mma.sync route (views 4 bytes off 16: copy width 2)."""
+    plan = ca.flash_fwd_plan(B, H, T, D, True, BF16, 2)
+    assert plan.route == "mma_sync"
     assert plan.tiles * plan.rows >= T > (plan.tiles - 1) * plan.rows
     assert plan.grid == B * H * plan.tiles
     t = ca._FWD_TILES_BF16[D][plan.tile]
@@ -431,7 +436,7 @@ def test_bf16_plan_covers_t_and_depends_on_the_shape_alone(B, H, T, D):
     assert (plan.rows, plan.stream_rows, plan.stages, plan.blocks_per_sm,
             plan.key_splits) == tuple(t)
     assert plan.smem == ca._fwd_smem(D, t, BF16) <= MAX_SMEM
-    assert ca.flash_fwd_plan(B, H, T, D, False, BF16) == plan
+    assert ca.flash_fwd_plan(B, H, T, D, False, BF16, 2) == plan
     large = ca._FWD_TILES_BF16[D][0]
     n_large = B * H * -(-T // large.rows)
     assert plan.tile == (0 if n_large >= ca._SMS * large.blocks_per_sm
@@ -445,10 +450,12 @@ def test_bf16_plan_covers_t_and_depends_on_the_shape_alone(B, H, T, D):
 def test_bf16_main_path_shapes(label, shape, causal, tile):
     """The training shape takes the large instance (512 blocks of 128
     rows); the other two would give 64 large blocks and take the small
-    one (128 blocks of 64 rows, a warp each 16)."""
-    plan = ca.flash_fwd_plan(*shape, causal, BF16)
-    assert plan.tile == tile, label
-    assert plan.grid == {0: 512, 1: 128}[tile]
+    one (128 blocks of 64 rows: a warp each 16 on mma.sync, one consumer
+    warpgroup on wgmma). Both routes pick alike."""
+    for width, route in ((None, "wgmma"), (8, "wgmma"), (2, "mma_sync")):
+        plan = ca.flash_fwd_plan(*shape, causal, BF16, width)
+        assert plan.tile == tile and plan.route == route, label
+        assert plan.grid == {0: 512, 1: 128}[tile]
 
 
 @settings(max_examples=40, deadline=None)
@@ -490,3 +497,83 @@ def test_bf16_kernel_names_and_entry_types():
         assert ca._kernel_name(name, torch.float32) == name
         assert ca.KERNELS[name + "_bf16"] == ca.KERNELS[name]
         assert ca._ARGTYPES[name + "_bf16"] == ca._ARGTYPES[name]
+
+
+# ---------------------------------------------------------------------------
+# the bf16 wgmma instances (flash_fwd_bf16 on 16-byte aligned operands)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("D", [64, 128])
+def test_wgmma_instances_fit_their_shared_memory(D):
+    """``CfgW``: 1024 bytes to reach the swizzle's 1024-byte period, Q as
+    ``rows x D`` bf16 values (a 128-byte slab row per 64 of D), per stage
+    K and V as ``stream_rows x D`` each, and ``2 stages + 1`` mbarriers;
+    every slab a whole number of 1024-byte periods, one block an SM, a
+    consumer warpgroup per 64 rows."""
+    for t in ca._FWD_TILES_WGMMA[D]:
+        smem = ca._fwd_smem(D, t, BF16, "wgmma")
+        assert smem == (1024 + 2 * t.rows * D + t.stages * 4 * t.stream_rows
+                        * D + 8 * (2 * t.stages + 1))
+        assert smem <= MAX_SMEM and t.blocks_per_sm == 1
+        assert t.rows % 64 == 0 and t.stream_rows == 64
+        assert t.key_splits == 1 and t.stages >= 2
+        assert t.rows * 128 % 1024 == 0 and t.stream_rows * 128 % 1024 == 0
+    assert ca._fwd_tiles(BF16, "wgmma") is ca._FWD_TILES_WGMMA
+    assert ca._fwd_tiles(BF16) is ca._FWD_TILES_BF16
+
+
+@pytest.mark.parametrize("B,H,T,D", [
+    (1, 1, 1, 64), (1, 1, 15, 128), (2, 3, 33, 64), (8, 4, 2048, 128),
+    (2, 8, 512, 128), (1, 8, 1024, 64), (3, 3, 1000, 128), (1, 2, 2047, 64),
+    (7, 5, 4097, 128), (17, 4, 2048, 128), (4, 20, 300, 128)])
+def test_wgmma_plan_covers_t_and_depends_on_the_shape_alone(B, H, T, D):
+    """16-byte copies (width 8, the default) take the wgmma route: its
+    instance by the same wave rule, rows / 64 consumer warpgroups and a
+    producer warpgroup, the grid covering T; a function of the shapes,
+    dtype and width alone, causal or not."""
+    plan = ca.flash_fwd_plan(B, H, T, D, True, BF16)
+    assert plan == ca.flash_fwd_plan(B, H, T, D, True, BF16, 8)
+    assert plan == ca.flash_fwd_plan(B, H, T, D, False, BF16, 8)
+    assert plan.route == "wgmma"
+    t = ca._FWD_TILES_WGMMA[D][plan.tile]
+    assert (plan.rows, plan.stream_rows, plan.stages, plan.blocks_per_sm,
+            plan.key_splits) == tuple(t)
+    assert plan.warps == 4 * (plan.rows // 64 + 1)
+    assert plan.tiles * plan.rows >= T > (plan.tiles - 1) * plan.rows
+    assert plan.grid == B * H * plan.tiles
+    assert plan.smem == ca._fwd_smem(D, t, BF16, "wgmma") <= MAX_SMEM
+    large = ca._FWD_TILES_WGMMA[D][0]
+    n_large = B * H * -(-T // large.rows)
+    assert plan.tile == (0 if n_large >= ca._SMS * large.blocks_per_sm
+                         else 1)
+    # f32 operands have one route, whatever the width
+    assert ca.flash_fwd_plan(B, H, T, D, True).route == "mma_sync"
+
+
+def _bf16_at(offset):
+    return torch.zeros(64 + offset, dtype=BF16)[offset:]
+
+
+@pytest.mark.parametrize("offsets,width,route", [
+    ((0, 0, 0, 0), 8, "wgmma"), ((2, 0, 0, 0), 2, "mma_sync"),
+    ((0, 2, 0, 0), 2, "mma_sync"), ((0, 0, 6, 0), 2, "mma_sync"),
+    ((0, 0, 0, 4), 2, "mma_sync"), ((8, 8, 8, 8), 8, "wgmma"),
+    ((1, 0, 0, 0), 0, None)])
+def test_bf16_route_follows_the_operands_alignment(offsets, width, route):
+    """q, k, v and O all on 16-byte boundaries take wgmma (TMA loads only
+    from them); any one of them 4 bytes off (a view) takes mma.sync on
+    4-byte copies; 2 bytes off 4 no kernel takes."""
+    ts = [_bf16_at(o) for o in offsets]
+    assert ca.flash_copy_width(*ts) == width
+    if route is not None:
+        assert ca.flash_fwd_plan(2, 2, 64, 64, True, BF16,
+                                 width).route == route
+
+
+def test_route_counts_start_at_zero_and_reset():
+    ca.reset_launch_counts()
+    assert ca.route_counts() == {"wgmma": 0, "mma_sync": 0}
+    ca._routes["wgmma"] += 2
+    assert ca.route_counts()["wgmma"] == 2
+    ca.reset_launch_counts()
+    assert ca.route_counts() == {"wgmma": 0, "mma_sync": 0}

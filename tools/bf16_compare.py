@@ -3,31 +3,194 @@
 tree's sources and for other versions of them, in one process on one
 card, beside the library call:
 
-    python3 tools/bf16_compare.py [DIR ...]
+    python3 tools/bf16_compare.py [--only=fwd,bwd,ln] [DIR | VARIANT ...]
 
 Each DIR holds another version of paddle_tpu_torch/csrc/ (all of it:
 every source is built from the DIR) whose entry points take the tree's
 arguments with the tree's meaning, so that the tree's wrappers and plans
-launch it: for example the sources of an earlier step of the same
-design. Cases: chip_smoke.py's phase 11 at the training shape
-(``flash_fwd_bf16``; ``flash_bwd_dkv_bf16`` storing ds and
-``flash_bwd_dq_bf16`` reading it back, as ``flash_attention_bwd``
-launches them; the whole backward) and ``ln_matmul_bf16`` at x
-``[16384, 512]`` by w ``[512, 512]`` and ``[512, 2048]``, with and
-without scale and bias. Every version's outputs are held to the plain
-versions under chip_smoke.py's bf16 gate (the unrounded control failing
-it) and rerun bit-equal, then timed with CUDA events (chip_smoke.time_ms,
-L2 flushed before each call) and the profiler (chip_smoke.device_ms), the
-versions and the library taking turns case by case. Prints the card's
-name and power limit, each build's ptxas lines for the bf16 instances
-and one JSON line per case. Needs a card and nvcc.
+launch it: for example the parent commit's sources (``git archive``),
+whose ``flash_fwd_bf16`` and ``ln_matmul_bf16`` take 16-byte aligned
+operands on ``mma.sync`` where the tree's take them on ``wgmma`` (a DIR
+is handed bf16 scale and bias widened to f32 within the timed call, as
+the parent's wrapper widened them: the tree's wgmma route reads them as
+bf16). Each
+VARIANT is a text edit of the tree's sources, built under a temporary
+directory (``a+b`` applies two):
+
+  max_pass   flash_fwd_bf16's max pass alone (MAIN_PASS false: no second
+             pass, O written as zeros): its share of the forward; timed,
+             not gated
+  serial2    flash_fwd_bf16's main pass without its overlap: the next
+             tile's S issued after both halves of P . V are done
+  no_exp     flash_fwd_bf16 with p = s log2 e - m log2 e in place of its
+             exponential (what the exponentials cost); timed, not gated
+  no_tma     flash_fwd_bf16 with no K or V tile loaded (the producer
+             completes each stage's barrier at once; Q still lands): the
+             time the warps and the products take alone; timed, not gated
+  no_qk      flash_fwd_bf16 without the Q . K^T products (both passes
+             mask and reduce whatever the registers hold); timed, not
+             gated
+  no_mask    flash_fwd_bf16 with no masks (every tile scaled as an inner
+             one); timed, not gated
+  fwd_stages2  flash_fwd_bf16's wgmma instances with 2 stages (the tree:
+             4)
+  ln_no_wtma ln_matmul_bf16's wgmma route with no w tile loaded (each
+             stage's barrier completed at once): what streaming w costs;
+             timed, not gated
+  ln_serial  ln_matmul_bf16's wgmma route without its overlap: each
+             k-block's chain waited for before the pair's second is issued
+  ln_stages2, ln_stages3  ln_matmul_bf16's wgmma route with 2 or 3 w
+             stages (the tree: 4)
+
+Cases (``--only`` picks among them): ``fwd``, chip_smoke.py's
+FLASH_BF16_CASES (the training shape [8,4,2048,128] causal, [1,8,1024,64]
+causal, [2,8,512,128] with segments) beside SDPA on the same bf16 inputs;
+``bwd``, ``flash_bwd_dkv_bf16`` storing ds and ``flash_bwd_dq_bf16``
+reading it back at the training shape, as ``flash_attention_bwd`` launches
+them, and the whole backward; ``ln``, ``ln_matmul_bf16`` at x [16384, 512]
+by w [512, 512] and [512, 2048], with and without bf16 scale and bias,
+beside bf16 ``F.layer_norm`` + ``torch.mm``. Every version's outputs are
+held to the plain versions under chip_smoke.py's bf16 gate (the unrounded
+control failing it), the forward's LSE within LSE_TOL, and rerun
+bit-equal; then each is timed by the profiler's device time
+(chip_smoke.device_ms) and CUDA events (chip_smoke.time_ms, the L2
+flushed before each call), the versions taking turns in order and then
+in reverse order. Prints the card's name and power limit (nvidia-smi),
+each build's ptxas lines for the bf16 instances (registers, spills,
+warnings) and one JSON line per case. Needs a card and nvcc.
 """
 
 import json
+import re
+import shutil
 import sys
+import tempfile
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
+
+_MAX = "constexpr bool MAIN_PASS = true;"
+_P2_ISSUE = """        if (next)                      // as in pass 1: a group either way
+          issue(s, sp, it + 1);
+        else
+          wgmma::commit();
+        wgmma::wait<1>();"""
+_P2_HALF = """          wgmma::wait<1>();
+          if (next) finish(s, sp, nk * C::BS);
+          wgmma::wait<0>();"""
+_P2_D64 = """        } else {
+          wgmma::wait<0>();
+          if (next) finish(s, sp, nk * C::BS);
+        }
+        release(it);"""
+_EXPECT = "        if (lead) wgmma::mbar_expect_tx(&full[st], bytes);"
+_LOAD1 = """        if (lead)
+#pragma unroll
+          for (int c = 0; c < 2 * C::SLABS; ++c)"""
+_LOAD2 = """        if (lead)
+#pragma unroll
+          for (int c = 0; c < C::SLABS; ++c) {"""
+_QK1 = """  for (int kk = 0; kk < 4; ++kk)
+    wgmma::mma_ss<N, 0, 0>(s,"""
+_QK2 = """    for (int kk = 0; kk < 4; ++kk)
+      wgmma::mma_ss<N, 0, 0>(
+          part,"""
+_MASK = "      if (inside) {"
+_EXP = "p = exp2_ftz(fmaf(p, LOG2E, mneg[(e >> 1) & 1]));"
+_FWD_STAGES = ("using LargeW = CfgW<D, 2, 64, 4>;\ntemplate <int D>\n"
+               "using SmallW = CfgW<D, 1, 64, 4>;")
+_LN_WLOAD = """          wgmma::mbar_expect_tx(&full[st], C::W_STAGE);
+#pragma unroll
+          for (int j = 0; j < C::BN / 64; ++j)"""
+_LN_STAGES = "using LnLarge = LnW<128, 4>;\nusing LnSmall = LnW<64, 4>;"
+_LN_ISSUE = """        if (two) {
+          issue(p1, kb + 1, it + 1);
+          wgmma::wait<1>();
+        } else {
+          wgmma::wait<0>();
+        }"""
+_LN_SECOND = """        if (two) {
+          wgmma::wait<0>();"""
+
+# variant -> (source file, [(old, new)], gated)
+VARIANTS = {
+    "max_pass": ("flash_fwd.cu", [(_MAX, _MAX.replace("true", "false"))],
+                 False),
+    "serial2": ("flash_fwd.cu", [
+        (_P2_ISSUE, "        wgmma::wait<0>();"),
+        (_P2_HALF, "          wgmma::wait<0>();"),
+        (_P2_D64, "        } else {\n          wgmma::wait<0>();\n        }\n"
+                  "        if (next) {\n"
+                  "          issue(s, sp, it + 1);\n"
+                  "          wgmma::wait<0>();\n"
+                  "          finish(s, sp, nk * C::BS);\n"
+                  "        }\n        release(it);")], True),
+    "no_exp": ("flash_fwd.cu", [(_EXP, "p = fmaf(p, LOG2E, "
+                                       "mneg[(e >> 1) & 1]);")], False),
+    "no_tma": ("flash_fwd.cu", [
+        (_EXPECT, "        if (lead) wgmma::mbar_arrive(&full[st]);"),
+        (_LOAD1, _LOAD1.replace("if (lead)", "if (false)")),
+        (_LOAD2, _LOAD2.replace("if (lead)", "if (false)"))], False),
+    "no_qk": ("flash_fwd.cu", [(_QK1, _QK1.replace("< 4", "< 0")),
+                               (_QK2, _QK2.replace("< 4", "< 0"))], False),
+    "no_mask": ("flash_fwd.cu", [(_MASK, "      if (true) {")], False),
+    "fwd_stages2": ("flash_fwd.cu", [(_FWD_STAGES, _FWD_STAGES.replace(
+        "64, 4>", "64, 2>"))], True),
+    "ln_no_wtma": ("ln_matmul.cu", [(_LN_WLOAD, _LN_WLOAD.replace(
+        "mbar_expect_tx(&full[st], C::W_STAGE)", "mbar_arrive(&full[st])")
+        .replace("j < C::BN / 64", "j < 0"))], False),
+    "ln_serial": ("ln_matmul.cu", [
+        (_LN_ISSUE, "        wgmma::wait<0>();"),
+        (_LN_SECOND, "        if (two) {\n          issue(p1, kb + 1, it);\n"
+                     "          wgmma::wait<0>();")], True),
+    "ln_stages2": ("ln_matmul.cu", [(_LN_STAGES, _LN_STAGES.replace(
+        ", 4>", ", 2>"))], True),
+    "ln_stages3": ("ln_matmul.cu", [(_LN_STAGES, _LN_STAGES.replace(
+        ", 4>", ", 3>"))], True),
+}
+SOURCES = ("flash_fwd", "flash_bwd", "ln_matmul")
+
+
+def variant_dir(name, tmp):
+    """A copy of the tree's csrc/ with the variant's edits applied."""
+    from paddle_tpu_torch.utils import cuda_build
+    out = Path(tmp) / name
+    shutil.copytree(cuda_build.CSRC, out)
+    for part in name.split("+"):
+        src, edits, _ = VARIANTS[part]
+        text = (out / src).read_text()
+        for old, new in edits:
+            if old not in text:
+                raise RuntimeError(f"variant {part}: not in source: "
+                                   f"{old[:60]}")
+            text = text.replace(old, new)
+        (out / src).write_text(text)
+    return out
+
+
+def ptxas_lines(report):
+    """The build's ptxas report of the bf16 instances in short: per entry
+    its template arguments, registers and spill bytes, and how many
+    warnings or notes of lost performance (ptxas's "serialized" wgmma)
+    each source drew."""
+    keep = []
+    for src in SOURCES:
+        entry, warned = "", 0
+        for ln in str(report[src]["log"]).splitlines():
+            if "Compiling entry" in ln:
+                m = re.search(r"(\w*(?:bf16|wgmma)\w*?)I(NS_\w*?)E+v", ln)
+                entry = f"{m[1][-24:]}<{m[2][-44:]}>" if m else ""
+            elif "arning" in ln or "Performance Loss" in ln:
+                warned += 1
+            elif entry and "spill" in ln:
+                m = re.search(r"(\d+) bytes spill stores", ln)
+                keep.append(f"{entry}: spills {m[1] if m else '?'}")
+            elif entry and "registers" in ln:
+                keep[-1] += " regs " + re.search(r"Used (\d+)", ln)[1]
+                entry = ""
+        keep.append(f"{src}: {warned} warnings or performance notes")
+    return keep
 
 
 def main():
@@ -42,104 +205,150 @@ def main():
     from paddle_tpu_torch.nn import fused_ln as fl
     from paddle_tpu_torch.utils import cuda_build
 
+    args = sys.argv[1:]
+    only = {"fwd", "bwd", "ln"}
+    if args and args[0].startswith("--only="):
+        only = set(args.pop(0)[len("--only="):].split(","))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
         False
     print(cs.gpu_line(), flush=True)
-    dirs = {"tree": cuda_build.CSRC,
-            **{Path(d).name: Path(d).resolve() for d in sys.argv[1:]}}
-    sources = ("flash_fwd", "flash_bwd", "ln_matmul")
+    tmp = tempfile.mkdtemp(prefix="bf16_compare_")
+    dirs, gated, other = {"tree": cuda_build.CSRC}, {"tree": True}, set()
+    for a in args:
+        if all(v in VARIANTS for v in a.split("+")):
+            dirs[a] = variant_dir(a, tmp)
+            gated[a] = all(VARIANTS[v][2] for v in a.split("+"))
+        else:
+            dirs[Path(a).name] = Path(a).resolve()
+            gated[Path(a).name] = True
+            other.add(Path(a).name)
+    # the tree first, then every other version at once (a source a
+    # version shares with the tree is not built again)
+    reports = {"tree": cuda_build.build(SOURCES)}
+    with ThreadPoolExecutor(len(dirs)) as pool:
+        reports.update(zip(list(dirs)[1:], pool.map(
+            lambda d: cuda_build.build(SOURCES, d), list(dirs.values())[1:])))
+    for name, report in reports.items():
+        print(name, json.dumps(ptxas_lines(report)), flush=True)
 
     def use(name):
         cuda_build.CSRC = dirs[name]
         cuda_build._loaded.clear()
 
-    for name in dirs:
-        use(name)
-        report = cuda_build.build(sources)
-        print(name, json.dumps([
-            ln.strip()[:100] for src in sources
-            for ln in str(report[src]["log"]).splitlines()
-            if "bf16" in ln or ("spill" in ln and " 0 bytes spill" not in ln)
-        ]), flush=True)
     gen = torch.Generator(device="cuda").manual_seed(14)
     bf = torch.bfloat16
-    cases = []
-    # the flash kernels at the training shape
-    B, H, T, D = 8, 4, 2048, 128
-    q, k, v, do = (torch.randn(B, H, T, D, generator=gen, device="cuda")
-                   .to(bf) for _ in range(4))
-    o_ref, lse_ref = ca.flash_attention_plain(q, k, v, None, True)
-    o_un = ca.flash_attention_plain(q.float(), k.float(), v.float(), None,
-                                    True)[0].to(bf)
-    delta = (do.float() * o_ref.float()).sum(-1)
-    args = (q, k, v, None, do, lse_ref, delta, True)
-    ds = torch.empty(B * H, T, T, dtype=bf, device="cuda")
-    dk_ref, dv_ref = ca.flash_bwd_dkv_plain(*args)
-    dq_ref = ca.flash_bwd_dq_plain(*args)
-    f32 = (q.float(), k.float(), v.float(), None, do.float(), lse_ref,
-           delta, True)
-    dk_un, dv_un = (t.to(bf) for t in ca.flash_bwd_dkv_plain(*f32))
-    dq_un = ca.flash_bwd_dq_plain(*f32).to(bf)
-    cases.append(("flash_fwd_bf16 [8,4,2048,128] causal",
-                  lambda: ca.flash_attention_fwd(q, k, v, None, True)[0],
-                  [(o_ref, o_un)],
-                  lambda: F.scaled_dot_product_attention(q, k, v,
-                                                         is_causal=True)))
-    cases.append(("flash_bwd_dkv_bf16 storing ds",
-                  lambda: ca.flash_bwd_dkv(*args, ds=ds),
-                  [(dk_ref, dk_un), (dv_ref, dv_un)], None))
-    cases.append(("flash_bwd_dq_bf16 from ds",
-                  lambda: ca.flash_bwd_dq(*args, ds=ds), [(dq_ref, dq_un)],
-                  None))
-    cases.append(("flash_attention_bwd bf16",
-                  lambda: ca.flash_attention_bwd(q, k, v, None, o_ref,
-                                                 lse_ref, do, True),
-                  [(dq_ref, dq_un), (dk_ref, dk_un), (dv_ref, dv_un)],
-                  None))
-    # ln_matmul_bf16 at the transformer width
-    M, K = 16384, 512
-    x = (torch.randn(M, K, generator=gen, device="cuda") * 2 + 0.5).to(bf)
-    sc = (1 + 0.1 * torch.randn(K, generator=gen, device="cuda")).to(bf)
-    bi = (0.1 * torch.randn(K, generator=gen, device="cuda")).to(bf)
-    for N in (512, 2048):
-        w = (torch.randn(K, N, generator=gen, device="cuda") / K ** 0.5
+    cases = []      # (label, fn, [(want, unrounded)], lse_ref, library)
+    if "fwd" in only:
+        for label, shape, causal, seg_rows in cs.FLASH_BF16_CASES:
+            q, k, v = (torch.randn(shape, generator=gen, device="cuda")
+                       .to(bf) for _ in range(3))
+            seg = None if seg_rows is None else torch.tensor(
+                seg_rows, dtype=torch.int32, device="cuda")
+            o_ref, lse_ref = ca.flash_attention_plain(q, k, v, seg, causal)
+            o_un = ca.flash_attention_plain(q.float(), k.float(), v.float(),
+                                            seg, causal)[0].to(bf)
+            mask = None if seg is None else cs.visible_pairs(
+                torch, shape[0], shape[2], causal, seg)[0][:, None]
+            cases.append((
+                f"flash_fwd_bf16 {label}",
+                lambda _, q=q, k=k, v=v, seg=seg, causal=causal:
+                    ca.flash_attention_fwd(q, k, v, seg, causal),
+                [(o_ref, o_un)], lse_ref,
+                lambda q=q, k=k, v=v, mask=mask, causal=causal:
+                    F.scaled_dot_product_attention(
+                        q, k, v, attn_mask=mask,
+                        is_causal=causal and mask is None)))
+    if "bwd" in only:
+        B, H, T, D = 8, 4, 2048, 128
+        q, k, v, do = (torch.randn(B, H, T, D, generator=gen, device="cuda")
+                       .to(bf) for _ in range(4))
+        o_ref, lse_ref = ca.flash_attention_plain(q, k, v, None, True)
+        delta = (do.float() * o_ref.float()).sum(-1)
+        bargs = (q, k, v, None, do, lse_ref, delta, True)
+        ds = torch.empty(B * H, T, T, dtype=bf, device="cuda")
+        dk_ref, dv_ref = ca.flash_bwd_dkv_plain(*bargs)
+        dq_ref = ca.flash_bwd_dq_plain(*bargs)
+        f32 = (q.float(), k.float(), v.float(), None, do.float(), lse_ref,
+               delta, True)
+        dk_un, dv_un = (t.to(bf) for t in ca.flash_bwd_dkv_plain(*f32))
+        dq_un = ca.flash_bwd_dq_plain(*f32).to(bf)
+        cases += [
+            ("flash_bwd_dkv_bf16 storing ds",
+             lambda _: ca.flash_bwd_dkv(*bargs, ds=ds),
+             [(dk_ref, dk_un), (dv_ref, dv_un)], None, None),
+            ("flash_bwd_dq_bf16 from ds",
+             lambda _: ca.flash_bwd_dq(*bargs, ds=ds), [(dq_ref, dq_un)],
+             None, None),
+            ("flash_attention_bwd bf16",
+             lambda _: ca.flash_attention_bwd(q, k, v, None, o_ref,
+                                              lse_ref, do, True),
+             [(dq_ref, dq_un), (dk_ref, dk_un), (dv_ref, dv_un)], None,
+             None)]
+    if "ln" in only:
+        M, K = 16384, 512
+        x = (torch.randn(M, K, generator=gen, device="cuda") * 2 + 0.5
              ).to(bf)
-        for aff in (False, True):
-            s, b = (sc, bi) if aff else (None, None)
-            want = fl.ln_matmul_reference(x, w, s, b)
-            un = fl.ln_matmul_reference(
-                x.float(), w.float(), None if s is None else s.float(),
-                None if b is None else b.float()).to(bf)
-            cases.append((f"ln_matmul_bf16 w [{K},{N}]"
-                          + (" scale+bias" if aff else ""),
-                          lambda w=w, s=s, b=b: fl.fused_ln_matmul(x, w, s,
-                                                                   b),
-                          [(want, un)],
-                          lambda w=w, s=s, b=b: F.layer_norm(
-                              x, (K,), s, b, 1e-6) @ w))
-    for label, fn, refs, lib in cases:
+        sc = (1 + 0.1 * torch.randn(K, generator=gen, device="cuda")).to(bf)
+        bi = (0.1 * torch.randn(K, generator=gen, device="cuda")).to(bf)
+        for N in (512, 2048):
+            w = (torch.randn(K, N, generator=gen, device="cuda") / K ** 0.5
+                 ).to(bf)
+            for aff in (False, True):
+                s, b = (sc, bi) if aff else (None, None)
+                want = fl.ln_matmul_reference(x, w, s, b)
+                un = fl.ln_matmul_reference(
+                    x.float(), w.float(), None if s is None else s.float(),
+                    None if b is None else b.float()).to(bf)
+                cases.append((
+                    f"ln_matmul_bf16 w [{K},{N}]"
+                    + (" scale+bias" if aff else ""),
+                    lambda widen, w=w, s=s, b=b: fl.fused_ln_matmul(
+                        x, w, *(t.float() if widen and t is not None else t
+                                for t in (s, b))),
+                    [(want, un)], None,
+                    lambda w=w, s=s, b=b: F.layer_norm(x, (K,), s, b,
+                                                       1e-6) @ w))
+    order = list(dirs) + list(dirs)[::-1]
+    # each case's call takes whether to widen bf16 scale and bias first (a
+    # DIR's ln_matmul_bf16 reads f32 ones)
+    for label, call, refs, lse_ref, lib in cases:
         row = {"case": label}
         for name in dirs:
             use(name)
+            fn = (lambda c=call, o=name in other: c(o))
             got = fn()
             got = got if isinstance(got, tuple) else (got,)
             torch.cuda.synchronize()
-            row[name + "_gate"] = [cs.bf16_gate(torch, f"{name} {label}", g,
-                                                w, u)["share_off_above_noise"]
-                                   for g, (w, u) in zip(got, refs)]
-            again = fn()
-            again = again if isinstance(again, tuple) else (again,)
-            torch.cuda.synchronize()
-            if not all(torch.equal(a, c) for a, c in zip(got, again)):
-                raise RuntimeError(f"{name} {label}: reruns differ")
-            row[name] = cs.time_ms(torch, fn)
-            row[name + "_device"] = cs.device_ms(torch, fn)[0]
+            if gated[name]:
+                row[name + "_gate"] = [
+                    cs.bf16_gate(torch, f"{name} {label}", g, w,
+                                 u)["share_off_above_noise"]
+                    for g, (w, u) in zip(got, refs)]
+                if lse_ref is not None:
+                    err = (got[1] - lse_ref).abs().max().item()
+                    if not err <= cs.LSE_TOL:
+                        raise RuntimeError(f"{name} {label}: LSE off by "
+                                           f"{err}")
+                    row[name + "_lse"] = err
+                again = fn()
+                again = again if isinstance(again, tuple) else (again,)
+                torch.cuda.synchronize()
+                if not all(torch.equal(a, c) for a, c in zip(got, again)):
+                    raise RuntimeError(f"{name} {label}: reruns differ")
+        for name in order:
+            use(name)
+            fn = (lambda c=call, o=name in other: c(o))
+            row.setdefault(name + "_device", []).append(
+                cs.device_ms(torch, fn)[0])
+            row.setdefault(name, []).append(cs.time_ms(torch, fn))
         if lib is not None:
-            row["library"] = cs.time_ms(torch, lib)
             row["library_device"] = cs.device_ms(torch, lib)[0]
+            row["library"] = cs.time_ms(torch, lib)
         print(json.dumps(row), flush=True)
     use("tree")
+    shutil.rmtree(tmp, ignore_errors=True)
+    print(cs.gpu_line(), flush=True)
     return 0
 
 
