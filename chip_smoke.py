@@ -316,7 +316,8 @@ def device_ms(torch, fn, iters=20, warmup=3):
     flush by a 128 MB device-to-device copy whose rows are left out; and
     the names of the rows kept. Unlike ``time_ms`` it cannot time the
     host: a wrapper whose Python outlasts its kernels shows only the
-    kernels here. Each row comes as ``[name, ms per call]``."""
+    kernels here. Each row comes as ``[name, ms per call, launches per
+    call]``."""
     from torch.profiler import ProfilerActivity, profile
     src = torch.empty(128 * 2 ** 20 // 4, dtype=torch.float32, device="cuda")
     dst = torch.empty_like(src)
@@ -351,17 +352,41 @@ def device_ms(torch, fn, iters=20, warmup=3):
     else:
         raise RuntimeError(f"device_ms: the profiler recorded no device "
                            f"time, or not every call's: {rows}")
-    ms = [(n, t / 1e3 / c * per_call(c)) for n, t, c in rows]
-    return sum(t for _, t in ms), sorted([n[:60], t] for n, t in ms)
+    ms = [(n, t / 1e3 / c * per_call(c), per_call(c)) for n, t, c in rows]
+    return (sum(t for _, t, _ in ms),
+            sorted([n[:60], t, k] for n, t, k in ms))
 
 
 def paged_device_times(torch, fn, lib_fn):
-    """Device time per call of a paged entry (both its launches) and of
+    """Device time per call of a paged entry (all its launches) and of
     its SDPA yardstick, with the device rows each consists of."""
     ms, names = device_ms(torch, fn)
     lib_ms, lib_names = device_ms(torch, lib_fn)
     return {"device_ms": ms, "device_rows": names,
             "library_device_ms": lib_ms, "library_device_rows": lib_names}
+
+
+# a paged call's kernels by the names the profiler gives them
+PAGED_LAUNCH_NAMES = {"max_pass": "partials_kernel", "main_pass":
+                      "pv_kernel", "merge": "merge_kernel"}
+
+
+def paged_launches(name, rows):
+    """Each launch's device time of a bf16-pool paged call from its device
+    rows (``device_ms``: the max pass is partials_kernel's bf16 instance,
+    the main pass pv_kernel); raises unless the call launched exactly the
+    kernels the design says, ``ca.PAGED_BF16_KERNELS`` a call, one of
+    each."""
+    from paddle_tpu_torch.nn import cuda_attention as ca
+    got = {key: sum(t for n, t, _ in rows if kern in n)
+           for key, kern in PAGED_LAUNCH_NAMES.items()
+           if any(kern in n for n, _, _ in rows)}
+    launches = sum(k for _, _, k in rows)
+    if launches != ca.PAGED_BF16_KERNELS or len(got) != launches:
+        raise RuntimeError(f"{name}: {launches} launches a call "
+                           f"({rows}); the design launches "
+                           f"{ca.PAGED_BF16_KERNELS}")
+    return {"launches_per_call": launches, **got}
 
 
 def bound(nbytes, flops):
@@ -853,7 +878,8 @@ def paged_grid(ca, name, S, Q, H, D, bs, MB, start_l, n_l, pool=0):
     """The launch plan of a paged entry over a pool of kind ``pool`` and
     its partials grid: blocks in all, and live ones (a tile with live rows
     whose last position reaches the partition), counted on the host from
-    the test's own lists."""
+    the test's own lists; bf16 pools' main pass has its own shared memory
+    (0 for other pools, which have none)."""
     plan = ca.paged_plan(MB, bs, D, Q, pool)
     W = MB * bs
     live = 0
@@ -862,7 +888,8 @@ def paged_grid(ca, name, S, Q, H, D, bs, MB, start_l, n_l, pool=0):
             last = min(st + min(n, Q, r0 + plan.rows) - 1, W - 1)
             live += H * (last // plan.part + 1)
     return {"entry": name, "partition": plan.part, "row_tile": plan.rows,
-            "smem_bytes": plan.smem, "grid": [S * plan.tiles, H, plan.parts],
+            "smem_bytes": plan.smem, "main_pass_smem_bytes": plan.pv_smem,
+            "grid": [S * plan.tiles, H, plan.parts],
             "blocks": S * plan.tiles * H * plan.parts, "live_blocks": live,
             "pool_blocks_per_block": plan.part // bs}
 
@@ -1208,7 +1235,9 @@ def phase_paged_bf16(torch, F, ca, kvc, gen, card):
     4's speculative and chunk shapes (and the speculative one at D 128),
     each against its plain version (``check_bf16_paged``), a rerun
     bit-equal, with times, the bytes bound and SDPA on the gathered bf16
-    context as the yardstick. The spans' rows against ``paged_decode_bf16``
+    context as the yardstick; at D 64 the profiler's device time of the
+    call and of SDPA, each launch's (max pass, main pass, merge) and the
+    gate that a call launches the kernels the design says. The spans' rows against ``paged_decode_bf16``
     across partition boundaries, no host sync and the entries in CUDA
     graphs run in phase 4 over the same pools."""
     bs, MB, N, H = 16, 64, 513, 8
@@ -1287,14 +1316,17 @@ def phase_paged_bf16(torch, F, ca, kvc, gen, card):
             "kernel_ms": time_ms(torch, run),
             "plain_ms": time_ms(torch, plain),
             "library_ms": time_ms(torch, lib),
-            # profiler device time for the kernels line's rows (D 64,
-            # decode and the speculative span)
-            **(paged_device_times(torch, run, lib) if D == 64 and Q < 128
-               else {}),
+            # profiler device time at D 64 (the kernels line's rows: decode
+            # and the speculative span; and the chunk)
+            **(paged_device_times(torch, run, lib) if D == 64 else {}),
             "library_note": "SDPA with an explicit mask on the pre-gathered "
             "bf16 context, q rounded to bf16, gather not timed",
             "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
             "flops": 4 * D * H * pairs, "card": card}
+        if D == 64:
+            # each launch's device time, and how many a call makes
+            rows[name, label]["launch_device_ms"] = paged_launches(
+                f"{name} {label}", rows[name, label]["device_rows"])
         log(name, json.dumps(rows[name, label]))
     return rows
 

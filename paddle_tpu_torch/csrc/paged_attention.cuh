@@ -58,7 +58,26 @@
 // pass takes M = max of the row's partition maxima (exact in any order),
 // p = exp(s - M), l += p, and rounds p to bf16 for the fmaf chain of p.V.
 // Every record then carries m = M, so the merge's factors exp(m_k - M)
-// are exactly 1 and the merge is the plain in-order sum. K is read twice.
+// are exactly 1 and the merge is the plain in-order sum.
+//
+// K crosses from the pool once: the max pass also stores each live row's
+// scaled, masked f32 scores over its partition in a scores workspace
+// (past the records in the same allocation, [S, Q, H, parts, SP] with SP
+// = P rounded up to 4 floats, so a row's scores are contiguous and 16-byte
+// aligned; masked keys -inf). The main pass (pv_kernel) stages V alone:
+// its rows' stored scores land by cp.async where K sat, so it reads the
+// very f32 values a recomputation would give, with no K copy, no widening
+// of K, no query tile and no score chain; p, l, the records and the merge
+// are what they were, and its shared memory (stored scores, row state,
+// raw V rows widened in registers, __bfloat162float, exact) is a fifth to
+// a sixth of the max pass's at D 128, so more blocks share an SM. At
+// these sizes latency bounds it, not bytes: it loads its rows' partition
+// maxima before its copies land, not one row after another behind them,
+// and issues the shared-memory loads of eight keys before their fmaf
+// chain (each row's chain still over the keys in order). The
+// merge stays a launch of its own: folding it into the main pass (the
+// last block of a row tile to arrive on a counter merging the tile's
+// rows) took longer on the card than the launch it saved.
 //
 // Bit-equality contract: row j of a span equals the decode kernel at
 // length start + j + 1 bit for bit. The partition boundaries are a
@@ -74,7 +93,8 @@
 //
 // Left for later work: tensor cores for the span's QK^T and PV (a span row
 // and a decode row would have to take the same mma route), TMA loads, and
-// a bf16 branch that reads K once (storing the scores of the max pass).
+// a bf16 branch with no max pass (p rounded against the row's final max
+// some other way).
 
 #pragma once
 
@@ -146,6 +166,31 @@ struct Layout {
   }
 };
 
+// floats between two rows of the bf16 pools' stored scores: P rounded up
+// to whole 16-byte pieces
+__host__ __device__ constexpr int score_pitch(int P) {
+  return (P + 3) / 4 * 4;
+}
+
+// Shared-memory layout of pv_kernel (the bf16 pools' main pass): no K, no
+// raw K, no query tile and no f32 V; the plan's pv_smem is its total.
+struct PvLayout {
+  int ss, st, vraw, total;
+  __host__ __device__ PvLayout(int D, int R, int P) {
+    ss = 0;                                          // [R][SP] scores, p
+    st = Layout::up16(ss + 4 * R * score_pitch(P));  // [2][R] m, l, then
+    vraw = Layout::up16(st + 8 * R + 4 * MAX_BLOCKS);  // [P / bs] blocks
+    total = Layout::up16(vraw + 2 * P * D);          // [P][D] raw bf16 V
+  }
+};
+
+// The bf16 pools' stored scores in the workspace past the records, [S *
+// Q, H, parts, SP] f32. SQ = S * Q.
+__device__ __forceinline__ float* scores_of(float* ws, int SQ, int H,
+                                            int parts, int D) {
+  return ws + (size_t)SQ * H * parts * (D + 4);
+}
+
 // Start this thread's cp.async copies of the partition's rows [p0, p1) of
 // one pool (and, int8, its scales) into shared memory: an f32 pool into
 // the padded f32 rows (pitch floats apart), an int8 or bf16 pool raw, D
@@ -201,12 +246,25 @@ __device__ __forceinline__ float round_bf16(float p) {
   return __bfloat162float(__float2bfloat16_rn(p));
 }
 
+// acc += p * v for four bf16 values of V (widened exactly), one fmaf each
+__device__ __forceinline__ void fma_quad(float4& acc, float p, uint2 raw) {
+  const float2 lo = __bfloat1622float2(
+      *reinterpret_cast<const __nv_bfloat162*>(&raw.x));
+  const float2 hi = __bfloat1622float2(
+      *reinterpret_cast<const __nv_bfloat162*>(&raw.y));
+  acc.x = fmaf(p, lo.x, acc.x);
+  acc.y = fmaf(p, lo.y, acc.y);
+  acc.z = fmaf(p, hi.x, acc.z);
+  acc.w = fmaf(p, hi.y, acc.w);
+}
+
 // One (slot, row tile, head, partition) block: each live row's softmax
 // partial over the partition's positions, written to the workspace
 // record [row][h][k] = (acc[D], m, l, max, -). With MAXPASS (bf16 pools'
 // first launch) it stages K alone and writes only each row's max over the
-// partition, into the record's third float past acc; the main pass of a
-// bf16 pool then takes the row's max over all its partitions from there.
+// partition, into the record's third float past acc, and the row's scores
+// into the scores workspace; pv_kernel then takes the row's max over all
+// its partitions from the records and its scores from there.
 template <int D, int R, int KIND, bool MAXPASS>
 __global__ void __launch_bounds__(NT)
 partials_kernel(const float* __restrict__ q, const void* __restrict__ pk,
@@ -215,6 +273,8 @@ partials_kernel(const float* __restrict__ q, const void* __restrict__ pk,
                 const int* __restrict__ start, const int* __restrict__ count,
                 float* __restrict__ ws, int N, int bs, int H, int MB, int Q,
                 int P, float scale) {
+  // bf16 pools run MAXPASS here and their main pass in pv_kernel
+  static_assert((KIND == BF16) == MAXPASS, "bf16 pools: max pass only");
   constexpr int C = D / 4;          // float4 chunks per row
   constexpr int RP = NT / C;        // rows a PV pass covers
   constexpr int RPT = (R + RP - 1) / RP;   // PV rows per thread
@@ -312,9 +372,14 @@ partials_kernel(const float* __restrict__ q, const void* __restrict__ pk,
 #pragma unroll
     for (int b = 0; b < RB; ++b) {
       const int r = rg + b;
-      if (r < rows)
-        Ss[r * P + i] = p0 + i <= st + r0 + r ? __fmul_rn(dot[b], scale)
-                                              : -INFINITY;
+      if (r < rows) {
+        const float sc = p0 + i <= st + r0 + r ? __fmul_rn(dot[b], scale)
+                                               : -INFINITY;
+        Ss[r * P + i] = sc;
+        if constexpr (MAXPASS)
+          scores_of(ws, gridDim.x / tiles * Q, H, parts, D)
+              [(((qrow + r) * H + h) * parts + k) * score_pitch(P) + i] = sc;
+      }
     }
   }
   __syncthreads();
@@ -326,14 +391,7 @@ partials_kernel(const float* __restrict__ q, const void* __restrict__ pk,
     float* sr = Ss + r * P;
     float* rec = ws + ((qrow + r) * H + h) * (size_t)parts * (D + 4);
     float mx = NEG;
-    if (KIND == BF16 && !MAXPASS) {
-      // the row's max over all its partitions, from the max pass
-      const int K = min(st + r0 + r, W - 1) / P + 1;
-      for (int kk = lane; kk < K; kk += 32)
-        mx = fmaxf(mx, rec[kk * (D + 4) + D + 2]);
-    } else {
-      for (int i = lane; i < nk; i += 32) mx = fmaxf(mx, sr[i]);
-    }
+    for (int i = lane; i < nk; i += 32) mx = fmaxf(mx, sr[i]);
     for (int off = 16; off; off >>= 1)
       mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
     if constexpr (MAXPASS) {
@@ -344,7 +402,7 @@ partials_kernel(const float* __restrict__ q, const void* __restrict__ pk,
     for (int i = lane; i < nk; i += 32) {
       const float p = expf(sr[i] - mx);
       rs += p;
-      sr[i] = KIND == BF16 ? round_bf16(p) : p;
+      sr[i] = p;
     }
     for (int off = 16; off; off >>= 1)
       rs += __shfl_xor_sync(0xffffffffu, rs, off);
@@ -452,23 +510,157 @@ merge_kernel(const float* __restrict__ ws, const int* __restrict__ start,
   for (int v = 0; v < V; ++v) o[v] = a[v] / lf;
 }
 
-// Launch one instance of partials_kernel on the call's grid, opting into
-// its dynamic shared memory first.
-template <int D, int R, int KIND, bool MAXPASS>
-cudaError_t launch_partials(dim3 grid, int smem, const float* q,
-                            const void* pk, const void* pv, const float* sk,
-                            const float* sv, const int* tables,
-                            const int* start, const int* count, float* ws,
-                            int N, int bs, int H, int MB, int Q, int P,
-                            float scale, cudaStream_t stream) {
-  auto kern = partials_kernel<D, R, KIND, MAXPASS>;
+// The bf16 pools' main pass: the (slot, row tile, head, partition) block of
+// partials_kernel's grid, staging V alone. Its live rows' scores over the
+// partition land as the max pass stored them (by cp.async, 16-byte pieces;
+// the pieces past nk carry values no loop reads), so every p is computed
+// from the f32 score partials_kernel would compute; M is the row's max over
+// its partitions from the max pass's records, p = exp(s - M), l sums the
+// unrounded p, and p rounded to bf16 runs the in-order fmaf chain of p.V on
+// V rows widened in registers (exact).
+template <int D, int R>
+__global__ void __launch_bounds__(NT)
+pv_kernel(const void* __restrict__ pv, const int* __restrict__ tables,
+          const int* __restrict__ start, const int* __restrict__ count,
+          float* __restrict__ ws, int N, int bs, int H, int MB, int Q,
+          int P) {
+  constexpr int C = D / 4;          // bf16 quads per row
+  constexpr int RP = NT / C;        // rows a PV pass covers
+  constexpr int RPT = (R + RP - 1) / RP;   // PV rows per thread
+  constexpr int RW = (R + NW - 1) / NW;    // softmax rows per warp
+  const int tiles = (Q + R - 1) / R;
+  const int s = blockIdx.x / tiles, r0 = (blockIdx.x % tiles) * R;
+  const int h = blockIdx.y, k = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int parts = gridDim.z, SQ = gridDim.x / tiles * Q;
+  const int SP = score_pitch(P);
+  const int* tbl = tables + (size_t)s * MB;
+  const int jb = k * (P / bs) + tid;
+  const int entry = tid < P / bs && jb < MB ? tbl[jb] : 0;
+  int st, cnt;
+  if (count == nullptr) {           // decode: start holds the lengths
+    const int length = start[s];
+    st = length - 1;
+    cnt = length > 0 ? 1 : 0;
+  } else {
+    st = start[s];
+    cnt = min(count[s], Q);
+  }
+  const int rows = min(R, cnt - r0);
+  const int W = MB * bs;
+  if (rows <= 0) return;
+  const int last = min(st + r0 + rows - 1, W - 1);
+  const int p0 = k * P;
+  if (last < p0) return;            // every row ends before the partition
+  const int p1 = min(p0 + P, last + 1), nk = p1 - p0;
+  const size_t qrow = (size_t)s * Q + r0;       // first row of [S * Q]
+  // the max pass's partition maxima of this warp's rows: a row's first 32
+  // partitions load at once, before the copies below, and land while they
+  // are in flight (one round trip for every row instead of one a row)
+  float mx[RW];
+#pragma unroll
+  for (int j = 0; j < RW; ++j) {
+    const int r = warp + j * NW;
+    mx[j] = r < rows && lane <= min(st + r0 + r, W - 1) / P
+        ? ws[(((qrow + r) * H + h) * parts + lane) * (D + 4) + D + 2] : NEG;
+  }
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  const PvLayout lay(D, R, P);
+  float* Ss = reinterpret_cast<float*>(smem + lay.ss);
+  float* m_sm = reinterpret_cast<float*>(smem + lay.st);
+  float* l_sm = m_sm + R;
+  int* blk_sm = reinterpret_cast<int*>(l_sm + R);   // [P / bs] pool blocks
+  if (tid < P / bs) blk_sm[tid] = min(max(entry, 0), N - 1);
+  // the stored scores first (they need no table entry), then V
+  const float* sc = scores_of(ws, SQ, H, parts, D);
+  const int n4 = (nk + 3) / 4;
+  for (int i = tid; i < rows * n4; i += NT) {
+    const int r = i / n4, c4 = i % n4;
+    cp_async16(Ss + r * SP + 4 * c4,
+               sc + (((qrow + r) * H + h) * parts + k) * SP + 4 * c4);
+  }
+  cp_async_commit();
+  __syncthreads();                  // the pool blocks
+  stage_rows<D, BF16>(pv, nullptr, smem + lay.vraw, nullptr, blk_sm, p0, p1,
+                      bs, H, h, D);
+  cp_async_wait<1>();               // this thread's scores
+  __syncthreads();                  // everyone's
+
+  // a warp per row: M, the row's max over all its partitions (exact in any
+  // order), from the maxima above and any past the first 32; p = exp(s -
+  // M) once, for the sum and the PV product
+#pragma unroll
+  for (int j = 0; j < RW; ++j) {
+    const int r = warp + j * NW;
+    if (r >= rows) break;
+    float* sr = Ss + r * SP;
+    const float* rec = ws + ((qrow + r) * H + h) * (size_t)parts * (D + 4);
+    const int K = min(st + r0 + r, W - 1) / P + 1;
+    float m = mx[j];
+    for (int kk = lane + 32; kk < K; kk += 32)
+      m = fmaxf(m, rec[kk * (D + 4) + D + 2]);
+    for (int off = 16; off; off >>= 1)
+      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
+    float rs = 0.f;
+    for (int i = lane; i < nk; i += 32) {
+      const float p = expf(sr[i] - m);
+      rs += p;
+      sr[i] = round_bf16(p);
+    }
+    for (int off = 16; off; off >>= 1)
+      rs += __shfl_xor_sync(0xffffffffu, rs, off);
+    if (lane == 0) {
+      m_sm[r] = m;
+      l_sm[r] = rs;
+    }
+  }
+  cp_async_wait<0>();               // this thread's V copies
+  __syncthreads();                  // everyone's, and the p rows
+
+  // PV: a thread per (row, column quad), keys in order, eight at a time
+  // with their shared-memory loads issued first
+  const int c = tid % C, rr = tid / C;
+  const uint2* V2 = reinterpret_cast<const uint2*>(smem + lay.vraw);
+#pragma unroll
+  for (int u = 0; u < RPT; ++u) {
+    const int r = rr + u * RP;
+    if (r >= rows) break;
+    const float* pr = Ss + r * SP;
+    float4 av = make_float4(0.f, 0.f, 0.f, 0.f);
+    int i = 0;
+    for (; i + 8 <= nk; i += 8) {
+      float p[8];
+      uint2 raw[8];
+#pragma unroll
+      for (int t = 0; t < 8; ++t) {
+        p[t] = pr[i + t];
+        raw[t] = V2[(i + t) * C + c];
+      }
+#pragma unroll
+      for (int t = 0; t < 8; ++t) fma_quad(av, p[t], raw[t]);
+    }
+    for (; i < nk; ++i) fma_quad(av, pr[i], V2[i * C + c]);
+    float* rec = ws + (((qrow + r) * H + h) * parts + k) * (D + 4);
+    reinterpret_cast<float4*>(rec)[c] = av;
+    if (c == 0) {
+      rec[D] = m_sm[r];
+      rec[D + 1] = l_sm[r];
+    }
+  }
+}
+
+// Launch one kernel on the call's grid with NT threads, opting into its
+// dynamic shared memory first.
+template <typename... Params, typename... Args>
+cudaError_t launch_kernel(void (*kern)(Params...), dim3 grid, int smem,
+                          cudaStream_t stream, Args... args) {
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return e;
   }
-  kern<<<grid, NT, smem, stream>>>(q, pk, pv, sk, sv, tables, start, count,
-                                   ws, N, bs, H, MB, Q, P, scale);
+  kern<<<grid, NT, smem, stream>>>(args...);
   return cudaGetLastError();
 }
 
@@ -486,16 +678,18 @@ cudaError_t launch(const float* q, const void* pk, const void* pv,
   const Layout lay(D, R, P, KIND);
   if (parts > 0) {
     const dim3 grid((unsigned)S * ((Q + R - 1) / R), H, parts);
+    // bf16 pools: the max pass, then pv_kernel
+    cudaError_t e = launch_kernel(
+        partials_kernel<D, R, KIND, KIND == BF16>, grid, lay.total, stream,
+        q, pk, pv, sk, sv, tables, start, count, ws, N, bs, H, MB, Q, P,
+        scale);
+    if (e != cudaSuccess) return e;
     if constexpr (KIND == BF16) {
-      const cudaError_t e = launch_partials<D, R, KIND, true>(
-          grid, lay.total, q, pk, pv, sk, sv, tables, start, count, ws, N,
-          bs, H, MB, Q, P, scale, stream);
+      e = launch_kernel(pv_kernel<D, R>, grid, PvLayout(D, R, P).total,
+                        stream, pv, tables, start, count, ws, N, bs, H, MB,
+                        Q, P);
       if (e != cudaSuccess) return e;
     }
-    const cudaError_t e = launch_partials<D, R, KIND, false>(
-        grid, lay.total, q, pk, pv, sk, sv, tables, start, count, ws, N, bs,
-        H, MB, Q, P, scale, stream);
-    if (e != cudaSuccess) return e;
   }
   const unsigned rows_h = (unsigned)S * Q * H;   // one merge warp each
   merge_kernel<D><<<(rows_h + NW - 1) / NW, NT, 0, stream>>>(

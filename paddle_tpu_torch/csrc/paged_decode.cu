@@ -48,7 +48,9 @@ extern "C" int paged_decode_int8_f32(const void* q, const void* pk,
                                   scale, stream);
 }
 
-// As paged_decode_f32 with bf16 pools pk, pv [N, bs, H, D].
+// As paged_decode_f32 with bf16 pools pk, pv [N, bs, H, D]; ws holds the
+// records, then the max pass's scores [S, 1, H, parts, part rounded up to
+// 4] float32 (PagedPlan.workspace_numel).
 extern "C" int paged_decode_bf16_f32(const void* q, const void* pk,
                                      const void* pv, const void* tables,
                                      const void* lengths, void* out,

@@ -51,7 +51,9 @@ extern "C" int paged_span_int8_f32(const void* q, const void* pk,
                                       stream);
 }
 
-// As paged_span_f32 with bf16 pools pk, pv [N, bs, H, D].
+// As paged_span_f32 with bf16 pools pk, pv [N, bs, H, D]; ws holds the
+// records, then the max pass's scores [S, Q, H, parts, part rounded up to
+// 4] float32 (PagedPlan.workspace_numel).
 extern "C" int paged_span_bf16_f32(const void* q, const void* pk,
                                    const void* pv, const void* tables,
                                    const void* start, const void* n,
@@ -69,4 +71,10 @@ extern "C" int paged_span_bf16_f32(const void* q, const void* pk,
 // figure the wrapper's plan must reproduce.
 extern "C" int paged_smem_bytes(int D, int R, int part, int pool) {
   return paged::Layout(D, R, part, pool).total;
+}
+
+// pv_kernel's (the bf16 pools' main pass) dynamic shared memory in bytes
+// for head dim D, row tile R and partition size part: the plan's pv_smem.
+extern "C" int paged_pv_smem_bytes(int D, int R, int part) {
+  return paged::PvLayout(D, R, part).total;
 }

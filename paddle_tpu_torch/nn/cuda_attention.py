@@ -38,7 +38,8 @@ dequantize it on chip and count their launches apart
 ``p . V`` as JAX's kernels round it (``paged_decode_bf16``,
 ``paged_span_bf16``). The paged kernels split the context into fixed
 partitions (:func:`paged_plan`) and merge the partials in a second launch
-(a bf16 call runs a max pass over K first). The paged kernels take
+(a bf16 call runs a max pass over K first, which stores the scores its main
+pass reads in K's place: K crosses once). The paged kernels take
 float32 queries (the path's projections accumulate in f32); all take
 ``D`` in {64, 128}.
 """
@@ -47,6 +48,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import math
 from typing import Dict, Iterator, NamedTuple, Optional, Tuple
 
 import torch
@@ -64,7 +66,8 @@ __all__ = ["FlashAttentionFunction", "FlashBwdPlan", "FlashFwdPlan",
            "paged_decode_attention", "paged_decode_plain",
            "paged_span_attention", "paged_span_plain", "paged_plan",
            "paged_rounding_slack",
-           "PagedPlan", "POOL_BF16", "POOL_F32", "POOL_INT8",
+           "PagedPlan", "PAGED_BF16_KERNELS", "POOL_BF16", "POOL_F32",
+           "POOL_INT8", "paged_pv_smem_bytes",
            "launch_counts", "reset_launch_counts", "route_counts",
            "capturing_launches", "count_replay", "KERNELS", "SPAN_MAX_Q"]
 
@@ -721,6 +724,9 @@ _MAX_BLOCKS = 128    # pool blocks a partition may span (one per thread)
 POOL_F32, POOL_INT8, POOL_BF16 = 0, 1, 2
 _RAW_BYTES = {POOL_F32: 0, POOL_INT8: 1, POOL_BF16: 2}
 _POOL_SUFFIX = {POOL_F32: "", POOL_INT8: "_int8", POOL_BF16: "_bf16"}
+# kernels one bf16-pool paged call launches (the wrappers count the call
+# as one launch): the max pass, pv_kernel and the merge
+PAGED_BF16_KERNELS = 3
 
 
 class PagedPlan(NamedTuple):
@@ -733,7 +739,10 @@ class PagedPlan(NamedTuple):
     position only; ``parts`` partitions cover the table's ``MB * bs``
     positions; ``rows`` query rows share a block, ``tiles`` blocks cover
     a slot's ``Q`` rows; ``smem`` is the partials kernel's dynamic shared
-    memory in bytes."""
+    memory in bytes (bf16 pools: the max pass's). Over bf16 pools the
+    main pass is ``pv_kernel``, with ``pv_smem`` bytes, and the max pass
+    stores each row's scores, ``scores`` floats a (row, head, partition)
+    (``part`` rounded up to 4); 0 for other pools, which launch neither."""
     part: int
     parts: int
     rows: int
@@ -741,11 +750,26 @@ class PagedPlan(NamedTuple):
     smem: int
     q_rows: int
     record: int
+    pv_smem: int = 0
+    scores: int = 0
 
     def workspace_shape(self, S: int, H: int) -> Tuple[int, ...]:
         """The partials workspace: per (slot, row, head, partition) one
         record of ``acc[D]``, ``m``, ``l`` and two pad floats."""
         return (S, self.q_rows, H, self.parts, self.record)
+
+    def scores_shape(self, S: int, H: int) -> Tuple[int, ...]:
+        """The bf16 pools' stored scores, past the records: ``(S, Q, H,
+        parts, scores)`` f32, ``4 * S * Q * H * parts * scores`` bytes
+        (256 KB at S 8, Q 1, H 8 over 1024 positions; 4 MB at S 1, Q 128;
+        64 MB at S 8, Q 256); none for other pools (``scores`` 0)."""
+        return (S, self.q_rows, H, self.parts, self.scores)
+
+    def workspace_numel(self, S: int, H: int) -> int:
+        """f32 elements of one call's workspace: the records, then the
+        stored scores."""
+        return (math.prod(self.workspace_shape(S, H))
+                + math.prod(self.scores_shape(S, H)))
 
 
 def _align16(b: int) -> int:
@@ -766,6 +790,20 @@ def paged_smem_bytes(D: int, rows: int, part: int, pool: int) -> int:
     return _align16(b)
 
 
+def paged_pv_smem_bytes(D: int, rows: int, part: int) -> int:
+    """``paged::PvLayout``'s total, the bf16 pools' main pass: the stored
+    scores of ``rows`` rows (then p), the row state and the partition's
+    pool blocks, and its raw bf16 V rows; no K, raw K, query tile or f32
+    V."""
+    b = _align16(4 * rows * _score_pitch(part))
+    b = _align16(b + 8 * rows + 4 * _MAX_BLOCKS)
+    return _align16(b + 2 * part * D)
+
+
+def _score_pitch(part: int) -> int:
+    return -(-part // 4) * 4
+
+
 def paged_plan(MB: int, bs: int, D: int, Q: int,
                pool: int = POOL_F32) -> PagedPlan:
     """The split of the paged kernels for one launch over a pool of kind
@@ -773,8 +811,11 @@ def paged_plan(MB: int, bs: int, D: int, Q: int,
     part = bs * -(-_PART_POSITIONS // bs)
     parts = -(-(MB * bs) // part)
     rows = 1 if Q == 1 else _SPAN_ROWS
+    bf16 = pool == POOL_BF16
     return PagedPlan(part, parts, rows, -(-Q // rows),
-                     paged_smem_bytes(D, rows, part, pool), Q, D + 4)
+                     paged_smem_bytes(D, rows, part, pool), Q, D + 4,
+                     paged_pv_smem_bytes(D, rows, part) if bf16 else 0,
+                     _score_pitch(part) if bf16 else 0)
 
 
 def _unpack_pages(pages):
@@ -998,7 +1039,7 @@ def paged_decode_attention(q, pages_k, pages_v, tables, lengths,
     S, H, D = q.shape
     scale = D ** -0.5 if scale is None else float(scale)
     out = torch.empty_like(q)
-    ws = torch.empty(plan.workspace_shape(S, H), dtype=torch.float32,
+    ws = torch.empty(plan.workspace_numel(S, H), dtype=torch.float32,
                      device=q.device)
     with torch.cuda.device(q.device):          # launch on q's card
         _launch("paged_decode" + _POOL_SUFFIX[kind],
@@ -1036,7 +1077,7 @@ def paged_span_attention(q, pages_k, pages_v, tables, start, n,
         start=start, n=n)
     scale = D ** -0.5 if scale is None else float(scale)
     out = torch.empty_like(q)
-    ws = torch.empty(plan.workspace_shape(S, H), dtype=torch.float32,
+    ws = torch.empty(plan.workspace_numel(S, H), dtype=torch.float32,
                      device=q.device)
     with torch.cuda.device(q.device):
         _launch("paged_span" + _POOL_SUFFIX[kind], q.data_ptr(),

@@ -169,12 +169,14 @@ class ContinuousBatchingScheduler:
                 + sum(len(r.prompt) for r in self.prefilling.values()))
 
     def load_report(self) -> Dict[str, Any]:
-        """The scheduler's load: owed decode tokens, request counts and
-        the prefill backlog."""
+        """The load payload a replica publishes, on which a router
+        balances and an autoscaler senses: owed decode tokens, request
+        counts, the prefill backlog and the replica's role."""
         return {"pending_new_tokens": self.pending_new_tokens(),
                 "running": len(self.running), "queued": len(self.queue),
                 "prefilling": len(self.prefilling),
-                "prefill_backlog": self.prefill_backlog()}
+                "prefill_backlog": self.prefill_backlog(),
+                "role": self.role}
 
     def predicted_completion_s(self, max_new_tokens: int
                                ) -> Optional[float]:

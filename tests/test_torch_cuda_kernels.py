@@ -584,10 +584,12 @@ def _bf16_close(out, ref, unrounded, slack):
     assert diff.mean().item() <= 0.1 * (unrounded - ref).abs().mean().item()
 
 
-@pytest.mark.parametrize("D,bs", [(64, 16), (128, 8), (64, 8), (128, 32)])
+@pytest.mark.parametrize("D,bs", [(64, 16), (128, 8), (64, 8), (128, 32),
+                                  (64, 7)])
 def test_paged_decode_bf16_kernel_matches_plain(gen, D, bs):
     """bf16 pools: lengths on and across partition boundaries, a slot
-    filling the table; reruns bit-equal."""
+    filling the table (bs 7: partitions of 133 positions, the stored
+    scores' rows padded to 136); reruns bit-equal."""
     H, MB = 3, 320 // bs
     lengths = _boundary_lengths(bs, MB)
     S = lengths.numel()
@@ -611,12 +613,12 @@ def test_paged_decode_bf16_kernel_matches_plain(gen, D, bs):
 @pytest.mark.parametrize("Q,D", [(1, 64), (5, 64), (128, 64), (5, 128),
                                  (128, 128)])
 def test_paged_span_bf16_kernel_matches_plain_and_decode_rows(gen, Q, D):
-    """bf16 pools at bs 8, 16 and 32, the spans of the f32 test: live rows
+    """bf16 pools at bs 7, 8, 16 and 32, the spans of the f32 test: live rows
     against the plain version, reruns bit-equal, each row bit-equal to
     ``paged_decode_bf16`` at ``start + j + 1``, across the partition
     boundary too."""
     S, H = 6, 3
-    for bs in (8, 16, 32):
+    for bs in (7, 8, 16, 32):
         MB = 384 // bs
         P = ca.paged_plan(MB, bs, D, Q, ca.POOL_BF16).part
         pk, pv, tables = _span_case(gen, S, H, D, bs, MB, False)
@@ -677,18 +679,24 @@ def test_bf16_paged_wrappers_refuse_what_the_kernels_do_not_take(gen):
 
 
 def test_paged_plan_shared_memory_is_the_kernels(gen):
-    """The plan's shared-memory figure is the kernel's own layout."""
+    """The plan's shared-memory figures are the kernels' own layouts: the
+    partials kernel's (bf16 pools: the max pass) and the bf16 pools' main
+    pass."""
     from paddle_tpu_torch.utils import cuda_build
     import ctypes
-    fn = cuda_build.load("paged_span").paged_smem_bytes
+    lib = cuda_build.load("paged_span")
+    fn, pv = lib.paged_smem_bytes, lib.paged_pv_smem_bytes
     fn.argtypes = [ctypes.c_int] * 4
-    fn.restype = ctypes.c_int
+    pv.argtypes = [ctypes.c_int] * 3
+    fn.restype = pv.restype = ctypes.c_int
     for D in (64, 128):
-        for bs in (8, 12, 16, 32, 128):
+        for bs in (7, 8, 12, 16, 32, 128):
             for Q in (1, 5, 128):
                 for pool in (ca.POOL_F32, ca.POOL_INT8, ca.POOL_BF16):
                     plan = ca.paged_plan(64, bs, D, Q, pool)
                     assert fn(D, plan.rows, plan.part, pool) == plan.smem
+                plan = ca.paged_plan(64, bs, D, Q, ca.POOL_BF16)
+                assert pv(D, plan.rows, plan.part) == plan.pv_smem
 
 
 def test_paged_entries_do_not_synchronise(gen):

@@ -4,7 +4,8 @@ queued, prefilling and running requests and return every block, the
 tick-time estimate, the load numbers — each as the JAX scheduler's tests
 say (``tests/test_fleet.py``, ``tests/test_serve.py``), and the same
 finish reasons, tokens and admission order as the JAX scheduler on bridged
-weights. Then the engine's programs run eagerly on their static buffers:
+weights, and the same ``load_report`` payload (role included) step by
+step for each role. Then the engine's programs run eagerly on their static buffers:
 the greedy streams under admit/evict churn equal the model's own
 token-by-token forward, with every buffer at one address throughout; and
 a capture holds Python's cyclic garbage collection off (a collection
@@ -144,7 +145,7 @@ def test_tick_estimate_and_load_report(models):
     sched.submit([9], 2)
     assert sched.load_report() == {"pending_new_tokens": 9, "running": 0,
                                    "queued": 3, "prefilling": 0,
-                                   "prefill_backlog": 9}
+                                   "prefill_backlog": 9, "role": "both"}
     sched.step()                     # first chunks; nobody runs yet
     rep = sched.load_report()
     assert rep["prefilling"] == 2 and rep["queued"] == 1
@@ -278,6 +279,56 @@ def test_policy_matches_jax_scheduler(models, order):
                      sched.est_tick_s)
     assert out["port"] == out["jax"]
     assert {r[0] for r in out["port"][0]} == {"length", "timeout", "shed"}
+
+
+def _jax_engine(jm, vs, **kw):
+    eng = JDecodeEngine(jm, vs, max_slots=2, block_size=BS,
+                        attention="xla", **kw)
+    jc = eng.cache
+    jc.device_tables = lambda jc=jc: (
+        jnp.array(np.copy(jc.tables)), jnp.array(np.copy(jc.lengths)))
+    return eng
+
+
+@pytest.mark.parametrize("role", ["both", "prefill", "decode"])
+def test_load_report_matches_jax_scheduler(models, role):
+    """The payload a replica publishes, dict for dict with the JAX
+    scheduler's after the same submissions and after each step, for each
+    role. A decode replica admits no prompts: each side's prefill replica
+    hands its own requests off and the decode replica adopts them."""
+    jm, vs, tm = models
+    rng = np.random.RandomState(3)
+    subs = [([int(t) for t in rng.randint(0, V, n)], m)
+            for n, m in ((5, 4), (3, 6), (7, 2), (4, 5))]
+    reports = {}
+    for side in ("jax", "port"):
+        if side == "jax":
+            make = lambda r: JScheduler(  # noqa: E731
+                _jax_engine(jm, vs, prefill_chunk=2), role=r)
+        else:
+            make = lambda r: ContinuousBatchingScheduler(  # noqa: E731
+                _engine(tm, prefill_chunk=2), role=r)
+        sched = make(role)
+        feed = make("prefill") if role == "decode" else sched
+        for p, m in subs:
+            feed.submit(p, m)
+        got = [sched.load_report()]
+        for _ in range(8):
+            if feed is not sched:
+                feed.step()
+                for _, meta, kpages, vpages in feed.pop_handoffs():
+                    sched.adopt(meta, kpages, vpages)
+            got.append(sched.load_report())
+            sched.step()
+            got.append(sched.load_report())
+        reports[side] = got
+    assert reports["port"] == reports["jax"]
+    assert all(r["role"] == role for r in reports["port"])
+    # the run did work: requests prefilled or decoded, and finished
+    busy = "prefilling" if role == "prefill" else "running"
+    assert any(r[busy] for r in reports["port"])
+    assert reports["port"][-1]["pending_new_tokens"] < \
+        max(r["pending_new_tokens"] for r in reports["port"])
 
 
 # ---------------------------------------------------------------------------
