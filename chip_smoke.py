@@ -166,7 +166,9 @@ Phases (any failure exits non-zero before the final line):
 11. bf16 operands of the flash kernels and of ``ln_matmul`` (run after
     phase 2, and after phase 7's ``ln_matmul``), as the JAX kernels take
     them: (a) ``flash_fwd_bf16``, ``flash_bwd_dq_bf16`` and
-    ``flash_bwd_dkv_bf16`` at ``[8,4,2048,128]`` causal, ``[1,8,1024,64]``
+    ``flash_bwd_dkv_bf16`` (and the backward's ``flash_bwd_delta_bf16``,
+    within TOL of the plain delta relative to its largest entry) at
+    ``[8,4,2048,128]`` causal, ``[1,8,1024,64]``
     causal and ``[2,8,512,128]`` with segments, and ``ln_matmul_bf16`` at
     x ``[16384,512]`` with w ``[512,512]`` and ``[512,2048]``, with and
     without scale and bias, each against its plain version under the
@@ -176,15 +178,17 @@ Phases (any failure exits non-zero before the final line):
     y unrounded as a control that must fail the gate, reruns bit-equal,
     their ptxas reports free of spills, and the wrappers' refusals (mixed
     dtypes, bf16 views 2 bytes off 4, a stored ds of another dtype); each
-    call's route logged (``flash_fwd_bf16`` and ``ln_matmul_bf16`` take
-    16-byte aligned operands on ``wgmma`` fed by TMA, views 4 bytes off
-    16 on ``mma.sync``): the aligned calls must go by ``wgmma``, and the
-    forward at ``[2,8,512,128]`` with segments and ``ln_matmul_bf16`` at
-    w ``[512,512]`` with scale and bias, again on views 4 bytes off 16,
-    by ``mma.sync``, under the same gate; (b)
+    call's route logged (``flash_fwd_bf16``, ``flash_bwd_dkv_bf16``,
+    ``flash_bwd_dq_bf16`` and ``ln_matmul_bf16`` take 16-byte aligned
+    operands on ``wgmma`` fed by TMA, views 4 bytes off 16 on
+    ``mma.sync``): the aligned calls must go by ``wgmma``, and the
+    forward and backward at ``[2,8,512,128]`` with segments and
+    ``ln_matmul_bf16`` at w ``[512,512]`` with scale and bias, again on
+    views 4 bytes off 16, by ``mma.sync``, under the same gate; (b)
     the path: bf16 leaf q, k, v at ``[8,4,2048,128]`` causal through
     ``flash_attention``, a loss and ``.backward()``: exactly one launch
-    of each of the three kernels (the forward by ``wgmma``), bf16
+    of each of the four kernels (the forward and the backward's two by
+    ``wgmma``), bf16
     gradients within the gate of the
     plain backward on the forward's saved O and LSE, and within
     BF16_PATH_SHARE of the plain versions' autograd end to end; (c) each
@@ -255,6 +259,9 @@ REPLACES = {"flash_fwd": "paddle_tpu/nn/pallas_attention.py:108",
             "flash_fwd_bf16": "paddle_tpu/nn/pallas_attention.py:108",
             "flash_bwd_dq_bf16": "paddle_tpu/nn/pallas_attention.py:162",
             "flash_bwd_dkv_bf16": "paddle_tpu/nn/pallas_attention.py:207",
+            # delta = rowsum(dO * O), which _flash_backward computes in XLA
+            # outside its Pallas kernels: this kernel replaces no Pallas one
+            "flash_bwd_delta_bf16": "paddle_tpu/nn/pallas_attention.py:439",
             "ln_matmul_bf16": "paddle_tpu/nn/fused_ln.py:63"}
 # the paged kernels' device rows (partials and merge) in a profile window
 PAGED_ROWS = ("paged::",)
@@ -794,6 +801,11 @@ LN_BF16_INSTANCE = re.compile(r"ln_gemm_bf16INS_4BCfgILi(\d+)ELi(\d+)ELi\d+"
 # stages: CfgW) and of ln_matmul.cu (strip rows, stages: LnW)
 FWD_WGMMA_INSTANCE = re.compile(r"flash_fwd_wgmma_kernelINS_4CfgWILi(\d+)"
                                 r"ELi(\d+)ELi(\d+)ELi(\d+)E")
+# the bf16 backward's wgmma instances (kernel, D, consumer warpgroups,
+# stages, dq-from-ds stages: CfgBW) and its delta kernel (D)
+BWD_WGMMA_INSTANCE = re.compile(r"flash_bwd_(dkv|dq|dq_ds)_wgmma_kernelINS_"
+                                r"\d+CfgBWILi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)E")
+DELTA_INSTANCE = re.compile(r"flash_bwd_(delta)_kernelILi(\d+)E")
 LN_WGMMA_INSTANCE = re.compile(r"ln_gemm_wgmmaINS_3LnWILi(\d+)ELi(\d+)E")
 # ptxas's notes that it serialised a function's wgmma (C7510-C7520:
 # registers, divergent paths, accumulators written inside a group)
@@ -811,7 +823,10 @@ def bf16_registers(ca, report):
     fwd_log = str(report["flash_fwd"]["log"])
     fwd = ptxas_entries(FWD_BF16_INSTANCE, fwd_log)
     fwd_wg = ptxas_entries(FWD_WGMMA_INSTANCE, fwd_log)
-    bwd = ptxas_entries(BWD_BF16_INSTANCE, str(report["flash_bwd"]["log"]))
+    bwd_log = str(report["flash_bwd"]["log"])
+    bwd = ptxas_entries(BWD_BF16_INSTANCE, bwd_log)
+    bwd_wg = ptxas_entries(BWD_WGMMA_INSTANCE, bwd_log)
+    delta = ptxas_entries(DELTA_INSTANCE, bwd_log)
     ln = ptxas_entries(LN_BF16_INSTANCE, str(report["ln_matmul"]["log"]))
     ln_wg = ptxas_entries(LN_WGMMA_INSTANCE, str(report["ln_matmul"]["log"]))
     out = [{"kernel": "flash_fwd_bf16", "route": "mma_sync", "D": D,
@@ -831,6 +846,15 @@ def bf16_registers(ca, report):
                                    t.stages), "flash_bwd_bf16")}
             for D, tiles in ca._BWD_TILES_BF16.items() for t in tiles
             for k in ("dq", "dkv", "dq_ds")]
+    out += [{"kernel": f"flash_bwd_{k}_bf16", "route": "wgmma", "D": D,
+             "rows": t.rows, "stages": t.stages, "ds_stages": t.ds_stages,
+             **checked_entry(bwd_wg, (k, D, t.rows // 64, t.stages,
+                                      t.ds_stages), "flash_bwd_bf16 wgmma")}
+            for D, tiles in ca._BWD_TILES_WGMMA.items() for t in tiles
+            for k in ("dkv", "dq", "dq_ds")]
+    out += [{"kernel": "flash_bwd_delta_bf16", "D": D,
+             **checked_entry(delta, ("delta", D), "flash_bwd_delta_bf16")}
+            for D in (64, 128)]
     out += [{"kernel": "ln_matmul_bf16", "route": "mma_sync",
              "tile": list(t[:2]), "vec": vec,
              **checked_entry(ln, (t.rows, t.cols, vec), "ln_matmul_bf16")}
@@ -842,7 +866,8 @@ def bf16_registers(ca, report):
             for t in fl.WGMMA_LN]
     out.append({"wgmma_serialised": {
         src: len(WGMMA_SERIALISED.findall(str(report[src]["log"])))
-        for src in ("flash_fwd", "ln_matmul", "conv1x1_dw_bf16")}})
+        for src in ("flash_fwd", "flash_bwd", "ln_matmul",
+                    "conv1x1_dw_bf16")}})
     return out
 
 
@@ -3047,8 +3072,11 @@ def phase_flash_bf16(torch, F, ca, gen, mma_rate):
     for segments) and its bounds (bytes at 3.35 TB/s, operations at 989
     TFLOP/s and at the card's bf16 mma.sync rate). The backward's two kernels are timed as
     ``flash_attention_bwd`` launches them (dk/dv storing ds where the plan
-    stores it, dq from it). Last, the wrappers' refusals: mixed dtypes,
-    bf16 views 2 bytes off 4, a stored ds of the wrong dtype."""
+    stores it, dq from it), and its delta kernel on its own (beside
+    ``torch.bmm`` of the rows with ``out_dtype=torch.float32``). Each aligned call must go by ``wgmma`` (route counts), and the
+    backward's delta within TOL of the plain one relative to its largest
+    entry. Last, the wrappers' refusals: mixed dtypes, bf16 views 2 bytes
+    off 4, a stored ds of the wrong dtype."""
     bf = torch.bfloat16
     rows = {}
     for label, shape, causal, seg_rows in FLASH_BF16_CASES:
@@ -3071,23 +3099,26 @@ def phase_flash_bf16(torch, F, ca, gen, mma_rate):
         if seg is not None:
             do = do * (seg > 0)[:, None, :, None].to(bf)
         fwd = lambda: ca.flash_attention_fwd(q, k, v, seg, causal)  # noqa
-        before, routes = ca.launch_counts(), ca.route_counts()
+        names = ("flash_fwd_bf16", "flash_bwd_dkv_bf16", "flash_bwd_dq_bf16")
+        before = ca.launch_counts()
+        routes = {n: ca.route_counts(n) for n in names}
         o, lse = fwd()
-        route = moved(routes, ca.route_counts())
         bwd = lambda: ca.flash_attention_bwd(  # noqa: E731
             q, k, v, seg, o, lse, do, causal)
         grads = bwd()
         after = ca.launch_counts()
+        route = {n: moved(routes[n], ca.route_counts(n)) for n in names}
         if moved(before, after) != {"flash_fwd_bf16": 1,
                                     "flash_bwd_dq_bf16": 1,
-                                    "flash_bwd_dkv_bf16": 1}:
+                                    "flash_bwd_dkv_bf16": 1,
+                                    "flash_bwd_delta_bf16": 1}:
             raise RuntimeError(f"flash bf16 {label}: launches {before} -> "
                                f"{after}")
-        log("flash_fwd_bf16 route", json.dumps({"case": label,
-                                                "routes": route}))
-        if route != {"wgmma": 1}:
-            raise RuntimeError(f"flash_fwd_bf16 {label}: aligned operands "
-                               f"went by {route}, not wgmma")
+        log("flash bf16 routes", json.dumps({"case": label,
+                                             "routes": route}))
+        if route != {n: {"wgmma": 1} for n in names}:
+            raise RuntimeError(f"flash bf16 {label}: aligned operands went "
+                               f"by {route}, not all by wgmma")
         qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
         o_ref, lse_ref = ca.flash_attention_plain(q, k, v, seg, causal)
         errs = {"O": bf16_gate(
@@ -3122,7 +3153,10 @@ def phase_flash_bf16(torch, F, ca, gen, mma_rate):
         td = 2 * B * H * T * D               # a bf16 [B, H, T, D] tensor
         rowb = 4 * B * H * T
         segb = 0 if seg is None else 4 * B * T
-        delta = (do.float() * o.float()).sum(-1)
+        delta = ca.flash_bwd_delta(o, do)
+        delta_ref = ca._delta(o, do)
+        errs["delta"] = check_close(f"flash_bwd_delta_bf16 {label}", delta,
+                                    delta_ref, rel=True)
         args = (q, k, v, seg, do, lse, delta, causal)
         ds = torch.empty((B * H, T, T), dtype=bf, device="cuda") \
             if bplan.stored_ds else None
@@ -3143,7 +3177,12 @@ def phase_flash_bf16(torch, F, ca, gen, mma_rate):
             "flash_attention_bwd bf16": (
                 bwd, lambda: ca.flash_attention_bwd_plain(
                     q, k, v, seg, o, lse, do, causal),
-                8 * td + rowb + segb, 10 * D * H * pairs)}
+                8 * td + rowb + segb, 10 * D * H * pairs),
+            # O and dO read once, delta written; a product and an add an
+            # element
+            "flash_bwd_delta_bf16": (
+                lambda: ca.flash_bwd_delta(o, do), lambda: ca._delta(o, do),
+                2 * td + rowb, 2 * B * H * T * D)}
         if ds is not None:
             ca.flash_bwd_dkv(*args, ds=ds)     # dq below reads this ds
         qs, ks, vs = (t.detach().clone().requires_grad_() for t in (q, k, v))
@@ -3161,13 +3200,23 @@ def phase_flash_bf16(torch, F, ca, gen, mma_rate):
         def sdpa_both():
             return torch.autograd.grad(sdpa_fwd(), (qs, ks, vs), do)
 
+        def bmm_delta():
+            # one call for delta: a batch of [1, D] x [D, 1] products of
+            # the bf16 rows, summed in f32 as the kernel sums them
+            return torch.bmm(o.view(-1, 1, D), do.view(-1, D, 1),
+                             out_dtype=torch.float32).view(B, H, T)
+
         lib = {"fwd": (time_ms(torch, sdpa_fwd), dev(sdpa_fwd)[0]),
                "bwd": (time_ms(torch, sdpa_bwd), dev(sdpa_bwd)[0]),
-               "both": (time_ms(torch, sdpa_both), dev(sdpa_both)[0])}
+               "both": (time_ms(torch, sdpa_both), dev(sdpa_both)[0]),
+               "delta": (time_ms(torch, bmm_delta), dev(bmm_delta)[0])}
+        bmm_err = (bmm_delta() - delta_ref).abs().max().item() / max(
+            1.0, delta_ref.abs().max().item())
         del sdpa_out
         for name, (fn, plain, nbytes, flops) in calls.items():
             dev_t, dev_rows = dev(fn)
-            key = "fwd" if name == "flash_fwd_bf16" else "bwd"
+            key = {"flash_fwd_bf16": "fwd",
+                   "flash_bwd_delta_bf16": "delta"}.get(name, "bwd")
             row = {"case": label, "kernel_ms": time_ms(torch, fn),
                    "device_ms": dev_t, "device_rows": dev_rows,
                    "plain_ms": time_ms(torch, plain, iters=5),
@@ -3175,11 +3224,15 @@ def phase_flash_bf16(torch, F, ca, gen, mma_rate):
                    "library_device_ms": lib[key][1],
                    "library_note": "SDPA on the bf16 inputs, "
                    + ("forward" if key == "fwd" else "backward: dq, dk, dv")
-                   + (" (explicit mask)" if mask is not None else ""),
+                   + (" (explicit mask)" if mask is not None else "")
+                   if key != "delta" else "torch.bmm of O's rows [N, 1, D] "
+                   "by dO's [N, D, 1], out_dtype=torch.float32 (off the "
+                   f"plain delta by {bmm_err} of its largest entry)",
                    "sdpa_fwd_bwd_ms": lib["both"][0],
                    "sdpa_fwd_bwd_device_ms": lib["both"][1],
                    "pairs_per_head": pairs, "stored_ds": ds is not None,
-                   "max_abs_err": max(
+                   "max_abs_err": errs["delta"]
+                   if key == "delta" else max(
                        errs[x]["max_abs_err"] for x in
                        (("O",) if key == "fwd" else ("dq", "dk", "dv")))}
             if name == "flash_fwd_bf16":
@@ -3234,16 +3287,19 @@ def flash_bf16_views(torch, ca, gen):
     """``flash_fwd_bf16`` at ``[2,8,512,128]`` with segments on q, k, v
     views 4 bytes off 16: the call must go by ``mma.sync`` (one launch,
     route counted), O under the bf16 gate with the unrounded control
-    failing it, the LSE within LSE_TOL, a bit-equal rerun; timed."""
+    failing it, the LSE within LSE_TOL, a bit-equal rerun; timed. Then
+    the backward on those views and a dO view: ``flash_bwd_dkv_bf16`` and
+    ``flash_bwd_dq_bf16`` by ``mma.sync`` too, dq, dk and dv under the
+    gate with the control failing it, a bit-equal rerun; timed."""
     bf = torch.bfloat16
     label, shape, causal, seg_rows = FLASH_BF16_CASES[2]
     label += " on views 4 bytes off 16"
     q, k, v = (bf16_view(torch, gen, shape) for _ in range(3))
     seg = torch.tensor(seg_rows, dtype=torch.int32, device="cuda")
     fwd = lambda: ca.flash_attention_fwd(q, k, v, seg, causal)  # noqa: E731
-    before, routes = ca.launch_counts(), ca.route_counts()
+    before, routes = ca.launch_counts(), ca.route_counts("flash_fwd_bf16")
     o, lse = fwd()
-    route = moved(routes, ca.route_counts())
+    route = moved(routes, ca.route_counts("flash_fwd_bf16"))
     if moved(before, ca.launch_counts()) != {"flash_fwd_bf16": 1} \
             or route != {"mma_sync": 1}:
         raise RuntimeError(f"flash_fwd_bf16 {label}: launches "
@@ -3265,7 +3321,35 @@ def flash_bf16_views(torch, ca, gen):
     check_rerun(torch, f"flash_fwd_bf16 {label} O", o, lambda: fwd()[0])
     row["kernel_ms"] = time_ms(torch, fwd)
     log("flash_fwd_bf16 views", json.dumps(row))
-    return {("flash_fwd_bf16", label): row}
+    do = bf16_view(torch, gen, shape)
+    do.mul_((seg > 0)[:, None, :, None].to(bf))
+    names = ("flash_bwd_dkv_bf16", "flash_bwd_dq_bf16")
+    routes = {n: ca.route_counts(n) for n in names}
+    bwd = lambda: ca.flash_attention_bwd(  # noqa: E731
+        q, k, v, seg, o, lse, do, causal)
+    grads = bwd()
+    route = {n: moved(routes[n], ca.route_counts(n)) for n in names}
+    if route != {n: {"mma_sync": 1} for n in names}:
+        raise RuntimeError(f"flash bf16 backward {label}: routes {route}; "
+                           f"expected each by mma_sync")
+    want = ca.flash_attention_bwd_plain(q, k, v, seg, o, lse, do, causal)
+    unrounded = ca.flash_attention_bwd_plain(
+        q.float(), k.float(), v.float(), seg, o.float(), lse, do.float(),
+        causal)
+    brow = {"case": label, "routes": route}
+    for x, g, w, u in zip(("dq", "dk", "dv"), grads, want, unrounded):
+        brow[x] = bf16_gate(torch, f"flash bf16 backward {label} {x}", g,
+                            w, u.to(bf))
+    again = bwd()
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(grads, again)):
+        raise RuntimeError(f"flash bf16 backward {label}: reruns differ")
+    brow["max_abs_err"] = max(brow[x]["max_abs_err"]
+                              for x in ("dq", "dk", "dv"))
+    brow["kernel_ms"] = time_ms(torch, bwd)
+    log("flash bf16 backward views", json.dumps(brow))
+    return {("flash_fwd_bf16", label): row,
+            ("flash_attention_bwd bf16", label): brow}
 
 
 def phase_flash_bf16_path(torch, ca, gen):
@@ -3274,7 +3358,9 @@ def phase_flash_bf16_path(torch, ca, gen):
     causal through ``flash_attention`` (``FlashAttentionFunction``), a
     loss and ``.backward()``, the launch counts set to 0 just before and
     read just after: exactly one ``flash_fwd_bf16``, one
-    ``flash_bwd_dkv_bf16`` and one ``flash_bwd_dq_bf16``, no other kernel;
+    ``flash_bwd_delta_bf16``, one ``flash_bwd_dkv_bf16`` and one
+    ``flash_bwd_dq_bf16``, no other kernel, each of the three flash
+    kernels by ``wgmma``;
     bf16 gradients within the bf16 gate of the plain backward on the O and
     LSE the forward saved, and within BF16_PATH_SHARE of the plain
     versions' autograd end to end (plain forward, plain backward); O
@@ -3295,13 +3381,15 @@ def phase_flash_bf16_path(torch, ca, gen):
     torch.cuda.synchronize()
     counts = ca.launch_counts()
     want = {"flash_fwd_bf16": 1, "flash_bwd_dq_bf16": 1,
-            "flash_bwd_dkv_bf16": 1}
+            "flash_bwd_dkv_bf16": 1, "flash_bwd_delta_bf16": 1}
     if {n: c for n, c in counts.items() if c} != want:
         raise RuntimeError(f"flash bf16 path: launches {counts}, expected "
                            f"{want}")
-    if ca.route_counts() != {"wgmma": 1, "mma_sync": 0}:
-        raise RuntimeError(f"flash bf16 path: forward routes "
-                           f"{ca.route_counts()}, expected one by wgmma")
+    routes = {n: ca.route_counts(n) for n in (
+        "flash_fwd_bf16", "flash_bwd_dkv_bf16", "flash_bwd_dq_bf16")}
+    if routes != {n: {"wgmma": 1, "mma_sync": 0} for n in routes}:
+        raise RuntimeError(f"flash bf16 path: routes {routes}, expected "
+                           f"one launch of each kernel by wgmma")
     if type(out.grad_fn).__name__ != "FlashAttentionFunctionBackward":
         raise RuntimeError(f"flash bf16 path: grad_fn {out.grad_fn}")
     f = [t.float() for t in base]
@@ -3320,7 +3408,7 @@ def phase_flash_bf16_path(torch, ca, gen):
                    for x, t, w, u in zip(("dq", "dk", "dv"), (q, k, v), ref,
                                          un)]
         del ref, un
-    res = {"launches": counts, "routes": ca.route_counts(),
+    res = {"launches": counts, "routes": routes,
            "loss": loss.item(),
            "grad_dtypes": [str(t.grad.dtype) for t in (q, k, v)]}
     failed = []
@@ -3612,7 +3700,7 @@ def main():
     kernels += [entry(name, flash16[name, train16], max(
         r["max_abs_err"] for (n, _), r in flash16.items() if n == name))
         for name in ("flash_fwd_bf16", "flash_bwd_dq_bf16",
-                     "flash_bwd_dkv_bf16")]
+                     "flash_bwd_dkv_bf16", "flash_bwd_delta_bf16")]
     kernels.append(entry("ln_matmul_bf16", ln16_rows[2048, True],
                          max(r["max_abs_err"] for r in ln16_rows.values())))
     for k in kernels:

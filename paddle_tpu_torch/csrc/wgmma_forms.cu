@@ -1,5 +1,5 @@
-// Two small kernels that run the wgmma forms of wgmma_bf16.cuh which the
-// bf16 flash forward and ln_matmul_bf16 are built on, so that a card test
+// Three small kernels that run the wgmma forms of wgmma_bf16.cuh which the
+// bf16 flash kernels and ln_matmul_bf16 are built on, so that a card test
 // can hold each against torch.mm in f32 on its own (a wrong descriptor
 // gives a silently wrong product or an illegal address, never a CPU
 // failure). They replace no TPU kernel and lie on no path of the port.
@@ -18,6 +18,9 @@
 //     m16n8k16 fragment: P in the flash forward), B MN-major (N
 //     contiguous, slabs of 64 columns: V), four k16 steps 2048 bytes
 //     apart (desc_sw128).
+//   wgmma_ss_mn_b: D[64, N] = A[64, 64] . B[64, N], A K-major from shared
+//     memory (desc_k128: ds in the bf16 flash backward's dq), B MN-major
+//     (desc_sw128: K there).
 // N is 64 or 128; one warpgroup; D in f32, row-major.
 
 #include <cuda_bf16.h>
@@ -118,7 +121,54 @@ rs(const bf16* __restrict__ a, const bf16* __restrict__ b,
   store_acc<N>(acc, d);
 }
 
+template <int N>
+__global__ void __launch_bounds__(128)
+ss_mn_b(const bf16* __restrict__ a, const bf16* __restrict__ b,
+        float* __restrict__ d) {
+  // A [64 m, 64 k] K-major; B [64 k, N] as N / 64 MN-major slabs
+  unsigned char* sa = aligned_smem();
+  unsigned char* sb = sa + 64 * 128;
+  for (int i = threadIdx.x; i < 64 * 64; i += 128)
+    *reinterpret_cast<bf16*>(sa + swz(i / 64, i % 64)) = a[i];
+  for (int i = threadIdx.x; i < 64 * N; i += 128) {
+    const int k = i / N, n = i % N;
+    *reinterpret_cast<bf16*>(sb + n / 64 * 64 * 128 + swz(k, n % 64)) = b[i];
+  }
+  wgmma::fence_proxy_async();
+  __syncthreads();
+  float acc[N / 2];
+  wgmma::fence_operand(acc);
+  wgmma::fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    wgmma::mma_ss<N, 0, 1>(
+        acc, wgmma::desc_k128(wgmma::smem_addr(sa) + 32 * kk),
+        wgmma::desc_sw128(wgmma::smem_addr(sb) + 2048 * kk, 64 * 128, 1024),
+        kk > 0);
+  wgmma::commit();
+  wgmma::wait<0>();
+  wgmma::fence_operand(acc);
+  store_acc<N>(acc, d);
+}
+
 }  // namespace
+
+// a: [64, 64] bf16, b: [64, N] bf16, d: [64, N] float32, all contiguous;
+// N 64 or 128. Returns a cudaError_t.
+extern "C" int wgmma_ss_mn_b_f32(const void* a, const void* b, void* d,
+                                 int N, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bf16* ab = static_cast<const bf16*>(a);
+  const bf16* bb = static_cast<const bf16*>(b);
+  float* df = static_cast<float*>(d);
+  if (N == 64)
+    ss_mn_b<64><<<1, 128, 1024 + 128 * 128, st>>>(ab, bb, df);
+  else if (N == 128)
+    ss_mn_b<128><<<1, 128, 1024 + 192 * 128, st>>>(ab, bb, df);
+  else
+    return (int)cudaErrorInvalidValue;
+  return (int)cudaGetLastError();
+}
 
 // a: [64, 64] bf16, b: [N, 64] bf16, d: [64, N] float32, all contiguous;
 // N 64 or 128. Returns a cudaError_t.

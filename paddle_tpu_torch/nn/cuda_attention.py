@@ -24,8 +24,11 @@ The flash kernels take q, k, v (and dO, O) all float32 or all bfloat16,
 as the JAX kernels take either: bf16 operands launch ``flash_fwd_bf16``,
 ``flash_bwd_dq_bf16`` and ``flash_bwd_dkv_bf16``, which multiply bf16
 values into f32 sums, round p (and ds) to bf16 before the second product
-and write O, dq, dk and dv in bf16; the LSE and delta stay f32. Mixed
-dtypes are refused on the card (JAX would promote them).
+and write O, dq, dk and dv in bf16; the LSE and delta stay f32 (the bf16
+backward's delta by ``flash_bwd_delta_bf16``). 16-byte aligned bf16
+operands go by ``wgmma`` fed by TMA, views 4 bytes off 16 by
+``mma.sync`` (:func:`route_counts`). Mixed dtypes are refused on the card
+(JAX would promote them).
 
 Layouts are the JAX package's: ``[B, H, T, D]`` for flash, LSE and delta
 ``[B, H, T]``; ``q [S, H, D]``, one layer's pools ``[N, bs, H, D]``,
@@ -60,6 +63,7 @@ from .gemm_f32 import copy_width
 __all__ = ["FlashAttentionFunction", "FlashBwdPlan", "FlashFwdPlan",
            "flash_attention",
            "flash_attention_bwd", "flash_attention_bwd_plain",
+           "flash_bwd_delta",
            "flash_attention_fwd", "flash_attention_plain", "flash_bwd_dkv",
            "flash_bwd_dkv_plain", "flash_bwd_dq", "flash_bwd_dq_plain",
            "flash_bwd_plan", "flash_fwd_plan", "flash_copy_width",
@@ -79,14 +83,18 @@ KERNELS = {"flash_fwd": "flash_fwd", "paged_decode": "paged_decode",
            "flash_bwd_dq": "flash_bwd", "flash_bwd_dkv": "flash_bwd",
            "flash_fwd_bf16": "flash_fwd", "flash_bwd_dq_bf16": "flash_bwd",
            "flash_bwd_dkv_bf16": "flash_bwd",
+           "flash_bwd_delta_bf16": "flash_bwd",
            "paged_span": "paged_span", "paged_span_int8": "paged_span",
            "paged_decode_int8": "paged_decode",
            "paged_decode_bf16": "paged_decode",
            "paged_span_bf16": "paged_span"}
 
 _launches: Dict[str, int] = {name: 0 for name in KERNELS}
-# flash_fwd_bf16's launches by route (FlashFwdPlan.route)
-_routes: Dict[str, int] = {"wgmma": 0, "mma_sync": 0}
+# the bf16 flash kernels' launches by route (FlashFwdPlan.route,
+# FlashBwdPlan.route)
+_routes: Dict[str, Dict[str, int]] = {
+    name: {"wgmma": 0, "mma_sync": 0}
+    for name in ("flash_fwd_bf16", "flash_bwd_dq_bf16", "flash_bwd_dkv_bf16")}
 # where _launch counts: _launches, or a capture's own tally while a CUDA
 # graph is being captured (its launches run only when it replays)
 _counter = [_launches]
@@ -98,15 +106,16 @@ def launch_counts() -> Dict[str, int]:
     return dict(_launches)
 
 
-def route_counts() -> Dict[str, int]:
-    """``flash_fwd_bf16``'s launches since the last
+def route_counts(kernel: str) -> Dict[str, int]:
+    """The launches of ``kernel`` (``flash_fwd_bf16``,
+    ``flash_bwd_dq_bf16`` or ``flash_bwd_dkv_bf16``) since the last
     :func:`reset_launch_counts`, by route: ``"wgmma"`` (16-byte aligned
     operands) or ``"mma_sync"`` (views 4 bytes off 16)."""
-    return dict(_routes)
+    return dict(_routes[kernel])
 
 
 def reset_launch_counts() -> None:
-    for counts in (_launches, _routes):
+    for counts in (_launches, *_routes.values()):
         for name in counts:
             counts[name] = 0
 
@@ -215,6 +224,36 @@ def flash_bwd_dkv_plain(q, k, v, segments, do, lse, delta,
 def _delta(o, do) -> torch.Tensor:
     """``rowsum(dO * O)`` in f32, ``[B, H, T]``."""
     return (do.float() * o.float()).sum(-1)
+
+
+def flash_bwd_delta(o, do) -> torch.Tensor:
+    """``delta = rowsum(dO * O)`` in f32, ``[B, H, T]``, which the backward
+    kernels take (JAX computes it outside its kernels too). CPU tensors
+    run the plain version; bf16 ones on the card launch
+    ``flash_bwd_delta_bf16``, one pass over O and dO that sums their
+    exact products in f32 (the plain version writes and reads two f32
+    copies of both). On the card ``o`` and ``do`` must be bf16 of one
+    shape ``[B, H, T, D]`` with ``D`` in ``(64, 128)``, contiguous on one
+    device and 4-byte aligned (the kernel loads pairs of values)."""
+    if o.device.type == "cpu":
+        return _delta(o, do)
+    name = "flash_bwd_delta"
+    if o.dim() != 4 or do.shape != o.shape:
+        raise ValueError(f"{name}: o {tuple(o.shape)} and do "
+                         f"{tuple(do.shape)} must be one [B, H, T, D] shape")
+    B, H, T, D = o.shape
+    if D not in _HEAD_DIMS:
+        raise ValueError(f"{name}: head dim {D} not in {_HEAD_DIMS}")
+    check_dtype(name, torch.bfloat16, o=o, do=do)
+    check_cuda(name, o.device, o=o, do=do)
+    if flash_copy_width(o, do) == 0:
+        raise ValueError(f"{name}: a bf16 operand lies 2 bytes off a 4-byte "
+                         f"boundary; the kernel loads 4 bytes at a time")
+    delta = torch.empty((B, H, T), dtype=torch.float32, device=o.device)
+    with torch.cuda.device(o.device):
+        _launch("flash_bwd_delta_bf16", o.data_ptr(), do.data_ptr(),
+                delta.data_ptr(), B * H * T, D, stream_ptr(o))
+    return delta
 
 
 def flash_attention_bwd_plain(q, k, v, segments, o, lse, do,
@@ -341,7 +380,7 @@ def flash_attention_fwd(q, k, v, segments=None, causal: bool = False,
                 lse.data_ptr(), B, H, T, D, scale, int(causal), plan.tile,
                 width, stream_ptr(q))
     if q.dtype == torch.bfloat16:
-        _routes[plan.route] += 1
+        _routes["flash_fwd_bf16"][plan.route] += 1
     return out, lse
 
 
@@ -358,6 +397,14 @@ class _BwdTile(NamedTuple):
     stream_rows: int    # rows of each streamed tile
     stages: int         # cp.async ring stages
     blocks_per_sm: int  # resident blocks an SM holds (smem, registers)
+
+
+class _BwdTileW(NamedTuple):
+    rows: int           # resident rows a block owns, 64 a warpgroup
+    stream_rows: int    # rows of each streamed tile
+    stages: int         # TMA ring stages of dk/dv and the recomputing dq
+    ds_stages: int      # TMA ring stages of dq from the stored ds
+    blocks_per_sm: int  # resident blocks an SM holds (smem)
 
 
 # the instances of csrc/flash_fwd.cu and csrc/flash_bwd.cu (Large, Small)
@@ -378,6 +425,12 @@ _FWD_TILES_WGMMA = {D: (_FwdTile(128, 64, 4, 1, 1),
                         _FwdTile(64, 64, 4, 1, 1)) for D in (64, 128)}
 _BWD_TILES_BF16 = {D: (_BwdTile(64, 32, 2, 1), _BwdTile(32, 16, 2, 2))
                    for D in (64, 128)}
+# the bf16 backward's wgmma instances (LargeBW, SmallBW): 128 or 64
+# resident rows, a consumer warpgroup each 64, and a producer warpgroup;
+# streamed tiles of 64 through three TMA stages, six for dq from the
+# stored ds; one block an SM
+_BWD_TILES_WGMMA = {D: (_BwdTileW(128, 64, 3, 6, 1),
+                        _BwdTileW(64, 64, 3, 6, 1)) for D in (64, 128)}
 
 
 def _fwd_tiles(dtype=torch.float32, route="mma_sync"):
@@ -386,8 +439,10 @@ def _fwd_tiles(dtype=torch.float32, route="mma_sync"):
     return _FWD_TILES_WGMMA if route == "wgmma" else _FWD_TILES_BF16
 
 
-def _bwd_tiles(dtype=torch.float32):
-    return _BWD_TILES_BF16 if dtype == torch.bfloat16 else _BWD_TILES
+def _bwd_tiles(dtype=torch.float32, route="mma_sync"):
+    if dtype != torch.bfloat16:
+        return _BWD_TILES
+    return _BWD_TILES_WGMMA if route == "wgmma" else _BWD_TILES_BF16
 _SMS = 132           # the H100's SMs: one wave of blocks
 # largest [B*H, T, T] ds buffer the backward stores: the buffer lives for
 # one flash_attention_bwd call, so it raises a step's peak memory by its
@@ -492,7 +547,12 @@ class FlashBwdPlan(NamedTuple):
     exactly (``tiles`` a head). With ``stored_ds``, :func:`flash_attention_bwd`
     has ``flash_bwd_dkv`` store ``ds`` in a ``[B * H, T, T]`` buffer and
     ``flash_bwd_dq`` read it back (five products in place of seven);
-    without it dq recomputes ``s`` and ``dp`` (seven)."""
+    without it dq recomputes ``s`` and ``dp`` (seven). ``route`` is
+    ``"mma_sync"``, or for bf16 operands on 16-byte boundaries
+    ``"wgmma"``: then ``rows / 64`` consumer warpgroups and a producer
+    warpgroup (``warps``), the stages filled by TMA, and dq from the
+    stored ds on a ring of its own in ``ds_smem`` bytes (0 on the other
+    route, whose dq shares ``smem``'s instance)."""
     tile: int
     rows: int
     warps: int
@@ -503,16 +563,28 @@ class FlashBwdPlan(NamedTuple):
     tiles: int
     grid: int
     stored_ds: bool
+    route: str = "mma_sync"
+    ds_smem: int = 0
 
 
-def _bwd_smem(D: int, t: _BwdTile, dtype=torch.float32) -> int:
+def _bwd_smem(D: int, t, dtype=torch.float32, route: str = "mma_sync") -> int:
     """``Cfg::SMEM_BYTES``: four resident ``rows x (D + 4)`` planes (hi and
     lo of two operands), per stage two ``stream_rows x (D + 4)`` matrices
     and three ``stream_rows`` vectors (LSE, delta, segment ids), and the
     pairs' exchange, a ``16 x stream_rows`` score tile a warp. bf16
     (``CfgB``): no resident planes (each warp's fragments of its resident
     operand live in registers), the two matrices as bf16 rows of pitch
-    ``D + 8``."""
+    ``D + 8``. bf16 on ``wgmma`` (``CfgBW``, dk/dv and the recomputing
+    dq): 1024 bytes to align to the swizzle's period, two resident ``rows
+    x D`` bf16 matrices, per stage two ``stream_rows x D`` ones and 1024
+    bytes of row vectors, for the one-warpgroup instance at D 128 dk/dv's
+    stash of P (32 floats a consumer thread, two threads a resident row),
+    and ``2 stages + 1`` mbarriers of 8 bytes."""
+    if dtype == torch.bfloat16 and route == "wgmma":
+        return (1024 + 2 * 2 * t.rows * D
+                + t.stages * (2 * 2 * t.stream_rows * D + 1024)
+                + (256 * t.rows if D == 128 and t.rows == 64 else 0)
+                + 8 * (2 * t.stages + 1))
     xchg = t.rows // 8 * 16 * t.stream_rows
     if dtype == torch.bfloat16:
         return 4 * (t.stages * (t.stream_rows * (D + 8) + 3 * t.stream_rows)
@@ -523,48 +595,73 @@ def _bwd_smem(D: int, t: _BwdTile, dtype=torch.float32) -> int:
                 + xchg)
 
 
+def _bwd_ds_smem(D: int, t: _BwdTileW) -> int:
+    """``CfgBW::DS_SMEM_BYTES``, dq from the stored ds on ``wgmma``: 1024
+    bytes to align, per stage the block's ``rows x stream_rows`` bf16 tile
+    of ds, a ``stream_rows x D`` bf16 K tile and 1024 bytes of row
+    vectors, then the block's ``rows`` segment ids and ``2 ds_stages``
+    mbarriers."""
+    return (1024 + t.ds_stages * (2 * t.rows * t.stream_rows
+                                  + 2 * t.stream_rows * D + 1024)
+            + 4 * t.rows + 16 * t.ds_stages)
+
+
 # what one stored ds entry takes, and the T it needs (16-byte rows)
 _DS_ITEM = {torch.float32: (4, 4), torch.bfloat16: (2, 8)}
 
 
 def flash_bwd_plan(B: int, H: int, T: int, D: int, causal: bool = False,
-                   dtype=torch.float32) -> FlashBwdPlan:
+                   dtype=torch.float32,
+                   width: Optional[int] = None) -> FlashBwdPlan:
     """The backward kernels' launch for ``[B, H, T, D]`` operands of
-    ``dtype`` (float32 or bfloat16); pure Python, a function of the shapes
-    and the dtype alone, so one shape always takes one instance and reruns
-    are bit-equal. The large instance unless its blocks would fill less
-    than one wave of the card (``_SMS`` SMs times the blocks an SM holds),
-    then the small one; ``ds`` stored, in the operands' dtype, where its
-    rows are whole 16-byte pieces (``T`` a multiple of 4 for f32, of 8 for
-    bf16) and the buffer takes at most ``_DS_BUDGET`` (1 GiB: at ``T =
-    2048`` and 4 heads, batches up to 16 in f32, 32 in bf16). ``causal``
-    changes no instance: the kernels only order their tiles by it (the
-    longest first)."""
+    ``dtype`` (float32 or bfloat16) copied ``width`` values at a time
+    (:func:`flash_copy_width`; None: the widest, 16 bytes); pure Python, a
+    function of the shapes, the dtype and the width alone, so one call
+    always takes one instance and reruns are bit-equal. bf16 operands at
+    width 8 take the ``wgmma`` route, at width 2 ``mma.sync``; f32 ones
+    ``mma.sync`` (split TF32). The large instance unless its blocks would
+    fill less than one wave of the card (``_SMS`` SMs times the blocks an
+    SM holds), then the small one; ``ds`` stored, in the operands' dtype,
+    where its rows are whole 16-byte pieces (``T`` a multiple of 4 for
+    f32, of 8 for bf16) and the buffer takes at most ``_DS_BUDGET`` (1
+    GiB: at ``T = 2048`` and 4 heads, batches up to 16 in f32, 32 in
+    bf16). ``causal`` changes no instance: the kernels only order their
+    tiles by it (the longest first)."""
     del causal
-    tiles = _bwd_tiles(dtype)[D]
+    bf16 = dtype == torch.bfloat16
+    route = "wgmma" if bf16 and width in (None, 8) else "mma_sync"
+    tiles = _bwd_tiles(dtype, route)[D]
     tile = _pick_tile(tiles, B, H, T)
     t = tiles[tile]
     n = -(-T // t.rows)
     item, mult = _DS_ITEM[dtype]
-    return FlashBwdPlan(tile, t.rows, t.rows // 8, t.stream_rows, t.stages,
-                        _bwd_smem(D, t, dtype), t.blocks_per_sm, n, B * H * n,
-                        T % mult == 0 and item * B * H * T * T <= _DS_BUDGET)
+    wgmma = route == "wgmma"
+    return FlashBwdPlan(tile, t.rows,
+                        4 * (t.rows // 64 + 1) if wgmma else t.rows // 8,
+                        t.stream_rows, t.stages,
+                        _bwd_smem(D, t, dtype, route), t.blocks_per_sm, n,
+                        B * H * n,
+                        T % mult == 0 and item * B * H * T * T <= _DS_BUDGET,
+                        route, _bwd_ds_smem(D, t) if wgmma else 0)
 
 
 def _launch_bwd(name: str, q, k, v, seg_ptr, do, lse, delta, outs,
                 causal: bool, scale: Optional[float], ds=None) -> None:
-    """Launch ``name`` on the plan's instance and copy width; ``ds`` the
-    stored-ds buffer (:attr:`FlashBwdPlan.stored_ds`) or ``None``."""
+    """Launch ``name`` on the plan's instance, route and copy width; ``ds``
+    the stored-ds buffer (:attr:`FlashBwdPlan.stored_ds`) or ``None``."""
     B, H, T, D = q.shape
     scale = D ** -0.5 if scale is None else float(scale)
-    plan = flash_bwd_plan(B, H, T, D, causal, q.dtype)
+    width = flash_copy_width(q, k, v, do, *outs)
+    plan = flash_bwd_plan(B, H, T, D, causal, q.dtype, width)
+    kernel = _kernel_name(name, q.dtype)
     with torch.cuda.device(q.device):          # launch on q's card
-        _launch(_kernel_name(name, q.dtype), q.data_ptr(), k.data_ptr(),
+        _launch(kernel, q.data_ptr(), k.data_ptr(),
                 v.data_ptr(), seg_ptr, do.data_ptr(), lse.data_ptr(),
                 delta.data_ptr(), *(t.data_ptr() for t in outs),
                 None if ds is None else ds.data_ptr(), B, H, T, D, scale,
-                int(causal), plan.tile, flash_copy_width(q, k, v, do),
-                stream_ptr(q))
+                int(causal), plan.tile, width, stream_ptr(q))
+    if q.dtype == torch.bfloat16:
+        _routes[kernel][plan.route] += 1
 
 
 def _check_ds(name: str, q, ds) -> None:
@@ -590,7 +687,9 @@ def flash_bwd_dq(q, k, v, segments, do, lse, delta, causal: bool = False,
     ``[B * H, T, T]`` buffer that :func:`flash_bwd_dkv` filled on the same
     operands, the kernel reads ds back and runs only ``ds . k``; without
     it, it recomputes ``s`` and ``dp``. bf16 operands launch
-    ``flash_bwd_dq_bf16`` (dq in bf16; ``ds`` bf16). CPU tensors run the
+    ``flash_bwd_dq_bf16`` (dq in bf16; ``ds`` bf16): by ``wgmma`` fed by
+    TMA where q, k, v and dO start on 16-byte boundaries, else by
+    ``mma.sync`` on 4-byte copies (:func:`route_counts`). CPU tensors run the
     plain version, which needs no buffer and leaves ``ds`` as it is."""
     if q.device.type == "cpu":
         return flash_bwd_dq_plain(q, k, v, segments, do, lse, delta, causal,
@@ -614,7 +713,8 @@ def flash_bwd_dkv(q, k, v, segments, do, lse, delta, causal: bool = False,
     also stores there ``ds[q][k]`` of every tile it visits (bf16: rounded
     as dq's product rounds it), for :func:`flash_bwd_dq`; the entries of
     skipped tiles stay as they were. bf16 operands launch
-    ``flash_bwd_dkv_bf16`` (dk and dv in bf16). CPU tensors run the plain
+    ``flash_bwd_dkv_bf16`` (dk and dv in bf16), on the routes of
+    :func:`flash_bwd_dq`. CPU tensors run the plain
     version and leave ``ds`` as it is."""
     if q.device.type == "cpu":
         return flash_bwd_dkv_plain(q, k, v, segments, do, lse, delta,
@@ -635,17 +735,18 @@ def flash_attention_bwd(q, k, v, segments, o, lse, do, causal: bool = False,
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """``(dq, dk, dv)`` of :func:`flash_attention_fwd` from its saved
     ``O`` and ``LSE`` and the upstream gradient ``dO``. CPU tensors run
-    :func:`flash_attention_bwd_plain`; CUDA tensors compute ``delta`` with
-    one PyTorch reduction and call :func:`flash_bwd_dkv` and
-    :func:`flash_bwd_dq`: where the plan stores ``ds``, dk/dv writes it to
-    a buffer of this call's and dq reads it back instead of recomputing
-    it."""
+    :func:`flash_attention_bwd_plain`; CUDA tensors compute ``delta``
+    (bf16: :func:`flash_bwd_delta`'s kernel; f32: one PyTorch reduction)
+    and call :func:`flash_bwd_dkv` and :func:`flash_bwd_dq`: where the
+    plan stores ``ds``, dk/dv writes it to a buffer of this call's and dq
+    reads it back instead of recomputing it."""
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, segments, o, lse, do,
                                          causal, scale)
     _check_flash("flash_attention_bwd", q, k, v, segments,
                  {"o": o, "do": do}, {"lse": lse})
-    delta = _delta(o, do)
+    delta = flash_bwd_delta(o, do) if q.dtype == torch.bfloat16 \
+        else _delta(o, do)
     B, H, T, D = q.shape
     ds = torch.empty((B * H, T, T), dtype=q.dtype, device=q.device) \
         if flash_bwd_plan(B, H, T, D, causal, q.dtype).stored_ds else None
@@ -699,6 +800,8 @@ _ARGTYPES = {
     "flash_fwd_bf16": [_P] * 6 + [_I] * 4 + [_F, _I, _I, _I, _P],
     "flash_bwd_dq_bf16": [_P] * 9 + [_I] * 4 + [_F, _I, _I, _I, _P],
     "flash_bwd_dkv_bf16": [_P] * 10 + [_I] * 4 + [_F, _I, _I, _I, _P],
+    # o, dout, delta; rows, D; stream
+    "flash_bwd_delta_bf16": [_P] * 3 + [_I] * 2 + [_P],
     # q, pools (and scales), tables, lengths or start and n, out,
     # workspace; then S (Q) H D N bs MB part, scale, stream
     "paged_decode": [_P] * 7 + [_I] * 7 + [_F, _P],

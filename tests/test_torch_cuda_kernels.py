@@ -51,9 +51,14 @@ off the 64-key tiles, both instances; the LSE, the unrounded control
 failing the gate) and of ``ln_matmul_bf16`` (both strip instances, K
 past them on ``mma.sync``, with and without scale and bias), each call's
 route read from the route counters (views 4 bytes off 16 go by
-``mma.sync``), and the two ``wgmma`` forms of ``csrc/wgmma_bf16.cuh``
+``mma.sync``); the ``wgmma`` route of the bf16 backward (dk/dv storing ds
+over NaN, dq from it and recomputing, D 64 and 128, causal or not,
+segments, T off the 64-row tiles, both instances, the unrounded control
+failing the gate, launches by route, views by ``mma.sync``) and its
+delta kernel; and the three ``wgmma`` forms of ``csrc/wgmma_bf16.cuh``
 the new kernels rest on (K-major operands from shared memory, A from
-registers) against ``torch.mm`` in f32. Every test needs an
+registers, K-major A with MN-major B) against ``torch.mm`` in f32.
+Every test needs an
 NVIDIA GPU (marker ``cuda``) and skips without one; run them on the card
 with ``python -m pytest --noconftest -q tests/test_torch_cuda_kernels.py``
 (the JAX harness in ``tests/conftest.py`` is not needed there).
@@ -1313,10 +1318,10 @@ def _flash_bf16_case(gen, B, H, T, D, causal, segs, scale=None, offset=0):
     seg = _segments(B, T) if segs else None
     if seg is not None:
         do.mul_((seg > 0)[:, None, :, None].bfloat16())
-    before, routes = ca.launch_counts(), ca.route_counts()
+    before, routes = ca.launch_counts(), ca.route_counts("flash_fwd_bf16")
     o, lse = ca.flash_attention_fwd(q, k, v, seg, causal, scale)
     route = "wgmma" if q.data_ptr() % 16 == 0 else "mma_sync"
-    assert ca.route_counts()[route] == routes[route] + 1
+    assert ca.route_counts("flash_fwd_bf16")[route] == routes[route] + 1
     got = ca.flash_attention_bwd(q, k, v, seg, o, lse, do, causal, scale)
     after = ca.launch_counts()
     for name in ("flash_fwd_bf16", "flash_bwd_dq_bf16",
@@ -1388,15 +1393,18 @@ def test_flash_bf16_stored_ds_reads_no_unwritten_entry(gen, B, H, T, D,
     """dk/dv stores its bf16 ds in a buffer of NaN and dq reads it back:
     unwritten entries (skipped tiles) must not reach dq, which must equal
     the recomputing dq bit for bit (both multiply ds rounded to bf16) and
-    the whole backward's."""
+    the whole backward's (on its own delta, ``flash_bwd_delta``). The
+    segments run 32 rows each, so that the 64-row tiles of the wgmma
+    kernels skip whole tiles, not only the causal cone, and leave entries
+    unwritten."""
     bf = torch.bfloat16
     assert ca.flash_bwd_plan(B, H, T, D, causal, bf).stored_ds
     q, k, v, do = (torch.randn(B, H, T, D, generator=gen,
                                device="cuda").bfloat16() for _ in range(4))
-    seg = _segments(B, T)
-    do = do * (seg > 0)[:, None, :, None].bfloat16()
+    seg = (torch.arange(T, device="cuda") // 32 + 1).int().expand(
+        B, T).contiguous()
     o, lse = ca.flash_attention_fwd(q, k, v, seg, causal)
-    delta = (do.float() * o.float()).sum(-1)
+    delta = ca.flash_bwd_delta(o, do)
     args = (q, k, v, seg, do, lse, delta, causal)
     ds = torch.full((B * H, T, T), float("nan"), device="cuda").bfloat16()
     dk, dv = ca.flash_bwd_dkv(*args, ds=ds)
@@ -1436,6 +1444,18 @@ def test_flash_bf16_plans_shared_memory_is_the_kernels(gen):
         for i, t in enumerate(ts):
             assert fn(D, i) == ca._fwd_smem(D, t, torch.bfloat16, "wgmma")
     assert fn(96, 0) == -1 and fn(128, 2) == -1
+    fn = cuda_build.load("flash_bwd").flash_bwd_wgmma_smem_bytes
+    fn.argtypes = [ctypes.c_int] * 3
+    fn.restype = ctypes.c_int
+    for D, ts in ca._BWD_TILES_WGMMA.items():
+        for i, t in enumerate(ts):
+            assert fn(D, i, 0) == ca._bwd_smem(D, t, torch.bfloat16, "wgmma")
+            assert fn(D, i, 1) == ca._bwd_ds_smem(D, t)
+            plan_t = ca.flash_bwd_plan(1 if i else 64, 8, 512, D, True,
+                                       torch.bfloat16)
+            assert plan_t.tile == i and (plan_t.smem, plan_t.ds_smem) == (
+                fn(D, i, 0), fn(D, i, 1))
+    assert fn(96, 0, 0) == -1 and fn(128, 2, 1) == -1
     fn = cuda_build.load("ln_matmul").ln_matmul_wgmma_smem_bytes
     fn.argtypes = [ctypes.c_int] * 2
     fn.restype = ctypes.c_int
@@ -1498,7 +1518,8 @@ def test_flash_bf16_function_gradients_match_plain(gen, causal, segs):
     out.backward(do)
     counts = ca.launch_counts()
     assert {n: c for n, c in counts.items() if c} == {
-        "flash_fwd_bf16": 1, "flash_bwd_dq_bf16": 1, "flash_bwd_dkv_bf16": 1}
+        "flash_fwd_bf16": 1, "flash_bwd_dq_bf16": 1, "flash_bwd_dkv_bf16": 1,
+        "flash_bwd_delta_bf16": 1}
     o_ref, _ = ca.flash_attention_plain(*base[:3], seg, causal)
     want = ca.flash_attention_bwd_plain(*base[:3], seg, o, lse, do, causal)
     torch.cuda.synchronize()
@@ -1618,7 +1639,7 @@ def test_flash_fwd_bf16_wgmma_matches_plain(gen, B, H, T, D, causal, segs):
     ca.reset_launch_counts()
     o, lse = ca.flash_attention_fwd(q, k, v, seg, causal)
     assert ca.launch_counts()["flash_fwd_bf16"] == 1
-    assert ca.route_counts() == {"wgmma": 1, "mma_sync": 0}
+    assert ca.route_counts("flash_fwd_bf16") == {"wgmma": 1, "mma_sync": 0}
     plan = ca.flash_fwd_plan(B, H, T, D, causal, bf)
     assert plan.route == "wgmma"
     o_ref, lse_ref = ca.flash_attention_plain(q, k, v, seg, causal)
@@ -1647,11 +1668,130 @@ def test_flash_fwd_bf16_routes_by_alignment(gen, D):
         ca.reset_launch_counts()
         o, lse = ca.flash_attention_fwd(q, k, v, None, True)
         assert ca.launch_counts()["flash_fwd_bf16"] == 1
-        assert ca.route_counts()[route] == 1, views
+        assert ca.route_counts("flash_fwd_bf16")[route] == 1, views
         o_ref, lse_ref = ca.flash_attention_plain(q, k, v, None, True)
         torch.cuda.synchronize()
         _bf16_gate(o, o_ref)
         assert (lse - lse_ref).abs().max().item() <= ATOL
+
+
+def _bwd_bf16_wgmma_case(gen, B, H, T, D, causal, segs, offset=0):
+    """The bf16 backward on operands ``offset`` values past a 16-byte
+    boundary: its delta (``flash_bwd_delta_bf16``) within ATOL of the
+    plain version relative to the largest |plain|; dk/dv storing ds and
+    dq both ways (from the stored ds, recomputing), each within the bf16
+    gate of its plain version with the unrounded control failing it,
+    bit-equal on a rerun; each launch counted once on the planned
+    route."""
+    bf = torch.bfloat16
+    q, k, v, do = (_flat(gen, (B, H, T, D), offset, bf) for _ in range(4))
+    seg = _segments(B, T) if segs else None
+    if seg is not None:
+        do.mul_((seg > 0)[:, None, :, None].to(bf))
+    o, lse = ca.flash_attention_fwd(q, k, v, seg, causal)
+    route = "wgmma" if offset % 8 == 0 else "mma_sync"
+    plan = ca.flash_bwd_plan(B, H, T, D, causal, bf,
+                             ca.flash_copy_width(q, k, v, do))
+    assert plan.route == route
+    ca.reset_launch_counts()
+    delta = ca.flash_bwd_delta(o, do)
+    want_delta = ca._delta(o, do)
+    args = (q, k, v, seg, do, lse, delta, causal)
+    ds = torch.full((B * H, T, T), float("nan"), device="cuda").to(bf) \
+        if plan.stored_ds else None
+    dk, dv = ca.flash_bwd_dkv(*args, ds=ds)
+    dq = ca.flash_bwd_dq(*args, ds=ds)
+    alone = ca.flash_bwd_dq(*args)
+    assert ca.launch_counts()["flash_bwd_delta_bf16"] == 1
+    for name, n in (("flash_bwd_dkv_bf16", 1), ("flash_bwd_dq_bf16", 2)):
+        assert ca.route_counts(name) == {route: n, ({"wgmma", "mma_sync"}
+                                                     - {route}).pop(): 0}
+    qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
+    want = ca.flash_attention_bwd_plain(q, k, v, seg, o, lse, do, causal)
+    control = ca.flash_attention_bwd_plain(qf, kf, vf, seg, o.float(), lse,
+                                           dof, causal)
+    torch.cuda.synchronize()
+    assert (delta - want_delta).abs().max().item() <= ATOL * max(
+        1.0, want_delta.abs().max().item())
+    for got, w, c in zip((dq, dk, dv), want, control):
+        assert torch.isfinite(got.float()).all()
+        _bf16_gate_and_control(got, w, c.to(bf))
+    _bf16_gate_and_control(alone, want[0], control[0].to(bf))
+    again = ca.flash_bwd_dkv(*args, ds=ds)
+    assert torch.equal(again[0], dk) and torch.equal(again[1], dv)
+    assert torch.equal(ca.flash_bwd_dq(*args, ds=ds), dq)
+    assert torch.equal(ca.flash_bwd_dq(*args), alone)
+
+
+@pytest.mark.parametrize("B,H,T,D,causal,segs", [
+    (2, 3, 100, 64, True, False),      # T off the 64-row tiles, no ds
+    (2, 3, 100, 128, False, True),
+    (1, 4, 257, 128, True, True),
+    (1, 4, 296, 64, False, False),     # T % 8 == 0 off the tiles: ds
+    (2, 2, 64, 128, True, False), (2, 2, 65, 64, False, True),
+    (3, 12, 500, 128, True, True),     # the 128-row instance
+    (3, 12, 504, 128, True, True),     # the same, storing ds
+    (4, 17, 496, 64, False, False),
+    (1, 2, 2048, 128, True, False),    # the 64-row instance, long
+    (8, 4, 1024, 128, True, False)])
+def test_flash_bwd_bf16_wgmma_matches_plain(gen, B, H, T, D, causal, segs):
+    """16-byte aligned bf16 operands go by the wgmma route (TMA zero-fills
+    the rows past T; the masks hold there): dk, dv and dq (from a stored
+    ds over NaN and recomputing) within the bf16 gate with the unrounded
+    control failing it, bit-equal reruns, launches counted by route."""
+    large = ca.flash_bwd_plan(B, H, T, D, causal, torch.bfloat16).tile == 0
+    assert large == (B * H * -(-T // 128) >= ca._SMS)
+    _bwd_bf16_wgmma_case(gen, B, H, T, D, causal, segs)
+
+
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("offset", [0, 2, 8])
+def test_flash_bwd_bf16_routes_by_alignment(gen, D, offset):
+    """Operands on 16-byte boundaries go by wgmma, views 4 bytes off 16 by
+    mma.sync on 4-byte copies (TMA cannot load them), under the same gate
+    and counts, with segments, causal, T off the tiles and storing ds."""
+    _bwd_bf16_wgmma_case(gen, 2, 3, 200, D, True, True, offset)
+
+
+def test_flash_bwd_delta_bf16_on_views(gen):
+    """The delta kernel reads 4 bytes at a time: a view 4 bytes off 16
+    and an aligned tensor give the plain version's sums within ATOL."""
+    bf = torch.bfloat16
+    for D in (64, 128):
+        o = _flat(gen, (2, 3, 77, D), 2, bf)
+        do = _flat(gen, (2, 3, 77, D), 0, bf)
+        got = ca.flash_bwd_delta(o, do)
+        want = ca._delta(o, do)
+        torch.cuda.synchronize()
+        assert (got - want).abs().max().item() <= ATOL * max(
+            1.0, want.abs().max().item())
+
+
+def test_flash_bwd_delta_bf16_refuses_what_it_cannot_read(gen):
+    """Called directly, the delta kernel refuses before it launches: a dO
+    of another shape (it would read past dO's end), a view 2 bytes off 4
+    (a misaligned 4-byte load), a non-contiguous view, f32 operands and a
+    head dim the kernel has no instance for."""
+    bf = torch.bfloat16
+    shape = (1, 2, 64, 64)
+    o = _flat(gen, shape, 0, bf)
+    do = _flat(gen, shape, 0, bf)
+    odd = _flat(gen, shape, 1, bf)
+    assert odd.data_ptr() % 4 == 2
+    cases = {
+        "shorter dO": (o, _flat(gen, (1, 2, 32, 64), 0, bf)),
+        "2 bytes off 4": (odd, do),
+        "dO 2 bytes off 4": (o, odd),
+        "not contiguous": (o, _flat(gen, (1, 2, 64, 64), 0, bf)
+                           .transpose(1, 2).contiguous().transpose(1, 2)),
+        "f32": (o.float(), do.float()),
+        "head dim 32": (_flat(gen, (1, 2, 64, 32), 0, bf),
+                        _flat(gen, (1, 2, 64, 32), 0, bf))}
+    ca.reset_launch_counts()
+    for label, (a, b) in cases.items():
+        with pytest.raises(ValueError):
+            ca.flash_bwd_delta(a, b)
+        assert ca.launch_counts()["flash_bwd_delta_bf16"] == 0, label
 
 
 @pytest.mark.parametrize("M,K,N,affine,route,tile", [
@@ -1732,6 +1872,19 @@ def test_wgmma_kmajor_ss_form_matches_torch_mm(gen, N):
     b = torch.randn(N, 64, generator=gen, device="cuda").bfloat16()
     d = _form("wgmma_ss_kmajor_f32", a, b, N)
     want = a.float() @ b.float().t()
+    assert (d - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+
+
+@pytest.mark.parametrize("N", [64, 128])
+def test_wgmma_kmajor_a_mn_b_form_matches_torch_mm(gen, N):
+    """``mma_ss<N, 0, 1>``: A [64, 64] K-major from shared memory through
+    ``desc_k128`` (ds in the bf16 backward's dq), B [64, N] MN-major
+    through ``desc_sw128`` (K there): D = A . B against ``torch.mm`` in
+    f32, within 1e-5 of the largest entry."""
+    a = torch.randn(64, 64, generator=gen, device="cuda").bfloat16()
+    b = torch.randn(64, N, generator=gen, device="cuda").bfloat16()
+    d = _form("wgmma_ss_mn_b_f32", a, b, N)
+    want = a.float() @ b.float()
     assert (d - want).abs().max().item() <= 1e-5 * want.abs().max().item()
 
 

@@ -352,7 +352,9 @@ def test_bf16_instances_fit_their_shared_memory(D):
     (2, 8, 512, 128), (1, 8, 1024, 64), (3, 3, 1000, 128), (1, 2, 2047, 64),
     (7, 5, 4097, 128)])
 def test_bf16_plan_covers_t_and_depends_on_the_shape_alone(B, H, T, D):
-    plan = ca.flash_bwd_plan(B, H, T, D, True, BF16)
+    """The mma.sync route's plan (4-byte copies, width 2: views 4 bytes
+    off 16); the wgmma route's in test_torch_flash_bwd_wgmma_plan.py."""
+    plan = ca.flash_bwd_plan(B, H, T, D, True, BF16, 2)
     assert plan.tiles * plan.rows >= T > (plan.tiles - 1) * plan.rows
     assert plan.grid == B * H * plan.tiles
     assert plan.warps * 8 == plan.rows
@@ -360,7 +362,8 @@ def test_bf16_plan_covers_t_and_depends_on_the_shape_alone(B, H, T, D):
     assert (plan.rows, plan.stream_rows, plan.stages, plan.blocks_per_sm) \
         == tuple(t)
     assert plan.smem == ca._bwd_smem(D, t, BF16) <= MAX_SMEM
-    assert ca.flash_bwd_plan(B, H, T, D, False, BF16) == plan
+    assert ca.flash_bwd_plan(B, H, T, D, False, BF16, 2) == plan
+    assert plan.route == "mma_sync"
     assert plan.stored_ds == (T % 8 == 0
                               and 2 * B * H * T * T <= ca._DS_BUDGET)
 

@@ -571,9 +571,10 @@ def test_bf16_route_follows_the_operands_alignment(offsets, width, route):
 
 
 def test_route_counts_start_at_zero_and_reset():
+    FWD = "flash_fwd_bf16"
     ca.reset_launch_counts()
-    assert ca.route_counts() == {"wgmma": 0, "mma_sync": 0}
-    ca._routes["wgmma"] += 2
-    assert ca.route_counts()["wgmma"] == 2
+    assert ca.route_counts(FWD) == {"wgmma": 0, "mma_sync": 0}
+    ca._routes[FWD]["wgmma"] += 2
+    assert ca.route_counts(FWD)["wgmma"] == 2
     ca.reset_launch_counts()
-    assert ca.route_counts() == {"wgmma": 0, "mma_sync": 0}
+    assert ca.route_counts(FWD) == {"wgmma": 0, "mma_sync": 0}

@@ -41,13 +41,31 @@ directory (``a+b`` applies two):
              k-block's chain waited for before the pair's second is issued
   ln_stages2, ln_stages3  ln_matmul_bf16's wgmma route with 2 or 3 w
              stages (the tree: 4)
+  bwd_no_tma flash_bwd_dkv_bf16's wgmma route with no Q or dO tile loaded
+             (the producer completes each stage's barrier at once; K and
+             V still land): the time the warps and the products take
+             alone; timed, not gated
+  bwd_no_stash, bwd_stash  flash_bwd_dkv_bf16's wgmma route with P
+             kept in registers while dP runs in every instance, or parked
+             in shared memory in every instance at D = 128 (the tree parks
+             it in the one-warpgroup instance at D = 128 alone, where
+             ptxas spills without)
+  bwd_stages2  the bf16 backward's wgmma instances with 2 stages (the
+             tree: 3)
+  dq_stages3 flash_bwd_dq_bf16 from the stored ds with 3 stages (the
+             tree: 6)
 
 Cases (``--only`` picks among them): ``fwd``, chip_smoke.py's
 FLASH_BF16_CASES (the training shape [8,4,2048,128] causal, [1,8,1024,64]
 causal, [2,8,512,128] with segments) beside SDPA on the same bf16 inputs;
 ``bwd``, ``flash_bwd_dkv_bf16`` storing ds and ``flash_bwd_dq_bf16``
-reading it back at the training shape, as ``flash_attention_bwd`` launches
-them, and the whole backward; ``ln``, ``ln_matmul_bf16`` at x [16384, 512]
+reading it back at the three FLASH_BF16_CASES, as ``flash_attention_bwd``
+launches them, and at the training shape both without the stored ds
+(dk/dv storing none, dq recomputing),
+delta (a DIR's, which has no delta kernel, by the plain PyTorch
+reduction, as its wrapper computed it) and the whole backward (a DIR's
+as its wrapper launched it: the plain delta, then its two kernels);
+``ln``, ``ln_matmul_bf16`` at x [16384, 512]
 by w [512, 512] and [512, 2048], with and without bf16 scale and bias,
 beside bf16 ``F.layer_norm`` + ``torch.mm``. Every version's outputs are
 held to the plain versions under chip_smoke.py's bf16 gate (the unrounded
@@ -112,6 +130,11 @@ _LN_ISSUE = """        if (two) {
         }"""
 _LN_SECOND = """        if (two) {
           wgmma::wait<0>();"""
+_BWD_EXPECT = """        if (lead) {
+          wgmma::mbar_expect_tx(&full[st], 2 * C::TILE);"""
+_BWD_STASH = "  static constexpr bool STASH = SLABS == 2 && WG == 1;"
+_BWD_STAGES = ("using LargeBW = CfgBW<D, 2, 3, 6>;\ntemplate <int D>\n"
+               "using SmallBW = CfgBW<D, 1, 3, 6>;")
 
 # variant -> (source file, [(old, new)], gated)
 VARIANTS = {
@@ -148,6 +171,17 @@ VARIANTS = {
         ", 4>", ", 2>"))], True),
     "ln_stages3": ("ln_matmul.cu", [(_LN_STAGES, _LN_STAGES.replace(
         ", 4>", ", 3>"))], True),
+    "bwd_no_tma": ("flash_bwd.cu", [(_BWD_EXPECT, """        if (lead) {
+          wgmma::mbar_arrive(&full[st]);
+          if (false)""")], False),
+    "bwd_no_stash": ("flash_bwd.cu", [(_BWD_STASH, _BWD_STASH.replace(
+        "SLABS == 2 && WG == 1", "false"))], True),
+    "bwd_stash": ("flash_bwd.cu", [(_BWD_STASH, _BWD_STASH.replace(
+        " && WG == 1", ""))], True),
+    "bwd_stages2": ("flash_bwd.cu", [(_BWD_STAGES, _BWD_STAGES.replace(
+        ", 3, 6>", ", 2, 6>"))], True),
+    "dq_stages3": ("flash_bwd.cu", [(_BWD_STAGES, _BWD_STAGES.replace(
+        ", 3, 6>", ", 3, 3>"))], True),
 }
 SOURCES = ("flash_fwd", "flash_bwd", "ln_matmul")
 
@@ -191,6 +225,60 @@ def ptxas_lines(report):
                 entry = ""
         keep.append(f"{src}: {warned} warnings or performance notes")
     return keep
+
+
+def bwd_cases(torch, ca, cs, gen, label, shape, causal, seg_rows, all_):
+    """The backward's cases at one of FLASH_BF16_CASES: dk/dv storing ds
+    and dq from it, as ``flash_attention_bwd`` launches them; with
+    ``all_`` also both kernels without the stored ds, delta, and the
+    whole backward. Each case's call takes whether it runs a DIR's
+    sources (the parent's wrapper computed delta by the plain reduction
+    and has no delta kernel)."""
+    bf = torch.bfloat16
+    B, H, T, D = shape
+    q, k, v, do = (torch.randn(shape, generator=gen, device="cuda").to(bf)
+                   for _ in range(4))
+    seg = None if seg_rows is None else torch.tensor(
+        seg_rows, dtype=torch.int32, device="cuda")
+    if seg is not None:
+        do = do * (seg > 0)[:, None, :, None].to(bf)
+    o, lse = ca.flash_attention_plain(q, k, v, seg, causal)
+    delta = ca._delta(o, do)
+    bargs = (q, k, v, seg, do, lse, delta, causal)
+    ds = torch.empty(B * H, T, T, dtype=bf, device="cuda")
+    dk_ref, dv_ref = ca.flash_bwd_dkv_plain(*bargs)
+    dq_ref = ca.flash_bwd_dq_plain(*bargs)
+    f32 = (q.float(), k.float(), v.float(), seg, do.float(), lse, delta,
+           causal)
+    dk_un, dv_un = (t.to(bf) for t in ca.flash_bwd_dkv_plain(*f32))
+    dq_un = ca.flash_bwd_dq_plain(*f32).to(bf)
+    dkv = [(dk_ref, dk_un), (dv_ref, dv_un)]
+
+    def whole(parent):
+        if not parent:
+            return ca.flash_attention_bwd(q, k, v, seg, o, lse, do, causal)
+        buf = torch.empty(B * H, T, T, dtype=bf, device="cuda")
+        a = (q, k, v, seg, do, lse, ca._delta(o, do), causal)
+        dk, dv = ca.flash_bwd_dkv(*a, ds=buf)
+        return ca.flash_bwd_dq(*a, ds=buf), dk, dv
+
+    out = [(f"flash_bwd_dkv_bf16 storing ds {label}",
+            lambda _: ca.flash_bwd_dkv(*bargs, ds=ds), dkv, None, None),
+           (f"flash_bwd_dq_bf16 from ds {label}",
+            lambda _: ca.flash_bwd_dq(*bargs, ds=ds), [(dq_ref, dq_un)],
+            None, None)]
+    if all_:
+        out += [(f"flash_bwd_dkv_bf16 storing no ds {label}",
+                 lambda _: ca.flash_bwd_dkv(*bargs), dkv, None, None),
+                (f"flash_bwd_dq_bf16 recomputing {label}",
+                 lambda _: ca.flash_bwd_dq(*bargs), [(dq_ref, dq_un)], None,
+                 None),
+                (f"delta {label} (flash_bwd_delta_bf16; a DIR: the plain "
+                 f"reduction)", lambda parent: ca._delta(o, do) if parent
+                 else ca.flash_bwd_delta(o, do), delta, None, None),
+                (f"flash_attention_bwd bf16 {label}", whole,
+                 [(dq_ref, dq_un), *dkv], None, None)]
+    return out
 
 
 def main():
@@ -260,31 +348,9 @@ def main():
                         q, k, v, attn_mask=mask,
                         is_causal=causal and mask is None)))
     if "bwd" in only:
-        B, H, T, D = 8, 4, 2048, 128
-        q, k, v, do = (torch.randn(B, H, T, D, generator=gen, device="cuda")
-                       .to(bf) for _ in range(4))
-        o_ref, lse_ref = ca.flash_attention_plain(q, k, v, None, True)
-        delta = (do.float() * o_ref.float()).sum(-1)
-        bargs = (q, k, v, None, do, lse_ref, delta, True)
-        ds = torch.empty(B * H, T, T, dtype=bf, device="cuda")
-        dk_ref, dv_ref = ca.flash_bwd_dkv_plain(*bargs)
-        dq_ref = ca.flash_bwd_dq_plain(*bargs)
-        f32 = (q.float(), k.float(), v.float(), None, do.float(), lse_ref,
-               delta, True)
-        dk_un, dv_un = (t.to(bf) for t in ca.flash_bwd_dkv_plain(*f32))
-        dq_un = ca.flash_bwd_dq_plain(*f32).to(bf)
-        cases += [
-            ("flash_bwd_dkv_bf16 storing ds",
-             lambda _: ca.flash_bwd_dkv(*bargs, ds=ds),
-             [(dk_ref, dk_un), (dv_ref, dv_un)], None, None),
-            ("flash_bwd_dq_bf16 from ds",
-             lambda _: ca.flash_bwd_dq(*bargs, ds=ds), [(dq_ref, dq_un)],
-             None, None),
-            ("flash_attention_bwd bf16",
-             lambda _: ca.flash_attention_bwd(q, k, v, None, o_ref,
-                                              lse_ref, do, True),
-             [(dq_ref, dq_un), (dk_ref, dk_un), (dv_ref, dv_un)], None,
-             None)]
+        for label, shape, causal, seg_rows in cs.FLASH_BF16_CASES:
+            cases += bwd_cases(torch, ca, cs, gen, label, shape, causal,
+                               seg_rows, label == cs.FLASH_BF16_CASES[0][0])
     if "ln" in only:
         M, K = 16384, 512
         x = (torch.randn(M, K, generator=gen, device="cuda") * 2 + 0.5
@@ -320,7 +386,12 @@ def main():
             got = fn()
             got = got if isinstance(got, tuple) else (got,)
             torch.cuda.synchronize()
-            if gated[name]:
+            if isinstance(refs, torch.Tensor):   # delta: the plain one
+                err = (got[0] - refs).abs().max().item()
+                if not err <= cs.TOL * max(1.0, refs.abs().max().item()):
+                    raise RuntimeError(f"{name} {label}: off by {err}")
+                row[name + "_err"] = err
+            elif gated[name]:
                 row[name + "_gate"] = [
                     cs.bf16_gate(torch, f"{name} {label}", g, w,
                                  u)["share_off_above_noise"]

@@ -6,12 +6,16 @@ flash_bwd_dq and flash_bwd_dkv at its cases, the training shape
 plan and sources and for variants of them, in one process on one card:
 
     python3 tools/flash_bwd_variants.py [variant ...]
-    python3 tools/flash_bwd_variants.py --sass
+    python3 tools/flash_bwd_variants.py --sass [DIR]
 
 With --sass it times nothing: it builds the tree's flash_bwd.cu and prints
 the opcode mix of each large D = 128 instance's SASS (cuobjdump), over the
 whole kernel and over its hot loop (from the first block barrier to the
-last HMMA).
+last HMMA); given DIR, another version of paddle_tpu_torch/csrc/ (the
+parent commit's, from ``git archive``), it also builds DIR's flash_bwd.cu
+and says of every f32 instance (flash_bwd_dq_kernel, flash_bwd_dkv_kernel,
+flash_bwd_dq_ds_kernel over Cfg) whether its SASS is DIR's, instruction
+for instruction (the names' anonymous-namespace hash left out).
 
 Variants:
   large, small   every shape on the large (64 resident rows, streamed
@@ -115,9 +119,61 @@ def sass_mix():
     return 0
 
 
+# the f32 instances: flash_bwd_<kernel>_kernel over Cfg (FromDs<Cfg>)
+F32_INSTANCE = re.compile(r"flash_bwd_(?:dq|dkv|dq_ds)_kernelIN\w*?"
+                          r"(?:FromDsINS_\d+)?CfgILi")
+
+
+def functions(cuda_build, lib):
+    """Each function's SASS in ``lib`` by its name with the anonymous
+    namespace's hash left out, addresses and column padding too."""
+    cuobjdump = Path(cuda_build._nvcc()).with_name("cuobjdump")
+    out = subprocess.run([str(cuobjdump), "-sass", str(lib)],
+                         capture_output=True, text=True, check=True).stdout
+    funcs, name = {}, None
+    for ln in out.splitlines():
+        m = re.match(r"\s*Function : (\S+)", ln)
+        if m:
+            name = re.sub(r"_GLOBAL__N__[0-9a-f]{8}_\d+_\w+?_cu_[0-9a-f]{8}",
+                          "", m[1])
+            funcs[name] = []
+        elif name and "/*" in ln:
+            funcs[name].append(" ".join(
+                re.sub(r"/\*[0-9a-f]{4}\*/", "", ln).split()))
+    return funcs
+
+
+def sass_vs(other):
+    """Per f32 instance of flash_bwd.cu: whether DIR's SASS is the
+    tree's, instruction for instruction."""
+    sys.path.insert(0, str(ROOT))
+    from paddle_tpu_torch.utils import cuda_build
+    other = Path(other).resolve()
+    cuda_build.build(["flash_bwd"])
+    cuda_build.build(["flash_bwd"], other)
+    mine = functions(cuda_build, cuda_build._target("flash_bwd"))
+    theirs = functions(cuda_build, cuda_build._target("flash_bwd", other))
+    names = sorted(n for n in set(mine) | set(theirs)
+                   if F32_INSTANCE.search(n))
+    out = {}
+    for name in names:
+        a, b = mine.get(name, []), theirs.get(name, [])
+        diff = [(x, y) for x, y in zip(a, b) if x != y]
+        out[name[-70:]] = "identical" if a and a == b else (
+            f"differs: {len(diff)} of {len(a)} / {len(b)} lines, first "
+            f"{diff[:2]}")
+    print(json.dumps({"sass_vs": str(other), "f32_instances": len(names),
+                      "functions": out}), flush=True)
+    return 0 if names and all(v == "identical" for v in out.values()) \
+        else 1
+
+
 def main():
     if sys.argv[1:] == ["--sass"]:
         return sass_mix()
+    if sys.argv[1:2] == ["--sass"]:
+        sass_mix()
+        return sass_vs(sys.argv[2])
     import torch
     if not torch.cuda.is_available():
         print("flash_bwd_variants: no CUDA device visible", file=sys.stderr)
