@@ -199,6 +199,29 @@ Phases (any failure exits non-zero before the final line):
     3.35 TB/s, operations at 989 TFLOP/s and at the card's bf16
     ``mma.sync`` rate (``tools/mma_bf16_peak.py``, measured once in the
     run for this phase and phase 9 (c)).
+12. the training loop (run after 9 (b)): ``prep_transformer`` under
+    ``bfloat16_compute`` through the ``Trainer``'s grouped loop, over 3
+    batches of 8 x 2048 (the conflicting pairs, rolled by 0, 1 and 2
+    positions) in turn, ``adam(1e-4)``, one pass of 24 steps: (a)
+    ``steps_per_call=8, pipeline_depth=3`` (the stager thread, 3 calls
+    in flight), finite losses, the last below the first, and 6 x 24
+    launches of each of ``flash_fwd``, ``flash_bwd_dq`` and
+    ``flash_bwd_dkv``; (b) the same from the same weights with
+    ``pipeline_depth=1``, and with ``steps_per_call=1``, and (a) again:
+    parameters and Adam's m and v bit-equal to (a); (c) with
+    ``saving_period=8`` into a temporary directory of the checkout, a
+    ``FaultSchedule`` preempting at step 12 (one call at a time, so the
+    stop lands at batch 16), then a fresh model and ``Trainer`` with
+    ``resume=True`` finishing the pass in the pipelined loop, bit-equal to
+    (a), once with synchronous and once with asynchronous saves; (d) ``grad_accum=2`` over the batch's two
+    halves of 4 x 2048 against one step on the whole batch: every
+    parameter's gradient within BF16_K of the policy's own effect plus
+    one bf16 ulp of its largest (``_worst_of_effect``), 2 x 6 launches of
+    each flash kernel in the step; (e) ms a step of (a) against the
+    serial (b) (and of (a) again), the loss fetches of each, the seconds
+    of a synchronous save and of an asynchronous one (the part on the
+    loop's path and the background write), the checkpoint's bytes and the
+    peak memory.
 
 Each serving and training path runs with the launch counts set to 0 just
 before it and read just after; a kernel's ``launches`` in the final list
@@ -2306,6 +2329,225 @@ def phase_train_profile(torch, trainer, batch, tag=""):
         kernels=("flash_bwd",))))
 
 
+LOOP_K, LOOP_W, LOOP_GROUPS = 8, 3, 3
+LOOP_CFG = dict(vocab=32000, dim=512, num_layers=6, num_heads=4,
+                ffn_hidden=2048, max_len=2048, use_flash=True)
+LOOP_BATCH = 8
+
+
+def _loop_state(trainer):
+    """The parameters and Adam's m and v of ``trainer``, cloned on the
+    card."""
+    ts = trainer.train_state
+    out = {f"param {n}": p.detach().clone() for n, p in ts.params.items()}
+    for slot in ("m", "v"):
+        out.update({f"adam {slot} {n}": t.clone()
+                    for n, t in getattr(ts.opt_state, slot).items()})
+    return out
+
+
+def _not_bit_equal(torch, want, trainer):
+    got = _loop_state(trainer)
+    return [k for k in want if not torch.equal(want[k], got[k])]
+
+
+def _dir_bytes(path):
+    return sum(f.stat().st_size for f in Path(path).rglob("*") if f.is_file())
+
+
+def phase_train_loop(torch, np, pt, card):
+    """Phase 12: the ``Trainer``'s grouped loop, host pipeline,
+    checkpoints, preemption and resume, and gradient accumulation at the
+    ``prep_transformer`` width under ``bfloat16_compute``. Returns the
+    launch counts of (a), the main path."""
+    import shutil
+    import tempfile
+    from paddle_tpu_torch.nn import cuda_attention as ca
+    from paddle_tpu_torch.train import checkpoint as ckpt
+    cfg = LOOP_CFG
+    V, L, B, T = cfg["vocab"], cfg["num_layers"], LOOP_BATCH, cfg["max_len"]
+    K, W, steps = LOOP_K, LOOP_W, LOOP_K * LOOP_GROUPS
+    pol = pt.bfloat16_compute
+    gen = torch.Generator(device="cuda").manual_seed(4321)
+    start = {k: v.clone() for k, v in pt.TransformerLM(
+        **cfg, device="cuda", generator=gen).state_dict().items()}
+    inp, tgt, loss_floor = conflicting_pairs(np, B, T, V)
+    batches = [{"x": np.roll(inp, i, axis=1), "y": np.roll(tgt, i, axis=1)}
+               for i in range(3)]
+
+    def reader():
+        return iter([batches[i % 3] for i in range(steps)])
+
+    def loss_fn(out, b):
+        return pt.softmax_cross_entropy(out.reshape(-1, V),
+                                        b["y"].reshape(-1))
+
+    def make(opt=None, **kw):
+        model = pt.TransformerLM(**cfg, device="cuda")
+        model.load_state_dict(start)
+        tr = pt.Trainer(model, loss_fn, opt or pt.adam(1e-4),
+                        device="cuda", **kw)
+        tr.init()
+        return tr
+
+    def run(tr, rd=reader, policy=pol, **kw):
+        losses = []
+
+        def handler(e):
+            if isinstance(e, pt.train.EndIteration):
+                losses.append(e.cost)
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with pt.use_policy(policy):
+            tr.train(rd, event_handler=handler, log_period=0, **kw)
+        torch.cuda.synchronize()
+        return losses, time.perf_counter() - t0
+
+    root = Path(__file__).resolve().parent
+    stats = {"config": "prep_transformer: vocab 32000, dim 512, 6 layers, "
+                       "4 heads, ffn 2048, batch 8 x 2048 (3 batches in "
+                       "turn), adam(1e-4), bfloat16_compute",
+             "steps": steps, "card": card}
+
+    # (a) the main path: K steps a call, W calls in flight
+    tr = make(steps_per_call=K, pipeline_depth=W)
+    torch.cuda.reset_peak_memory_stats()
+    ca.reset_launch_counts()
+    losses, sec = run(tr)
+    counts = ca.launch_counts()
+    stats["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        if counts[name] != L * steps:
+            raise RuntimeError(f"train loop: {name} launched {counts[name]} "
+                               f"times, expected {L} x {steps}")
+    if len(losses) != steps or not all(math.isfinite(x) for x in losses) \
+            or not losses[-1] < losses[0]:
+        raise RuntimeError(f"train loop: losses {losses}")
+    want = _loop_state(tr)
+    stats.update(pipelined_ms_per_step=1e3 * sec / steps,
+                 pipelined_fetches=tr.host_fetches, losses=losses,
+                 loss_floor=loss_floor, launches=counts)
+
+    # (e) saves of this state, timed: synchronous, then asynchronous
+    d = tempfile.mkdtemp(prefix=".train_loop_ckpt_", dir=root)
+    try:
+        t0 = time.perf_counter()
+        tr.save(d, 0)
+        stats["sync_save_s"] = time.perf_counter() - t0
+        stats["checkpoint_bytes"] = _dir_bytes(Path(d) / "pass-00000")
+        saver = ckpt.AsyncCheckpointer()
+        t0 = time.perf_counter()
+        saver.save(d, 1, pt.checkpoint_tree(tr.train_state,
+                                            pt.jax_root(tr.model)))
+        stats["async_save_path_s"] = time.perf_counter() - t0
+        saver.close()
+        stats["async_save_write_s"] = saver.records[-1]["write_ms"] / 1e3
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    del tr
+    torch.cuda.empty_cache()
+
+    # (b) serial: one call at a time, then one step a call
+    for label, kw in (("serial_k8", dict(steps_per_call=K)),
+                      ("serial_k1", {})):
+        tr = make(**kw)
+        losses_b, sec = run(tr)
+        bad = _not_bit_equal(torch, want, tr)
+        if bad or losses_b != losses:
+            raise RuntimeError(f"train loop: {label} differs from the "
+                               f"pipelined run: {bad[:8]} (losses "
+                               f"{losses_b} against {losses})")
+        stats[f"{label}_ms_per_step"] = 1e3 * sec / steps
+        stats[f"{label}_fetches"] = tr.host_fetches
+        del tr
+    if stats["pipelined_fetches"] != LOOP_GROUPS or \
+            stats["serial_k1_fetches"] != steps:
+        raise RuntimeError(f"train loop: fetches {stats}")
+    # (a) again, timed after the serial runs: the first run of a
+    # configuration pays for first-use allocations
+    tr = make(steps_per_call=K, pipeline_depth=W)
+    losses_a, sec = run(tr)
+    bad = _not_bit_equal(torch, want, tr)
+    if bad or losses_a != losses:
+        raise RuntimeError(f"train loop: the pipelined rerun differs: "
+                           f"{bad[:8]}")
+    stats["pipelined_again_ms_per_step"] = 1e3 * sec / steps
+    del tr
+
+    # (c) preempted at step 12 and resumed, sync and async saves. The
+    # preempted run goes one call at a time, so the stop lands on the
+    # next group boundary, batch 16; with W calls in flight the request
+    # is seen while a later group drains and the stop lands later (as in
+    # JAX). The resumed run is the pipelined loop.
+    for async_ in (False, True):
+        d = tempfile.mkdtemp(prefix=".train_loop_ckpt_", dir=root)
+        try:
+            tr = make(steps_per_call=K,
+                      faults=pt.FaultSchedule(preempt_at_step=12))
+            try:
+                run(tr, checkpoint_dir=d, saving_period=8,
+                    checkpoint_async=async_)
+            except pt.Preempted as p:
+                where = p.next_batch
+            else:
+                raise RuntimeError("train loop: no preemption at step 12")
+            if where != 2 * K:
+                raise RuntimeError(f"train loop: the stop landed at batch "
+                                   f"{where}, not {2 * K}")
+            del tr
+            tr = make(steps_per_call=K, pipeline_depth=W)
+            run(tr, checkpoint_dir=d, saving_period=8,
+                checkpoint_async=async_, resume=True)
+            bad = _not_bit_equal(torch, want, tr)
+            if bad or tr.train_state.step != steps:
+                raise RuntimeError(f"train loop: preempted at batch {where} "
+                                   f"and resumed (async {async_}), differs "
+                                   f"from (a): {bad[:8]}, step "
+                                   f"{tr.train_state.step}")
+            stats[f"preempted_at_batch{'_async' if async_ else ''}"] = where
+            del tr
+        finally:
+            shutil.rmtree(d, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    # (d) grad_accum=2 over the halves against one step on the batch
+    grads = {}
+
+    def capture(key):
+        def init(params):
+            return ()
+
+        def update(g, state, params, step):
+            grads[key] = {n: x.detach().clone() for n, x in g.items()}
+            return {n: torch.zeros_like(x) for n, x in g.items()}, state
+        return pt.optim.Optimizer(init, update)
+
+    halves = [{"x": inp[:B // 2], "y": tgt[:B // 2]},
+              {"x": inp[B // 2:], "y": tgt[B // 2:]}]
+    ca.reset_launch_counts()
+    run(make(opt=capture("accum"), grad_accum=2), rd=lambda: iter(halves))
+    accum_counts = ca.launch_counts()
+    run(make(opt=capture("whole")), rd=lambda: iter([batches[0]]))
+    run(make(opt=capture("whole_f32")), rd=lambda: iter([batches[0]]),
+        policy=pt.float32)
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        if accum_counts[name] != 2 * L:
+            raise RuntimeError(f"train loop: grad_accum=2 launched {name} "
+                               f"{accum_counts[name]} times, expected 2 x {L}")
+    worst = _worst_of_effect(grads["accum"], grads["whole"],
+                             grads["whole_f32"])
+    if not worst[1] <= 1.0:
+        raise RuntimeError(f"train loop: grad_accum=2 gradient of {worst[0]} "
+                           f"at {worst[1]} of the bf16 limit")
+    stats.update(accum_worst_param=worst[0],
+                 accum_worst_excess_of_bf16_limit=worst[1],
+                 accum_worst_err_over_policy_effect=worst[2],
+                 accum_launches=accum_counts)
+    log("train loop", json.dumps(stats))
+    return counts
+
+
 def resnet50_dw_shapes(batch, image):
     """``{(M, Cin, Cout): launches}`` of conv1x1_dw in one ResNet-50 step
     (7x7/2 stem and 3x3/2 max pool with SAME padding, then each
@@ -3616,6 +3858,8 @@ def main():
     lap("training")
     train_bf16_counts = phase_train(torch, np, pt, pt.bfloat16_compute)
     lap("training bf16")
+    loop_counts = phase_train_loop(torch, np, pt, card)
+    lap("train loop")
     dw = phase_conv_kernels(torch, cc, gen)
     lap("conv kernels")
     dw_bf16 = phase_conv_bf16_kernels(torch, cc, gen, mma_rate)
@@ -3635,6 +3879,7 @@ def main():
              "graph serving bf16": graph_bf16_counts,
              "handoff": handoff_counts,
              "training": train_counts, "training bf16": train_bf16_counts,
+             "train loop bf16": loop_counts,
              "resnet training": resnet_counts,
              "resnet training bf16": resnet_bf16_counts,
              "fused_ln_matmul": ln_counts,

@@ -91,6 +91,8 @@ class TransformerLM(nn.Module):
     block's dropout draws from ``dropout_generator`` (default: one on
     ``device`` seeded with 0, shared by the blocks)."""
 
+    JAX_ROOT = "transformer_lm"     # the JAX model's name (utils/bridge.py)
+
     def __init__(self, vocab: int, dim: int = 128, num_layers: int = 2,
                  num_heads: int = 4, ffn_hidden: int = 256,
                  max_len: int = 512, use_flash: bool = False,

@@ -1,8 +1,15 @@
 from . import schedules
-from .optimizers import (AdamState, Optimizer, adam, apply_updates, chain,
-                         clip_by_global_norm, global_norm, momentum, sgd,
-                         weight_decay)
+from .optimizers import (EMA, AdaDeltaState, AdamaxState, AdamState,
+                         FtrlState, LambState, Optimizer, PruningState,
+                         RMSPropState, adadelta, adagrad, adam, adamax,
+                         apply_updates, chain, clip_by_global_norm,
+                         clip_by_value, decayed_adagrad, ftrl, global_norm,
+                         l1_decay, lamb, momentum, polyak_average, rmsprop,
+                         sgd, static_pruning, weight_decay)
 
-__all__ = ["AdamState", "Optimizer", "adam", "apply_updates", "chain",
-           "clip_by_global_norm", "global_norm", "momentum", "schedules",
-           "sgd", "weight_decay"]
+__all__ = ["AdaDeltaState", "AdamState", "AdamaxState", "EMA", "FtrlState",
+           "LambState", "Optimizer", "PruningState", "RMSPropState",
+           "adadelta", "adagrad", "adam", "adamax", "apply_updates", "chain",
+           "clip_by_global_norm", "clip_by_value", "decayed_adagrad", "ftrl",
+           "global_norm", "l1_decay", "lamb", "momentum", "polyak_average",
+           "rmsprop", "schedules", "sgd", "static_pruning", "weight_decay"]

@@ -1,17 +1,54 @@
-"""The training loop — the port of the plain serial loop of
-``paddle_tpu/train/trainer.py`` (``Trainer._run_pass``'s serial body).
+"""The training loop — the port of ``paddle_tpu/train/trainer.py``.
 
-:class:`Trainer` runs one optimizer step per reader batch: move the host
-batch to the device, forward with ``train=True``, reduce the per-example
-loss, backward, one optimizer update applied to the parameters in place.
-Events fire in the JAX order: ``BeginPass``, then per batch
+:class:`Trainer` runs optimizer steps over a reader's host batches: move
+the batch to the device, forward with ``train=True``, reduce the
+per-example loss (the ``weight``-weighted mean where the batch has a
+``weight``), backward, one optimizer update applied to the parameters in
+place. Events fire in the JAX order: ``BeginPass``, then per step
 ``BeginIteration`` and ``EndIteration``, then ``EndPass`` with the pass's
 mean cost and, given a test reader, its test cost.
 
-Not ported yet, and so not accepted as arguments: ``steps_per_call``,
-``grad_accum``, ``grad_sync``, ``pipeline_depth``, telemetry, tracer,
-anomaly detection, faults, evaluators, ``param_sharding`` and
-checkpoints. PyTorch runs eagerly, so there is no compiled step to build.
+Ported from the JAX Trainer:
+
+- ``steps_per_call=K``: K optimizer steps a call, grouped as the JAX
+  ``_plan_group`` groups them; a call's K losses come to the host in one
+  device-to-host copy, after which its events, logging and
+  ``saving_period`` saves replay, so mid-pass saves land on call
+  boundaries.
+- ``grad_accum=M``: a step over M host batches (microbatches): the loss
+  and the gradient are the mean of the M microbatch means, each weighted
+  by its own ``weight``; the module state threads through the
+  microbatches and the optimizer updates once. A pass's last step may
+  take fewer.
+- checkpoints (``train(checkpoint_dir=, checkpoint_keep=,
+  checkpoint_async=, saving_period=, resume=)``, :meth:`Trainer.save`,
+  :meth:`Trainer.restore`) in the JAX on-disk format, through
+  ``utils/bridge.checkpoint_tree``: a directory either framework wrote
+  restores in the other. ``resume`` loads the newest readable pass
+  (quarantining poisoned ones), skips the consumed batches of an
+  interrupted pass and warns when the reader's batch fingerprint differs
+  from the one recorded.
+- ``nan_check``: a non-finite loss raises ``FloatingPointError`` naming
+  the non-finite parameters, and a group with one is never saved.
+- ``request_stop(reason)`` and ``faults=``
+  (:class:`~paddle_tpu_torch.train.faults.FaultSchedule`): a stop drains,
+  saves at the next group boundary and raises
+  :class:`~paddle_tpu_torch.train.faults.Preempted`.
+- ``pipeline_depth=W`` (``train/host_pipeline.py``): a stager thread
+  copies the next group to the card from pinned buffers on a side stream
+  while up to W calls stay in flight with their losses unfetched; the
+  plain K = 1, M = 1 loop defers its fetch the same way when
+  ``nan_check`` is off. Bit-identical to the serial loop.
+- ``train(rng=seed)``: dropout draws come from generators re-seeded
+  before each step from ``(seed, step)``, under accumulation ``(seed,
+  step, microbatch)``, so a resumed run draws the masks of the
+  uninterrupted one. The masks differ from JAX's.
+
+Still refused, with an error: ``evaluator``; ``telemetry``, ``tracer``,
+``anomaly``, ``metrics`` and ``param_stats_period`` (observability is not
+ported); ``mesh``, ``param_sharding``, ``grad_sync`` and ``bucket_mb``
+(multi-GPU is not ported). ``donate`` is taken and does nothing: PyTorch
+runs eagerly and the optimizer already updates in place.
 
 Dtype policy: a step runs under the caller's policy, as the JAX Trainer
 traces its step under it (``bench.py`` wraps init and training in
@@ -23,18 +60,72 @@ optimizer state and BatchNorm statistics stay f32 under every policy.
 
 from __future__ import annotations
 
+import contextlib
+import functools
 import logging
-from typing import Any, Callable, Dict, Optional, Tuple
+import zlib
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..core.device import resolve_device
+from ..nn.layers import Dropout
+from ..utils import bridge
+from . import checkpoint as ckpt_lib
 from . import events as ev
+from .faults import Preempted
+from .host_pipeline import FusedPipeline, StagedGroup, StagedUnit
 
 __all__ = ["Trainer", "TrainState"]
 
-_log = logging.getLogger(__name__)
+_log = logging.getLogger("paddle_tpu_torch.trainer")
+
+_NOT_PORTED = {
+    "evaluator": "evaluators are not ported yet",
+    "telemetry": "observability is not ported yet",
+    "tracer": "observability is not ported yet",
+    "anomaly": "observability is not ported yet",
+    "metrics": "observability is not ported yet",
+    "param_stats_period": "observability is not ported yet",
+    "mesh": "multi-GPU training is not ported yet",
+    "param_sharding": "multi-GPU training is not ported yet",
+    "grad_sync": "multi-GPU training is not ported yet",
+}
+
+
+def _leaves(tree) -> List[Any]:
+    """The leaves of a host batch in JAX's ``tree_leaves`` order (dict
+    keys sorted), so fingerprints agree across frameworks."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in _leaves(v)]
+    return [] if tree is None else [tree]
+
+
+def _batch_fingerprint(host_batch) -> int:
+    """CRC32 of a host batch's raw bytes, recorded in mid-pass checkpoints
+    so a resume can tell a nondeterministic reader (a shuffled reader
+    replayed from scratch gives another batch at the same index)."""
+    crc = 0
+    for leaf in _leaves(host_batch):
+        if isinstance(leaf, torch.Tensor):
+            leaf = leaf.detach().cpu().numpy()
+        crc = zlib.crc32(np.ascontiguousarray(np.asarray(leaf)).tobytes(),
+                         crc)
+    return crc
+
+
+def _batch_shapes(host_batch):
+    """Leaf shapes of a host batch: a group's batches must stack."""
+    return tuple(np.shape(leaf) for leaf in _leaves(host_batch))
+
+
+def _seed_of(*path: int) -> int:
+    """A 63-bit generator seed that is a function of ``path`` alone."""
+    return int(np.random.SeedSequence(list(path)).generate_state(
+        1, np.uint64)[0] >> np.uint64(1))
 
 
 class TrainState:
@@ -42,7 +133,7 @@ class TrainState:
     model's buffers, such as BatchNorm's running statistics; the JAX
     ``TrainState.state``), both by name and the model's own tensors, the
     optimizer state and the step count. A ``train=True`` forward updates
-    the module state in place, once per step."""
+    the module state in place, once per microbatch."""
 
     def __init__(self, params: Dict[str, torch.Tensor],
                  state: Dict[str, torch.Tensor], opt_state: Any, step: int):
@@ -53,7 +144,8 @@ class TrainState:
 
 
 class Trainer:
-    """Single-device training loop.
+    """Single-device training loop (see the module docstring for what is
+    ported).
 
     Args:
       model: the ``nn.Module``, already on ``device``.
@@ -64,29 +156,76 @@ class Trainer:
       forward: optional ``(model, batch, train) -> outputs`` for models
         with other inputs; the default feeds ``batch["x"]`` as
         ``model(x, train=train)``.
+      donate: taken for the JAX signature; does nothing.
       nan_check: raise ``FloatingPointError`` on a non-finite loss, naming
         the parameters that hold non-finite values.
+      steps_per_call: K optimizer steps a call (one loss fetch a call).
+      grad_accum: M host batches a step, the mean of their means.
+      pipeline_depth: W calls in flight, the next group staged by a
+        thread (``train/host_pipeline.py``); 1 is the serial loop.
+      faults: optional :class:`~paddle_tpu_torch.train.faults.FaultSchedule`.
       device: where batches go (default ``"cuda"``).
+
+    ``evaluator``, ``telemetry``, ``tracer``, ``anomaly``, ``metrics``,
+    ``param_stats_period``, ``mesh``, ``param_sharding``, ``grad_sync``
+    and a ``bucket_mb`` other than its default raise
+    ``NotImplementedError``.
+
+    ``host_fetches`` counts the device-to-host copies of losses: one a
+    call (a call is one step when K = 1).
     """
 
     def __init__(self, model: torch.nn.Module, loss_fn: Callable,
-                 optimizer, forward: Optional[Callable] = None,
-                 nan_check: bool = False, device="cuda"):
+                 optimizer, mesh=None, forward: Optional[Callable] = None,
+                 evaluator=None, param_sharding=None, donate: bool = True,
+                 nan_check: bool = False,
+                 param_stats_period: Optional[int] = None,
+                 steps_per_call: int = 1, grad_accum: int = 1,
+                 grad_sync: Optional[str] = None, bucket_mb: float = 4.0,
+                 pipeline_depth: int = 1, telemetry=None, tracer=None,
+                 anomaly=None, faults=None, metrics=None, device="cuda"):
+        given = {"evaluator": evaluator, "telemetry": telemetry,
+                 "tracer": tracer, "anomaly": anomaly, "metrics": metrics,
+                 "param_stats_period": param_stats_period, "mesh": mesh,
+                 "param_sharding": param_sharding, "grad_sync": grad_sync}
+        for name, value in given.items():
+            if value is not None:
+                raise NotImplementedError(
+                    f"Trainer({name}=...): {_NOT_PORTED[name]}")
+        if bucket_mb != 4.0:
+            raise NotImplementedError(
+                f"Trainer(bucket_mb=...): {_NOT_PORTED['grad_sync']}")
+        if steps_per_call < 1 or grad_accum < 1:
+            raise ValueError("steps_per_call and grad_accum must be >= 1")
+        if pipeline_depth < 1:
+            raise ValueError("pipeline_depth must be >= 1")
         self.model = model
         self.loss_fn = loss_fn
         self.optimizer = optimizer
         self._forward = forward or self._default_forward
         self._nan_check = nan_check
+        self.steps_per_call = int(steps_per_call)
+        self.grad_accum = int(grad_accum)
+        self.pipeline_depth = int(pipeline_depth)
+        self.faults = faults
         self.device = resolve_device(device)
         self.train_state: Optional[TrainState] = None
+        self.host_fetches = 0
+        self.last_quarantined: list = []
+        # a graceful-stop request: a bare attribute write, so it is safe
+        # from signal handlers and other threads; read at group boundaries
+        self._stop_requested: Optional[str] = None
+        self._last_iter_state: Optional[Dict[str, Any]] = None
+        self._last_restored_pass: Optional[int] = None
+        self._seed = 0
+        self._dropout_gens: Optional[List[torch.Generator]] = None
+        self._copy_stream = None
 
     @staticmethod
     def _default_forward(model, batch, train):
         return model(batch["x"], train=train)
 
-    def _to_device(self, host_batch: Dict[str, Any]) -> Dict[str, Any]:
-        return {k: torch.as_tensor(v, device=self.device)
-                for k, v in host_batch.items()}
+    # -- setup ---------------------------------------------------------------
 
     def init(self, sample_batch: Optional[Dict[str, Any]] = None
              ) -> TrainState:
@@ -100,6 +239,68 @@ class Trainer:
                                       self.optimizer.init(params), 0)
         return self.train_state
 
+    def _to_device(self, host_batch: Dict[str, Any]) -> Dict[str, Any]:
+        """A host batch on the device. On the card each array goes through
+        a pinned buffer with a non-blocking copy, so the host does not
+        wait for the card here."""
+        if self.device.type != "cuda":
+            return {k: torch.as_tensor(v, device=self.device)
+                    for k, v in host_batch.items()}
+        out = {}
+        for k, v in host_batch.items():
+            t = v if isinstance(v, torch.Tensor) \
+                else torch.from_numpy(np.array(v))
+            if t.device.type == "cpu":
+                t = t.pin_memory()
+            out[k] = t.to(self.device, non_blocking=True)
+        return out
+
+    def _stage(self, sub: List[Dict[str, Any]], k: int, m: int
+               ) -> Tuple[Dict[str, torch.Tensor], List[torch.Tensor]]:
+        """Stack ``k * m`` host batches into ``[k, m, ...]`` tensors on the
+        device; on the card through pinned buffers (returned, so the
+        caller can keep them until the copies have run) with non-blocking
+        copies on the current stream."""
+        out, host = {}, []
+        for key in sub[0]:
+            xs = [np.asarray(b[key]) for b in sub]
+            if self.device.type != "cuda":
+                out[key] = torch.from_numpy(
+                    np.stack(xs).reshape((k, m) + xs[0].shape)).to(
+                        self.device)
+                continue
+            buf = torch.empty((k, m) + xs[0].shape,
+                              dtype=torch.from_numpy(
+                                  np.empty(0, xs[0].dtype)).dtype,
+                              pin_memory=True)
+            np.stack(xs, out=buf.numpy().reshape((k * m,) + xs[0].shape))
+            host.append(buf)
+            out[key] = buf.to(self.device, non_blocking=True)
+        return out, host
+
+    # -- one optimizer step --------------------------------------------------
+
+    def _dropout_generators(self) -> List[torch.Generator]:
+        """The distinct generators of the model's active dropouts (a
+        generator shared by several layers counts once)."""
+        if self._dropout_gens is None:
+            gens, seen = [], set()
+            for mod in self.model.modules():
+                if isinstance(mod, Dropout) and mod.rate > 0:
+                    if mod.generator is None:
+                        mod.generator = torch.Generator(device=self.device)
+                    if id(mod.generator) not in seen:
+                        seen.add(id(mod.generator))
+                        gens.append(mod.generator)
+            self._dropout_gens = gens
+        return self._dropout_gens
+
+    def _seed_dropout(self, step: int, micro: Optional[int]) -> None:
+        path = (self._seed, step) if micro is None \
+            else (self._seed, step, micro)
+        for i, g in enumerate(self._dropout_generators()):
+            g.manual_seed(_seed_of(*path, i))
+
     def _loss(self, batch) -> torch.Tensor:
         out = self._forward(self.model, batch, True)
         per_ex = self.loss_fn(out, batch)
@@ -108,57 +309,476 @@ class Trainer:
             return (per_ex * w).sum() / w.sum().clamp_min(1e-9)
         return per_ex.mean()
 
-    def step(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-        """One optimizer step on a device batch; returns the loss (not
-        yet synchronised)."""
+    def _opt_step(self, microbatches: List[Dict[str, torch.Tensor]]
+                  ) -> torch.Tensor:
+        """One optimizer step over one batch, or the mean of the means of
+        several; returns the loss (not synchronised)."""
         ts = self.train_state
         for p in ts.params.values():
             p.grad = None
-        loss = self._loss(batch)
-        loss.backward()
-        grads = {n: p.grad if p.grad is not None else torch.zeros_like(p)
+        M = len(microbatches)
+        if M == 1:
+            self._seed_dropout(ts.step, None)
+            loss = self._loss(microbatches[0])
+            loss.backward()
+            loss = loss.detach()
+        else:
+            # the gradients sum into .grad in microbatch order, as JAX's
+            # accumulator does, then divide by M
+            loss = torch.zeros((), dtype=torch.float32, device=self.device)
+            for i, mb in enumerate(microbatches):
+                self._seed_dropout(ts.step, i)
+                lm = self._loss(mb)
+                lm.backward()
+                loss = loss + lm.detach()
+            loss = loss / M
+        grads = {n: (p.grad if p.grad is not None else torch.zeros_like(p))
                  for n, p in ts.params.items()}
+        if M > 1:
+            grads = {n: g / M for n, g in grads.items()}
         ts.opt_state = self.optimizer.apply(grads, ts.opt_state, ts.params,
                                             ts.step)
         ts.step += 1
-        return loss.detach()
+        return loss
+
+    def step(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """One optimizer step on a device batch; returns the loss (not
+        yet synchronised)."""
+        return self._opt_step([batch])
+
+    def _fetch(self, losses: torch.Tensor) -> np.ndarray:
+        """A call's losses on the host: one device-to-host copy."""
+        self.host_fetches += 1
+        return losses.detach().cpu().numpy()
+
+    # -- checkpoints and preemption -------------------------------------------
+
+    def _tree(self, it: Dict[str, Any]) -> Dict[str, Any]:
+        return {**bridge.checkpoint_tree(self.train_state,
+                                         bridge.jax_root(self.model)),
+                "iter": it}
+
+    def request_stop(self, reason: str = "requested") -> None:
+        """Ask the loop to stop at the next group boundary: drain, write a
+        checkpoint at that position, raise
+        :class:`~paddle_tpu_torch.train.faults.Preempted`. Safe from a
+        signal handler or another thread (it only writes an
+        attribute)."""
+        if self._stop_requested is None:
+            self._stop_requested = reason
+            _log.warning("graceful stop requested (%s): will stop at the "
+                         "next group boundary", reason)
+
+    def _fire_step_faults(self, step: int) -> None:
+        """After one optimizer step's host replay: a scheduled crash
+        raises; a scheduled preemption requests a stop."""
+        fs = self.faults
+        fs.maybe_crash_step(step)
+        if fs.should_preempt(step):
+            self.request_stop(f"injected preemption at step {step}")
+
+    def _maybe_stop(self, pipe, pending, pass_id, next_batch, handler,
+                    costs, log_period, checkpoint_dir, checkpoint_keep,
+                    save_fn, last_batch=None) -> None:
+        """The group-boundary stop: drain what is in flight, save at
+        exactly ``next_batch`` consumed batches (with the last batch's
+        fingerprint) and raise :class:`Preempted`. ``train()`` fences an
+        async save before it unwinds."""
+        if self._stop_requested is None:
+            return
+        reason = self._stop_requested
+        if pipe is not None:
+            pipe.flush()
+        while pending:
+            self._replay_plain(pending.pop(0), pass_id, handler, costs,
+                               log_period, checkpoint_dir, checkpoint_keep,
+                               save_fn)
+        if checkpoint_dir:
+            it = {"pass": pass_id, "next_batch": next_batch,
+                  "completed": 0, "preempted": 1}
+            if last_batch is not None:
+                it["batch_crc"] = _batch_fingerprint(last_batch)
+            save_fn(checkpoint_dir, pass_id, self._tree(it),
+                    keep_last=checkpoint_keep)
+        raise Preempted(pass_id=pass_id, next_batch=next_batch,
+                        reason=reason)
+
+    # -- the loop ------------------------------------------------------------
 
     def train(self, reader: Callable, num_passes: int = 1,
               event_handler: Optional[Callable] = None,
               test_reader: Optional[Callable] = None,
-              log_period: int = 100) -> TrainState:
+              checkpoint_dir: Optional[str] = None,
+              checkpoint_keep: int = 3,
+              checkpoint_async: bool = False,
+              saving_period: Optional[int] = None,
+              log_period: int = 100, rng: Optional[int] = None,
+              resume: bool = False) -> TrainState:
         """``num_passes`` passes over ``reader()`` (an iterable of host
-        batches: dicts of arrays), one optimizer step per batch."""
+        batches: dicts of arrays).
+
+        ``checkpoint_dir``: a checkpoint after every pass (and every
+        ``saving_period`` batches within one, on call boundaries), the
+        newest ``checkpoint_keep`` kept; ``checkpoint_async`` writes them
+        on a background thread after a host copy (fenced before ``train``
+        returns). ``resume`` continues from the newest readable pass,
+        mid-pass where the checkpoint says so. ``rng``: the dropout seed
+        (default 0)."""
         if self.train_state is None:
             raise RuntimeError("call init() first")
+        # a stop request is scoped to ONE train() call
+        self._stop_requested = None
+        self._seed = 0 if rng is None else int(rng)
         handler = event_handler or (lambda e: None)
-        for pass_id in range(num_passes):
+
+        start_pass, skip_batches = 0, 0
+        if resume and checkpoint_dir:
+            if ckpt_lib.latest_pass(checkpoint_dir) is not None:
+                try:
+                    self.restore(checkpoint_dir)
+                except FileNotFoundError as e:
+                    self.last_quarantined = list(
+                        getattr(e, "quarantined", []))
+                    _log.warning(
+                        "resume: no readable checkpoint remains under %s "
+                        "after quarantine — starting from scratch",
+                        checkpoint_dir)
+                else:
+                    it = self._last_iter_state
+                    if it is not None and not int(it.get("completed", 1)):
+                        start_pass = int(it["pass"])
+                        skip_batches = int(it["next_batch"])
+                    else:
+                        start_pass = self._last_restored_pass + 1
+
+        saver = None
+        if checkpoint_async:
+            saver = ckpt_lib.AsyncCheckpointer(faults=self.faults)
+            save_fn = saver.save
+        elif self.faults is not None:
+            save_fn = functools.partial(ckpt_lib.save_checkpoint,
+                                        faults=self.faults)
+        else:
+            save_fn = ckpt_lib.save_checkpoint
+        try:
+            return self._train_loop(reader, num_passes, handler, test_reader,
+                                    checkpoint_dir, checkpoint_keep,
+                                    saving_period, log_period, start_pass,
+                                    skip_batches, save_fn)
+        finally:
+            if saver is not None:
+                saver.close()          # fence the write in flight
+
+    def _train_loop(self, reader, num_passes, handler, test_reader,
+                    checkpoint_dir, checkpoint_keep, saving_period,
+                    log_period, start_pass, skip_batches, save_fn):
+        fused = self.steps_per_call > 1 or self.grad_accum > 1
+        for pass_id in range(start_pass, num_passes):
             handler(ev.BeginPass(pass_id))
-            costs = []
-            for batch_id, host_batch in enumerate(reader()):
-                handler(ev.BeginIteration(pass_id, batch_id))
-                cost = float(self.step(self._to_device(host_batch)))
-                if self._nan_check and not np.isfinite(cost):
-                    bad = [n for n, p in self.train_state.params.items()
-                           if not torch.isfinite(p).all()]
-                    raise FloatingPointError(
-                        f"non-finite loss {cost} at pass {pass_id} batch "
-                        f"{batch_id} (step {self.train_state.step}); "
-                        f"non-finite parameters: {bad[:8] or 'none'}")
-                costs.append(cost)
-                if log_period and (batch_id + 1) % log_period == 0:
-                    _log.info("pass %d batch %d cost=%.4f", pass_id,
-                              batch_id + 1, cost)
-                handler(ev.EndIteration(pass_id, batch_id,
-                                        self.train_state.step, cost, {}))
+            costs: List[float] = []
+            pipe = None
+            if fused and self.pipeline_depth > 1:
+                if self.device.type == "cuda" and self._copy_stream is None:
+                    self._copy_stream = torch.cuda.Stream(device=self.device)
+                pipe = FusedPipeline(
+                    self, pass_id, handler, costs, log_period,
+                    saving_period, checkpoint_dir, checkpoint_keep, save_fn,
+                    depth=self.pipeline_depth)
+            try:
+                self._run_pass(reader, pass_id, start_pass, skip_batches,
+                               pipe, handler, costs, log_period,
+                               saving_period, checkpoint_dir,
+                               checkpoint_keep, save_fn)
+            finally:
+                if pipe is not None:
+                    pipe.close()
             pass_metrics = {"mean_cost": float(np.mean(costs))
                             if costs else 0.0}
             if test_reader is not None:
                 tc, tm = self.evaluate(test_reader)
                 pass_metrics.update({f"test_{k}": v for k, v in tm.items()})
                 pass_metrics["test_cost"] = tc
+            if checkpoint_dir:
+                save_fn(checkpoint_dir, pass_id,
+                        self._tree({"pass": pass_id, "next_batch": 0,
+                                    "completed": 1}),
+                        keep_last=checkpoint_keep)
             handler(ev.EndPass(pass_id, pass_metrics))
+            if self._stop_requested is not None:
+                # too late for a group boundary: the pass checkpoint above
+                # recorded completed=1, so resume starts the next pass
+                raise Preempted(pass_id=pass_id + 1, next_batch=0,
+                                reason=self._stop_requested)
         return self.train_state
+
+    def _run_pass(self, reader, pass_id, start_pass, skip_batches, pipe,
+                  handler, costs, log_period, saving_period, checkpoint_dir,
+                  checkpoint_keep, save_fn):
+        """One pass's batch loop (split out so the stager thread is always
+        closed by the caller's ``finally``)."""
+        fused = self.steps_per_call > 1 or self.grad_accum > 1
+        group = self.steps_per_call * self.grad_accum
+        # the plain loop defers its loss fetch only with nan_check off:
+        # the trap must raise before the next step
+        plain_deferred = (not fused and self.pipeline_depth > 1
+                          and not self._nan_check)
+        args = (pass_id, handler, costs, log_period, saving_period,
+                checkpoint_dir, checkpoint_keep, save_fn)
+        buf, buf_start = [], 0
+        pending: List[Dict[str, Any]] = []
+        for batch_id, host_batch in enumerate(reader()):
+            if pass_id == start_pass and batch_id < skip_batches:
+                # the resume skip; on its last batch, check the recorded
+                # fingerprint: a mismatch means a nondeterministic reader
+                if batch_id == skip_batches - 1:
+                    want = (self._last_iter_state or {}).get("batch_crc")
+                    if want is not None and \
+                            _batch_fingerprint(host_batch) != int(want):
+                        _log.warning(
+                            "resume: reader replay diverged from the "
+                            "checkpointed batch fingerprint at batch %d "
+                            "— the reader is nondeterministic (shuffle/"
+                            "buffered?); the resumed pass trains on a "
+                            "different batch remainder than the "
+                            "interrupted run", batch_id)
+                continue
+            if fused:
+                # K*M host batches make a group; a shape change mid-group
+                # (a ragged last batch) flushes it early
+                if buf and _batch_shapes(host_batch) != \
+                        _batch_shapes(buf[0]):
+                    self._submit_group(pipe, buf, buf_start, *args)
+                    buf = []
+                if not buf:
+                    buf_start = batch_id
+                buf.append(host_batch)
+                if len(buf) == group:
+                    self._submit_group(pipe, buf, buf_start, *args)
+                    buf = []
+                    self._maybe_stop(pipe, pending, pass_id, batch_id + 1,
+                                     handler, costs, log_period,
+                                     checkpoint_dir, checkpoint_keep,
+                                     save_fn, last_batch=host_batch)
+                continue
+            if plain_deferred:
+                # make room BEFORE the step: at most pipeline_depth steps
+                # in flight
+                while len(pending) >= self.pipeline_depth:
+                    self._replay_plain(pending.pop(0), pass_id, handler,
+                                       costs, log_period, checkpoint_dir,
+                                       checkpoint_keep, save_fn)
+                loss = self.step(self._to_device(host_batch))
+                boundary = bool(saving_period and checkpoint_dir
+                                and (batch_id + 1) % saving_period == 0)
+                pending.append({
+                    "batch_id": batch_id, "step": self.train_state.step,
+                    "loss": loss, "boundary": boundary,
+                    "crc": _batch_fingerprint(host_batch) if boundary
+                    else None})
+                if boundary:
+                    # the save needs the state at exactly this batch
+                    while pending:
+                        self._replay_plain(pending.pop(0), pass_id, handler,
+                                           costs, log_period,
+                                           checkpoint_dir, checkpoint_keep,
+                                           save_fn)
+                self._maybe_stop(None, pending, pass_id, batch_id + 1,
+                                 handler, costs, log_period, checkpoint_dir,
+                                 checkpoint_keep, save_fn,
+                                 last_batch=host_batch)
+                continue
+            # the serial plain step; _replay_plain mirrors its bookkeeping
+            handler(ev.BeginIteration(pass_id, batch_id))
+            loss = self.step(self._to_device(host_batch))
+            cost = float(self._fetch(loss))
+            if self._nan_check and not np.isfinite(cost):
+                self._raise_nonfinite(cost, pass_id, batch_id,
+                                      self.train_state.step)
+            costs.append(cost)
+            self._log_cost(log_period, pass_id, batch_id, batch_id, cost)
+            if saving_period and checkpoint_dir and \
+                    (batch_id + 1) % saving_period == 0:
+                save_fn(checkpoint_dir, pass_id,
+                        self._tree({"pass": pass_id,
+                                    "next_batch": batch_id + 1,
+                                    "completed": 0,
+                                    "batch_crc":
+                                        _batch_fingerprint(host_batch)}),
+                        keep_last=checkpoint_keep)
+            handler(ev.EndIteration(pass_id, batch_id, self.train_state.step,
+                                    cost, {}))
+            if self.faults is not None:
+                self._fire_step_faults(self.train_state.step)
+            self._maybe_stop(None, pending, pass_id, batch_id + 1, handler,
+                             costs, log_period, checkpoint_dir,
+                             checkpoint_keep, save_fn, last_batch=host_batch)
+        if fused and buf:
+            # a pass tail smaller than K*M: its last step may accumulate
+            # fewer than M microbatches
+            self._submit_group(pipe, buf, buf_start, *args)
+        if pipe is not None:
+            pipe.flush()
+        while pending:
+            self._replay_plain(pending.pop(0), pass_id, handler, costs,
+                               log_period, checkpoint_dir, checkpoint_keep,
+                               save_fn)
+
+    def _raise_nonfinite(self, cost, pass_id, batch_id, step):
+        bad = [n for n, p in self.train_state.params.items()
+               if not torch.isfinite(p).all()]
+        raise FloatingPointError(
+            f"non-finite loss {cost} at pass {pass_id} batch {batch_id} "
+            f"(step {step}); non-finite parameters: {bad[:8] or 'none'}")
+
+    @staticmethod
+    def _log_cost(log_period, pass_id, first_id, last_id, cost):
+        """Log at every crossing of a ``log_period`` boundary by the host
+        batches ``first_id..last_id`` of one step."""
+        if log_period and (last_id + 1) // log_period > first_id // log_period:
+            _log.info("pass %d batch %d cost=%.4f", pass_id, last_id + 1,
+                      cost)
+
+    def _replay_plain(self, entry, pass_id, handler, costs, log_period,
+                      checkpoint_dir, checkpoint_keep, save_fn):
+        """The deferred bookkeeping of one plain step, in step order:
+        Begin and EndIteration both fire here, as in the grouped loop.
+        ``nan_check`` is off on this path."""
+        batch_id = entry["batch_id"]
+        handler(ev.BeginIteration(pass_id, batch_id))
+        cost = float(self._fetch(entry["loss"]))
+        costs.append(cost)
+        self._log_cost(log_period, pass_id, batch_id, batch_id, cost)
+        if entry["boundary"]:
+            # the boundary drained everything right after this step
+            save_fn(checkpoint_dir, pass_id,
+                    self._tree({"pass": pass_id, "next_batch": batch_id + 1,
+                                "completed": 0, "batch_crc": entry["crc"]}),
+                    keep_last=checkpoint_keep)
+        handler(ev.EndIteration(pass_id, batch_id, entry["step"], cost, {}))
+        if self.faults is not None:
+            self._fire_step_faults(entry["step"])
+
+    # -- grouped calls -------------------------------------------------------
+
+    @staticmethod
+    def _plan_group(n: int, m: int):
+        """Split an n-batch group into calls: the full K x M part first,
+        then the tail (whose last step may take fewer than M
+        microbatches). Returns ``[(offset, take, m_eff)]``, shared by the
+        serial loop and the stager thread."""
+        plans, done = [], 0
+        while done < n:
+            rem = n - done
+            take = (rem // m) * m or rem
+            plans.append((done, take, m if take >= m else take))
+            done += take
+        return plans
+
+    def _call(self, batches: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """One call: K optimizer steps over ``[K, M, ...]`` batches;
+        returns the K losses stacked on the device, unfetched."""
+        k, m = next(iter(batches.values())).shape[:2]
+        losses = [self._opt_step([{key: t[i, j] for key, t in batches.items()}
+                                  for j in range(m)])
+                  for i in range(k)]
+        return torch.stack(losses)
+
+    def _submit_group(self, pipe, buf, buf_start, pass_id, handler, costs,
+                      log_period, saving_period, checkpoint_dir,
+                      checkpoint_keep, save_fn):
+        if pipe is not None:
+            pipe.submit(buf, buf_start)
+            return
+        results = []
+        for off, take, m_eff in self._plan_group(len(buf), self.grad_accum):
+            batches, _ = self._stage(buf[off:off + take], take // m_eff,
+                                     m_eff)
+            losses = self._call(batches)
+            results.append((buf_start + off, m_eff, losses,
+                            self.train_state.step))
+        self._finalize_group(pass_id, buf_start, len(buf), results, handler,
+                             costs, log_period, saving_period,
+                             checkpoint_dir, checkpoint_keep, save_fn,
+                             crc_fn=lambda: _batch_fingerprint(buf[-1]))
+
+    def _stage_group_work(self, work):
+        """Stage one raw group for the pipeline: every call's batches
+        stacked and copied to the device. RUNS IN THE STAGER THREAD: on
+        the card the copies go on the side stream, and an event marks
+        them done."""
+        buf, buf_start, boundary = work
+        if self.faults is not None:
+            # raises in this thread; surfaces in the training thread
+            self.faults.maybe_stager_error(buf_start)
+        cuda = self.device.type == "cuda"
+        units = []
+        with (torch.cuda.device(self.device) if cuda
+              else contextlib.nullcontext()):
+            for off, take, m_eff in self._plan_group(len(buf),
+                                                     self.grad_accum):
+                event = None
+                if cuda:
+                    with torch.cuda.stream(self._copy_stream):
+                        batches, host = self._stage(buf[off:off + take],
+                                                    take // m_eff, m_eff)
+                        event = torch.cuda.Event()
+                        event.record(self._copy_stream)
+                else:
+                    batches, host = self._stage(buf[off:off + take],
+                                                take // m_eff, m_eff)
+                units.append(StagedUnit(off, m_eff, batches, event, host))
+        crc = _batch_fingerprint(buf[-1]) if boundary else None
+        return StagedGroup(buf_start, len(buf), units, boundary, crc)
+
+    def _run_staged(self, buf_start, unit):
+        """One call over a staged unit, on the training thread: the
+        compute stream waits for the unit's copies, and the copied tensors
+        are marked as used by it. The unit (and so its pinned buffers)
+        stays in the result until the group drains."""
+        if unit.event is not None:
+            cur = torch.cuda.current_stream(self.device)
+            cur.wait_event(unit.event)
+            for t in unit.batches.values():
+                t.record_stream(cur)
+        losses = self._call(unit.batches)
+        return (buf_start + unit.offset, unit.m_eff, losses,
+                self.train_state.step, unit)
+
+    def _finalize_group(self, pass_id, buf_start, buf_len, results, handler,
+                        costs, log_period, saving_period, checkpoint_dir,
+                        checkpoint_keep, save_fn, crc_fn):
+        """The bottom half of a group, shared by the serial loop and the
+        pipeline's drain: fetch each call's losses (one copy a call), the
+        boundary checkpoint, then the events in order. With nan_check on,
+        a non-finite loss anywhere in the group skips the save."""
+        fetched = [(start, m_eff, self._fetch(losses), step_after)
+                   for start, m_eff, losses, step_after, *_ in results]
+        end = buf_start + buf_len
+        group_finite = (not self._nan_check) or all(
+            np.isfinite(losses).all() for _, _, losses, _ in fetched)
+        if saving_period and checkpoint_dir and group_finite and \
+                (end // saving_period) > (buf_start // saving_period):
+            save_fn(checkpoint_dir, pass_id,
+                    self._tree({"pass": pass_id, "next_batch": end,
+                                "completed": 0, "batch_crc": crc_fn()}),
+                    keep_last=checkpoint_keep)
+        for start, m_eff, losses, step_after in fetched:
+            K = int(losses.shape[0])
+            for k in range(K):
+                first_id = start + k * m_eff
+                last_id = first_id + m_eff - 1
+                step = step_after - (K - 1 - k)
+                handler(ev.BeginIteration(pass_id, last_id))
+                cost = float(losses[k])
+                if self._nan_check and not np.isfinite(cost):
+                    self._raise_nonfinite(cost, pass_id, last_id, step)
+                costs.append(cost)
+                self._log_cost(log_period, pass_id, first_id, last_id, cost)
+                handler(ev.EndIteration(pass_id, last_id, step, cost, {}))
+                if self.faults is not None:
+                    self._fire_step_faults(step)
+
+    # -- evaluation and checkpoints ------------------------------------------
 
     @torch.no_grad()
     def evaluate(self, reader: Callable) -> Tuple[float, Dict[str, float]]:
@@ -171,3 +791,32 @@ class Trainer:
             out = self._forward(self.model, batch, False)
             costs.append(float(self.loss_fn(out, batch).float().mean()))
         return (float(np.mean(costs)) if costs else 0.0), {}
+
+    def save(self, checkpoint_dir: str, pass_id: int) -> str:
+        """Write the training state to ``checkpoint_dir/pass-NNNNN/`` in the
+        JAX format (no iterator position)."""
+        assert self.train_state is not None, "call init() first"
+        return ckpt_lib.save_checkpoint(
+            checkpoint_dir, pass_id,
+            bridge.checkpoint_tree(self.train_state,
+                                   bridge.jax_root(self.model)))
+
+    def restore(self, checkpoint_dir: str, pass_id: Optional[int] = None
+                ) -> TrainState:
+        """Load a checkpoint of either framework into the model, the
+        optimizer state and the step. ``pass_id=None`` loads the newest
+        READABLE pass (``checkpoint.load_latest_valid``): poisoned
+        directories are renamed to ``pass-NNNNN.corrupt`` and the previous
+        pass loads instead (``last_quarantined`` lists what was moved). An
+        explicit ``pass_id`` raises on corruption."""
+        if self.train_state is None:
+            self.init()
+        if pass_id is None:
+            loaded = ckpt_lib.load_latest_valid(checkpoint_dir)
+        else:
+            loaded = ckpt_lib.load_checkpoint(checkpoint_dir, pass_id)
+        self.last_quarantined = loaded.pop("_quarantined", [])
+        self._last_restored_pass = int(loaded["pass_id"])
+        self._last_iter_state = loaded.get("iter")
+        bridge.load_checkpoint_tree(self.train_state, self.model, loaded)
+        return self.train_state

@@ -5,6 +5,9 @@ path; :func:`load_jax_opt_state` fills the port's optimizer state (Adam's
 ``St(m, v)``, momentum's velocity, ``chain``'s tuples) and step from a
 JAX run's, so the run continues in the port, and
 :func:`export_jax_opt_state` gives the JAX form back.
+:func:`checkpoint_tree` gives a whole port ``TrainState`` in the form of
+the JAX ``TrainState.as_dict()``, which is what a checkpoint holds, and
+:func:`load_checkpoint_tree` loads such a tree back into one.
 
 Two forms are taken:
 
@@ -35,8 +38,9 @@ from typing import Any, Dict, Mapping, Tuple
 import numpy as np
 import torch
 
-__all__ = ["export_jax_opt_state", "export_jax_params",
-           "load_jax_opt_state", "load_jax_params"]
+__all__ = ["checkpoint_tree", "export_jax_opt_state", "export_jax_params",
+           "jax_root", "load_checkpoint_tree", "load_jax_opt_state",
+           "load_jax_params"]
 
 _SEP = "::"     # the npz key separator of save_variables_npz
 _BLOCK = re.compile(r"^block(\d+)$")
@@ -107,8 +111,21 @@ def _nest(named: Mapping[str, torch.Tensor], root: str) -> Dict[str, Any]:
         *head, leaf = _jax_path(name)
         for part in head:
             node = node.setdefault(part, {})
-        node[leaf] = t.detach().cpu().numpy().copy()
+        node[leaf] = _host(t)
     return tree
+
+
+def _host(t: torch.Tensor) -> np.ndarray:
+    """A host copy of ``t``; a copy on the CPU too, since the optimizer
+    updates its tensors in place."""
+    return t.detach().to("cpu", copy=True).numpy()
+
+
+def jax_root(model: torch.nn.Module) -> str:
+    """The JAX model's name, the root of its variable trees: the model's
+    ``JAX_ROOT`` where it has one (``TransformerLM``: ``transformer_lm``),
+    else the JAX default ``<ClassName>_0`` (``ResNetCifar_0``)."""
+    return getattr(model, "JAX_ROOT", f"{type(model).__name__}_0")
 
 
 def _fill(what: str, targets: Dict[str, torch.Tensor],
@@ -166,8 +183,7 @@ def export_jax_params(model: torch.nn.Module,
     for col, named in (("params", model.named_parameters()),
                        ("state", model.named_buffers())):
         for n, t in named:
-            out[_SEP.join((col, root) + _jax_path(n))] = \
-                t.detach().cpu().numpy().copy()
+            out[_SEP.join((col, root) + _jax_path(n))] = _host(t)
     return out
 
 
@@ -193,6 +209,12 @@ def _load_state(port: Any, jax_state: Any, where: str) -> None:
                              f"{type(port).__name__} of {len(port)}")
         for i, (p, j) in enumerate(zip(port, jax_state)):
             _load_state(p, j, f"{where}[{i}]")
+    elif isinstance(port, torch.Tensor):
+        a = np.asarray(jax_state)
+        if tuple(a.shape) != tuple(port.shape):
+            raise ValueError(f"{where}: JAX shape {tuple(a.shape)} != "
+                             f"{tuple(port.shape)}")
+        port.copy_(torch.from_numpy(np.array(a)))
     else:
         raise TypeError(f"{where}: unknown optimizer state leaf "
                         f"{type(port).__name__}")
@@ -221,5 +243,35 @@ def export_jax_opt_state(opt_state: Any, root: str = _ROOT) -> Any:
         parts = [export_jax_opt_state(s, root) for s in opt_state]
         return type(opt_state)(*parts) if hasattr(opt_state, "_fields") \
             else tuple(parts)
+    if isinstance(opt_state, torch.Tensor):
+        return _host(opt_state)
     raise TypeError(f"unknown optimizer state leaf "
                     f"{type(opt_state).__name__}")
+
+
+def checkpoint_tree(train_state, root: str = _ROOT) -> Dict[str, Any]:
+    """The port's :class:`~paddle_tpu_torch.train.TrainState` as the JAX
+    ``TrainState.as_dict()`` of host numpy arrays: ``params`` and
+    ``state`` nested under the model's root name ``root``
+    (:func:`jax_root`), ``opt_state`` as :func:`export_jax_opt_state`
+    gives it (the JAX tuples and NamedTuples, so that the JAX
+    ``Trainer.restore`` grafts its leaves in the same order) and ``step``
+    a 0-d int32 array. Every array is a copy, taken when this returns."""
+    return {"params": _nest(train_state.params, root),
+            "state": _nest(train_state.state, root),
+            "opt_state": export_jax_opt_state(train_state.opt_state, root),
+            "step": np.asarray(train_state.step, np.int32)}
+
+
+@torch.no_grad()
+def load_checkpoint_tree(train_state, model: torch.nn.Module,
+                         tree: Mapping[str, Any]):
+    """The inverse of :func:`checkpoint_tree`: load a JAX-form training
+    tree (a loaded checkpoint of either framework) into ``model``'s
+    parameters and buffers (:func:`load_jax_params`) and
+    ``train_state``'s optimizer state and step
+    (:func:`load_jax_opt_state`), in place. Raises where names, shapes or
+    structures differ. Returns ``train_state``."""
+    load_jax_params(model, {"params": tree["params"],
+                            "state": tree.get("state") or {}})
+    return load_jax_opt_state(train_state, tree["opt_state"], tree["step"])

@@ -57,7 +57,11 @@ segments, T off the 64-row tiles, both instances, the unrounded control
 failing the gate, launches by route, views by ``mma.sync``) and its
 delta kernel; and the three ``wgmma`` forms of ``csrc/wgmma_bf16.cuh``
 the new kernels rest on (K-major operands from shared memory, A from
-registers, K-major A with MN-major B) against ``torch.mm`` in f32.
+registers, K-major A with MN-major B) against ``torch.mm`` in f32; and
+the ``Trainer``'s host pipeline: the stager's copies from pinned buffers
+on its own stream, behind an event, and ``pipeline_depth`` 3 bit-equal
+to the serial loop (parameters, Adam state, costs), plain, grouped and
+accumulating.
 Every test needs an
 NVIDIA GPU (marker ``cuda``) and skips without one; run them on the card
 with ``python -m pytest --noconftest -q tests/test_torch_cuda_kernels.py``
@@ -1898,3 +1902,64 @@ def test_wgmma_register_a_form_matches_torch_mm(gen, N):
     d = _form("wgmma_rs_f32", a, b, N)
     want = a.float() @ b.float()
     assert (d - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+
+
+# -- the Trainer's host pipeline on the card -------------------------------
+
+def _loop_trainer(**kw):
+    import numpy as np
+    import paddle_tpu_torch as pt
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    model = pt.TransformerLM(97, dim=128, num_layers=2, num_heads=2,
+                             ffn_hidden=128, max_len=128, use_flash=True,
+                             device="cuda", generator=gen)
+    tr = pt.Trainer(model, lambda out, b: pt.softmax_cross_entropy(
+        out.reshape(-1, 97), b["y"].reshape(-1)), pt.adam(1e-3),
+        device="cuda", **kw)
+    tr.init()
+    rng = np.random.RandomState(0)
+    batches = [{"x": rng.randint(0, 97, (4, 128)).astype(np.int32),
+                "y": rng.randint(0, 97, (4, 128)).astype(np.int32)}
+               for _ in range(7)]
+    return tr, batches
+
+
+def test_stager_copies_on_its_stream_from_pinned_buffers(gen):
+    import numpy as np
+    tr, batches = _loop_trainer(steps_per_call=2, grad_accum=2,
+                                pipeline_depth=2)
+    tr._copy_stream = torch.cuda.Stream()
+    sg = tr._stage_group_work((batches[:4], 0, True))
+    assert sg.boundary and sg.crc is not None
+    (unit,) = sg.units
+    assert unit.event is not None and unit.host
+    assert all(h.is_pinned() for h in unit.host)
+    unit.event.synchronize()
+    for key, t in unit.batches.items():
+        assert t.is_cuda and tuple(t.shape[:2]) == (2, 2)
+        want = np.stack([b[key] for b in batches[:4]]).reshape(t.shape)
+        assert np.array_equal(t.cpu().numpy(), want)
+    # the call waits on the copy's event and marks its tensors
+    _, m_eff, losses, step, _ = tr._run_staged(0, unit)
+    assert m_eff == 2 and step == 2 and losses.shape == (2,)
+    assert torch.isfinite(losses).all()
+
+
+@pytest.mark.parametrize("K,M", [(1, 1), (3, 1), (2, 2)])
+def test_pipeline_depth_bit_identical_on_the_card(gen, K, M):
+    runs = []
+    for W in (1, 3):
+        tr, batches = _loop_trainer(steps_per_call=K, grad_accum=M,
+                                    pipeline_depth=W)
+        costs = []
+        tr.train(lambda: iter(batches), num_passes=2, log_period=0,
+                 event_handler=lambda e: costs.append(getattr(e, "cost",
+                                                              None)))
+        runs.append((costs, [p.detach().clone()
+                             for p in tr.model.parameters()],
+                     [t.clone() for t in tr.train_state.opt_state.m.values()]
+                     + [t.clone()
+                        for t in tr.train_state.opt_state.v.values()]))
+    assert runs[0][0] == runs[1][0]
+    for a, b in zip(runs[0][1] + runs[0][2], runs[1][1] + runs[1][2]):
+        assert torch.equal(a, b)

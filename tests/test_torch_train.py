@@ -280,11 +280,25 @@ def test_opt_state_bridge_refuses_a_mismatch(adam_runs):
 
 
 def test_trainer_refuses_knobs_it_does_not_take():
+    """The JAX Trainer's arguments whose modules are not ported yet raise
+    ``NotImplementedError`` naming the argument (evaluators;
+    observability; multi-GPU); ``donate`` is taken and does nothing;
+    ``train`` before ``init`` raises."""
     tm = pt.TransformerLM(**KW, device="cpu")
-    for knob in ("steps_per_call", "grad_accum", "pipeline_depth",
-                 "checkpoint_dir"):
-        with pytest.raises(TypeError):
-            pt.Trainer(tm, _tloss, pt.sgd(0.1), device="cpu", **{knob: 2})
+    for knob, value in (("evaluator", object()), ("telemetry", object()),
+                        ("tracer", object()), ("anomaly", object()),
+                        ("metrics", object()), ("param_stats_period", 2),
+                        ("mesh", object()), ("param_sharding", object()),
+                        ("grad_sync", "bucketed"), ("bucket_mb", 2.0)):
+        with pytest.raises(NotImplementedError, match=knob):
+            pt.Trainer(tm, _tloss, pt.sgd(0.1), device="cpu",
+                       **{knob: value})
+    for knob in ("steps_per_call", "grad_accum", "pipeline_depth"):
+        with pytest.raises(ValueError):
+            pt.Trainer(tm, _tloss, pt.sgd(0.1), device="cpu", **{knob: 0})
+    with pytest.raises(TypeError):
+        pt.Trainer(tm, _tloss, pt.sgd(0.1), device="cpu", checkpoint_dir=2)
+    pt.Trainer(tm, _tloss, pt.sgd(0.1), device="cpu", donate=False)
     tr = pt.Trainer(tm, _tloss, pt.sgd(0.1), device="cpu")
     with pytest.raises(RuntimeError, match="init"):
         tr.train(lambda: iter(BATCHES))
