@@ -222,6 +222,34 @@ Phases (any failure exits non-zero before the final line):
     of a synchronous save and of an asynchronous one (the part on the
     loop's path and the background write), the checkpoint's bytes and the
     peak memory.
+13. the MoE LM, remat and evaluators (run last, after the ResNet phases:
+    a window of ``device_ms``, which counts the profiler's records, drops
+    records after a large profiled window such as this phase's):
+    ``prep_transformer`` with ``moe_experts=8`` (top-1, capacity factor
+    1.25: C = 2560 slots an expert for the 16,384 tokens of a batch)
+    under ``bfloat16_compute`` (the MoE layers run in f32, the residual
+    stream's dtype, as JAX's do), loss mean CE + 0.01 x the Switch aux
+    loss: (a) the ``Trainer`` with ``steps_per_call=4, pipeline_depth=2``
+    and an ``EvaluatorSet(ClassificationError)`` over the logits (labels
+    the batch's targets) for 8 steps: finite losses, the last below the
+    first, 6 launches of each flash kernel a step, classification error
+    plus accuracy 1 at every step, the pass's metrics equal to the
+    aggregate of the steps' stats, the same losses and loss fetches as
+    the run without the evaluator, each layer's routing stats (drop rate,
+    expert fractions, C) after training, ms a step, peak memory and one
+    profiled call; (b) one forward and backward from the same weights at
+    ``remat`` None, ``"dots"`` and ``"full"``: loss and every gradient
+    within 1e-5 of its largest entry of the plain step's (bit-equality
+    logged), the flash forward launched once a block (``"dots"`` keeps its
+    outputs) or twice (``"full"``), and ``"full"``'s peak below the
+    plain one; (c) the MoE model at the serving width (8 heads, max_len
+    1024, seeded weights) through the CUDA graphs over phase 3's 16
+    requests, greedy and ``speculative=4, prefill_chunk=128``, with phase
+    9's gates (tokens as the eager bodies', compile counts {1, 1}, each
+    program capturing its paged kernel 6 times), and its ms a tick and
+    tokens/s beside the dense model's of phase 9; (d) every activation
+    and cost of the port on CUDA tensors against the same call on CPU
+    copies, values and gradients within 1e-5 of max(1, max |cpu|).
 
 Each serving and training path runs with the launch counts set to 0 just
 before it and read just after; a kernel's ``launches`` in the final list
@@ -243,6 +271,7 @@ training shape, ``ln_matmul_bf16`` at w ``[512,2048]`` with scale and
 bias, each with ``mma_sync_bound_ms``).
 """
 
+import gc
 import importlib.util
 import json
 import math
@@ -369,6 +398,12 @@ def device_ms(torch, fn, iters=20, warmup=3):
 
     for _ in range(5):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            # a lead-in of copies, whose rows are left out: late in a long
+            # process a window lost the records of its first 3-4 launches
+            # five retakes in a row (ln_gemm_wgmma, 16-17 of 20, also on
+            # the parent's tree), while the same phase run alone kept all
+            for _ in range(8):
+                dst.copy_(src)
             for _ in range(iters):
                 dst.copy_(src)
                 fn()
@@ -1863,7 +1898,7 @@ def steady_ticks(torch, np, eng, window):
 
 
 def phase_graph_serving(torch, np, pt, ca, model, prompts, card,
-                        modes=GRAPH_MODES, tag=""):
+                        modes=GRAPH_MODES, tag="", rows=None):
     """The serving programs as CUDA graphs at the transformer_decode
     width, in seven modes (greedy; bf16 pools greedy and with
     speculative=4, prefill_chunk=128; speculative=4 with
@@ -1881,7 +1916,7 @@ def phase_graph_serving(torch, np, pt, ca, model, prompts, card,
     save). ``modes`` picks the
     modes; under a dtype policy (the caller's ``use_policy``) the graphs
     are captured and the eager bodies run under it, ``tag`` naming it in
-    the log."""
+    the log; ``rows``, a list, collects each mode's logged row."""
     V, L, new = 32000, 6, 32
     counts = {}
     progs = ("prefill", "tick")
@@ -1964,6 +1999,8 @@ def phase_graph_serving(torch, np, pt, ca, model, prompts, card,
                 f"active slots")
         row["card"] = card
         log(f"graph serving{tag}", json.dumps(row))
+        if rows is not None:
+            rows.append(row)
         del eng, ref_eng
     return counts
 
@@ -2546,6 +2583,401 @@ def phase_train_loop(torch, np, pt, card):
                  accum_launches=accum_counts)
     log("train loop", json.dumps(stats))
     return counts
+
+
+MOE_CFG = dict(vocab=32000, dim=512, num_layers=6, num_heads=4,
+               ffn_hidden=2048, max_len=2048, use_flash=True, moe_experts=8)
+MOE_BATCH, MOE_K, MOE_W, MOE_STEPS = 8, 4, 2, 8
+# remat gradients against the plain step's, of each gradient's largest
+# |entry| (JAX's own remat test bound)
+REMAT_TOL = 1e-5
+# costs and activations on the card against the same call on CPU copies,
+# of max(1, max |cpu|)
+CARD_CPU_TOL = 1e-5
+
+
+def moe_capacity():
+    """C of a training batch: ceil(N K / E x 1.25), N = B T, K = 1."""
+    return math.ceil(MOE_BATCH * MOE_CFG["max_len"] / MOE_CFG["moe_experts"]
+                     * 1.25)
+
+
+def moe_evaluator(pt):
+    """``EvaluatorSet(ClassificationError)`` over the logits of the
+    ``(logits, aux)`` a MoE forward returns, recording each update's
+    counts (so the pass's result can be held against their aggregate)."""
+    from paddle_tpu_torch.train.evaluators import ClassificationError
+
+    class LogitsError(ClassificationError):
+        def __init__(self):
+            super().__init__()
+            self.seen = []
+
+        def batch_stats(self, outputs, batch):
+            return super().batch_stats(outputs[0], batch)
+
+        def reset(self):
+            super().reset()
+            self.seen = []
+
+        def update(self, stats):
+            self.seen.append((int(stats["wrong"]), int(stats["total"])))
+            super().update(stats)
+
+    ev = LogitsError()
+    return pt.EvaluatorSet(ev), ev
+
+
+def moe_routing(torch, model, ids):
+    """Each MoE layer's routing stats on ``ids`` (no gradient)."""
+    rows = []
+
+    def hook(mod, args, out):
+        _, st = mod.forward(args[0], return_stats=True)
+        rows.append({"drop_rate": st["drop_rate"].item(),
+                     "expert_fraction": [round(f, 5) for f in
+                                         st["expert_fraction"].tolist()],
+                     "capacity": int(st["capacity"])})
+
+    from paddle_tpu_torch.nn.moe import MoEFFN
+    handles = [m.register_forward_hook(hook) for m in model.modules()
+               if isinstance(m, MoEFFN)]
+    try:
+        with torch.no_grad():
+            model(ids)
+    finally:
+        for h in handles:
+            h.remove()
+    return rows
+
+
+def phase_moe_train(torch, np, pt, ca, card, start, batch):
+    """Phase 13 (a): the MoE TransformerLM trained through the Trainer's
+    grouped, pipelined loop with an evaluator."""
+    cfg = MOE_CFG
+    V, L, E = cfg["vocab"], cfg["num_layers"], cfg["moe_experts"]
+    steps = MOE_STEPS
+
+    def forward(model, b, train):
+        return model(b["x"], train=train, return_aux=True)
+
+    def loss_fn(out, b):
+        logits, aux = out
+        ce = pt.softmax_cross_entropy(logits.reshape(-1, V),
+                                      b["y"].reshape(-1))
+        return ce + 0.01 * aux               # mean CE + 0.01 aux
+
+    def run(evaluator):
+        model = pt.TransformerLM(**cfg, device="cuda")
+        model.load_state_dict(start)
+        tr = pt.Trainer(model, loss_fn, pt.adam(1e-4), forward=forward,
+                        evaluator=evaluator, steps_per_call=MOE_K,
+                        pipeline_depth=MOE_W, device="cuda")
+        tr.init()
+        events = []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ca.reset_launch_counts()
+        t0 = time.perf_counter()
+        with pt.use_policy(pt.bfloat16_compute):
+            tr.train(lambda: iter([batch] * steps),
+                     event_handler=events.append, log_period=0)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        return tr, events, sec, ca.launch_counts(), \
+            torch.cuda.max_memory_allocated()
+
+    # the same run without the evaluator first (it also takes the first
+    # use's costs off the timed run): the same losses and loss fetches
+    # are wanted of the run with it (its stats leave the card in the
+    # losses' copies)
+    tr0, events0, sec0, _, peak0 = run(None)
+    losses0 = [e.cost for e in events0
+               if isinstance(e, pt.train.EndIteration)]
+    fetches0 = tr0.host_fetches
+    del tr0, events0
+    gc.collect()                       # the peak below is the run's own
+    torch.cuda.empty_cache()
+    evaluator, ev = moe_evaluator(pt)
+    tr, events, sec, counts, peak = run(evaluator)
+    steps_m = [e for e in events if isinstance(e, pt.train.EndIteration)]
+    passes = [e for e in events if isinstance(e, pt.train.EndPass)]
+    losses = [e.cost for e in steps_m]
+    if len(losses) != steps or not all(math.isfinite(x) for x in losses) \
+            or not losses[-1] < losses[0]:
+        raise RuntimeError(f"moe train: losses {losses}")
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        if counts[name] != L * steps:
+            raise RuntimeError(f"moe train: {name} launched {counts[name]} "
+                               f"times, expected {L} x {steps}")
+    for e in steps_m:
+        m = e.metrics
+        if abs(m["classification_error"] + m["accuracy"] - 1) > 1e-12:
+            raise RuntimeError(f"moe train: step metrics {m}")
+    wrong = sum(w for w, _ in ev.seen)
+    total = sum(t for _, t in ev.seen)
+    pm = passes[0].metrics
+    if len(ev.seen) != steps or total != steps * batch["y"].size \
+            or pm["classification_error"] != wrong / total \
+            or pm["classification_error"] != \
+            steps_m[-1].metrics["classification_error"]:
+        raise RuntimeError(f"moe train: pass metrics {pm} against the "
+                           f"steps' {wrong} / {total} ({len(ev.seen)} "
+                           f"updates)")
+    fetches = tr.host_fetches
+    routing = moe_routing(torch, tr.model, torch.as_tensor(
+        batch["x"], device="cuda"))
+    if any(r["capacity"] != moe_capacity() for r in routing):
+        raise RuntimeError(f"moe train: capacities {routing}")
+    profile = profile_window(torch, lambda: tr.train(
+        lambda: iter([batch] * MOE_K), log_period=0),
+        f"{MOE_K} MoE training steps (one call)",
+        kernels=("flash_fwd", "flash_bwd", "gemm", "Gemm"))
+    del tr
+    torch.cuda.empty_cache()
+    if fetches0 != fetches or losses0 != losses:
+        raise RuntimeError(f"moe train: without the evaluator fetches "
+                           f"{fetches0} (with: {fetches}), losses "
+                           f"{losses0} against {losses}")
+    stats = {"config": "prep_transformer with moe_experts=8 (E 8, top-1, "
+                       "capacity factor 1.25), batch 8 x 2048, adam(1e-4), "
+                       "bfloat16_compute, loss mean CE + 0.01 aux, "
+                       f"steps_per_call={MOE_K}, pipeline_depth={MOE_W}",
+             "card": card, "steps": steps, "losses": losses,
+             "ms_per_step": 1e3 * sec / steps,
+             "ms_per_step_without_evaluator_first": 1e3 * sec0 / steps,
+             "tokens_per_s": steps * batch["y"].size / sec,
+             "peak_mem_gib": peak / 2 ** 30,
+             "peak_mem_gib_without_evaluator_first": peak0 / 2 ** 30,
+             "launches": counts,
+             "host_fetches": fetches, "pass_metrics": pm,
+             "step_metrics": [e.metrics for e in steps_m],
+             "routing_after": routing, "profile": profile}
+    log("moe train", json.dumps(stats))
+    return counts
+
+
+def phase_moe_remat(torch, pt, ca, card, start, batch):
+    """Phase 13 (b): one forward and backward from the same weights at
+    remat None, "dots" and "full": losses and gradients against the plain
+    step, the flash launches the recompute implies, and each peak."""
+    cfg = MOE_CFG
+    V, L = cfg["vocab"], cfg["num_layers"]
+    x = torch.as_tensor(batch["x"], device="cuda")
+    y = torch.as_tensor(batch["y"], device="cuda").reshape(-1)
+    out, paths = {}, {}
+    ref = None
+    for remat in (None, "dots", "full"):
+        model = pt.TransformerLM(**cfg, remat=remat, device="cuda")
+        model.load_state_dict(start)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        ca.reset_launch_counts()
+        t0 = time.perf_counter()
+        with pt.use_policy(pt.bfloat16_compute):
+            logits, aux = model(x, train=True, return_aux=True)
+            loss = pt.softmax_cross_entropy(logits.reshape(-1, V), y).mean() \
+                + 0.01 * aux
+            del logits
+            loss.backward()
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        counts = ca.launch_counts()
+        paths[str(remat)] = counts
+        grads = {n: p.grad for n, p in model.named_parameters()}
+        row = {"loss": loss.item(), "ms": 1e3 * sec,
+               "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+               "peak_above_weights_gib":
+                   (torch.cuda.max_memory_allocated() - base) / 2 ** 30,
+               "launches": {k: v for k, v in counts.items() if v}}
+        want_fwd = 2 * L if remat == "full" else L
+        if counts["flash_fwd"] != want_fwd or counts["flash_bwd_dq"] != L \
+                or counts["flash_bwd_dkv"] != L:
+            raise RuntimeError(f"moe remat {remat}: launches {counts}")
+        if ref is None:
+            ref = (loss.item(), grads)
+        else:
+            worst, bit_equal = ("", 0.0), loss.item() == ref[0]
+            for n, want in ref[1].items():
+                rel = ((grads[n] - want).abs().max()
+                       / want.abs().max().clamp_min(1e-30)).item()
+                bit_equal = bit_equal and torch.equal(grads[n], want)
+                if not rel <= worst[1]:
+                    worst = (n, rel)
+            row.update(worst_param=worst[0], worst_rel_err=worst[1],
+                       bit_equal=bit_equal,
+                       loss_diff=abs(loss.item() - ref[0]))
+            if not worst[1] <= REMAT_TOL or \
+                    not abs(loss.item() - ref[0]) <= REMAT_TOL * abs(ref[0]):
+                raise RuntimeError(f"moe remat {remat}: {row}")
+            del grads
+        out[str(remat)] = row
+        del model, loss
+    if not out["full"]["peak_gib"] < out["None"]["peak_gib"]:
+        raise RuntimeError(f"moe remat: full's peak is not below the plain "
+                           f"one: {out}")
+    log("moe remat", json.dumps({"card": card, "runs": out}))
+    del ref
+    torch.cuda.empty_cache()
+    total = {}
+    for c in paths.values():
+        for k, v in c.items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
+def card_cpu_cases(torch, np):
+    """(name, fn, float args, other args) for every activation and cost
+    of the port, with inputs on the host."""
+    from paddle_tpu_torch.nn import activations as A
+    from paddle_tpu_torch.nn import costs as C
+    r = np.random.RandomState(13)
+
+    def f(*shape, scale=1.0, pos=False):
+        a = r.rand(*shape) * 3 + 0.2 if pos else r.randn(*shape) * scale
+        return torch.from_numpy(a.astype(np.float32))
+
+    def i(hi, *shape):
+        return torch.from_numpy(r.randint(0, hi, shape).astype(np.int64))
+
+    B, N = 64, 32
+    cases = [(f"act {n}", fn, [f(B, N, pos=n in ("log", "sqrt",
+                                                  "reciprocal"),
+                                 scale=20.0 if n == "brelu" else 3.0)], {})
+             for n, fn in sorted(A.ACTIVATIONS.items())]
+    cases.append(("act sequence_softmax", A.sequence_softmax, [f(B, N)],
+                  {"lengths": i(N + 1, B)}))
+    p = torch.softmax(f(B, N), -1)
+    codes, signs = C.build_hsigmoid_codes(i(100, B), 100)
+    gold = i(N, B)
+    gold[::5] = -1
+    cases += [
+        ("cost cross_entropy_with_probs", C.cross_entropy_with_probs,
+         [f(B, N, scale=2.0)], {"target_probs": p}),
+        ("cost soft_binary_ce", C.soft_binary_ce, [f(B, N, pos=True) / 4],
+         {"targets": f(B, N, pos=True) / 4}),
+        ("cost binary_logistic", C.binary_logistic, [f(B, scale=4.0)],
+         {"labels": i(2, B)}),
+        ("cost multi_binary_ce", C.multi_binary_ce, [f(B, N, scale=3.0)],
+         {"targets": i(2, B, N).float()}),
+        ("cost mse", C.mse, [f(B, N), f(B, N)], {"weight": f(B, pos=True)}),
+        ("cost smooth_l1_elementwise", C.smooth_l1_elementwise,
+         [f(B, N, scale=2.0), f(B, N)], {"delta": 0.7}),
+        ("cost smooth_l1", C.smooth_l1, [f(B, N, scale=2.0), f(B, N)], {}),
+        ("cost huber_regression", C.huber_regression,
+         [f(B, N, scale=2.0), f(B, N)], {}),
+        ("cost huber_classification", C.huber_classification,
+         [f(B, 1, scale=2.0)], {"label01": i(2, B).float()}),
+        ("cost hinge", C.hinge, [f(B, 1, scale=2.0)],
+         {"label01": i(2, B).float()}),
+        ("cost rank_cost", C.rank_cost, [f(B, 1), f(B, 1)],
+         {"label": f(B, pos=True) / 4}),
+        ("cost lambda_rank_ndcg", C.lambda_rank_ndcg, [f(8, N)],
+         {"relevance": i(4, 8, N).float(), "lengths": i(N + 1, 8)}),
+        ("cost sum_cost", C.sum_cost, [f(B, N)], {}),
+        ("cost nce_loss", C.nce_loss, [f(B, 16), f(100, 16), f(100)],
+         {"labels": i(100, B), "noise_ids": i(100, B, 8),
+          "noise_logprob": torch.log(f(100, pos=True))}),
+        ("cost hsigmoid_loss", C.hsigmoid_loss, [f(B, 16), f(100, 16),
+                                                 f(100)],
+         {"labels": i(100, B), "codes": codes, "signs": signs}),
+        ("cost cross_entropy_over_beam", C.cross_entropy_over_beam,
+         [f(B, N, scale=2.0), f(B)], {"gold_idx": gold}),
+    ]
+    return cases
+
+
+# the float inputs' keyword names of the costs that take them by keyword
+CARD_CPU_KW = {"nce_loss": ("hidden", "table_w", "table_b"),
+               "hsigmoid_loss": ("hidden", "node_w", "node_b"),
+               "cross_entropy_over_beam": ("path_scores", "gold_score")}
+
+
+def phase_costs_activations(torch, np, card):
+    """Phase 13 (d): every activation and cost on CUDA tensors against the
+    same call on CPU copies, values and gradients."""
+    rows, worst = {}, 0.0
+    for name, fn, floats, other in card_cpu_cases(torch, np):
+        res = {}
+        for dev in ("cpu", "cuda"):
+            xs = [t.detach().to(dev).requires_grad_(True) for t in floats]
+            kw = {k: v.to(dev) if isinstance(v, torch.Tensor) else v
+                  for k, v in other.items()}
+            short = name.split()[-1]
+            if short in CARD_CPU_KW:
+                kw.update(zip(CARD_CPU_KW[short], xs))
+                y = fn(**kw)
+            else:
+                y = fn(*xs, **kw)
+            g = torch.linspace(-1, 1, y.numel(), device=dev).reshape(y.shape)
+            (y * g).sum().backward()
+            res[dev] = [y.detach().cpu()] + [x.grad.cpu() for x in xs]
+        errs = []
+        for got, want in zip(res["cuda"], res["cpu"]):
+            lim = CARD_CPU_TOL * max(1.0, want.abs().max().item())
+            err = (got - want).abs().max().item()
+            errs.append(err / lim)
+            if not err <= lim:
+                raise RuntimeError(f"{name}: card against CPU {err} "
+                                   f"(limit {lim})")
+        rows[name] = max(errs)
+        worst = max(worst, max(errs))
+    log("costs and activations", json.dumps(
+        {"card": card, "functions": len(rows),
+         "worst_share_of_limit": worst, "share_of_limit": rows}))
+
+
+def serving_summary(row):
+    """A graph serving row's run and steady tick numbers."""
+    g, s = row["graph"], row["steady_graph"]
+    return {"run_ms_per_tick": g["ms_per_tick"],
+            "run_tokens_per_s": g["decode_tokens_per_s"],
+            "ttft_p50_ms": g["ttft_p50_ms"],
+            "steady_ms_per_tick": s["ms_per_tick"],
+            "steady_busy_ms_per_tick": s["device_busy_ms_per_tick"]}
+
+
+def phase_moe(torch, np, pt, ca, card):
+    """Phase 13: the MoE LM, remat and evaluators. Returns the launch
+    counts of (a), (b) and (c)."""
+    cfg = MOE_CFG
+    V, T = cfg["vocab"], cfg["max_len"]
+    gen = torch.Generator(device="cuda").manual_seed(2020)
+    start = {k: v.clone() for k, v in pt.TransformerLM(
+        **cfg, device="cuda", generator=gen).state_dict().items()}
+    inp, tgt, loss_floor = conflicting_pairs(np, MOE_BATCH, T, V)
+    # the targets are the next-token labels the evaluator scores
+    batch = {"x": inp, "y": tgt, "label": tgt}
+    log(f"moe: C = {moe_capacity()} slots an expert, loss floor "
+        f"{loss_floor}")
+    train_counts = phase_moe_train(torch, np, pt, ca, card, start, batch)
+    remat_counts = phase_moe_remat(torch, pt, ca, card, start, batch)
+    del start
+    torch.cuda.empty_cache()
+    # (c) serving the MoE model through the CUDA graphs
+    scfg = dict(vocab=32000, dim=512, num_layers=6, num_heads=8,
+                ffn_hidden=2048, max_len=1024, use_flash=True,
+                moe_experts=8)
+    rng = np.random.RandomState(0)
+    lens = rng.randint(16, 513, size=16)
+    prompts = [[int(t) for t in rng.randint(0, V, n)] for n in lens]
+    shared = [int(t) for t in rng.randint(0, V, 64)]
+    for i in (2, 3):                   # as phase 3's requests
+        prompts[i] = shared + prompts[i][:max(16, len(prompts[i]) - 64)]
+    rows = []
+    model = pt.TransformerLM(**scfg, device="cuda",
+                             generator=torch.Generator(
+                                 device="cuda").manual_seed(1234))
+    serve_counts = phase_graph_serving(
+        torch, np, pt, ca, model, prompts, card,
+        [GRAPH_MODES[0], GRAPH_MODES[3]], " moe", rows)
+    del model
+    torch.cuda.empty_cache()
+    phase_costs_activations(torch, np, card)
+    return {"moe training bf16": train_counts, "moe remat bf16": remat_counts,
+            "moe graph serving": serve_counts}, rows
 
 
 def resnet50_dw_shapes(batch, image):
@@ -3841,8 +4273,9 @@ def main():
     span_counts = phase_span_serving(torch, np, pt, ca, model, ref, prompts,
                                      tokens, card)
     lap("span serving")
+    dense_rows = []
     graph_counts = phase_graph_serving(torch, np, pt, ca, model, prompts,
-                                       card)
+                                       card, rows=dense_rows)
     lap("graph serving")
     with pt.use_policy(pt.bfloat16_compute):
         # greedy, and both bf16-pool modes, under the policy
@@ -3874,6 +4307,14 @@ def main():
     resnet_bf16_counts = phase_resnet(torch, np, pt, cc, card,
                                       pt.bfloat16_compute)
     lap("resnet bf16")
+    # last: its profiled windows (a training call's, the serving ticks')
+    # are followed by no window that counts records (the kernel phases'
+    # device_ms), which a large window before them has made drop records
+    moe_paths, moe_rows = phase_moe(torch, np, pt, ca, card)
+    log("moe serving against dense", json.dumps({
+        m["mode"]: {"moe": serving_summary(m), "dense": serving_summary(d)}
+        for m in moe_rows for d in dense_rows if d["mode"] == m["mode"]}))
+    lap("moe")
     paths = {"serving": serve_counts, "span serving": span_counts,
              "graph serving": graph_counts,
              "graph serving bf16": graph_bf16_counts,
@@ -3884,7 +4325,7 @@ def main():
              "resnet training bf16": resnet_bf16_counts,
              "fused_ln_matmul": ln_counts,
              "flash_attention bf16": flash16_counts,
-             "fused_ln_matmul bf16": ln16_counts}
+             "fused_ln_matmul bf16": ln16_counts, **moe_paths}
     counts = {}
     for path in paths.values():
         for n, c in path.items():

@@ -1,11 +1,12 @@
 """paddle_tpu_torch — the PyTorch and CUDA port of paddle_tpu for NVIDIA
 Hopper. It imports torch and numpy only; the JAX package ``paddle_tpu``
 stays beside it as the reference the port is tested against. It serves a
-``TransformerLM`` (``DecodeEngine``) and trains one or a ResNet
-(``Trainer``: grouped steps, gradient accumulation, the host pipeline,
-checkpoints in the JAX format that restore in either framework, resume,
-faults and the restart supervisor ``run_resilient``); evaluators,
-observability and multi-GPU training are not ported yet.
+``TransformerLM``, dense or mixture-of-experts (``DecodeEngine``), and
+trains one (with ``remat``) or a ResNet (``Trainer``: grouped steps,
+gradient accumulation, the host pipeline, evaluators, checkpoints in the
+JAX format that restore in either framework, resume, faults and the
+restart supervisor ``run_resilient``); observability and multi-GPU
+training are not ported yet.
 
 Entry points run on the card (``device="cuda"``) unless the caller passes
 ``device="cpu"``, where every kernel runs its plain PyTorch version.
@@ -24,13 +25,14 @@ from .optim import (EMA, adadelta, adagrad, adam, adamax, chain,
                     sgd, static_pruning, weight_decay)
 from .serve import (ContinuousBatchingScheduler, DecodeEngine, Request,
                     SamplingConfig, blobs_to_pages, pages_to_blobs)
-from .train import (FaultSchedule, Preempted, Trainer, run_resilient)
+from .train import (EvaluatorSet, FaultSchedule, Preempted, Trainer,
+                    run_resilient)
 from .utils.bridge import (checkpoint_tree, export_jax_opt_state,
                            export_jax_params, jax_root, load_checkpoint_tree,
                            load_jax_opt_state, load_jax_params)
 
 __all__ = ["ContinuousBatchingScheduler", "DecodeEngine", "EMA",
-           "FaultSchedule", "Policy", "Preempted", "Request", "ResNet",
+           "EvaluatorSet", "FaultSchedule", "Policy", "Preempted", "Request", "ResNet",
            "SamplingConfig", "Trainer", "TransformerBlock", "TransformerLM",
            "adadelta", "adagrad", "adam", "adamax", "bfloat16_compute",
            "blobs_to_pages", "canonicalize", "chain", "checkpoint_tree",

@@ -21,6 +21,7 @@ start their running max at ``-1e30``.
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 from torch import nn
@@ -28,7 +29,7 @@ from torch import nn
 from ..core.dtypes import current_policy
 from .cuda_attention import (flash_attention, paged_decode_attention,
                              paged_span_attention)
-from .layers import xavier_uniform_
+from ..core.initializers import xavier_uniform_
 from .policy_dot import policy_dot
 
 __all__ = ["MultiHeadAttention"]
@@ -39,17 +40,23 @@ class MultiHeadAttention(nn.Module):
     packed-segment masking: the ``"xla"`` impl (materialized scores; any
     ``mask=``, cross-attention) or, with ``use_flash=True``, the
     ``"flash"`` impl (the fused kernel; ``causal=`` and ``segments=``
-    only). Parameters ``wq``/``wk``/``wv``/``wo`` are ``[in, out]``."""
+    only). Parameters ``wq``/``wk``/``wv``/``wo`` are ``[in, out]``.
+    ``head_dim`` (default ``dim // num_heads``) sets the width of each
+    head and so of the paged pools a serving engine builds; ``out_dim``
+    (default ``dim``) the output projection's width. The flash and paged
+    kernels take the head widths they take at the default (64, 128)."""
 
     def __init__(self, dim: int, num_heads: int, use_flash: bool = False,
-                 device=None, generator=None):
+                 head_dim: Optional[int] = None,
+                 out_dim: Optional[int] = None, device=None,
+                 generator=None):
         super().__init__()
         self.attention_impl = "flash" if use_flash else "xla"
         self.num_heads = num_heads
-        self.head_dim = dim // num_heads
+        self.head_dim = head_dim or dim // num_heads
         inner = num_heads * self.head_dim
         shapes = {"wq": (dim, inner), "wk": (dim, inner),
-                  "wv": (dim, inner), "wo": (inner, dim)}
+                  "wv": (dim, inner), "wo": (inner, out_dim or dim)}
         for name, shape in shapes.items():
             p = nn.Parameter(torch.empty(shape, device=device))
             xavier_uniform_(p, generator)

@@ -756,15 +756,25 @@ def flash_attention_bwd(q, k, v, segments, o, lse, do, causal: bool = False,
     return dq, dk, dv
 
 
+@torch.library.custom_op("paddle_tpu_torch::flash_fwd", mutates_args=())
+def flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 segments: Optional[torch.Tensor], causal: bool,
+                 scale: Optional[float]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`flash_attention_fwd` as a dispatcher op, so that
+    ``torch.utils.checkpoint``'s selective policies see it (the
+    transformer's ``remat="dots"`` keeps its outputs)."""
+    return flash_attention_fwd(q, k, v, segments, causal, scale)
+
+
 class FlashAttentionFunction(torch.autograd.Function):
-    """Flash attention under autograd: the forward saves ``q, k, v,
-    segments, O, LSE`` (as the JAX ``custom_vjp``'s ``_fwd`` does) and the
-    backward is :func:`flash_attention_bwd`. ``segments``, ``causal`` and
-    ``scale`` get no gradient."""
+    """Flash attention under autograd: the forward (:func:`flash_fwd_op`)
+    saves ``q, k, v, segments, O, LSE`` (as the JAX ``custom_vjp``'s
+    ``_fwd`` does) and the backward is :func:`flash_attention_bwd`.
+    ``segments``, ``causal`` and ``scale`` get no gradient."""
 
     @staticmethod
     def forward(ctx, q, k, v, segments, causal, scale):
-        o, lse = flash_attention_fwd(q, k, v, segments, causal, scale)
+        o, lse = flash_fwd_op(q, k, v, segments, causal, scale)
         ctx.save_for_backward(q, k, v, segments, o, lse)
         ctx.causal, ctx.scale = causal, scale
         return o

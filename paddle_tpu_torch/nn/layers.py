@@ -7,10 +7,10 @@ Parameters keep the JAX package's names and layouts (``Linear.w`` is
 cross from a JAX checkpoint by path name with no transposes
 (``utils/bridge.py``). Images are NHWC at every module's interface, as in
 JAX; a convolution hands cuDNN the NCHW view of the NHWC tensor, which is
-channels-last, so nothing is copied. Initializers follow
-``paddle_tpu/core/initializers.py`` in distribution; they draw from an
-explicit :class:`torch.Generator`, so the values differ from JAX's for
-the same seed.
+channels-last, so nothing is copied. Initializers are
+``core/initializers.py``'s, which follow ``paddle_tpu/core/initializers.py``
+in distribution; they draw from an explicit :class:`torch.Generator`, so
+the values differ from JAX's for the same seed.
 """
 
 from __future__ import annotations
@@ -22,7 +22,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..core import initializers as I
 from ..core.dtypes import current_policy
+from ..core.initializers import (fan_in_uniform_, msra_normal_, normal_,
+                                 xavier_uniform_)
 from . import activations
 from .policy_dot import policy_dot
 
@@ -33,49 +36,29 @@ __all__ = ["Linear", "Embedding", "LayerNorm", "Dropout", "Conv2D",
 Pair = Union[int, Tuple[int, int]]
 
 
-def fan_in_uniform_(t: torch.Tensor, generator=None) -> torch.Tensor:
-    """U(-s, s) with s = 1/sqrt(fan_in) for ``[in, out]``
-    (``initializers.fan_in_uniform``)."""
-    s = 1.0 / math.sqrt(max(1, t.shape[0]))
-    with torch.no_grad():
-        return t.uniform_(-s, s, generator=generator)
-
-
-def xavier_uniform_(t: torch.Tensor, generator=None) -> torch.Tensor:
-    """U(-s, s) with s = sqrt(6 / (fan_in + fan_out)) for ``[in, out]``."""
-    s = math.sqrt(6.0 / (t.shape[0] + t.shape[1]))
-    with torch.no_grad():
-        return t.uniform_(-s, s, generator=generator)
-
-
-def normal_(t: torch.Tensor, std: float, generator=None) -> torch.Tensor:
-    with torch.no_grad():
-        return t.normal_(0.0, std, generator=generator)
-
-
-def msra_normal_(t: torch.Tensor, generator=None) -> torch.Tensor:
-    """N(0, 2 / fan_in) for an HWIO kernel, fan_in = kh * kw * cin
-    (``initializers.msra_normal``)."""
-    fan_in = t.shape[-2] * math.prod(t.shape[:-2])
-    return normal_(t, math.sqrt(2.0 / max(1, fan_in)), generator)
-
-
 class Linear(nn.Module):
     """``act(x @ w + b)`` with ``w`` ``[in, out]``; the product runs in
     the policy's compute dtype and is returned in its accumulate dtype
-    (:func:`~.policy_dot.policy_dot`), and the f32 bias is added there."""
+    (:func:`~.policy_dot.policy_dot`), and the f32 bias is added there.
+    ``use_bias=False`` leaves out ``b`` (no parameter, as the JAX tree has
+    none); ``w_init``/``b_init`` are :mod:`~..core.initializers` fills."""
 
     def __init__(self, in_features: int, features: int, act="",
-                 device=None, generator=None):
+                 use_bias: bool = True, w_init=I.fan_in_uniform,
+                 b_init=I.zeros, device=None, generator=None):
         super().__init__()
         self.act = activations.get(act)
         self.w = nn.Parameter(torch.empty(in_features, features,
                                           device=device))
-        fan_in_uniform_(self.w, generator)
-        self.b = nn.Parameter(torch.zeros(features, device=device))
+        w_init(self.w, generator)
+        self.b = None
+        if use_bias:
+            self.b = nn.Parameter(torch.empty(features, device=device))
+            b_init(self.b, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.act(policy_dot(x, self.w) + self.b)
+        y = policy_dot(x, self.w)
+        return self.act(y if self.b is None else y + self.b)
 
 
 class Embedding(nn.Module):

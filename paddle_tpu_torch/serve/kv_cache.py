@@ -310,6 +310,11 @@ class BlockAllocator:
         """Free plus lazily reclaimable retained blocks."""
         return len(self._free) + len(self._retained)
 
+    def is_retained(self, block: int) -> bool:
+        """Whether ``block`` parks in the retained LRU (no owner, its
+        prefix registration kept)."""
+        return block in self._retained
+
     def ref_count(self, block: int) -> int:
         return self._rc.get(block, 0)
 
@@ -390,6 +395,10 @@ class PrefixCache:
         self._full: Dict[Tuple, int] = {}
         self._partial: Dict[Tuple, int] = {}
         self._by_block: Dict[int, List[Tuple[str, Tuple]]] = {}
+
+    def __len__(self) -> int:
+        """Registered entries: full-block chains plus partial tails."""
+        return len(self._full) + len(self._partial)
 
     @staticmethod
     def _chain(parent, chunk) -> Tuple:

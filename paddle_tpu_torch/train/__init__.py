@@ -1,4 +1,5 @@
-from . import checkpoint, events, faults, resilience
+from . import checkpoint, evaluators, events, faults, resilience
+from .evaluators import EvaluatorSet
 from .events import (BeginIteration, BeginPass, EndIteration, EndPass,
                      TestResult)
 from .faults import (FaultSchedule, InjectedCrash, InjectedFault,
@@ -8,8 +9,8 @@ from .resilience import (RunResult, SupervisorGaveUp, classify_failure,
 from .trainer import Trainer, TrainState
 
 __all__ = ["BeginIteration", "BeginPass", "EndIteration", "EndPass",
-           "FaultSchedule", "InjectedCrash", "InjectedFault",
+           "EvaluatorSet", "FaultSchedule", "InjectedCrash", "InjectedFault",
            "InjectedSaveError", "Preempted", "RunResult", "SupervisorGaveUp",
            "TestResult", "TrainState", "Trainer", "checkpoint",
-           "classify_failure", "events", "faults",
+           "classify_failure", "evaluators", "events", "faults",
            "install_preemption_handler", "resilience", "run_resilient"]

@@ -43,8 +43,17 @@ Ported from the JAX Trainer:
   before each step from ``(seed, step)``, under accumulation ``(seed,
   step, microbatch)``, so a resumed run draws the masks of the
   uninterrupted one. The masks differ from JAX's.
+- ``evaluator=`` (``train/evaluators.py``): each step computes
+  ``evaluator.batch_stats(outputs, batch)`` on the device, per
+  microbatch under ``grad_accum`` (stacked ``[M]``) and stacked ``[K]``
+  over a call's steps; a call's stats leave the card in the same
+  device-to-host copy as its losses, so ``host_fetches`` does not grow.
+  The host runs ``update`` per step (per microbatch), and ``result()``
+  goes into each ``EndIteration``'s metrics and the pass's metrics beside
+  ``mean_cost``; ``reset`` runs at each ``BeginPass``, and
+  :meth:`Trainer.evaluate` returns the evaluator's metrics.
 
-Still refused, with an error: ``evaluator``; ``telemetry``, ``tracer``,
+Still refused, with an error: ``telemetry``, ``tracer``,
 ``anomaly``, ``metrics`` and ``param_stats_period`` (observability is not
 ported); ``mesh``, ``param_sharding``, ``grad_sync`` and ``bucket_mb``
 (multi-GPU is not ported). ``donate`` is taken and does nothing: PyTorch
@@ -82,7 +91,6 @@ __all__ = ["Trainer", "TrainState"]
 _log = logging.getLogger("paddle_tpu_torch.trainer")
 
 _NOT_PORTED = {
-    "evaluator": "evaluators are not ported yet",
     "telemetry": "observability is not ported yet",
     "tracer": "observability is not ported yet",
     "anomaly": "observability is not ported yet",
@@ -120,6 +128,40 @@ def _batch_fingerprint(host_batch) -> int:
 def _batch_shapes(host_batch):
     """Leaf shapes of a host batch: a group's batches must stack."""
     return tuple(np.shape(leaf) for leaf in _leaves(host_batch))
+
+
+def _tree_map(fn, tree):
+    """``fn`` over the leaves of a nested dict (evaluator stats)."""
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _tree_stack(trees):
+    """Stack same-shaped nested dicts of tensors on a new leading axis."""
+    if isinstance(trees[0], dict):
+        return {k: _tree_stack([t[k] for t in trees]) for k in trees[0]}
+    return torch.stack(trees)
+
+
+def _host_copy(tree):
+    """A nested dict of device tensors on the host as numpy arrays, in ONE
+    device-to-host copy: every leaf's bytes are packed into one uint8
+    tensor on its device, copied, and cut back into arrays (16-bit floats
+    are widened to f32 first: numpy has no bf16)."""
+    leaves: List[torch.Tensor] = []
+    _tree_map(leaves.append, tree)
+    flat = [(t.float() if t.dtype in (torch.bfloat16, torch.float16)
+             else t).detach().reshape(-1) for t in leaves]
+    buf = torch.cat([t.view(torch.uint8) for t in flat]).cpu().numpy()
+    out, off = [], 0
+    for t, f in zip(leaves, flat):
+        dt = torch.empty(0, dtype=f.dtype).numpy().dtype
+        n = f.numel() * dt.itemsize
+        out.append(buf[off:off + n].copy().view(dt).reshape(tuple(t.shape)))
+        off += n
+    it = iter(out)
+    return _tree_map(lambda _: next(it), tree)
 
 
 def _seed_of(*path: int) -> int:
@@ -163,16 +205,18 @@ class Trainer:
       grad_accum: M host batches a step, the mean of their means.
       pipeline_depth: W calls in flight, the next group staged by a
         thread (``train/host_pipeline.py``); 1 is the serial loop.
+      evaluator: optional :class:`~paddle_tpu_torch.train.evaluators.
+        Evaluator` or ``EvaluatorSet`` (see the module docstring).
       faults: optional :class:`~paddle_tpu_torch.train.faults.FaultSchedule`.
       device: where batches go (default ``"cuda"``).
 
-    ``evaluator``, ``telemetry``, ``tracer``, ``anomaly``, ``metrics``,
+    ``telemetry``, ``tracer``, ``anomaly``, ``metrics``,
     ``param_stats_period``, ``mesh``, ``param_sharding``, ``grad_sync``
     and a ``bucket_mb`` other than its default raise
     ``NotImplementedError``.
 
-    ``host_fetches`` counts the device-to-host copies of losses: one a
-    call (a call is one step when K = 1).
+    ``host_fetches`` counts the device-to-host copies of losses (with the
+    evaluator's stats): one a call (a call is one step when K = 1).
     """
 
     def __init__(self, model: torch.nn.Module, loss_fn: Callable,
@@ -184,7 +228,7 @@ class Trainer:
                  grad_sync: Optional[str] = None, bucket_mb: float = 4.0,
                  pipeline_depth: int = 1, telemetry=None, tracer=None,
                  anomaly=None, faults=None, metrics=None, device="cuda"):
-        given = {"evaluator": evaluator, "telemetry": telemetry,
+        given = {"telemetry": telemetry,
                  "tracer": tracer, "anomaly": anomaly, "metrics": metrics,
                  "param_stats_period": param_stats_period, "mesh": mesh,
                  "param_sharding": param_sharding, "grad_sync": grad_sync}
@@ -203,6 +247,7 @@ class Trainer:
         self.loss_fn = loss_fn
         self.optimizer = optimizer
         self._forward = forward or self._default_forward
+        self.evaluator = evaluator
         self._nan_check = nan_check
         self.steps_per_call = int(steps_per_call)
         self.grad_accum = int(grad_accum)
@@ -301,37 +346,51 @@ class Trainer:
         for i, g in enumerate(self._dropout_generators()):
             g.manual_seed(_seed_of(*path, i))
 
-    def _loss(self, batch) -> torch.Tensor:
+    def _loss(self, batch):
+        """``(loss, stats)``: the batch's reduced loss and, with an
+        evaluator, its stats on the device (else None)."""
         out = self._forward(self.model, batch, True)
         per_ex = self.loss_fn(out, batch)
         w = batch.get("weight")
         if w is not None:
-            return (per_ex * w).sum() / w.sum().clamp_min(1e-9)
-        return per_ex.mean()
+            loss = (per_ex * w).sum() / w.sum().clamp_min(1e-9)
+        else:
+            loss = per_ex.mean()
+        return loss, self._batch_stats(out, batch)
 
-    def _opt_step(self, microbatches: List[Dict[str, torch.Tensor]]
-                  ) -> torch.Tensor:
+    def _batch_stats(self, out, batch):
+        if self.evaluator is None:
+            return None
+        with torch.no_grad():          # no graph through the stats
+            return self.evaluator.batch_stats(out, batch)
+
+    def _opt_step(self, microbatches: List[Dict[str, torch.Tensor]]):
         """One optimizer step over one batch, or the mean of the means of
-        several; returns the loss (not synchronised)."""
+        several; returns ``(loss, stats)`` (not synchronised): the
+        evaluator's stats of the batch, stacked ``[M]`` over several, or
+        None without an evaluator."""
         ts = self.train_state
         for p in ts.params.values():
             p.grad = None
         M = len(microbatches)
         if M == 1:
             self._seed_dropout(ts.step, None)
-            loss = self._loss(microbatches[0])
+            loss, stats = self._loss(microbatches[0])
             loss.backward()
             loss = loss.detach()
         else:
             # the gradients sum into .grad in microbatch order, as JAX's
             # accumulator does, then divide by M
             loss = torch.zeros((), dtype=torch.float32, device=self.device)
+            per_mb = []
             for i, mb in enumerate(microbatches):
                 self._seed_dropout(ts.step, i)
-                lm = self._loss(mb)
+                lm, st = self._loss(mb)
                 lm.backward()
                 loss = loss + lm.detach()
+                per_mb.append(st)
             loss = loss / M
+            stats = None if self.evaluator is None else _tree_stack(per_mb)
         grads = {n: (p.grad if p.grad is not None else torch.zeros_like(p))
                  for n, p in ts.params.items()}
         if M > 1:
@@ -339,17 +398,22 @@ class Trainer:
         ts.opt_state = self.optimizer.apply(grads, ts.opt_state, ts.params,
                                             ts.step)
         ts.step += 1
-        return loss
+        return loss, stats
 
     def step(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         """One optimizer step on a device batch; returns the loss (not
         yet synchronised)."""
-        return self._opt_step([batch])
+        return self._opt_step([batch])[0]
 
-    def _fetch(self, losses: torch.Tensor) -> np.ndarray:
-        """A call's losses on the host: one device-to-host copy."""
+    def _fetch(self, losses: torch.Tensor, stats=None):
+        """A call's losses, and the evaluator's stats when there are any,
+        on the host in one device-to-host copy: ``(losses, stats)`` as
+        numpy (stats None without them)."""
         self.host_fetches += 1
-        return losses.detach().cpu().numpy()
+        if stats is None:
+            return losses.detach().cpu().numpy(), None
+        host = _host_copy({"losses": losses, "stats": stats})
+        return host["losses"], host["stats"]
 
     # -- checkpoints and preemption -------------------------------------------
 
@@ -475,6 +539,8 @@ class Trainer:
         fused = self.steps_per_call > 1 or self.grad_accum > 1
         for pass_id in range(start_pass, num_passes):
             handler(ev.BeginPass(pass_id))
+            if self.evaluator is not None:
+                self.evaluator.reset()
             costs: List[float] = []
             pipe = None
             if fused and self.pipeline_depth > 1:
@@ -492,8 +558,10 @@ class Trainer:
             finally:
                 if pipe is not None:
                     pipe.close()
-            pass_metrics = {"mean_cost": float(np.mean(costs))
-                            if costs else 0.0}
+            pass_metrics = (self.evaluator.result()
+                            if self.evaluator is not None else {})
+            pass_metrics["mean_cost"] = float(np.mean(costs)) if costs \
+                else 0.0
             if test_reader is not None:
                 tc, tm = self.evaluate(test_reader)
                 pass_metrics.update({f"test_{k}": v for k, v in tm.items()})
@@ -567,12 +635,12 @@ class Trainer:
                     self._replay_plain(pending.pop(0), pass_id, handler,
                                        costs, log_period, checkpoint_dir,
                                        checkpoint_keep, save_fn)
-                loss = self.step(self._to_device(host_batch))
+                loss, stats = self._opt_step([self._to_device(host_batch)])
                 boundary = bool(saving_period and checkpoint_dir
                                 and (batch_id + 1) % saving_period == 0)
                 pending.append({
                     "batch_id": batch_id, "step": self.train_state.step,
-                    "loss": loss, "boundary": boundary,
+                    "loss": loss, "stats": stats, "boundary": boundary,
                     "crc": _batch_fingerprint(host_batch) if boundary
                     else None})
                 if boundary:
@@ -589,12 +657,14 @@ class Trainer:
                 continue
             # the serial plain step; _replay_plain mirrors its bookkeeping
             handler(ev.BeginIteration(pass_id, batch_id))
-            loss = self.step(self._to_device(host_batch))
-            cost = float(self._fetch(loss))
+            loss, stats = self._opt_step([self._to_device(host_batch)])
+            loss_np, stats_np = self._fetch(loss, stats)
+            cost = float(loss_np)
             if self._nan_check and not np.isfinite(cost):
                 self._raise_nonfinite(cost, pass_id, batch_id,
                                       self.train_state.step)
             costs.append(cost)
+            metrics = self._update_metrics([stats_np])
             self._log_cost(log_period, pass_id, batch_id, batch_id, cost)
             if saving_period and checkpoint_dir and \
                     (batch_id + 1) % saving_period == 0:
@@ -606,7 +676,7 @@ class Trainer:
                                         _batch_fingerprint(host_batch)}),
                         keep_last=checkpoint_keep)
             handler(ev.EndIteration(pass_id, batch_id, self.train_state.step,
-                                    cost, {}))
+                                    cost, metrics))
             if self.faults is not None:
                 self._fire_step_faults(self.train_state.step)
             self._maybe_stop(None, pending, pass_id, batch_id + 1, handler,
@@ -645,8 +715,10 @@ class Trainer:
         ``nan_check`` is off on this path."""
         batch_id = entry["batch_id"]
         handler(ev.BeginIteration(pass_id, batch_id))
-        cost = float(self._fetch(entry["loss"]))
+        loss_np, stats_np = self._fetch(entry["loss"], entry["stats"])
+        cost = float(loss_np)
         costs.append(cost)
+        metrics = self._update_metrics([stats_np])
         self._log_cost(log_period, pass_id, batch_id, batch_id, cost)
         if entry["boundary"]:
             # the boundary drained everything right after this step
@@ -654,7 +726,8 @@ class Trainer:
                     self._tree({"pass": pass_id, "next_batch": batch_id + 1,
                                 "completed": 0, "batch_crc": entry["crc"]}),
                     keep_last=checkpoint_keep)
-        handler(ev.EndIteration(pass_id, batch_id, entry["step"], cost, {}))
+        handler(ev.EndIteration(pass_id, batch_id, entry["step"], cost,
+                                metrics))
         if self.faults is not None:
             self._fire_step_faults(entry["step"])
 
@@ -674,14 +747,19 @@ class Trainer:
             done += take
         return plans
 
-    def _call(self, batches: Dict[str, torch.Tensor]) -> torch.Tensor:
+    def _call(self, batches: Dict[str, torch.Tensor]):
         """One call: K optimizer steps over ``[K, M, ...]`` batches;
-        returns the K losses stacked on the device, unfetched."""
+        returns the K losses stacked on the device, unfetched, and the
+        evaluator's stats stacked ``[K]`` (``[K, M]`` under accumulation;
+        None without an evaluator)."""
         k, m = next(iter(batches.values())).shape[:2]
-        losses = [self._opt_step([{key: t[i, j] for key, t in batches.items()}
-                                  for j in range(m)])
-                  for i in range(k)]
-        return torch.stack(losses)
+        out = [self._opt_step([{key: t[i, j] for key, t in batches.items()}
+                               for j in range(m)])
+               for i in range(k)]
+        losses = torch.stack([loss for loss, _ in out])
+        if self.evaluator is None:
+            return losses, None
+        return losses, _tree_stack([st for _, st in out])
 
     def _submit_group(self, pipe, buf, buf_start, pass_id, handler, costs,
                       log_period, saving_period, checkpoint_dir,
@@ -693,8 +771,8 @@ class Trainer:
         for off, take, m_eff in self._plan_group(len(buf), self.grad_accum):
             batches, _ = self._stage(buf[off:off + take], take // m_eff,
                                      m_eff)
-            losses = self._call(batches)
-            results.append((buf_start + off, m_eff, losses,
+            losses, stats = self._call(batches)
+            results.append((buf_start + off, m_eff, losses, stats,
                             self.train_state.step))
         self._finalize_group(pass_id, buf_start, len(buf), results, handler,
                              costs, log_period, saving_period,
@@ -740,29 +818,31 @@ class Trainer:
             cur.wait_event(unit.event)
             for t in unit.batches.values():
                 t.record_stream(cur)
-        losses = self._call(unit.batches)
-        return (buf_start + unit.offset, unit.m_eff, losses,
+        losses, stats = self._call(unit.batches)
+        return (buf_start + unit.offset, unit.m_eff, losses, stats,
                 self.train_state.step, unit)
 
     def _finalize_group(self, pass_id, buf_start, buf_len, results, handler,
                         costs, log_period, saving_period, checkpoint_dir,
                         checkpoint_keep, save_fn, crc_fn):
         """The bottom half of a group, shared by the serial loop and the
-        pipeline's drain: fetch each call's losses (one copy a call), the
-        boundary checkpoint, then the events in order. With nan_check on,
-        a non-finite loss anywhere in the group skips the save."""
-        fetched = [(start, m_eff, self._fetch(losses), step_after)
-                   for start, m_eff, losses, step_after, *_ in results]
+        pipeline's drain: fetch each call's losses and stats (one copy a
+        call), the boundary checkpoint, then the events in order. With
+        nan_check on, a non-finite loss anywhere in the group skips the
+        save."""
+        fetched = [(start, m_eff, *self._fetch(losses, stats), step_after)
+                   for start, m_eff, losses, stats, step_after, *_
+                   in results]
         end = buf_start + buf_len
         group_finite = (not self._nan_check) or all(
-            np.isfinite(losses).all() for _, _, losses, _ in fetched)
+            np.isfinite(losses).all() for _, _, losses, _, _ in fetched)
         if saving_period and checkpoint_dir and group_finite and \
                 (end // saving_period) > (buf_start // saving_period):
             save_fn(checkpoint_dir, pass_id,
                     self._tree({"pass": pass_id, "next_batch": end,
                                 "completed": 0, "batch_crc": crc_fn()}),
                     keep_last=checkpoint_keep)
-        for start, m_eff, losses, step_after in fetched:
+        for start, m_eff, losses, stats, step_after in fetched:
             K = int(losses.shape[0])
             for k in range(K):
                 first_id = start + k * m_eff
@@ -773,8 +853,12 @@ class Trainer:
                 if self._nan_check and not np.isfinite(cost):
                     self._raise_nonfinite(cost, pass_id, last_id, step)
                 costs.append(cost)
+                metrics = {} if stats is None else self._update_metrics(
+                    [_tree_map(lambda x: x[k] if m_eff == 1 else x[k][m],
+                               stats) for m in range(m_eff)])
                 self._log_cost(log_period, pass_id, first_id, last_id, cost)
-                handler(ev.EndIteration(pass_id, last_id, step, cost, {}))
+                handler(ev.EndIteration(pass_id, last_id, step, cost,
+                                        metrics))
                 if self.faults is not None:
                     self._fire_step_faults(step)
 
@@ -784,13 +868,30 @@ class Trainer:
     def evaluate(self, reader: Callable) -> Tuple[float, Dict[str, float]]:
         """Mean over batches of each batch's mean loss, with ``train``
         false (BatchNorm on its running statistics, which stay as they
-        are); no metrics yet (no evaluators are ported)."""
+        are), and the evaluator's metrics over the batches (it is reset
+        first; ``{}`` without one)."""
+        if self.evaluator is not None:
+            self.evaluator.reset()
         costs = []
         for host_batch in reader():
             batch = self._to_device(host_batch)
             out = self._forward(self.model, batch, False)
             costs.append(float(self.loss_fn(out, batch).float().mean()))
-        return (float(np.mean(costs)) if costs else 0.0), {}
+            if self.evaluator is not None:
+                self.evaluator.update(_host_copy(
+                    self._batch_stats(out, batch)))
+        metrics = self.evaluator.result() if self.evaluator is not None \
+            else {}
+        return (float(np.mean(costs)) if costs else 0.0), metrics
+
+    def _update_metrics(self, stats_list) -> Dict[str, Any]:
+        """The host half of a step: ``update`` with each microbatch's
+        stats, then ``result()`` (``{}`` without an evaluator)."""
+        if self.evaluator is None:
+            return {}
+        for st in stats_list:
+            self.evaluator.update(st)
+        return self.evaluator.result()
 
     def save(self, checkpoint_dir: str, pass_id: int) -> str:
         """Write the training state to ``checkpoint_dir/pass-NNNNN/`` in the

@@ -1940,8 +1940,9 @@ def test_stager_copies_on_its_stream_from_pinned_buffers(gen):
         want = np.stack([b[key] for b in batches[:4]]).reshape(t.shape)
         assert np.array_equal(t.cpu().numpy(), want)
     # the call waits on the copy's event and marks its tensors
-    _, m_eff, losses, step, _ = tr._run_staged(0, unit)
+    _, m_eff, losses, stats, step, _ = tr._run_staged(0, unit)
     assert m_eff == 2 and step == 2 and losses.shape == (2,)
+    assert stats is None                     # no evaluator
     assert torch.isfinite(losses).all()
 
 

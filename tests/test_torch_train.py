@@ -38,6 +38,7 @@ from paddle_tpu.train.trainer import Trainer as JTrainer
 import paddle_tpu_torch as pt
 from paddle_tpu_torch.nn import cuda_attention as ca
 from paddle_tpu_torch.train import events as tev
+from paddle_tpu_torch.train.evaluators import ClassificationError
 
 V, DIM, LAYERS, HEADS, FFN, T, BS = 97, 32, 2, 4, 64, 32, 4
 KW = dict(vocab=V, dim=DIM, num_layers=LAYERS, num_heads=HEADS,
@@ -281,11 +282,11 @@ def test_opt_state_bridge_refuses_a_mismatch(adam_runs):
 
 def test_trainer_refuses_knobs_it_does_not_take():
     """The JAX Trainer's arguments whose modules are not ported yet raise
-    ``NotImplementedError`` naming the argument (evaluators;
-    observability; multi-GPU); ``donate`` is taken and does nothing;
-    ``train`` before ``init`` raises."""
+    ``NotImplementedError`` naming the argument (observability;
+    multi-GPU); ``evaluator`` (ported) is taken; ``donate`` is taken and
+    does nothing; ``train`` before ``init`` raises."""
     tm = pt.TransformerLM(**KW, device="cpu")
-    for knob, value in (("evaluator", object()), ("telemetry", object()),
+    for knob, value in (("telemetry", object()),
                         ("tracer", object()), ("anomaly", object()),
                         ("metrics", object()), ("param_stats_period", 2),
                         ("mesh", object()), ("param_sharding", object()),
@@ -299,6 +300,9 @@ def test_trainer_refuses_knobs_it_does_not_take():
     with pytest.raises(TypeError):
         pt.Trainer(tm, _tloss, pt.sgd(0.1), device="cpu", checkpoint_dir=2)
     pt.Trainer(tm, _tloss, pt.sgd(0.1), device="cpu", donate=False)
+    ev = ClassificationError()
+    assert pt.Trainer(tm, _tloss, pt.sgd(0.1), device="cpu",
+                      evaluator=ev).evaluator is ev
     tr = pt.Trainer(tm, _tloss, pt.sgd(0.1), device="cpu")
     with pytest.raises(RuntimeError, match="init"):
         tr.train(lambda: iter(BATCHES))
