@@ -251,6 +251,30 @@ Phases (any failure exits non-zero before the final line):
     and cost of the port on CUDA tensors against the same call on CPU
     copies, values and gradients within 1e-5 of max(1, max |cpu|).
 
+14. observability (before phase 13): the ``obs`` package through the
+    ``Trainer`` (the ``prep_transformer`` run of phase 12, 8 steps, serial
+    and at ``steps_per_call=8, pipeline_depth=3``) and the engine and
+    scheduler (phase 3's 16 requests through the CUDA graphs, greedy and
+    ``speculative=4, prefill_chunk=128``), each with every hook off and
+    on, in off-on-on-off turns (``Telemetry`` with health, memory and
+    fence, a ``Tracer``,
+    an ``AnomalyDetector``, a ``MetricsHub``; for serving a router lane
+    and an ``SLOMonitor``): losses and tokens bit-equal, launch counts,
+    replays and loss fetches equal; one step record a call with the JAX
+    Trainer's keys, ``bytes_in_use`` within 1 MiB of
+    ``torch.cuda.memory_allocated()``, ``grad_norm`` within 1e-5 of the
+    gradients' own norm, ``est_mfu_pct`` set, the Chrome trace's
+    ``dispatch`` spans paired with the steps, ``python -m
+    paddle_tpu_torch.obs.report`` on the JSONL exiting 0; a NaN weight
+    trips ``nonfinite`` and leaves one anomaly bundle whose armed
+    ``torch.profiler`` capture holds CUDA kernel rows; one
+    ``decode_tick`` record a tick whose tokens sum to those generated,
+    24,576 KV bytes a token, one ``request`` record a request with the
+    TTFT p50 of the requests' own stamps, a merged trace whose request
+    flows are connected and whose lanes are monotonic. Logs each leg's ms
+    a step or tick of every run with hooks off and on, the ms the hooks
+    add and the phase's seconds.
+
 Each serving and training path runs with the launch counts set to 0 just
 before it and read just after; a kernel's ``launches`` in the final list
 is the sum over those paths.
@@ -3964,7 +3988,8 @@ def flash_bf16_views(torch, ca, gen):
     failing it, the LSE within LSE_TOL, a bit-equal rerun; timed. Then
     the backward on those views and a dO view: ``flash_bwd_dkv_bf16`` and
     ``flash_bwd_dq_bf16`` by ``mma.sync`` too, dq, dk and dv under the
-    gate with the control failing it, a bit-equal rerun; timed."""
+    gate with the control failing it, a bit-equal rerun; timed whole and
+    kernel by kernel."""
     bf = torch.bfloat16
     label, shape, causal, seg_rows = FLASH_BF16_CASES[2]
     label += " on views 4 bytes off 16"
@@ -4021,6 +4046,18 @@ def flash_bf16_views(torch, ca, gen):
     brow["max_abs_err"] = max(brow[x]["max_abs_err"]
                               for x in ("dq", "dk", "dv"))
     brow["kernel_ms"] = time_ms(torch, bwd)
+    # each kernel of the backward alone on the views, as
+    # flash_attention_bwd launches it (dk/dv storing ds where the plan
+    # stores it, dq reading it back)
+    delta = ca.flash_bwd_delta(o, do)
+    B, H, T, D = shape
+    ds = torch.empty((B * H, T, T), dtype=bf, device="cuda") \
+        if ca.flash_bwd_plan(B, H, T, D, causal, bf).stored_ds else None
+    brow["dkv_kernel_ms"] = time_ms(torch, lambda: ca.flash_bwd_dkv(
+        q, k, v, seg, do, lse, delta, causal, None, ds))
+    brow["dq_kernel_ms"] = time_ms(torch, lambda: ca.flash_bwd_dq(
+        q, k, v, seg, do, lse, delta, causal, None, ds))
+    brow["stored_ds"] = ds is not None
     log("flash bf16 backward views", json.dumps(brow))
     return {("flash_fwd_bf16", label): row,
             ("flash_attention_bwd bf16", label): brow}
@@ -4196,6 +4233,387 @@ def phase_ln_bf16_kernels(torch, F, fl, gen, mma_rate):
     return rows, counts
 
 
+# -- phase 14: observability ------------------------------------------------
+
+OBS_STEPS = 8
+# The step record's keys as the JAX Trainer's telemetry writes them
+# (paddle_tpu/obs/telemetry.py emit_step): the fixed schema, and the rate
+# keys a fenced (not pipelined, not profiled) record adds.
+OBS_STEP_KEYS = {"kind", "ts", "pass", "step", "k_steps", "m", "loss",
+                 "profiled", "host_stack_ms", "shard_ms", "dispatch_ms",
+                 "device_ms", "replay_ms", "compile_count", "retrace_count",
+                 "bytes_in_use", "peak_bytes", "grad_norm", "param_norm",
+                 "update_norm", "update_ratio", "nonfinite_count",
+                 "stage_ms", "drain_wait_ms", "overlap_frac", "fenced"}
+OBS_RATE_KEYS = {"tokens_per_sec", "est_mfu_pct"}
+OBS_SPEC = {"speculative": 4, "prefill_chunk": 128}
+
+
+def transformer_train_flops(bs, seq, dim, layers, vocab, ffn):
+    """Analytic FLOPs of one causal-LM training step (the formula of
+    ``bench.py``'s ``transformer_train_flops``): 6 a parameter a token for
+    the products (attention 4·d², FFN 2·d·ffn a layer, the tied readout
+    vocab·d) plus causal attention, 6·layers·seq·d a token."""
+    per_tok = (6.0 * (4 * dim * dim * layers + 2 * dim * ffn * layers
+                      + vocab * dim)
+               + 6.0 * layers * seq * dim)
+    return per_tok * bs * seq
+
+
+def _obs_train_run(torch, np, pt, obs, ca, start, batches, K, W, hooks,
+                   out_dir, arm=False):
+    """One 8-step run of the ``prep_transformer`` Trainer from ``start``
+    under ``bfloat16_compute``, every obs hook on or all off; returns the
+    run's numbers, records and checks."""
+    cfg = LOOP_CFG
+    V = cfg["vocab"]
+    model = pt.TransformerLM(**cfg, device="cuda")
+    model.load_state_dict(start)
+    kw, mem, samples, grad_checks = {}, None, [], []
+    if hooks:
+        mem = obs.InMemorySink()
+        tel = obs.Telemetry(
+            sinks=[mem, obs.JsonlSink(str(out_dir / "run.jsonl"))],
+            health=True, memory=True, fence=True,
+            flops_per_step=transformer_train_flops(
+                LOOP_BATCH, cfg["max_len"], cfg["dim"], cfg["num_layers"],
+                V, cfg["ffn_hidden"]),
+            tokens_per_step=LOOP_BATCH * cfg["max_len"])
+        sample = tel.sample_memory
+
+        def sample_memory():
+            cur = sample()
+            samples.append((cur, torch.cuda.memory_allocated()))
+            return cur
+
+        tel.sample_memory = sample_memory
+        kw = dict(telemetry=tel, tracer=obs.Tracer(), metrics=obs.MetricsHub(),
+                  anomaly=obs.AnomalyDetector(str(out_dir / "anomaly"),
+                                              arm_profiler=arm))
+
+    def loss_fn(out, b):
+        return pt.softmax_cross_entropy(out.reshape(-1, V),
+                                        b["y"].reshape(-1)).reshape(
+            b["y"].shape)
+
+    tr = pt.Trainer(model, loss_fn, pt.adam(1e-4), steps_per_call=K,
+                    pipeline_depth=W, device="cuda", **kw)
+    tr.init()
+    losses, check_s = [], [0.0]
+
+    def handler(e):
+        if isinstance(e, pt.train.EndIteration):
+            losses.append(e.cost)
+        elif hooks and K == 1 and W == 1 and \
+                type(e).__name__ == "TelemetryRecord" and \
+                e.record.get("grad_norm") is not None:
+            # the serial loop fires the record right after the call, while
+            # .grad still holds that step's gradients: each one's f32 norm,
+            # combined on the host (no large temporary, so the allocator's
+            # state stays as the unchecked run leaves it); the check's own
+            # time is taken off the run's
+            t = time.perf_counter()
+            own = math.sqrt(sum(float(p.grad.norm()) ** 2
+                                for p in model.parameters()))
+            grad_checks.append((e.record["grad_norm"], own))
+            check_s[0] += time.perf_counter() - t
+
+    torch.cuda.synchronize()
+    ca.reset_launch_counts()
+    t0 = time.perf_counter()
+    with pt.use_policy(pt.bfloat16_compute):
+        tr.train(lambda: iter(batches), event_handler=handler, log_period=0)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0 - check_s[0]
+    counts = ca.launch_counts()
+    run = {"losses": losses, "ms_per_step": 1e3 * sec / len(batches),
+           "fetches": tr.host_fetches, "launches": counts,
+           "samples": samples, "grad_checks": grad_checks, "trainer": tr,
+           "records": list(mem.records) if mem is not None else []}
+    if hooks:
+        tr.telemetry.close()
+        run["trace"] = tr.tracer.save(str(out_dir / "trace.json"))
+        run["metrics"] = tr.metrics.snapshot()
+    del model
+    return run
+
+
+def _obs_overhead(off, on, key):
+    """ms with hooks off and on over the ABBA runs, and the share the
+    hooks add."""
+    a = [r[key] for r in off]
+    b = [r[key] for r in on]
+    return {f"{key}_off": a, f"{key}_on": b,
+            f"hooks_{key}": sum(b) / len(b) - sum(a) / len(a),
+            "overhead_share": sum(b) / sum(a) * len(a) / len(b) - 1}
+
+
+def _obs_train_checks(torch, offs, ons, K, root, label):
+    """The gates of one training mode, hooks on against hooks off (the
+    first pair; the second pair's losses too)."""
+    off, on = offs[0], ons[0]
+    if any(r["losses"] != off["losses"] for r in offs + ons):
+        raise RuntimeError(f"{label}: losses with hooks "
+                           f"{[r['losses'] for r in ons]} != without "
+                           f"{[r['losses'] for r in offs]}")
+    flash = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+    if any(on["launches"][n] != off["launches"][n] or
+           on["launches"][n] != LOOP_CFG["num_layers"] * OBS_STEPS
+           for n in flash):
+        raise RuntimeError(f"{label}: flash launches on {on['launches']} "
+                           f"off {off['launches']}")
+    if on["fetches"] != off["fetches"] or on["fetches"] != OBS_STEPS // K:
+        raise RuntimeError(f"{label}: host fetches on {on['fetches']}, off "
+                           f"{off['fetches']}")
+    steps = [r for r in on["records"] if r["kind"] == "step"]
+    if len(steps) != OBS_STEPS // K:
+        raise RuntimeError(f"{label}: {len(steps)} step records for "
+                           f"{OBS_STEPS // K} calls")
+    want = OBS_STEP_KEYS | (OBS_RATE_KEYS if K == 1 else set())
+    for r in steps:
+        if set(r) != want:
+            raise RuntimeError(f"{label}: record keys {sorted(set(r))} != "
+                               f"{sorted(want)}")
+        if K == 1 and r["est_mfu_pct"] is None:
+            raise RuntimeError(f"{label}: est_mfu_pct is None")
+    if len(on["samples"]) != len(steps) or any(
+            abs(cur - after) > 2 ** 20 for cur, after in on["samples"]):
+        raise RuntimeError(f"{label}: bytes_in_use against "
+                           f"memory_allocated {on['samples']}")
+    if K == 1:
+        if len(on["grad_checks"]) != OBS_STEPS or any(
+                abs(g - own) > 1e-5 * own for g, own in on["grad_checks"]):
+            raise RuntimeError(f"{label}: grad_norm against the gradients' "
+                               f"own norm {on['grad_checks']}")
+    doc = json.load(open(on["trace"]))
+    disp = [e for e in doc["traceEvents"]
+            if e.get("ph") == "X" and e["name"] == "dispatch"]
+    paired = [e["args"]["batch"] + 1 if K == 1
+              else e["args"]["step"] + r["k_steps"]
+              for e, r in zip(disp, steps)]
+    if len(disp) != len(steps) or paired != [r["step"] for r in steps]:
+        raise RuntimeError(f"{label}: dispatch spans {paired} against "
+                           f"steps {[r['step'] for r in steps]}")
+    report = subprocess.run(
+        [sys.executable, "-m", "paddle_tpu_torch.obs.report",
+         str(Path(on["trace"]).parent / "run.jsonl")], capture_output=True,
+        text=True, cwd=str(root), timeout=300)
+    if report.returncode != 0:
+        raise RuntimeError(f"{label}: obs.report exited "
+                           f"{report.returncode}: {report.stderr[-2000:]}")
+    return {**_obs_overhead(offs, ons, "ms_per_step"),
+            "fetches": on["fetches"], "records": len(steps),
+            "last_record": {k: steps[-1][k] for k in (
+                "dispatch_ms", "device_ms", "drain_wait_ms", "stage_ms",
+                "overlap_frac", "tokens_per_sec", "est_mfu_pct",
+                "bytes_in_use", "peak_bytes", "grad_norm", "update_ratio")
+                if k in steps[-1]},
+            "report": report.stdout.strip().splitlines()[:12]}
+
+
+def _obs_serve(torch, pt, obs, ca, model, prompts, mode, hooks):
+    """phase 3's 16 requests of 32 tokens through the CUDA graphs, the
+    scheduler with every hook on (a router lane stamping submission and
+    finish) or all off."""
+    kw = {}
+    mem = obs.InMemorySink() if hooks else None
+    if hooks:
+        kw["telemetry"] = obs.Telemetry(sinks=[mem])
+    eng = pt.DecodeEngine(model, max_slots=8, block_size=16, **mode, **kw)
+    tracer = router = hub = None
+    if hooks:
+        tracer = obs.Tracer(clock=time.perf_counter)
+        router = obs.Tracer(clock=time.perf_counter)
+        hub = obs.MetricsHub()
+        eng.tracer, eng.metrics = tracer, hub
+    eng.warmup()
+    sched = pt.ContinuousBatchingScheduler(eng, tracer=tracer, metrics=hub)
+    replays0 = eng._tick.replays + eng._prefill.replays
+    torch.cuda.synchronize()
+    ca.reset_launch_counts()
+    t0 = time.perf_counter()
+    reqs = []
+    for p in prompts:
+        req = sched.submit(p, 32)
+        if router is not None:
+            router.complete("submit", req.submit_ts * 1e6,
+                            flow_start=req.rid, rid=req.rid)
+        reqs.append(req)
+    sched.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ca.launch_counts()
+    out = {"tokens": [r.tokens for r in reqs], "launches": counts,
+           "replays": eng._tick.replays + eng._prefill.replays - replays0,
+           "ticks": eng.ticks, "generated": eng.tokens_generated,
+           "ms_per_tick": 1e3 * wall / max(1, eng.ticks), "wall_s": wall,
+           "compile_counts": eng.compile_counts(), "reqs": reqs,
+           "eng": eng}
+    if hooks:
+        for r in reqs:
+            router.complete("terminal", r.finish_ts * 1e6, flow_end=r.rid,
+                            rid=r.rid)
+        out.update(records=list(mem.records), hub=hub,
+                   trace=obs.merge_fleet_trace(router.events(),
+                                               {0: tracer.events()}))
+    return out
+
+
+def _obs_serve_checks(obs, offs, ons, label, spec):
+    """The gates of one serving mode, hooks on against hooks off (the
+    first pair; the second pair's tokens too)."""
+    off, on = offs[0], ons[0]
+    if any(r["tokens"] != off["tokens"] for r in offs + ons):
+        raise RuntimeError(f"{label}: tokens differ with hooks on")
+    if on["replays"] != off["replays"] or on["launches"] != off["launches"] \
+            or on["compile_counts"] != off["compile_counts"] \
+            or on["compile_counts"] != {"prefill": 1, "tick": 1}:
+        raise RuntimeError(f"{label}: replays {on['replays']} / "
+                           f"{off['replays']}, launches {on['launches']} / "
+                           f"{off['launches']}, compile counts "
+                           f"{on['compile_counts']}")
+    ticks = [r for r in on["records"] if r["kind"] == "decode_tick"]
+    if len(ticks) != on["ticks"] or \
+            sum(r["tokens"] for r in ticks) != on["generated"]:
+        raise RuntimeError(f"{label}: {len(ticks)} decode_tick records for "
+                           f"{on['ticks']} ticks, tokens "
+                           f"{sum(r['tokens'] for r in ticks)} against "
+                           f"{on['generated']}")
+    if any(r["kv_bytes_per_token"] != 24576 for r in ticks):
+        raise RuntimeError(f"{label}: kv_bytes_per_token "
+                           f"{ticks[0]['kv_bytes_per_token']}")
+    recs = [r for r in on["records"] if r["kind"] == "request"]
+    own = obs.percentile([(r.first_token_ts - r.submit_ts) * 1e3
+                          for r in on["reqs"]], 50)
+    summ = obs.summarize_requests(on["records"])
+    if len(recs) != len(on["reqs"]) or \
+            summ["ttft_ms_p50"] != round(own, 4):
+        raise RuntimeError(f"{label}: {len(recs)} request records, TTFT p50 "
+                           f"{summ['ttft_ms_p50']} against {own}")
+    tr = on["trace"]
+    if not obs.lane_monotonic(tr) or not all(
+            obs.flow_connected(tr, r.rid) for r in on["reqs"]):
+        raise RuntimeError(f"{label}: merged trace not connected or not "
+                           f"monotonic")
+    if spec:
+        if on["launches"]["paged_span"] < 1 or not any(
+                r["draft_accept_rate"] is not None for r in ticks) or \
+                sum(r["prefill_chunks"] for r in ticks) < 1:
+            raise RuntimeError(f"{label}: no span launches, accept rate or "
+                               f"chunks in the records")
+    slo = obs.SLOMonitor(metrics=on["hub"])
+    for r in recs:
+        slo.observe(r)
+    rows = {r["name"]: r for r in on["hub"].snapshot()}
+    return {**_obs_overhead(offs, ons, "ms_per_tick"),
+            "ticks": on["ticks"], "replays": on["replays"],
+            "ttft_p50_ms": summ["ttft_ms_p50"],
+            "tpot_p50_ms": summ["tpot_ms_p50"],
+            "draft_accept_rate": summ["draft_accept_rate"],
+            "prefill_chunks": summ["prefill_chunks"],
+            "engine_ticks": rows["engine_ticks"]["value"],
+            "slo": {k: v for k, v in slo.report().items()
+                    if k in ("ttft_ms_p50", "tpot_ms_p99", "goodput_pct",
+                             "burn_rate")}}
+
+
+def phase_obs(torch, np, pt, ca, card, prompts):
+    """Phase 14: the obs package through the Trainer, the engine and the
+    scheduler. Returns the launch counts of its hooked paths."""
+    import shutil
+    import tempfile
+    import paddle_tpu_torch.obs as obs
+    t_phase = time.perf_counter()
+    root = Path(__file__).resolve().parent
+    d = Path(tempfile.mkdtemp(prefix=".obs_phase_", dir=root))
+    paths, stats = {}, {"card": card}
+    try:
+        cfg = LOOP_CFG
+        V, B, T = cfg["vocab"], LOOP_BATCH, cfg["max_len"]
+        gen = torch.Generator(device="cuda").manual_seed(4321)
+        start = {k: v.clone() for k, v in pt.TransformerLM(
+            **cfg, device="cuda", generator=gen).state_dict().items()}
+        inp, tgt, _ = conflicting_pairs(np, B, T, V)
+        batches = [{"x": np.roll(inp, i, axis=1), "y": np.roll(tgt, i, axis=1)}
+                   for i in range(OBS_STEPS)]
+        # (a) training: serial, then 8 steps a call with 3 in flight,
+        # after two discarded steps with every hook on, so that no timed
+        # run carries a first use (the first health reduces cost ~20 ms a
+        # step)
+        _obs_train_run(torch, np, pt, obs, ca, start, batches[:2], 1, 1,
+                       True, d)
+        # each mode runs off, on, on, off (the host's speed drifts within
+        # a process; the overhead is taken over both pairs; serving, whose
+        # runs are short, twice over)
+        for K, W, label in ((1, 1, "train serial"),
+                            (OBS_STEPS, 3, "train pipelined")):
+            runs = {False: [], True: []}
+            for i, hooks in enumerate((False, True, True, False)):
+                sub = d / f"{label.replace(' ', '_')}_{i}"
+                sub.mkdir()
+                runs[hooks].append(_obs_train_run(
+                    torch, np, pt, obs, ca, start, batches, K, W, hooks, sub))
+            stats[label] = _obs_train_checks(torch, runs[False], runs[True],
+                                             K, root, label)
+            paths[f"observability {label}"] = runs[True][0]["launches"]
+            del runs
+            torch.cuda.empty_cache()
+        # the poisoned run: a NaN weight in the fourth batch
+        poisoned = [dict(b, weight=np.ones((B, T), np.float32))
+                    for b in batches]
+        poisoned[3]["weight"][0, 0] = np.nan
+        sub = d / "poisoned"
+        sub.mkdir()
+        run = _obs_train_run(torch, np, pt, obs, ca, start, poisoned, 1, 1,
+                             True, sub, arm=True)
+        steps = [r for r in run["records"] if r["kind"] == "step"]
+        det = run["trainer"].anomaly
+        if steps[2]["nonfinite_count"] != 0 or \
+                not steps[3]["nonfinite_count"] > 0:
+            raise RuntimeError(f"poisoned run: nonfinite counts "
+                               f"{[r['nonfinite_count'] for r in steps]}")
+        if len(det.bundles) != 1 or det.verdicts[0].kind != "nonfinite":
+            raise RuntimeError(f"poisoned run: bundles {det.bundles}, "
+                               f"verdicts {det.verdicts}")
+        prof = Path(det.bundles[0]) / "torch_profile"
+        files = sorted(prof.glob("*.json")) if prof.exists() else []
+        kernels = sum(1 for f in files for e in json.load(open(f))[
+            "traceEvents"] if e.get("cat") == "kernel")
+        if not files or kernels < 1:
+            raise RuntimeError(f"poisoned run: profiler capture {files} "
+                               f"with {kernels} kernel rows")
+        stats["poisoned"] = {
+            "nonfinite_counts": [r["nonfinite_count"] for r in steps],
+            "bundle": Path(det.bundles[0]).name,
+            "profiled_steps": [r["step"] for r in steps if r["profiled"]],
+            "capture_kernel_rows": kernels,
+            "snapshot": json.load(open(Path(det.bundles[0]) /
+                                       "snapshot.json"))}
+        del run, start
+        torch.cuda.empty_cache()
+        # (b), (c) serving at the transformer_decode width
+        scfg = dict(vocab=V, dim=512, num_layers=6, num_heads=8,
+                    ffn_hidden=2048, max_len=1024)
+        model = pt.TransformerLM(**scfg, use_flash=True, device="cuda",
+                                 generator=torch.Generator(
+                                     device="cuda").manual_seed(1234))
+        for mode, label in (({}, "greedy"), (OBS_SPEC, "spec chunk")):
+            runs = {False: [], True: []}
+            for hooks in (False, True, True, False) * 2:
+                runs[hooks].append(_obs_serve(torch, pt, obs, ca, model,
+                                              prompts, mode, hooks))
+            stats[label] = _obs_serve_checks(obs, runs[False], runs[True],
+                                             label, bool(mode))
+            paths[f"observability {label}"] = runs[True][0]["launches"]
+            del runs
+        del model
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    stats["phase_s"] = time.perf_counter() - t_phase
+    log("observability", json.dumps(stats, default=str))
+    return paths
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -4307,6 +4725,8 @@ def main():
     resnet_bf16_counts = phase_resnet(torch, np, pt, cc, card,
                                       pt.bfloat16_compute)
     lap("resnet bf16")
+    obs_paths = phase_obs(torch, np, pt, ca, card, prompts)
+    lap("observability")
     # last: its profiled windows (a training call's, the serving ticks')
     # are followed by no window that counts records (the kernel phases'
     # device_ms), which a large window before them has made drop records
@@ -4325,7 +4745,8 @@ def main():
              "resnet training bf16": resnet_bf16_counts,
              "fused_ln_matmul": ln_counts,
              "flash_attention bf16": flash16_counts,
-             "fused_ln_matmul bf16": ln16_counts, **moe_paths}
+             "fused_ln_matmul bf16": ln16_counts, **obs_paths,
+             **moe_paths}
     counts = {}
     for path in paths.values():
         for n, c in path.items():

@@ -5,8 +5,10 @@ stays beside it as the reference the port is tested against. It serves a
 trains one (with ``remat``) or a ResNet (``Trainer``: grouped steps,
 gradient accumulation, the host pipeline, evaluators, checkpoints in the
 JAX format that restore in either framework, resume, faults and the
-restart supervisor ``run_resilient``); observability and multi-GPU
-training are not ported yet.
+restart supervisor ``run_resilient``), with the observability of
+``paddle_tpu_torch.obs`` (telemetry, tracing, metrics, SLOs, anomaly
+bundles, run reports) wired through the Trainer, the engine and the
+scheduler; multi-GPU training is not ported yet.
 
 Entry points run on the card (``device="cuda"``) unless the caller passes
 ``device="cpu"``, where every kernel runs its plain PyTorch version.

@@ -64,16 +64,22 @@ class Linear(nn.Module):
 class Embedding(nn.Module):
     """Table lookup ``w[ids]``; out-of-range ids (padding = -1, or past
     the vocabulary) give zero rows where ``torch``'s lookup would raise.
-    :meth:`attend` is the tied readout ``x @ w.T``."""
+    :meth:`attend` is the tied readout ``x @ w.T``. ``w_init`` (an
+    initializer of ``core/initializers.py``, ``(tensor, generator)``)
+    fills the table; without one it is N(0, ``std``²), ``std`` default
+    ``1 / sqrt(dim)`` as in JAX."""
 
     def __init__(self, vocab: int, dim: int, std: Optional[float] = None,
-                 device=None, generator=None):
+                 w_init=None, device=None, generator=None):
         super().__init__()
         self.vocab = vocab
         self.dim = dim
         self.w = nn.Parameter(torch.empty(vocab, dim, device=device))
-        normal_(self.w, 1.0 / math.sqrt(dim) if std is None else std,
-                generator)
+        if w_init is not None:
+            w_init(self.w, generator)
+        else:
+            normal_(self.w, 1.0 / math.sqrt(dim) if std is None else std,
+                    generator)
 
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
         valid = (ids >= 0) & (ids < self.vocab)
@@ -87,22 +93,31 @@ class Embedding(nn.Module):
 
 
 class LayerNorm(nn.Module):
-    """Layer normalization with f32 statistics and eps ``1e-6`` (torch's
-    default is ``1e-5``); the result is cast back to the input dtype."""
+    """Layer normalization with f32 statistics and ``eps`` (default
+    ``1e-6``, JAX's; torch's is ``1e-5``); ``use_scale``/``use_bias`` keep
+    the affine ``scale`` and ``bias`` parameters (without one, the module
+    has no such parameter, as in JAX). The result is cast back to the
+    input dtype."""
 
-    eps = 1e-6
-
-    def __init__(self, dim: int, device=None):
+    def __init__(self, dim: int, eps: float = 1e-6, use_scale: bool = True,
+                 use_bias: bool = True, device=None):
         super().__init__()
-        self.scale = nn.Parameter(torch.ones(dim, device=device))
-        self.bias = nn.Parameter(torch.zeros(dim, device=device))
+        self.eps = eps
+        self.scale = nn.Parameter(torch.ones(dim, device=device)) \
+            if use_scale else None
+        self.bias = nn.Parameter(torch.zeros(dim, device=device)) \
+            if use_bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x32 = x.float()
         mean = x32.mean(-1, keepdim=True)
         var = x32.var(-1, unbiased=False, keepdim=True)
         y = (x32 - mean) * torch.rsqrt(var + self.eps)
-        return (y * self.scale + self.bias).to(x.dtype)
+        if self.scale is not None:
+            y = y * self.scale
+        if self.bias is not None:
+            y = y + self.bias
+        return y.to(x.dtype)
 
 
 class Dropout(nn.Module):
@@ -208,12 +223,14 @@ class Conv2D(nn.Module):
     the output), so the plain convolution stands in for it. Every branch
     casts ``x`` and ``w`` to the policy's compute dtype and returns it, as
     the JAX layer does (a bf16 convolution sums in f32 and rounds once).
-    ``in_channels`` is given here; JAX infers it at init."""
+    ``in_channels`` is given here; JAX infers it at init. ``w_init`` (an
+    initializer of ``core/initializers.py``) fills ``w``, MSRA normal by
+    default as in JAX."""
 
     def __init__(self, in_channels: int, features: int, kernel: Pair,
                  stride: Pair = 1, padding="SAME", dilation: Pair = 1,
                  groups: int = 1, act="", use_bias: bool = True,
-                 device=None, generator=None):
+                 w_init=msra_normal_, device=None, generator=None):
         super().__init__()
         self.features = features
         self.kernel = _pair(kernel)
@@ -225,7 +242,7 @@ class Conv2D(nn.Module):
         kh, kw = self.kernel
         self.w = nn.Parameter(torch.empty(kh, kw, in_channels // groups,
                                           features, device=device))
-        msra_normal_(self.w, generator)
+        w_init(self.w, generator)
         self.b = nn.Parameter(torch.zeros(features, device=device)) \
             if use_bias else None
 

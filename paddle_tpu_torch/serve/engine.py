@@ -54,6 +54,18 @@ colocated engine would run.
 
 :meth:`launch_counts` reads the kernel wrappers' launch counters, which a
 replay advances by the launches its capture saw.
+
+Observability, as in the JAX engine: ``telemetry=`` (a
+:class:`~paddle_tpu_torch.obs.Telemetry`) gets one ``kind="decode_tick"``
+record a tick (wall, active slots, tokens, free blocks, accept rate,
+bytes a token, and the sharing and chunk counters as per-tick deltas) and
+a ``record_compile("serve_warmup", ...)`` from :meth:`DecodeEngine.
+warmup`; the ``tracer`` attribute (a :class:`~paddle_tpu_torch.obs.
+Tracer`) gets ``prefill_dispatch`` and ``engine_tick`` spans, the
+``metrics`` attribute (a :class:`~paddle_tpu_torch.obs.MetricsHub`) the
+engine's tick histogram, counters and gauges. All of it is host work
+around a program's launch and fetch, never inside a capture: the graphs,
+their replays and their launches are the same with and without it.
 """
 
 from __future__ import annotations
@@ -124,6 +136,9 @@ class DecodeEngine:
       kv_dtype: ``None``/``"f32"`` (pools at ``dtype``) or ``"int8"``
         (int8 values and f32 row scales, dequantized by the consumer;
         ``dtype`` is not used).
+      telemetry: optional :class:`~paddle_tpu_torch.obs.Telemetry`; the
+        engine emits one ``kind="decode_tick"`` record a tick, and the
+        scheduler adds its per-request records through the same object.
       device: where the pools live (default ``"cuda"``); must match the
         model's parameters.
 
@@ -145,8 +160,8 @@ class DecodeEngine:
                  retain_prefix: bool = True, speculative: int = 0,
                  prefill_chunk: Optional[int] = None,
                  sampling: Optional[SamplingConfig] = None,
-                 dtype=torch.float32, kv_dtype: Optional[str] = None,
-                 device="cuda"):
+                 telemetry=None, dtype=torch.float32,
+                 kv_dtype: Optional[str] = None, device="cuda"):
         want = resolve_device(device)
         self.device = next(model.parameters()).device
         if self.device.type != want.type:
@@ -163,6 +178,13 @@ class DecodeEngine:
         if sampling is not None:
             sampling.validate(model.emb.vocab)
         self.model = model
+        self.telemetry = telemetry
+        # optional Tracer and MetricsHub, assigned by the caller; None
+        # costs one attribute test a call
+        self.tracer = None
+        self.metrics = None
+        self._tick_counters: Dict[str, int] = {}
+        self._metrics_tick_counters: Dict[str, int] = {}
         self.attention = attention
         self.speculative = int(speculative)
         self.prefill_chunk = prefill_chunk
@@ -386,6 +408,12 @@ class DecodeEngine:
             self._tick.launch(tokens=0, n=0, active=0, tick=self.ticks)
         self._tick.fetch()
         t2 = time.perf_counter()
+        if self.telemetry is not None:
+            self.telemetry.record_compile(
+                "serve_warmup", t2 - t0, cache_hit=None,
+                autotune_trials=None,
+                meta={"warmup": True, "prefill_s": round(t1 - t0, 6),
+                      "tick_s": round(t2 - t1, 6)})
         return {"prefill_s": t1 - t0, "tick_s": t2 - t1, "wall_s": t2 - t0,
                 "autotune_trials": None, "autotune_cache_hit": None,
                 "xla_cache_entries_added": None, "xla_cache_hit": None,
@@ -505,6 +533,7 @@ class DecodeEngine:
         for decode ticks), else None (without waiting for the device)."""
         st = self._prefilling[slot]
         prompt, P = st["prompt"], len(st["prompt"])
+        tr0 = self.tracer.now_us() if self.tracer is not None else None
         self.cache.device_tables()
         if self.prefill_chunk is None:
             ids = st["staged"] if st["staged"] is not None \
@@ -523,6 +552,10 @@ class DecodeEngine:
             st["cursor"] = cur + n
         self.slot_stats[slot]["prefill_chunks"] += 1
         self.prefill_chunks += 1
+        if tr0 is not None:
+            self.tracer.complete("prefill_dispatch", tr0,
+                                 self.tracer.now_us(), slot=slot,
+                                 done=st["cursor"] >= P)
         if st["cursor"] < P:
             return None
         del self._prefilling[slot]
@@ -669,6 +702,9 @@ class DecodeEngine:
         and return the new token front ``[S]`` (inactive lanes 0).
         :attr:`last_accepted` maps each active slot to the tokens it
         retired this tick."""
+        t0 = time.perf_counter()
+        tr0 = self.tracer.now_us() if self.tracer is not None else None
+        n_active = int(self.active.sum())
         n = self._pre_tick_guard()
         self.cache.device_tables()
         k = self.speculative
@@ -734,4 +770,75 @@ class DecodeEngine:
         self.tokens_generated += retired
         self.draft_proposed += drafted
         self.draft_accepted += accepted_drafts
+        if tr0 is not None:
+            self.tracer.complete("engine_tick", tr0, self.tracer.now_us(),
+                                 tick=self.ticks, active=n_active,
+                                 tokens=retired,
+                                 accepted_drafts=accepted_drafts)
+        if self.telemetry is not None:
+            self._emit_tick(t0, n_active, retired, drafted, accepted_drafts)
+        if self.metrics is not None:
+            self._publish_tick(t0, n_active, retired)
         return front.copy()
+
+    # -- observability -----------------------------------------------------
+
+    def _emit_tick(self, t0, n_active, tokens, drafted, accepted) -> None:
+        """One ``kind="decode_tick"`` record with the JAX engine's keys.
+        The sharing and chunk counters are per-tick deltas (an admission's
+        hits show on the next record), so every field sums over records;
+        ``retained_blocks``, ``kv_bytes_per_token`` and ``quant_dtype``
+        are gauges."""
+        wall = time.perf_counter() - t0
+        snap = {"prefix_hit_blocks": self.cache.prefix_hit_blocks,
+                "cow_forks": self.cache.cow_forks,
+                "prefill_chunks": self.prefill_chunks,
+                "retained_hits": self.cache.retained_hits}
+        delta = {key: val - self._tick_counters.get(key, 0)
+                 for key, val in snap.items()}
+        self._tick_counters = snap
+        self.telemetry.emit_event({
+            "kind": "decode_tick", "tick": self.ticks,
+            "active_slots": n_active, "wall_ms": round(wall * 1e3, 4),
+            "tokens": tokens,
+            "tokens_per_sec": round(tokens / wall, 2) if wall else None,
+            "free_blocks": self.cache.free_blocks,
+            "draft_accept_rate": (round(accepted / drafted, 4)
+                                  if drafted else None),
+            "retained_blocks": self.cache.retained_blocks,
+            "kv_bytes_per_token": self.cache.kv_bytes_per_token,
+            "quant_dtype": self.cache.quant_dtype,
+            "tp_degree": 1,
+            **delta,
+        })
+
+    def _publish_tick(self, t0, n_active, tokens) -> None:
+        """The engine's metrics: tick wall, ticks, tokens, active slots,
+        pool occupancy, and the sharing/speculation counters as per-tick
+        increments (from a baseline of its own, apart from the
+        telemetry's)."""
+        m = self.metrics
+        m.histogram("engine_tick_ms",
+                    "compiled decode tick wall time (ms)").observe(
+            (time.perf_counter() - t0) * 1e3)
+        m.counter("engine_ticks", "decode ticks executed").inc()
+        m.counter("engine_tokens",
+                  "tokens retired across all slots").inc(tokens)
+        m.gauge("engine_active_slots", "slots decoding this tick").set(
+            n_active)
+        m.gauge("engine_kv_free_blocks",
+                "free blocks in the paged KV pool").set(
+            self.cache.free_blocks)
+        m.gauge("engine_kv_occupancy",
+                "reserved fraction of the paged KV pool").set(
+            1.0 - self.cache.free_blocks / self.cache.num_blocks)
+        snap = {"engine_prefix_hit_blocks": self.cache.prefix_hit_blocks,
+                "engine_cow_forks": self.cache.cow_forks,
+                "engine_prefill_chunks": self.prefill_chunks,
+                "engine_draft_proposed": self.draft_proposed,
+                "engine_draft_accepted": self.draft_accepted}
+        for key, val in snap.items():
+            d = val - self._metrics_tick_counters.get(key, 0)
+            if d:
+                m.counter(key, "cumulative engine counter").inc(d)
+        self._metrics_tick_counters = snap

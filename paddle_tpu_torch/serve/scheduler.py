@@ -37,9 +37,17 @@ into :meth:`~ContinuousBatchingScheduler.pop_handoffs` and frees it. A
 decodes it to the end, its record keeping the original submission and
 first-token times. ``role="both"`` (the default) is colocated serving.
 The pages travel in the pool's own dtype; between processes they cross as
-``kv_cache.pages_to_blobs`` / ``blobs_to_pages``. The JAX scheduler's
-tracer, telemetry and metrics hooks are not ported (their ``None`` path
-is the port's only path).
+``kv_cache.pages_to_blobs`` / ``blobs_to_pages``.
+
+Observability, as in the JAX scheduler: ``telemetry=`` (default the
+engine's) gets one ``kind="request"`` record per finished request
+(:meth:`Request.record`: TTFT, TPOT, wall, the sharing and speculation
+stats) and one ``kind="evict"`` record per deadline eviction; ``tracer=``
+gets ``queue_wait``, ``prefill_chunk``, ``decode_tick``, ``finish``,
+``handoff_out`` and ``adopt`` spans keyed by the request id as their flow
+id, and ``backpressure`` instants; ``metrics=`` the queue-depth gauges
+and the finished and eviction counters. None of them is needed: each
+site tests for None.
 """
 
 from __future__ import annotations
@@ -107,6 +115,36 @@ class Request:
         return ((self.finish_ts - self.first_token_ts) * 1e3
                 / (len(self.tokens) - 1))
 
+    def record(self) -> Dict[str, Any]:
+        """The request's ``kind="request"`` telemetry record."""
+        return {
+            "kind": "request", "rid": self.rid,
+            "prompt_len": len(self.prompt),
+            "new_tokens": len(self.tokens),
+            "slot": self.slot,
+            "finish_reason": self.finish_reason,
+            "deadline_s": self.deadline_s,
+            "priority": self.priority,
+            "retries": self.retries,
+            "ttft_ms": round(self.ttft_ms, 4)
+            if self.ttft_ms is not None else None,
+            "tpot_ms": round(self.tpot_ms, 4)
+            if self.tpot_ms is not None else None,
+            # `is not None`: a fake clock may finish at exactly 0.0
+            "wall_ms": round((self.finish_ts - self.submit_ts) * 1e3, 4)
+            if self.finish_ts is not None else None,
+            "prefix_hit_blocks": self.prefix_hit_blocks,
+            "blocks_reserved": self.blocks_reserved,
+            "cow_forks": self.cow_forks,
+            "prefill_chunks": self.prefill_chunks,
+            # raw counts ride along so aggregates can weight by volume
+            "draft_proposed": self.draft_proposed,
+            "draft_accepted": self.draft_accepted,
+            "draft_accept_rate": round(
+                self.draft_accepted / self.draft_proposed, 4)
+            if self.draft_proposed else None,
+        }
+
 
 class ContinuousBatchingScheduler:
     """Drives a :class:`~paddle_tpu_torch.serve.DecodeEngine` over a
@@ -118,12 +156,15 @@ class ContinuousBatchingScheduler:
     prior tick time (no estimate and no observation: nothing is shed);
     ``clock`` the wall clock (default ``time.perf_counter``); ``role``
     ``"both"`` (colocated), ``"prefill"`` (hands each prefilled request
-    off) or ``"decode"`` (also adopts hand-offs)."""
+    off) or ``"decode"`` (also adopts hand-offs); ``telemetry``,
+    ``tracer`` and ``metrics`` the observability hooks (see the module
+    docstring; a tracer should share the scheduler's clock)."""
 
-    def __init__(self, engine, policy: str = "continuous",
+    def __init__(self, engine, telemetry=None, policy: str = "continuous",
                  order: str = "fcfs", shed: bool = False,
                  est_tick_s: Optional[float] = None,
-                 clock=time.perf_counter, role: str = "both"):
+                 clock=time.perf_counter, tracer=None,
+                 role: str = "both", metrics=None):
         if policy not in ("continuous", "static"):
             raise ValueError(f"policy must be 'continuous'|'static', "
                              f"got {policy!r}")
@@ -133,6 +174,10 @@ class ContinuousBatchingScheduler:
             raise ValueError(f"role must be 'both'|'prefill'|'decode', "
                              f"got {role!r}")
         self.engine = engine
+        self.telemetry = (telemetry if telemetry is not None
+                          else engine.telemetry)
+        self.tracer = tracer
+        self.metrics = metrics
         self.policy = policy
         self.order = order
         self.role = role
@@ -252,6 +297,35 @@ class ContinuousBatchingScheduler:
             self.prefilling.pop(slot, None)
             self.engine.evict(slot)
         self.completed.append(req)
+        if self.metrics is not None:
+            self.metrics.counter(
+                "sched_requests_finished",
+                "terminal requests by finish reason",
+                reason=reason).inc()
+        if self.tracer is not None:
+            self.tracer.complete("finish", req.finish_ts * 1e6,
+                                 flow_step=req.rid, rid=req.rid,
+                                 reason=reason,
+                                 new_tokens=len(req.tokens))
+        if self.telemetry is not None:
+            self.telemetry.emit_event(req.record())
+
+    def _emit_evict(self, req: Request, where: str,
+                    blocks_freed: int) -> None:
+        """One ``kind="evict"`` record per deadline eviction, whether the
+        request held a slot, was prefilling or was still queued."""
+        if self.metrics is not None:
+            self.metrics.counter(
+                "sched_evictions",
+                "deadline evictions by where the request was caught",
+                where=where).inc()
+        if self.telemetry is not None:
+            self.telemetry.emit_event({
+                "kind": "evict", "rid": req.rid, "where": where,
+                "blocks_freed": blocks_freed,
+                "deadline_s": req.deadline_s,
+                "queued": len(self.queue), "running": len(self.running),
+            })
 
     def _expire(self) -> None:
         """The deadline sweep, between ticks: a running or prefilling
@@ -263,11 +337,16 @@ class ContinuousBatchingScheduler:
             return (req.deadline_s is not None
                     and now - req.submit_ts > req.deadline_s)
 
-        for table in (self.running, self.prefilling):
-            for req in [r for r in table.values() if expired(r)]:
+        for where, table in (("running", self.running),
+                             ("prefilling", self.prefilling)):
+            for slot, req in [(s, r) for s, r in table.items()
+                              if expired(r)]:
+                self._emit_evict(req, where,
+                                 self.engine.cache.owned_count(slot))
                 self._finish(req, "timeout")
         for req in [r for r in self.queue if expired(r)]:
             self.queue.remove(req)
+            self._emit_evict(req, "queued", 0)
             self._finish(req, "timeout")
 
     def _admit_order(self) -> List[Request]:
@@ -305,8 +384,18 @@ class ContinuousBatchingScheduler:
                 # pool backpressure: stop in policy order (a bypass by a
                 # smaller request would starve the head)
                 self.last_backpressure = probe.reason
+                if self.tracer is not None:
+                    self.tracer.instant("backpressure", rid=req.rid,
+                                        reason=probe.reason,
+                                        queued=len(self.queue))
                 break
             self.queue.remove(req)
+            if self.tracer is not None:
+                # the wait in the queue, submission to now, on the
+                # scheduler's clock
+                self.tracer.complete("queue_wait", req.submit_ts * 1e6,
+                                     self.tracer.now_us(),
+                                     flow_step=req.rid, rid=req.rid)
             slot = free.pop(0)
             req.slot = slot
             self.engine.begin_prefill(slot, req.prompt, reserve_len=target,
@@ -319,7 +408,12 @@ class ContinuousBatchingScheduler:
     def _advance_prefill(self, slot: int) -> None:
         """One prefill call for a reserved slot; the request runs once its
         first token lands."""
-        tok = self.engine.prefill_step(slot)
+        if self.tracer is not None:
+            with self.tracer.span("prefill_chunk",
+                                  rid=self.prefilling[slot].rid, slot=slot):
+                tok = self.engine.prefill_step(slot)
+        else:
+            tok = self.engine.prefill_step(slot)
         if tok is None:
             return
         req = self.prefilling.pop(slot)
@@ -355,6 +449,10 @@ class ContinuousBatchingScheduler:
         self.engine.evict(slot)
         req.slot = None
         self.handoffs.append((req, meta, kpages, vpages))
+        if self.tracer is not None:
+            self.tracer.complete("handoff_out", self._clock() * 1e6,
+                                 flow_step=req.rid, rid=req.rid,
+                                 blocks=meta["blocks"])
 
     def pop_handoffs(self) -> List[tuple]:
         """Drain the prefilled requests awaiting transfer: ``(request,
@@ -398,6 +496,10 @@ class ContinuousBatchingScheduler:
         # the decode slot's stats start from the prefill side's
         self.engine.slot_stats[slot].update(meta.get("prefill_stats") or {})
         self.last_backpressure = None
+        if self.tracer is not None:
+            self.tracer.complete("adopt", self._clock() * 1e6,
+                                 flow_step=req.rid, rid=req.rid,
+                                 slot=slot, blocks=meta.get("blocks"))
         return req
 
     def step(self) -> bool:
@@ -419,14 +521,31 @@ class ContinuousBatchingScheduler:
             self._advance_prefill(slot)
         self._admit()
         if self.running:
+            active = len(self.running)
+            t0 = self.tracer.now_us() if self.tracer is not None else None
             self.engine.decode_tick()
             accepted = self.engine.last_accepted
+            n_tok = 0
             for slot, req in list(self.running.items()):
                 for tok in accepted.get(slot, ()):
                     req.tokens.append(tok)
+                    n_tok += 1
                     self._maybe_finish(slot, tok)
                     if req.done:
                         break
+            if t0 is not None:
+                self.tracer.complete("decode_tick", t0, self.tracer.now_us(),
+                                     active=active, tokens=n_tok)
+        if self.metrics is not None:
+            self.metrics.gauge("sched_queue_depth",
+                               "requests queued for admission").set(
+                len(self.queue))
+            self.metrics.gauge("sched_running",
+                               "requests holding a decode slot").set(
+                len(self.running))
+            self.metrics.gauge("sched_prefilling",
+                               "slots mid chunked prefill").set(
+                len(self.prefilling))
         self._was_busy = bool(self.queue or self.running or self.prefilling)
         return self._was_busy
 

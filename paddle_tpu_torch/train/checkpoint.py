@@ -303,6 +303,11 @@ class AsyncCheckpointer:
     re-raises there.
 
     Args:
+      telemetry: optional :class:`~paddle_tpu_torch.obs.Telemetry`: each
+        landed save also goes to its sinks as a ``kind="checkpoint"``
+        record (from the worker thread; sinks are thread-safe), and a
+        failed write bumps ``telemetry.background_failures`` (in its
+        ``summary()``) before re-raising at the fence.
       faults: optional :class:`~paddle_tpu_torch.train.faults.FaultSchedule`,
         threaded into the background ``_write_pass_dir`` so the save-path
         faults fire in the worker and surface at the next fence.
@@ -316,10 +321,11 @@ class AsyncCheckpointer:
     unregisters it), so an interpreter exit that skipped ``close()`` still
     fences the write in flight and logs its error."""
 
-    def __init__(self, faults=None):
+    def __init__(self, telemetry=None, faults=None):
         self._pool = ThreadPoolExecutor(max_workers=1,
                                         thread_name_prefix="ckpt")
         self._pending = None
+        self.telemetry = telemetry
         self.faults = faults
         self.records: List[Dict[str, Any]] = []
         self.background_failures = 0
@@ -353,13 +359,18 @@ class AsyncCheckpointer:
                                     faults=self.faults)
         except BaseException:
             self.background_failures += 1
+            if self.telemetry is not None:
+                self.telemetry.background_failures += 1
             raise
-        self.records.append({
-            "pass_id": pass_id,
-            "snapshot_ms": round(snapshot_s * 1e3, 3),
-            "write_ms": round((time.perf_counter() - t0) * 1e3, 3),
-            "bytes": _dir_bytes(final),
-            "backlog_ms": round(backlog_s * 1e3, 3)})
+        rec = {"pass_id": pass_id,
+               "snapshot_ms": round(snapshot_s * 1e3, 3),
+               "write_ms": round((time.perf_counter() - t0) * 1e3, 3),
+               "bytes": _dir_bytes(final),
+               "backlog_ms": round(backlog_s * 1e3, 3)}
+        self.records.append(rec)
+        if self.telemetry is not None:
+            self.telemetry.emit_event({"kind": "checkpoint", **rec,
+                                       "async": True})
         return final
 
     def save(self, root: str, pass_id: int, tree: Dict[str, Any],

@@ -27,15 +27,26 @@ order, on the same values):
   needs the group's losses on the host), and at pass end.
 
 On the CPU there are no streams: the stager stacks into plain tensors.
+
+With telemetry attached each call's record carries ``stage_ms`` (the
+stager's stack and copy wall, off the loop's path), ``drain_wait_ms``
+(the blocking fetch at the drain) and ``overlap_frac`` (the share of the
+staging cost hidden from the training thread: 1 - the time it waited
+on the stager / the staging time). With a tracer the stager's ``stage``
+span, the call's ``dispatch`` and the group's ``drain`` share one flow
+id. A stager thread that misses its join deadline at close sets
+``telemetry.stager_leaked``.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import logging
 import queue
 import threading
+import time
 from typing import Any, Callable, Dict, List, Optional
 
 __all__ = ["GroupStager", "StagedUnit", "StagedGroup", "FusedPipeline"]
@@ -46,13 +57,16 @@ _log = logging.getLogger("paddle_tpu_torch.host_pipeline")
 @dataclasses.dataclass
 class StagedUnit:
     """One call's slice of a group: the ``[k, m_eff, batch, ...]`` device
-    tensors, the event that marks their copy done (None on the CPU), and
-    the pinned host buffers they were copied from."""
+    tensors, the event that marks their copy done (None on the CPU), the
+    pinned host buffers they were copied from, and the stager's stack and
+    copy seconds."""
     offset: int          # first host-batch index within the group buffer
     m_eff: int
     batches: Dict[str, Any]
     event: Any
     host: List[Any]
+    stack_s: float = 0.0
+    shard_s: float = 0.0
 
 
 @dataclasses.dataclass
@@ -63,6 +77,8 @@ class StagedGroup:
     boundary: bool       # crosses a saving_period checkpoint boundary
     crc: Optional[int]   # fingerprint of the group's last host batch
                          # (computed in the stager, for boundary groups)
+    flow: Optional[int] = None   # tracer flow id: stage -> dispatch ->
+                                 # drain
 
 
 @dataclasses.dataclass
@@ -70,15 +86,17 @@ class _PendingGroup:
     """A group whose calls ran but whose losses are not yet fetched."""
     staged: StagedGroup
     results: List[tuple]     # per call, the Trainer._finalize_group layout
+    overlap_frac: Optional[float] = None
 
 
 class GroupStager:
     """One background staging thread with a depth-1 input queue.
 
     ``submit`` hands a raw group to the worker (blocking only while the
-    worker still holds the previous one). ``get`` returns the next staged
-    group in submission order. A worker exception re-raises in the caller
-    at the next ``submit``/``get``.
+    worker still holds the previous one) and returns the seconds it
+    blocked. ``get`` returns the next staged group in submission order
+    with the seconds the caller waited for it. A worker exception
+    re-raises in the caller at the next ``submit``/``get``.
     """
 
     _POLL_S = 0.05
@@ -113,19 +131,22 @@ class GroupStager:
         if self._exc:
             raise self._exc[0]
 
-    def submit(self, work) -> None:
-        """Enqueue one raw group (waits while the worker holds one)."""
+    def submit(self, work) -> float:
+        """Enqueue one raw group (waits while the worker holds one);
+        returns the seconds waited."""
+        t0 = time.perf_counter()
         while True:
             self._check()
             try:
                 self._in.put(work, timeout=self._POLL_S)
-                return
+                return time.perf_counter() - t0
             except queue.Full:
                 continue
 
-    def get(self, block: bool) -> Optional[StagedGroup]:
-        """The next staged group; None when ``block=False`` and nothing is
-        staged yet."""
+    def get(self, block: bool):
+        """``(staged group, seconds waited)``; None when ``block=False``
+        and nothing is staged yet."""
+        t0 = time.perf_counter()
         while True:
             self._check()
             try:
@@ -138,7 +159,7 @@ class GroupStager:
             if item is None:             # worker died; _check raises
                 self._check()
                 raise RuntimeError("host-pipeline stager exited unexpectedly")
-            return item
+            return item, time.perf_counter() - t0
 
     def close(self) -> bool:
         """Stop the worker and join it. Returns True when the thread
@@ -181,6 +202,9 @@ class FusedPipeline:
         self._window: collections.deque = collections.deque()
         self._n_submitted = 0
         self._n_dispatched = 0
+        # backpressure wait in submit(), billed to the next dispatched
+        # group's overlap
+        self._carry_wait_s = 0.0
 
     def submit(self, buf, buf_start: int):
         """Hand one complete group buffer to the pipeline. Waits on the
@@ -191,25 +215,32 @@ class FusedPipeline:
         boundary = bool(sp and self._checkpoint_dir
                         and end // sp > buf_start // sp)
         self._pump()                      # free the stager's output first
-        self._stager.submit((list(buf), buf_start, boundary))
+        self._carry_wait_s += self._stager.submit(
+            (list(buf), buf_start, boundary))
         self._n_submitted += 1
         self._pump()
 
     def _pump(self):
         """Run every group already staged, without blocking."""
         while self._n_dispatched < self._n_submitted:
-            sg = self._stager.get(block=False)
-            if sg is None:
+            got = self._stager.get(block=False)
+            if got is None:
                 return
-            self._dispatch_staged(sg)
+            self._dispatch_staged(*got)
 
-    def _dispatch_staged(self, sg: StagedGroup):
+    def _dispatch_staged(self, sg: StagedGroup, wait_s: float):
         # make room BEFORE launching, so at most `depth` calls are ever
         # in flight
         while self._in_flight_calls() >= self.depth:
             self._drain_one()
-        results = [self._tr._run_staged(sg.buf_start, u) for u in sg.units]
-        self._window.append(_PendingGroup(sg, results))
+        wait = wait_s + self._carry_wait_s
+        self._carry_wait_s = 0.0
+        results = [self._tr._run_staged(sg.buf_start, u, sg.flow)
+                   for u in sg.units]
+        stage_total = sum(u.stack_s + u.shard_s for u in sg.units)
+        overlap = (max(0.0, min(1.0, 1.0 - wait / stage_total))
+                   if stage_total > 0 else None)
+        self._window.append(_PendingGroup(sg, results, overlap))
         self._n_dispatched += 1
         if sg.boundary:
             # the save inside _finalize_group must see the state at this
@@ -221,12 +252,19 @@ class FusedPipeline:
 
     def _drain_one(self):
         pg = self._window.popleft()
-        self._tr._finalize_group(
-            self._pass_id, pg.staged.buf_start, pg.staged.buf_len,
-            pg.results, self._handler, self._costs, self._log_period,
-            self._saving_period, self._checkpoint_dir,
-            self._checkpoint_keep, self._save_fn,
-            crc_fn=lambda: pg.staged.crc)
+        tracer = self._tr.tracer
+        # the drain span closes the group's flow (stage -> dispatch ->
+        # drain)
+        with (tracer.span("drain", flow_end=pg.staged.flow,
+                          group=pg.staged.buf_start)
+              if tracer is not None else contextlib.nullcontext()):
+            self._tr._finalize_group(
+                self._pass_id, pg.staged.buf_start, pg.staged.buf_len,
+                pg.results, self._handler, self._costs, self._log_period,
+                self._saving_period, self._checkpoint_dir,
+                self._checkpoint_keep, self._save_fn,
+                crc_fn=lambda: pg.staged.crc, drain_timing=True,
+                overlap_frac=pg.overlap_frac)
 
     def drain_all(self):
         while self._window:
@@ -236,8 +274,10 @@ class FusedPipeline:
         """Pass end: run everything still staging, then drain the whole
         window (FIFO)."""
         while self._n_dispatched < self._n_submitted:
-            self._dispatch_staged(self._stager.get(block=True))
+            self._dispatch_staged(*self._stager.get(block=True))
         self.drain_all()
 
     def close(self):
-        self._stager.close()
+        leaked = self._stager.close()
+        if leaked and self._tr.telemetry is not None:
+            self._tr.telemetry.stager_leaked = True

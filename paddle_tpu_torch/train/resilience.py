@@ -15,9 +15,10 @@
   :class:`~paddle_tpu_torch.train.faults.Preempted`, which the
   supervisor returns as status ``"preempted"`` and never retries.
 
-The JAX supervisor's ``heartbeat_interval_s`` keeps a host heartbeat for
-a multi-host watchdog; the port has no multi-host training yet, so it is
-refused.
+``run_resilient(heartbeat_interval_s=)`` keeps this host's heartbeat
+file under ``checkpoint_dir`` fresh for the whole supervised run
+(:class:`~paddle_tpu_torch.parallel.multihost.HostHeartbeat`, host 0), so
+a watchdog's ``detect_dead_hosts`` sees the truth.
 """
 
 from __future__ import annotations
@@ -147,9 +148,9 @@ def run_resilient(make_trainer_fn: Callable[[], Any], reader: Callable,
       sleep_fn: injection point for tests (replaces ``time.sleep``).
       install_signals: also route SIGTERM/SIGINT to a graceful stop for
         the duration of each attempt (main thread only).
-      heartbeat_interval_s: refused (``NotImplementedError``) unless
-        None: the heartbeat belongs to multi-host training, which is not
-        ported.
+      heartbeat_interval_s: when set, keep this host's heartbeat file
+        under ``checkpoint_dir`` fresh every that many seconds for the
+        whole supervised run.
 
     Returns a :class:`RunResult`; raises :class:`SupervisorGaveUp` when
     the budget is spent, and re-raises ``"fatal"`` failures immediately.
@@ -160,73 +161,78 @@ def run_resilient(make_trainer_fn: Callable[[], Any], reader: Callable,
     restarts = 0
     last_sig: Optional[Tuple[str, Optional[int]]] = None
     same_sig = 0
+    heartbeat = None
     if heartbeat_interval_s is not None:
-        raise NotImplementedError(
-            "run_resilient(heartbeat_interval_s=...): multi-host training "
-            "is not ported yet")
-    while True:
-        trainer = make_trainer_fn()
-        restore_signals = (install_preemption_handler(trainer)
-                           if install_signals else None)
-        try:
-            state = trainer.train(reader, num_passes=num_passes,
-                                  checkpoint_dir=checkpoint_dir,
-                                  resume=True, **train_kwargs)
-            fallbacks.extend(trainer.last_quarantined)
-            return RunResult(status="completed", state=state,
-                             restarts=restarts, fallbacks=fallbacks,
-                             attempts=attempts)
-        except Preempted as p:
-            # the CLEAN exit: a graceful stop quiesced and
-            # checkpointed — hand control back, never retry
-            fallbacks.extend(trainer.last_quarantined)
-            _log.warning("training preempted cleanly: %s", p)
-            return RunResult(status="preempted",
-                             state=trainer.train_state,
-                             restarts=restarts, fallbacks=fallbacks,
-                             attempts=attempts, preempted=p)
-        except Exception as exc:
-            fallbacks.extend(trainer.last_quarantined)
-            kind = classify(exc)
-            step = getattr(exc, "step", None)
-            if step is None and trainer.train_state is not None:
-                step = trainer.train_state.step
-            attempts.append({"failure": kind,
-                             "error": f"{type(exc).__name__}: {exc}",
-                             "step": step})
-            if kind == "fatal":
-                _log.error("fatal training failure (%s) — not "
-                           "retrying: %s", type(exc).__name__, exc)
-                raise
-            sig = (type(exc).__name__, step)
-            same_sig = same_sig + 1 if sig == last_sig else 1
-            last_sig = sig
-            if same_sig >= same_step_limit:
-                raise SupervisorGaveUp(
-                    f"failure {sig[0]} at step {sig[1]} recurred "
-                    f"{same_sig}x — deterministic, giving up (see "
-                    f"attempts ledger)") from exc
-            restarts += 1
-            if restarts > max_restarts:
-                raise SupervisorGaveUp(
-                    f"restart budget exhausted ({max_restarts}); last "
-                    f"failure {sig[0]} at step {sig[1]}") from exc
-            if kind == "poisoned_checkpoint":
-                # belt and braces: the resume path quarantines on
-                # load, but a poison detected elsewhere (async-save
-                # fence, explicit restore) must not be re-read
-                pid = ckpt_lib.latest_pass(checkpoint_dir)
-                if pid is not None:
-                    d = ckpt_lib._resolve_pass_dir(checkpoint_dir, pid)
-                    fallbacks.append(ckpt_lib.quarantine_pass_dir(d))
-            delay = min(backoff_max_s,
-                        backoff_s * (2.0 ** (restarts - 1)))
-            delay *= 1.0 + 0.25 * rng.random()
-            _log.warning(
-                "training attempt failed (%s at step %s): %s — "
-                "restart %d/%d after %.2fs backoff",
-                kind, step, exc, restarts, max_restarts, delay)
-            sleep_fn(delay)
-        finally:
-            if restore_signals is not None:
-                restore_signals()
+        from ..parallel.multihost import HostHeartbeat
+        heartbeat = HostHeartbeat(checkpoint_dir,
+                                  interval_s=heartbeat_interval_s).start()
+    try:
+        while True:
+            trainer = make_trainer_fn()
+            restore_signals = (install_preemption_handler(trainer)
+                               if install_signals else None)
+            try:
+                state = trainer.train(reader, num_passes=num_passes,
+                                      checkpoint_dir=checkpoint_dir,
+                                      resume=True, **train_kwargs)
+                fallbacks.extend(trainer.last_quarantined)
+                return RunResult(status="completed", state=state,
+                                 restarts=restarts, fallbacks=fallbacks,
+                                 attempts=attempts)
+            except Preempted as p:
+                # the CLEAN exit: a graceful stop quiesced and
+                # checkpointed — hand control back, never retry
+                fallbacks.extend(trainer.last_quarantined)
+                _log.warning("training preempted cleanly: %s", p)
+                return RunResult(status="preempted",
+                                 state=trainer.train_state,
+                                 restarts=restarts, fallbacks=fallbacks,
+                                 attempts=attempts, preempted=p)
+            except Exception as exc:
+                fallbacks.extend(trainer.last_quarantined)
+                kind = classify(exc)
+                step = getattr(exc, "step", None)
+                if step is None and trainer.train_state is not None:
+                    step = trainer.train_state.step
+                attempts.append({"failure": kind,
+                                 "error": f"{type(exc).__name__}: {exc}",
+                                 "step": step})
+                if kind == "fatal":
+                    _log.error("fatal training failure (%s) — not "
+                               "retrying: %s", type(exc).__name__, exc)
+                    raise
+                sig = (type(exc).__name__, step)
+                same_sig = same_sig + 1 if sig == last_sig else 1
+                last_sig = sig
+                if same_sig >= same_step_limit:
+                    raise SupervisorGaveUp(
+                        f"failure {sig[0]} at step {sig[1]} recurred "
+                        f"{same_sig}x — deterministic, giving up (see "
+                        f"attempts ledger)") from exc
+                restarts += 1
+                if restarts > max_restarts:
+                    raise SupervisorGaveUp(
+                        f"restart budget exhausted ({max_restarts}); last "
+                        f"failure {sig[0]} at step {sig[1]}") from exc
+                if kind == "poisoned_checkpoint":
+                    # belt and braces: the resume path quarantines on
+                    # load, but a poison detected elsewhere (async-save
+                    # fence, explicit restore) must not be re-read
+                    pid = ckpt_lib.latest_pass(checkpoint_dir)
+                    if pid is not None:
+                        d = ckpt_lib._resolve_pass_dir(checkpoint_dir, pid)
+                        fallbacks.append(ckpt_lib.quarantine_pass_dir(d))
+                delay = min(backoff_max_s,
+                            backoff_s * (2.0 ** (restarts - 1)))
+                delay *= 1.0 + 0.25 * rng.random()
+                _log.warning(
+                    "training attempt failed (%s at step %s): %s — "
+                    "restart %d/%d after %.2fs backoff",
+                    kind, step, exc, restarts, max_restarts, delay)
+                sleep_fn(delay)
+            finally:
+                if restore_signals is not None:
+                    restore_signals()
+    finally:
+        if heartbeat is not None:
+            heartbeat.stop()

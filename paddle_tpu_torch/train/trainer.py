@@ -53,11 +53,26 @@ Ported from the JAX Trainer:
   ``mean_cost``; ``reset`` runs at each ``BeginPass``, and
   :meth:`Trainer.evaluate` returns the evaluator's metrics.
 
-Still refused, with an error: ``telemetry``, ``tracer``,
-``anomaly``, ``metrics`` and ``param_stats_period`` (observability is not
-ported); ``mesh``, ``param_sharding``, ``grad_sync`` and ``bucket_mb``
-(multi-GPU is not ported). ``donate`` is taken and does nothing: PyTorch
-runs eagerly and the optimizer already updates in place.
+- observability (``obs/``): ``telemetry=`` (per-call step records with
+  ``dispatch_ms``, fenced ``device_ms``, ``k_steps``, memory and the
+  health scalars, which ride the call's loss fetch; compile and retrace
+  records keyed by the step fingerprint; the pipelined loop's
+  ``stage_ms``, ``drain_wait_ms`` and ``overlap_frac``), ``tracer=``
+  (spans: plan, stack, device_put, dispatch, fence, drain, drain_wait,
+  events_replay, checkpoint_save, eval; the stager thread's stage, stack
+  and shard, flow-linked to the dispatch and drain), ``anomaly=`` (fed
+  every step record; its verdicts are echoed as ``kind="anomaly"``
+  records; an armed capture wraps the next call in a ``torch.profiler``
+  window), ``metrics=`` (steps, step ms, tokens/s, loss) and
+  ``param_stats_period`` (per-parameter scale logs). ``self.stats`` is
+  the loop's :class:`~paddle_tpu_torch.utils.stats.StatSet`. With every
+  hook None the loop launches what it launched before, records no CUDA
+  event, synchronizes nothing and makes no extra fetch; the obs package
+  is then not even imported.
+
+Still refused, with an error: ``mesh``, ``param_sharding``, ``grad_sync``
+and ``bucket_mb`` (multi-GPU is not ported). ``donate`` is taken and does
+nothing: PyTorch runs eagerly and the optimizer already updates in place.
 
 Dtype policy: a step runs under the caller's policy, as the JAX Trainer
 traces its step under it (``bench.py`` wraps init and training in
@@ -72,15 +87,19 @@ from __future__ import annotations
 import contextlib
 import functools
 import logging
+import os
+import time
 import zlib
-from typing import Any, Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..core.device import resolve_device
 from ..nn.layers import Dropout
+from ..optim.optimizers import apply_updates
 from ..utils import bridge
+from ..utils.stats import StatSet
 from . import checkpoint as ckpt_lib
 from . import events as ev
 from .faults import Preempted
@@ -91,11 +110,6 @@ __all__ = ["Trainer", "TrainState"]
 _log = logging.getLogger("paddle_tpu_torch.trainer")
 
 _NOT_PORTED = {
-    "telemetry": "observability is not ported yet",
-    "tracer": "observability is not ported yet",
-    "anomaly": "observability is not ported yet",
-    "metrics": "observability is not ported yet",
-    "param_stats_period": "observability is not ported yet",
     "mesh": "multi-GPU training is not ported yet",
     "param_sharding": "multi-GPU training is not ported yet",
     "grad_sync": "multi-GPU training is not ported yet",
@@ -110,6 +124,34 @@ def _leaves(tree) -> List[Any]:
     if isinstance(tree, (list, tuple)):
         return [x for v in tree for x in _leaves(v)]
     return [] if tree is None else [tree]
+
+
+def _step_fingerprint(batch_tree) -> tuple:
+    """The step fingerprint: per-leaf (shape, dtype name) of the batch
+    feeding one call, in JAX's leaf order; a grouped call's leaves carry
+    ``[K, M, ...]``, so K and M are in it too. The telemetry's retrace
+    counter keys on exactly this tuple. Metadata only: device tensors are
+    not read."""
+    def dtype_name(leaf):
+        if isinstance(leaf, torch.Tensor):
+            return str(leaf.dtype).replace("torch.", "")
+        return str(np.asarray(leaf).dtype)
+
+    return tuple((tuple(np.shape(leaf)), dtype_name(leaf))
+                 for leaf in _leaves(batch_tree))
+
+
+def _tspan(tracer, name: str, **kw):
+    """``tracer.span(...)``, or a no-op context without a tracer (the obs
+    package's ``tspan``, kept here so the loop without hooks never
+    imports it)."""
+    if tracer is None:
+        return contextlib.nullcontext()
+    return tracer.span(name, **kw)
+
+
+def _ms(seconds: Optional[float]) -> Optional[float]:
+    return None if seconds is None else round(seconds * 1e3, 3)
 
 
 def _batch_fingerprint(host_batch) -> int:
@@ -170,6 +212,16 @@ def _seed_of(*path: int) -> int:
         1, np.uint64)[0] >> np.uint64(1))
 
 
+class _CallExtras(NamedTuple):
+    """What a call leaves beside its losses and stats: the last step's
+    health scalars on the device, the call's partial step record (both
+    None without telemetry) and the staged unit it ran on (None in the
+    serial loop)."""
+    health: Optional[Dict[str, torch.Tensor]]
+    rec: Optional[Dict[str, Any]]
+    unit: Any
+
+
 class TrainState:
     """What training carries: the parameters and the module state (the
     model's buffers, such as BatchNorm's running statistics; the JAX
@@ -210,10 +262,19 @@ class Trainer:
       faults: optional :class:`~paddle_tpu_torch.train.faults.FaultSchedule`.
       device: where batches go (default ``"cuda"``).
 
-    ``telemetry``, ``tracer``, ``anomaly``, ``metrics``,
-    ``param_stats_period``, ``mesh``, ``param_sharding``, ``grad_sync``
-    and a ``bucket_mb`` other than its default raise
-    ``NotImplementedError``.
+      telemetry: optional :class:`~paddle_tpu_torch.obs.Telemetry` (see the
+        module docstring); ``telemetry.fence`` fences the serial loops'
+        calls on the compute stream, the pipelined loops record
+        ``drain_wait_ms`` instead.
+      tracer: optional :class:`~paddle_tpu_torch.obs.Tracer`.
+      anomaly: optional :class:`~paddle_tpu_torch.obs.AnomalyDetector`
+        (needs ``telemetry``).
+      metrics: optional :class:`~paddle_tpu_torch.obs.MetricsHub` (or a
+        scoped view of one).
+      param_stats_period: log each parameter's scale every N batches.
+
+    ``mesh``, ``param_sharding``, ``grad_sync`` and a ``bucket_mb`` other
+    than its default raise ``NotImplementedError``.
 
     ``host_fetches`` counts the device-to-host copies of losses (with the
     evaluator's stats): one a call (a call is one step when K = 1).
@@ -228,10 +289,8 @@ class Trainer:
                  grad_sync: Optional[str] = None, bucket_mb: float = 4.0,
                  pipeline_depth: int = 1, telemetry=None, tracer=None,
                  anomaly=None, faults=None, metrics=None, device="cuda"):
-        given = {"telemetry": telemetry,
-                 "tracer": tracer, "anomaly": anomaly, "metrics": metrics,
-                 "param_stats_period": param_stats_period, "mesh": mesh,
-                 "param_sharding": param_sharding, "grad_sync": grad_sync}
+        given = {"mesh": mesh, "param_sharding": param_sharding,
+                 "grad_sync": grad_sync}
         for name, value in given.items():
             if value is not None:
                 raise NotImplementedError(
@@ -243,6 +302,10 @@ class Trainer:
             raise ValueError("steps_per_call and grad_accum must be >= 1")
         if pipeline_depth < 1:
             raise ValueError("pipeline_depth must be >= 1")
+        if anomaly is not None and telemetry is None:
+            raise ValueError(
+                "AnomalyDetector consumes telemetry step records — pass "
+                "telemetry=Telemetry(...) alongside anomaly=")
         self.model = model
         self.loss_fn = loss_fn
         self.optimizer = optimizer
@@ -253,6 +316,12 @@ class Trainer:
         self.grad_accum = int(grad_accum)
         self.pipeline_depth = int(pipeline_depth)
         self.faults = faults
+        self.telemetry = telemetry
+        self.tracer = tracer
+        self.anomaly = anomaly
+        self.metrics = metrics
+        self._param_stats_period = param_stats_period
+        self.stats = StatSet("trainer")
         self.device = resolve_device(device)
         self.train_state: Optional[TrainState] = None
         self.host_fetches = 0
@@ -300,28 +369,31 @@ class Trainer:
             out[k] = t.to(self.device, non_blocking=True)
         return out
 
-    def _stage(self, sub: List[Dict[str, Any]], k: int, m: int
-               ) -> Tuple[Dict[str, torch.Tensor], List[torch.Tensor]]:
-        """Stack ``k * m`` host batches into ``[k, m, ...]`` tensors on the
-        device; on the card through pinned buffers (returned, so the
-        caller can keep them until the copies have run) with non-blocking
-        copies on the current stream."""
-        out, host = {}, []
+    def _stack(self, sub: List[Dict[str, Any]], k: int, m: int
+               ) -> Dict[str, torch.Tensor]:
+        """Stack ``k * m`` host batches into ``[k, m, ...]`` host tensors:
+        pinned buffers when the batches go to the card."""
+        out = {}
         for key in sub[0]:
             xs = [np.asarray(b[key]) for b in sub]
             if self.device.type != "cuda":
                 out[key] = torch.from_numpy(
-                    np.stack(xs).reshape((k, m) + xs[0].shape)).to(
-                        self.device)
+                    np.stack(xs).reshape((k, m) + xs[0].shape))
                 continue
             buf = torch.empty((k, m) + xs[0].shape,
                               dtype=torch.from_numpy(
                                   np.empty(0, xs[0].dtype)).dtype,
                               pin_memory=True)
             np.stack(xs, out=buf.numpy().reshape((k * m,) + xs[0].shape))
-            host.append(buf)
-            out[key] = buf.to(self.device, non_blocking=True)
-        return out, host
+            out[key] = buf
+        return out
+
+    def _copy(self, host: Dict[str, torch.Tensor]
+              ) -> Dict[str, torch.Tensor]:
+        """A stacked group on the device; on the card non-blocking copies
+        from its pinned buffers on the current stream."""
+        return {key: t.to(self.device, non_blocking=True)
+                for key, t in host.items()}
 
     # -- one optimizer step --------------------------------------------------
 
@@ -364,11 +436,16 @@ class Trainer:
         with torch.no_grad():          # no graph through the stats
             return self.evaluator.batch_stats(out, batch)
 
-    def _opt_step(self, microbatches: List[Dict[str, torch.Tensor]]):
+    def _health_on(self) -> bool:
+        return self.telemetry is not None and self.telemetry.health
+
+    def _opt_step(self, microbatches: List[Dict[str, torch.Tensor]],
+                  health: bool = False):
         """One optimizer step over one batch, or the mean of the means of
-        several; returns ``(loss, stats)`` (not synchronised): the
+        several; returns ``(loss, stats, health)`` (not synchronised): the
         evaluator's stats of the batch, stacked ``[M]`` over several, or
-        None without an evaluator."""
+        None without an evaluator; with ``health`` the step's health
+        scalars on the device (``obs/health.py``), else None."""
         ts = self.train_state
         for p in ts.params.values():
             p.grad = None
@@ -395,25 +472,163 @@ class Trainer:
                  for n, p in ts.params.items()}
         if M > 1:
             grads = {n: g / M for n, g in grads.items()}
-        ts.opt_state = self.optimizer.apply(grads, ts.opt_state, ts.params,
-                                            ts.step)
+        scalars = None
+        if health:
+            # Optimizer.apply is update + apply_updates: the same launches,
+            # with the updates kept for their norm
+            updates, ts.opt_state = self.optimizer.update(
+                grads, ts.opt_state, ts.params, ts.step)
+            apply_updates(ts.params, updates)
+            from ..obs.health import health_scalars
+            scalars = health_scalars(grads, updates, ts.params, loss)
+        else:
+            ts.opt_state = self.optimizer.apply(grads, ts.opt_state,
+                                                ts.params, ts.step)
         ts.step += 1
-        return loss, stats
+        return loss, stats, scalars
 
     def step(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         """One optimizer step on a device batch; returns the loss (not
         yet synchronised)."""
         return self._opt_step([batch])[0]
 
-    def _fetch(self, losses: torch.Tensor, stats=None):
-        """A call's losses, and the evaluator's stats when there are any,
-        on the host in one device-to-host copy: ``(losses, stats)`` as
-        numpy (stats None without them)."""
+    def _fetch(self, losses: torch.Tensor, stats=None, health=None):
+        """A call's losses, with the evaluator's stats and the health
+        scalars when there are any, on the host in one device-to-host
+        copy: ``(losses, stats, health)`` as numpy (None where absent)."""
         self.host_fetches += 1
-        if stats is None:
-            return losses.detach().cpu().numpy(), None
-        host = _host_copy({"losses": losses, "stats": stats})
-        return host["losses"], host["stats"]
+        if stats is None and health is None:
+            return losses.detach().cpu().numpy(), None, None
+        tree = {"losses": losses}
+        if stats is not None:
+            tree["stats"] = stats
+        if health is not None:
+            tree["health"] = health
+        host = _host_copy(tree)
+        return host["losses"], host.get("stats"), host.get("health")
+
+    # -- observability ------------------------------------------------------
+
+    def _maybe_profiled_call(self, fn, *args):
+        """Run one call, inside an anomaly-armed ``torch.profiler`` window
+        when one is pending; a profiled call fences inside the window so
+        the card's work lands in it. Returns ``(out, profiled)``."""
+        prof_dir = (self.anomaly.take_profiler_request()
+                    if self.anomaly is not None else None)
+        if prof_dir is None:
+            return fn(*args), False
+        from ..obs.telemetry import fence
+        from ..obs.trace import torch_profile
+        with torch_profile(prof_dir):
+            out = fn(*args)
+            fence(self.device)
+        return out, True
+
+    def _fence_call(self, **span) -> Optional[float]:
+        """With a fencing telemetry, wait for the compute stream's queued
+        work (``obs.telemetry.fence``) and return the seconds waited (the
+        call's ``device_ms``); else None, touching nothing."""
+        tel = self.telemetry
+        if tel is None or not tel.fence:
+            return None
+        from ..obs.telemetry import fence
+        t0 = time.perf_counter()
+        with _tspan(self.tracer, "fence", **span):
+            fence(self.device)
+        device_s = time.perf_counter() - t0
+        self.stats.add("device_wait", device_s)
+        return device_s
+
+    def _emit_step(self, handler, rec: Dict[str, Any],
+                   health_np=None) -> None:
+        """Finalize one call's step record (the call's last step's health
+        first), fire it as an event and feed the anomaly detector."""
+        tel = self.telemetry
+        if health_np is not None:
+            tel.update_health(health_np)
+        rec = tel.emit_step(rec)
+        handler(ev.TelemetryRecord(record=rec))
+        self._anomaly_observe(rec)
+
+    def _anomaly_observe(self, rec) -> None:
+        """Feed one finalized step record to the metrics and the anomaly
+        detector. A detector failure is logged, never raised; verdicts are
+        echoed into the telemetry stream as ``kind="anomaly"`` records."""
+        if (self.metrics is not None and rec is not None
+                and rec.get("kind") == "step"):
+            m = self.metrics
+            k = rec.get("k_steps") or 1
+            m.counter("train_steps", "optimizer steps completed").inc(k)
+            total_ms = ((rec.get("device_ms") or 0.0)
+                        + (rec.get("dispatch_ms") or 0.0))
+            if total_ms > 0:
+                m.histogram("train_step_ms",
+                            "per-step wall (device+dispatch) ms"
+                            ).observe(total_ms / k)
+            if rec.get("tokens_per_sec") is not None:
+                m.gauge("train_tokens_per_sec",
+                        "training token throughput"
+                        ).set(rec["tokens_per_sec"])
+            if rec.get("loss") is not None:
+                m.gauge("train_loss", "last step loss").set(rec["loss"])
+        if self.anomaly is None or rec is None:
+            return
+        try:
+            verdicts = self.anomaly.observe(rec)
+        except Exception:
+            _log.exception("anomaly detector failed (training continues)")
+            return
+        if verdicts and self.telemetry is not None:
+            for v in verdicts:
+                try:
+                    vd = v.to_dict()
+                    vd["anomaly_kind"] = vd.pop("kind")
+                    self.telemetry.emit_event({"kind": "anomaly", **vd})
+                except Exception:
+                    _log.exception("anomaly telemetry emit failed")
+
+    def _anomaly_context(self) -> Dict[str, Any]:
+        """The config/env snapshot frozen into a forensics bundle: the
+        loop's settings, torch and CUDA, the card and the dtype policy."""
+        from ..core.dtypes import current_policy
+        cuda = self.device.type == "cuda"
+        return {
+            "model": type(self.model).__name__,
+            "optimizer": type(self.optimizer).__name__,
+            "steps_per_call": self.steps_per_call,
+            "grad_accum": self.grad_accum,
+            "pipeline_depth": self.pipeline_depth,
+            "nan_check": self._nan_check,
+            "host_step": (self.train_state.step
+                          if self.train_state is not None else None),
+            "device": str(self.device),
+            "device_count": torch.cuda.device_count() if cuda else 0,
+            "device_kind": (torch.cuda.get_device_name(self.device)
+                            if cuda else "cpu"),
+            "torch_version": torch.__version__,
+            "cuda_version": torch.version.cuda,
+            "policy": repr(current_policy()),
+            "env": {k: v for k, v in os.environ.items()
+                    if k.startswith(("CUDA_", "TORCH_", "PYTORCH_"))},
+        }
+
+    def _log_stat_report(self, top_n: int = 8) -> None:
+        """The periodic StatSet table at ``log_period``: INFO with
+        telemetry attached, DEBUG otherwise."""
+        lvl = logging.INFO if self.telemetry is not None else logging.DEBUG
+        if _log.isEnabledFor(lvl):
+            _log.log(lvl, "%s", self.stats.report(top_n=top_n))
+
+    def _log_param_stats(self, pass_id: int, batch_id: int) -> None:
+        """Per-parameter scale logs (``--show_parameter_stats_period``:
+        max and mean absolute value, mean and std of each parameter)."""
+        for name, p in self.train_state.params.items():
+            arr = p.detach().float().cpu().numpy()
+            _log.info(
+                "param %s shape=%s abs_max=%.4g abs_avg=%.4g mean=%.4g "
+                "std=%.4g (pass %d batch %d)", name, tuple(arr.shape),
+                float(np.abs(arr).max(initial=0)), float(np.abs(arr).mean()),
+                float(arr.mean()), float(arr.std()), pass_id, batch_id + 1)
 
     # -- checkpoints and preemption -------------------------------------------
 
@@ -462,8 +677,10 @@ class Trainer:
                   "completed": 0, "preempted": 1}
             if last_batch is not None:
                 it["batch_crc"] = _batch_fingerprint(last_batch)
-            save_fn(checkpoint_dir, pass_id, self._tree(it),
-                    keep_last=checkpoint_keep)
+            with _tspan(self.tracer, "checkpoint_save",
+                        preempt_next_batch=next_batch):
+                save_fn(checkpoint_dir, pass_id, self._tree(it),
+                        keep_last=checkpoint_keep)
         raise Preempted(pass_id=pass_id, next_batch=next_batch,
                         reason=reason)
 
@@ -494,6 +711,10 @@ class Trainer:
         self._stop_requested = None
         self._seed = 0 if rng is None else int(rng)
         handler = event_handler or (lambda e: None)
+        if self.anomaly is not None:
+            # the flight recorder's trace ring and snapshot source
+            self.anomaly.bind(tracer=self.tracer,
+                              context_fn=self._anomaly_context)
 
         start_pass, skip_batches = 0, 0
         if resume and checkpoint_dir:
@@ -517,7 +738,8 @@ class Trainer:
 
         saver = None
         if checkpoint_async:
-            saver = ckpt_lib.AsyncCheckpointer(faults=self.faults)
+            saver = ckpt_lib.AsyncCheckpointer(telemetry=self.telemetry,
+                                               faults=self.faults)
             save_fn = saver.save
         elif self.faults is not None:
             save_fn = functools.partial(ckpt_lib.save_checkpoint,
@@ -539,6 +761,8 @@ class Trainer:
         fused = self.steps_per_call > 1 or self.grad_accum > 1
         for pass_id in range(start_pass, num_passes):
             handler(ev.BeginPass(pass_id))
+            if self.telemetry is not None:
+                self.telemetry.begin_pass(pass_id)  # the per-pass peak
             if self.evaluator is not None:
                 self.evaluator.reset()
             costs: List[float] = []
@@ -567,10 +791,11 @@ class Trainer:
                 pass_metrics.update({f"test_{k}": v for k, v in tm.items()})
                 pass_metrics["test_cost"] = tc
             if checkpoint_dir:
-                save_fn(checkpoint_dir, pass_id,
-                        self._tree({"pass": pass_id, "next_batch": 0,
-                                    "completed": 1}),
-                        keep_last=checkpoint_keep)
+                with _tspan(self.tracer, "checkpoint_save", pass_end=pass_id):
+                    save_fn(checkpoint_dir, pass_id,
+                            self._tree({"pass": pass_id, "next_batch": 0,
+                                        "completed": 1}),
+                            keep_last=checkpoint_keep)
             handler(ev.EndPass(pass_id, pass_metrics))
             if self._stop_requested is not None:
                 # too late for a group boundary: the pass checkpoint above
@@ -635,15 +860,10 @@ class Trainer:
                     self._replay_plain(pending.pop(0), pass_id, handler,
                                        costs, log_period, checkpoint_dir,
                                        checkpoint_keep, save_fn)
-                loss, stats = self._opt_step([self._to_device(host_batch)])
-                boundary = bool(saving_period and checkpoint_dir
-                                and (batch_id + 1) % saving_period == 0)
-                pending.append({
-                    "batch_id": batch_id, "step": self.train_state.step,
-                    "loss": loss, "stats": stats, "boundary": boundary,
-                    "crc": _batch_fingerprint(host_batch) if boundary
-                    else None})
-                if boundary:
+                pending.append(self._plain_dispatch(
+                    host_batch, pass_id, batch_id, saving_period,
+                    checkpoint_dir))
+                if pending[-1]["boundary"]:
                     # the save needs the state at exactly this batch
                     while pending:
                         self._replay_plain(pending.pop(0), pass_id, handler,
@@ -655,26 +875,34 @@ class Trainer:
                                  checkpoint_keep, save_fn,
                                  last_batch=host_batch)
                 continue
-            # the serial plain step; _replay_plain mirrors its bookkeeping
+            # the serial plain step: the deferred loop's dispatch, fenced,
+            # then its bookkeeping at once (_replay_plain mirrors it)
             handler(ev.BeginIteration(pass_id, batch_id))
-            loss, stats = self._opt_step([self._to_device(host_batch)])
-            loss_np, stats_np = self._fetch(loss, stats)
+            entry = self._plain_dispatch(host_batch, pass_id, batch_id,
+                                         saving_period, checkpoint_dir,
+                                         fenced=True)
+            loss_np, stats_np, health_np = self._fetch(
+                entry["loss"], entry["stats"], entry["health"])
             cost = float(loss_np)
+            if entry["rec"] is not None:
+                self._emit_step(handler, dict(entry["rec"], loss=cost),
+                                health_np)
             if self._nan_check and not np.isfinite(cost):
                 self._raise_nonfinite(cost, pass_id, batch_id,
                                       self.train_state.step)
             costs.append(cost)
             metrics = self._update_metrics([stats_np])
-            self._log_cost(log_period, pass_id, batch_id, batch_id, cost)
-            if saving_period and checkpoint_dir and \
-                    (batch_id + 1) % saving_period == 0:
-                save_fn(checkpoint_dir, pass_id,
-                        self._tree({"pass": pass_id,
-                                    "next_batch": batch_id + 1,
-                                    "completed": 0,
-                                    "batch_crc":
-                                        _batch_fingerprint(host_batch)}),
-                        keep_last=checkpoint_keep)
+            self._log_step(log_period, pass_id, batch_id, batch_id, cost,
+                           metrics, health_np)
+            if entry["boundary"]:
+                with _tspan(self.tracer, "checkpoint_save",
+                            next_batch=batch_id + 1):
+                    save_fn(checkpoint_dir, pass_id,
+                            self._tree({"pass": pass_id,
+                                        "next_batch": batch_id + 1,
+                                        "completed": 0,
+                                        "batch_crc": entry["crc"]}),
+                            keep_last=checkpoint_keep)
             handler(ev.EndIteration(pass_id, batch_id, self.train_state.step,
                                     cost, metrics))
             if self.faults is not None:
@@ -700,32 +928,98 @@ class Trainer:
             f"non-finite loss {cost} at pass {pass_id} batch {batch_id} "
             f"(step {step}); non-finite parameters: {bad[:8] or 'none'}")
 
-    @staticmethod
-    def _log_cost(log_period, pass_id, first_id, last_id, cost):
+    def _log_step(self, log_period, pass_id, first_id, last_id, cost,
+                  metrics, health=None) -> None:
         """Log at every crossing of a ``log_period`` boundary by the host
-        batches ``first_id..last_id`` of one step."""
+        batches ``first_id..last_id`` of one step (with the evaluator's
+        metrics and, on a call's last step, the health scalars), then the
+        StatSet table; log the parameters' scales at every crossing of a
+        ``param_stats_period`` boundary."""
         if log_period and (last_id + 1) // log_period > first_id // log_period:
-            _log.info("pass %d batch %d cost=%.4f", pass_id, last_id + 1,
-                      cost)
+            msg = " ".join(f"{k}={v:.4f}" for k, v in metrics.items())
+            if health:
+                msg += " " + " ".join(
+                    f"{k}={float(v):.3g}" for k, v in health.items())
+            _log.info("pass %d batch %d cost=%.4f %s", pass_id, last_id + 1,
+                      cost, msg)
+            self._log_stat_report()
+        psp = self._param_stats_period
+        if psp and (last_id + 1) // psp > first_id // psp:
+            self._log_param_stats(pass_id, last_id)
+
+    def _plain_dispatch(self, host_batch, pass_id, batch_id, saving_period,
+                        checkpoint_dir, fenced=False) -> Dict[str, Any]:
+        """One plain step, unfetched: the pending entry ``_replay_plain``
+        takes. ``fenced`` (the serial loop) fences the call with a fencing
+        telemetry; the deferred loop does not (a fence would serialise its
+        window), and its drain records ``drain_wait_ms``."""
+        tel = self.telemetry
+        is_new, fp = False, None
+        if tel is not None:
+            fp = ((1, 1),) + _step_fingerprint(host_batch)
+            is_new = tel.observe_fingerprint(fp)
+        t0 = time.perf_counter()
+        with self.stats.time("shard_batch"), \
+                _tspan(self.tracer, "device_put", batch=batch_id):
+            batch = self._to_device(host_batch)
+        t_disp = time.perf_counter()
+        with self.stats.time("train_step"), \
+                _tspan(self.tracer, "dispatch", batch=batch_id,
+                       new_compile=is_new):
+            (loss, stats, health), profiled = self._maybe_profiled_call(
+                self._opt_step, [batch], self._health_on())
+        t2 = time.perf_counter()
+        device_s = self._fence_call(batch=batch_id) if fenced else None
+        if is_new:
+            tel.record_compile(fp, wall_s=(t2 - t_disp) + (device_s or 0.0),
+                               meta={"k_steps": 1, "m": 1})
+        boundary = bool(saving_period and checkpoint_dir
+                        and (batch_id + 1) % saving_period == 0)
+        rec = None
+        if tel is not None:
+            rec = {"pass": pass_id, "step": self.train_state.step,
+                   "k_steps": 1, "m": 1, "profiled": profiled,
+                   "host_stack_ms": None, "shard_ms": _ms(t_disp - t0),
+                   "dispatch_ms": _ms(t2 - t_disp),
+                   "device_ms": _ms(device_s), "replay_ms": None}
+        return {"batch_id": batch_id, "step": self.train_state.step,
+                "loss": loss, "stats": stats, "health": health, "rec": rec,
+                "boundary": boundary,
+                "crc": _batch_fingerprint(host_batch) if boundary else None}
 
     def _replay_plain(self, entry, pass_id, handler, costs, log_period,
                       checkpoint_dir, checkpoint_keep, save_fn):
         """The deferred bookkeeping of one plain step, in step order:
-        Begin and EndIteration both fire here, as in the grouped loop.
-        ``nan_check`` is off on this path."""
+        Begin and EndIteration both fire here, as in the grouped loop; the
+        fetch is the drain. ``nan_check`` is off on this path."""
         batch_id = entry["batch_id"]
         handler(ev.BeginIteration(pass_id, batch_id))
-        loss_np, stats_np = self._fetch(entry["loss"], entry["stats"])
+        t0 = time.perf_counter()
+        with _tspan(self.tracer, "drain_wait", batch=batch_id):
+            loss_np, stats_np, health_np = self._fetch(
+                entry["loss"], entry["stats"], entry["health"])
+        drain_wait = time.perf_counter() - t0
+        self.stats.add("drain_wait", drain_wait)
         cost = float(loss_np)
+        if entry["rec"] is not None:
+            rec = entry["rec"]
+            rec["loss"] = cost
+            rec["drain_wait_ms"] = _ms(drain_wait)
+            self._emit_step(handler, rec, health_np)
         costs.append(cost)
         metrics = self._update_metrics([stats_np])
-        self._log_cost(log_period, pass_id, batch_id, batch_id, cost)
+        self._log_step(log_period, pass_id, batch_id, batch_id, cost,
+                       metrics, health_np)
         if entry["boundary"]:
             # the boundary drained everything right after this step
-            save_fn(checkpoint_dir, pass_id,
-                    self._tree({"pass": pass_id, "next_batch": batch_id + 1,
-                                "completed": 0, "batch_crc": entry["crc"]}),
-                    keep_last=checkpoint_keep)
+            with _tspan(self.tracer, "checkpoint_save",
+                        next_batch=batch_id + 1):
+                save_fn(checkpoint_dir, pass_id,
+                        self._tree({"pass": pass_id,
+                                    "next_batch": batch_id + 1,
+                                    "completed": 0,
+                                    "batch_crc": entry["crc"]}),
+                        keep_last=checkpoint_keep)
         handler(ev.EndIteration(pass_id, batch_id, entry["step"], cost,
                                 metrics))
         if self.faults is not None:
@@ -749,17 +1043,70 @@ class Trainer:
 
     def _call(self, batches: Dict[str, torch.Tensor]):
         """One call: K optimizer steps over ``[K, M, ...]`` batches;
-        returns the K losses stacked on the device, unfetched, and the
+        returns the K losses stacked on the device, unfetched, the
         evaluator's stats stacked ``[K]`` (``[K, M]`` under accumulation;
-        None without an evaluator)."""
+        None without an evaluator) and, with health telemetry, the last
+        step's health scalars (else None)."""
         k, m = next(iter(batches.values())).shape[:2]
+        health_on = self._health_on()
         out = [self._opt_step([{key: t[i, j] for key, t in batches.items()}
-                               for j in range(m)])
+                               for j in range(m)],
+                              health=health_on and i == k - 1)
                for i in range(k)]
-        losses = torch.stack([loss for loss, _ in out])
-        if self.evaluator is None:
-            return losses, None
-        return losses, _tree_stack([st for _, st in out])
+        losses = torch.stack([loss for loss, _, _ in out])
+        stats = None if self.evaluator is None else \
+            _tree_stack([st for _, st, _ in out])
+        return losses, stats, out[-1][2]
+
+    def _dispatch(self, host=None, stack_s=None, staged=None,
+                  flow=None):
+        """One call over a stacked group: ``host`` (stacked on this thread,
+        copied here) or ``staged`` (a :class:`StagedUnit` the stager
+        copied; the compute stream waits on its copies). A staged call is
+        not fenced (the pipeline keeps it in flight; its drain records
+        ``drain_wait_ms``). Returns ``(losses, stats, health, rec)``:
+        ``rec`` the call's partial step record (None without
+        telemetry)."""
+        tel = self.telemetry
+        if staged is None:
+            t_sh = time.perf_counter()
+            with self.stats.time("shard_batch"), \
+                    _tspan(self.tracer, "device_put"):
+                batches = self._copy(host)
+            shard_s = time.perf_counter() - t_sh
+        else:
+            batches, stack_s, shard_s = (staged.batches, staged.stack_s,
+                                         staged.shard_s)
+            if staged.event is not None:
+                cur = torch.cuda.current_stream(self.device)
+                cur.wait_event(staged.event)
+                for t in batches.values():
+                    t.record_stream(cur)
+        is_new, fp = False, None
+        if tel is not None:
+            fp = _step_fingerprint(batches)
+            is_new = tel.observe_fingerprint(fp)
+        k, m = (int(n) for n in next(iter(batches.values())).shape[:2])
+        t_disp = time.perf_counter()
+        with self.stats.time("train_step"), \
+                _tspan(self.tracer, "dispatch", flow_step=flow,
+                       step=self.train_state.step, new_compile=is_new):
+            (losses, stats, health), profiled = self._maybe_profiled_call(
+                self._call, batches)
+        dispatch_s = time.perf_counter() - t_disp
+        device_s = self._fence_call() if staged is None else None
+        if is_new:
+            tel.record_compile(fp, wall_s=dispatch_s + (device_s or 0.0),
+                               meta={"k_steps": k, "m": m})
+        rec = None
+        if tel is not None:
+            rec = {"k_steps": k, "m": m, "profiled": profiled,
+                   "host_stack_ms": _ms(stack_s), "shard_ms": _ms(shard_s),
+                   "dispatch_ms": _ms(dispatch_s), "device_ms": _ms(device_s)}
+            if staged is not None:
+                # measured on the stager thread, off the loop's path
+                rec["stage_ms"] = _ms(staged.stack_s + staged.shard_s)
+        return losses, stats, health, rec
 
     def _submit_group(self, pipe, buf, buf_start, pass_id, handler, costs,
                       log_period, saving_period, checkpoint_dir,
@@ -768,12 +1115,19 @@ class Trainer:
             pipe.submit(buf, buf_start)
             return
         results = []
-        for off, take, m_eff in self._plan_group(len(buf), self.grad_accum):
-            batches, _ = self._stage(buf[off:off + take], take // m_eff,
-                                     m_eff)
-            losses, stats = self._call(batches)
+        with _tspan(self.tracer, "plan", group=buf_start, batches=len(buf)):
+            plans = self._plan_group(len(buf), self.grad_accum)
+        for off, take, m_eff in plans:
+            t_stack = time.perf_counter()
+            with _tspan(self.tracer, "stack", group=buf_start, offset=off):
+                host = self._stack(buf[off:off + take], take // m_eff, m_eff)
+            stack_s = time.perf_counter() - t_stack
+            self.stats.add("stack_group", stack_s)
+            losses, stats, health, rec = self._dispatch(host=host,
+                                                        stack_s=stack_s)
             results.append((buf_start + off, m_eff, losses, stats,
-                            self.train_state.step))
+                            self.train_state.step,
+                            _CallExtras(health, rec, None)))
         self._finalize_group(pass_id, buf_start, len(buf), results, handler,
                              costs, log_period, saving_period,
                              checkpoint_dir, checkpoint_keep, save_fn,
@@ -783,84 +1137,140 @@ class Trainer:
         """Stage one raw group for the pipeline: every call's batches
         stacked and copied to the device. RUNS IN THE STAGER THREAD: on
         the card the copies go on the side stream, and an event marks
-        them done."""
+        them done. The group's flow id links this thread's ``stage`` span
+        to the training thread's dispatch and drain."""
         buf, buf_start, boundary = work
         if self.faults is not None:
             # raises in this thread; surfaces in the training thread
             self.faults.maybe_stager_error(buf_start)
         cuda = self.device.type == "cuda"
+        tracer = self.tracer
+        flow = tracer.new_flow() if tracer is not None else None
         units = []
         with (torch.cuda.device(self.device) if cuda
-              else contextlib.nullcontext()):
+              else contextlib.nullcontext()), \
+                _tspan(tracer, "stage", flow_start=flow, group=buf_start,
+                       batches=len(buf)):
             for off, take, m_eff in self._plan_group(len(buf),
                                                      self.grad_accum):
+                t0 = time.perf_counter()
+                with _tspan(tracer, "stack", group=buf_start, offset=off):
+                    host = self._stack(buf[off:off + take], take // m_eff,
+                                       m_eff)
+                t1 = time.perf_counter()
                 event = None
-                if cuda:
-                    with torch.cuda.stream(self._copy_stream):
-                        batches, host = self._stage(buf[off:off + take],
-                                                    take // m_eff, m_eff)
-                        event = torch.cuda.Event()
-                        event.record(self._copy_stream)
-                else:
-                    batches, host = self._stage(buf[off:off + take],
-                                                take // m_eff, m_eff)
-                units.append(StagedUnit(off, m_eff, batches, event, host))
+                with _tspan(tracer, "shard", group=buf_start, offset=off):
+                    if cuda:
+                        with torch.cuda.stream(self._copy_stream):
+                            batches = self._copy(host)
+                            event = torch.cuda.Event()
+                            event.record(self._copy_stream)
+                    else:
+                        batches = self._copy(host)
+                t2 = time.perf_counter()
+                self.stats.add("stage_stack", t1 - t0)
+                self.stats.add("stage_shard", t2 - t1)
+                units.append(StagedUnit(off, m_eff, batches, event,
+                                        list(host.values()), t1 - t0,
+                                        t2 - t1))
         crc = _batch_fingerprint(buf[-1]) if boundary else None
-        return StagedGroup(buf_start, len(buf), units, boundary, crc)
+        return StagedGroup(buf_start, len(buf), units, boundary, crc, flow)
 
-    def _run_staged(self, buf_start, unit):
-        """One call over a staged unit, on the training thread: the
-        compute stream waits for the unit's copies, and the copied tensors
-        are marked as used by it. The unit (and so its pinned buffers)
-        stays in the result until the group drains."""
-        if unit.event is not None:
-            cur = torch.cuda.current_stream(self.device)
-            cur.wait_event(unit.event)
-            for t in unit.batches.values():
-                t.record_stream(cur)
-        losses, stats = self._call(unit.batches)
+    def _run_staged(self, buf_start, unit, flow=None):
+        """One call over a staged unit, on the training thread (the compute
+        stream waits for the unit's copies, and the copied tensors are
+        marked as used by it). The unit (and so its pinned buffers) stays
+        in the result until the group drains."""
+        losses, stats, health, rec = self._dispatch(staged=unit, flow=flow)
         return (buf_start + unit.offset, unit.m_eff, losses, stats,
-                self.train_state.step, unit)
+                self.train_state.step, _CallExtras(health, rec, unit))
 
     def _finalize_group(self, pass_id, buf_start, buf_len, results, handler,
                         costs, log_period, saving_period, checkpoint_dir,
-                        checkpoint_keep, save_fn, crc_fn):
+                        checkpoint_keep, save_fn, crc_fn, drain_timing=False,
+                        overlap_frac=None):
         """The bottom half of a group, shared by the serial loop and the
-        pipeline's drain: fetch each call's losses and stats (one copy a
-        call), the boundary checkpoint, then the events in order. With
-        nan_check on, a non-finite loss anywhere in the group skips the
-        save."""
-        fetched = [(start, m_eff, *self._fetch(losses, stats), step_after)
-                   for start, m_eff, losses, stats, step_after, *_
-                   in results]
+        pipeline's drain: fetch each call's losses, stats and health (one
+        copy a call; with ``drain_timing`` the copy's wait is the call's
+        ``drain_wait_ms``), the boundary checkpoint, then the events in
+        order and each call's step record. With nan_check on, a
+        non-finite loss anywhere in the group skips the save."""
+        fetched = []
+        for start, m_eff, losses, stats, step_after, extras in results:
+            t0 = time.perf_counter()
+            with (_tspan(self.tracer, "drain_wait", step=step_after)
+                  if drain_timing else contextlib.nullcontext()):
+                host = self._fetch(losses, stats, extras.health)
+            rec = extras.rec
+            if drain_timing:
+                wait = time.perf_counter() - t0
+                self.stats.add("drain_wait", wait)
+                if rec is not None:
+                    rec["drain_wait_ms"] = _ms(wait)
+                    if overlap_frac is not None:
+                        rec["overlap_frac"] = round(overlap_frac, 4)
+            fetched.append((start, m_eff, *host, step_after, rec))
         end = buf_start + buf_len
         group_finite = (not self._nan_check) or all(
-            np.isfinite(losses).all() for _, _, losses, _, _ in fetched)
+            np.isfinite(f[2]).all() for f in fetched)
         if saving_period and checkpoint_dir and group_finite and \
                 (end // saving_period) > (buf_start // saving_period):
-            save_fn(checkpoint_dir, pass_id,
-                    self._tree({"pass": pass_id, "next_batch": end,
-                                "completed": 0, "batch_crc": crc_fn()}),
-                    keep_last=checkpoint_keep)
-        for start, m_eff, losses, stats, step_after in fetched:
-            K = int(losses.shape[0])
-            for k in range(K):
-                first_id = start + k * m_eff
-                last_id = first_id + m_eff - 1
-                step = step_after - (K - 1 - k)
-                handler(ev.BeginIteration(pass_id, last_id))
-                cost = float(losses[k])
-                if self._nan_check and not np.isfinite(cost):
-                    self._raise_nonfinite(cost, pass_id, last_id, step)
-                costs.append(cost)
-                metrics = {} if stats is None else self._update_metrics(
-                    [_tree_map(lambda x: x[k] if m_eff == 1 else x[k][m],
-                               stats) for m in range(m_eff)])
-                self._log_cost(log_period, pass_id, first_id, last_id, cost)
-                handler(ev.EndIteration(pass_id, last_id, step, cost,
-                                        metrics))
-                if self.faults is not None:
-                    self._fire_step_faults(step)
+            with _tspan(self.tracer, "checkpoint_save", next_batch=end):
+                save_fn(checkpoint_dir, pass_id,
+                        self._tree({"pass": pass_id, "next_batch": end,
+                                    "completed": 0, "batch_crc": crc_fn()}),
+                        keep_last=checkpoint_keep)
+        for start, m_eff, losses, stats, health, step_after, rec in fetched:
+            t_replay = time.perf_counter()
+            replay_ok = False
+            try:
+                with _tspan(self.tracer, "events_replay", step=step_after):
+                    self._replay_call(pass_id, start, m_eff, losses, stats,
+                                      health, step_after, handler, costs,
+                                      log_period)
+                replay_ok = True
+            finally:
+                # the record is emitted (and the detector fed) even when
+                # nan_check's error unwinds the replay — a poisoned run is
+                # exactly when the flight recorder must fire; a second
+                # failure here must not mask the first
+                if rec is not None:
+                    try:
+                        rec["pass"] = pass_id
+                        rec["step"] = step_after
+                        rec["loss"] = float(losses.ravel()[-1])
+                        rec["replay_ms"] = _ms(time.perf_counter()
+                                               - t_replay)
+                        self._emit_step(handler, rec, health)
+                    except Exception:
+                        if replay_ok:
+                            raise
+                        _log.exception(
+                            "telemetry emit failed during exception unwind "
+                            "(the original error propagates)")
+
+    def _replay_call(self, pass_id, start, m_eff, losses, stats, health,
+                     step_after, handler, costs, log_period):
+        """Replay one call's host bookkeeping, step by step; ``step_after``
+        is the optimizer step count right after the call."""
+        K = int(losses.shape[0])
+        for k in range(K):
+            first_id = start + k * m_eff
+            last_id = first_id + m_eff - 1
+            step = step_after - (K - 1 - k)
+            handler(ev.BeginIteration(pass_id, last_id))
+            cost = float(losses[k])
+            if self._nan_check and not np.isfinite(cost):
+                self._raise_nonfinite(cost, pass_id, last_id, step)
+            costs.append(cost)
+            metrics = {} if stats is None else self._update_metrics(
+                [_tree_map(lambda x: x[k] if m_eff == 1 else x[k][m],
+                           stats) for m in range(m_eff)])
+            self._log_step(log_period, pass_id, first_id, last_id, cost,
+                           metrics, health if k == K - 1 else None)
+            handler(ev.EndIteration(pass_id, last_id, step, cost, metrics))
+            if self.faults is not None:
+                self._fire_step_faults(step)
 
     # -- evaluation and checkpoints ------------------------------------------
 
@@ -873,13 +1283,14 @@ class Trainer:
         if self.evaluator is not None:
             self.evaluator.reset()
         costs = []
-        for host_batch in reader():
-            batch = self._to_device(host_batch)
-            out = self._forward(self.model, batch, False)
-            costs.append(float(self.loss_fn(out, batch).float().mean()))
-            if self.evaluator is not None:
-                self.evaluator.update(_host_copy(
-                    self._batch_stats(out, batch)))
+        with _tspan(self.tracer, "eval"):
+            for host_batch in reader():
+                batch = self._to_device(host_batch)
+                out = self._forward(self.model, batch, False)
+                costs.append(float(self.loss_fn(out, batch).float().mean()))
+                if self.evaluator is not None:
+                    self.evaluator.update(_host_copy(
+                        self._batch_stats(out, batch)))
         metrics = self.evaluator.result() if self.evaluator is not None \
             else {}
         return (float(np.mean(costs)) if costs else 0.0), metrics

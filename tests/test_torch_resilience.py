@@ -196,9 +196,39 @@ def test_nan_is_fatal_not_retried(tmp_path):
 
 
 def test_heartbeat_is_refused(tmp_path):
-    with pytest.raises(NotImplementedError, match="multi-host"):
-        run_resilient(make_trainer, reader, checkpoint_dir=str(tmp_path),
-                      heartbeat_interval_s=1.0)
+    """``heartbeat_interval_s`` is taken (it was refused before the
+    heartbeats were ported): the supervised run keeps host 0's heartbeat
+    file fresh, stops its thread at the end, and the JAX package's
+    ``read_heartbeats`` and ``detect_dead_hosts`` read the file as the
+    port's do."""
+    from paddle_tpu.parallel import multihost as jmh
+    from paddle_tpu_torch.parallel import multihost as mh
+    seen = []
+
+    def slow_reader():
+        for b in BATCHES:
+            time.sleep(0.01)
+            seen.append(os.path.exists(mh.heartbeat_path(str(tmp_path), 0)))
+            yield b
+
+    t0 = time.time()
+    res = run_resilient(make_trainer, slow_reader,
+                        checkpoint_dir=str(tmp_path), num_passes=1,
+                        log_period=0, heartbeat_interval_s=0.02)
+    assert res.status == "completed" and all(seen)
+    beats = mh.read_heartbeats(str(tmp_path))
+    assert set(beats) == {0} and beats[0]["seq"] >= 1
+    assert beats[0]["ts"] >= t0 and beats[0]["pid"] == os.getpid()
+    jbeats = jmh.read_heartbeats(str(tmp_path))
+    assert {h: {k: v for k, v in b.items()} for h, b in beats.items()} == \
+        jbeats
+    assert mh.detect_dead_hosts(str(tmp_path), timeout_s=60.0) == []
+    assert mh.detect_dead_hosts(str(tmp_path), 60.0,
+                                expected_hosts=[0, 1]) == [1]
+    # the thread stopped with the run: the beat no longer moves
+    seq = beats[0]["seq"]
+    time.sleep(0.1)
+    assert mh.read_heartbeats(str(tmp_path))[0]["seq"] == seq
 
 
 @pytest.mark.parametrize("exc,kind", [

@@ -281,19 +281,32 @@ def test_opt_state_bridge_refuses_a_mismatch(adam_runs):
 
 
 def test_trainer_refuses_knobs_it_does_not_take():
-    """The JAX Trainer's arguments whose modules are not ported yet raise
-    ``NotImplementedError`` naming the argument (observability;
-    multi-GPU); ``evaluator`` (ported) is taken; ``donate`` is taken and
-    does nothing; ``train`` before ``init`` raises."""
+    """The JAX Trainer's multi-GPU arguments raise ``NotImplementedError``
+    naming the argument; the observability ones (``telemetry``,
+    ``tracer``, ``anomaly``, ``metrics``, ``param_stats_period``) are
+    taken, ``anomaly`` only beside ``telemetry``, as JAX's Trainer says;
+    ``evaluator`` (ported) is taken; ``donate`` is taken and does nothing;
+    ``train`` before ``init`` raises."""
+    from paddle_tpu_torch.obs import (AnomalyDetector, MetricsHub,
+                                      Telemetry, Tracer)
     tm = pt.TransformerLM(**KW, device="cpu")
-    for knob, value in (("telemetry", object()),
-                        ("tracer", object()), ("anomaly", object()),
-                        ("metrics", object()), ("param_stats_period", 2),
-                        ("mesh", object()), ("param_sharding", object()),
+    for knob, value in (("mesh", object()), ("param_sharding", object()),
                         ("grad_sync", "bucketed"), ("bucket_mb", 2.0)):
         with pytest.raises(NotImplementedError, match=knob):
             pt.Trainer(tm, _tloss, pt.sgd(0.1), device="cpu",
                        **{knob: value})
+    tel = Telemetry()
+    hooks = {"telemetry": tel, "tracer": Tracer(),
+             "anomaly": AnomalyDetector("unused"), "metrics": MetricsHub(),
+             "param_stats_period": 2}
+    tr = pt.Trainer(tm, _tloss, pt.sgd(0.1), device="cpu", **hooks)
+    for knob, value in hooks.items():
+        got = tr._param_stats_period if knob == "param_stats_period" \
+            else getattr(tr, knob)
+        assert got is value, knob
+    with pytest.raises(ValueError, match="telemetry"):
+        pt.Trainer(tm, _tloss, pt.sgd(0.1), device="cpu",
+                   anomaly=AnomalyDetector("unused"))
     for knob in ("steps_per_call", "grad_accum", "pipeline_depth"):
         with pytest.raises(ValueError):
             pt.Trainer(tm, _tloss, pt.sgd(0.1), device="cpu", **{knob: 0})
